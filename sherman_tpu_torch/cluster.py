@@ -1,8 +1,9 @@
-"""Cluster — the top-level runtime handle for one process driving one
-node (counterpart of ``sherman_tpu/cluster.py``).
+"""Cluster — the top-level runtime handle for one process driving every
+node of a card (counterpart of ``sherman_tpu/cluster.py``).
 
-Bundles the DSM, the bootstrap Keeper and the node's Directory, and hands
-out per-client contexts (``DSM::registerThread``).
+Bundles the DSM, the bootstrap Keeper and one Directory per node, and
+hands out per-client contexts (``DSM::registerThread``) whose allocators
+lease chunks round-robin over the nodes.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ class Cluster:
         self.node_ids = [self.keeper.server_enter()
                          for _ in range(cfg.machine_nr)]
         self.directories = [Directory(n, cfg) for n in self.node_ids]
-        # one process drives the node: host ops go straight to the DSM
+        # one process drives every node: host ops go straight to the DSM
         self.host_dsm = self.dsm
         self._next_client = 0
         self.keeper.barrier("DSM-init")

@@ -1,5 +1,5 @@
 """Configuration of the PyTorch/CUDA port: page layout constants and the
-one-node cluster/tree configs (counterpart of ``sherman_tpu/config.py``).
+cluster/tree configs (counterpart of ``sherman_tpu/config.py``).
 
 The layout constants are copied unchanged, so a pool built by either
 package is byte-identical: 1 KB pages of 256 int32 words, 64-bit keys and
@@ -23,6 +23,7 @@ PAGE_WORDS = PAGE_BYTES // 4  # 256 int32 words per page
 ADDR_NODE_BITS = 8
 ADDR_PAGE_BITS = 24
 ADDR_PAGE_MASK = (1 << ADDR_PAGE_BITS) - 1
+MAX_MACHINE = 1 << ADDR_NODE_BITS
 
 # Meta words inside the reserved page 0 of node 0 (the root pointer).
 META_ROOT_ADDR_W = 0
@@ -30,9 +31,11 @@ META_ROOT_ADDR_W = 0
 
 @dataclasses.dataclass(frozen=True)
 class DSMConfig:
-    """Cluster + memory-pool shape.  The port serves one node per card
-    (``machine_nr == 1``); ``device`` is where every tensor lives.  The
-    card is the default: only the tests pass ``device="cpu"``."""
+    """Cluster + memory-pool shape.  ``machine_nr`` nodes live on one
+    card, each a node-major block of the cluster's tensors (the layout of
+    the reference's global arrays); ``device`` is where every tensor
+    lives.  The card is the default: only the tests pass
+    ``device="cpu"``."""
 
     machine_nr: int = 1
     pages_per_node: int = 4096
@@ -43,11 +46,11 @@ class DSMConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.machine_nr != 1:
+        if not 1 <= self.machine_nr <= MAX_MACHINE:
             raise ConfigError(
-                f"DSMConfig.machine_nr={self.machine_nr}: the port serves "
-                "one node per card for now (multi-node is ROADMAP.md "
-                "section 1 item 11)")
+                f"DSMConfig.machine_nr={self.machine_nr}: want "
+                f"1..{MAX_MACHINE} (the node field of an address is "
+                f"{ADDR_NODE_BITS} bits)")
         if not 1 <= self.pages_per_node <= (1 << ADDR_PAGE_BITS):
             raise ConfigError(
                 f"DSMConfig.pages_per_node={self.pages_per_node}: want "

@@ -12,6 +12,7 @@ __all__ = [
     "ProtocolError",
     "KernelUnavailableError",
     "NotPortedError",
+    "ExchangeLaneError",
 ]
 
 
@@ -48,3 +49,15 @@ class KernelUnavailableError(ShermanError, RuntimeError):
 class NotPortedError(ShermanError, NotImplementedError):
     """The request needs a path that a later slice of the port brings
     (named in the message, with its ROADMAP.md item)."""
+
+
+class ExchangeLaneError(ShermanError, TypeError):
+    """A field cannot ride the packed 32-bit exchange buffer (counterpart
+    of ``sherman_tpu/parallel/transport_pallas.py::ExchangeLaneError``)."""
+
+    def __init__(self, dtype):
+        super().__init__(
+            f"the exchange carries 32-bit lanes; got {dtype} — widen the "
+            "field to a 32-bit dtype (bools and any 4-byte dtype travel "
+            "bit-exactly)")
+        self.dtype = dtype

@@ -1,14 +1,24 @@
 """Batched device-side tree operations on one card — the serving hot path
-(counterpart of ``sherman_tpu/models/batched.py``, single-node branches).
+(counterpart of ``sherman_tpu/models/batched.py``).
 
 One step carries a whole batch of keys through the B-link tree with the
-page kernels of :mod:`sherman_tpu_torch.ops.page_kernels`:
+page kernels of :mod:`sherman_tpu_torch.ops.page_kernels`.  On one node:
 
 - every descent round is one ``descent_round`` launch (page fetch and
   in-page search fused, no ``[B, 256]`` intermediate);
 - the leaf snapshot of a descent and of the write apply is one
   ``gather_pages`` launch;
 - the write-back of applied entries is one ``writeback`` launch.
+
+With ``machine_nr > 1`` nodes on the card (the reference's ``shard_map``
+branches), a batch is ``N`` node blocks of ``B`` rows, node ``n`` owning
+rows ``n*B:(n+1)*B``.  Every page read of a descent is bucket-routed to
+the page's owner and back (``dsm.read_pages_spmd``: the exchange kernel,
+then ``gather_pages`` on the owner's shard) and searched elementwise, as
+the reference does; writes are routed to their leaf's owner, applied
+there on its own shard and lock table, and their statuses routed back.
+Every loop exits on the sum of all nodes' pending counts, so all nodes
+run the same rounds.
 
 Consistency is the reference's: a step's reads see one snapshot of the
 pool, its writes land together at the step boundary, and same-key writes
@@ -21,6 +31,8 @@ descent round; ROADMAP.md lists removing it).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -31,6 +43,7 @@ from sherman_tpu_torch.models.btree import META_ADDR
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
 from sherman_tpu_torch.parallel import dsm as D
+from sherman_tpu_torch.parallel import transport as T
 
 # Per-key write status codes (reply of one write step).
 ST_INVALID = 0      # inactive slot (padding)
@@ -57,6 +70,10 @@ def descend_spmd(pool, counters, khi, klo, root, active, *, cfg: DSMConfig,
     final pages.  Counts one read per page fetched into ``counters``.
     Returns (addr [B], page [B, 256], done [B]); done=False keys exhausted
     the ``iters`` budget."""
+    if cfg.machine_nr > 1:
+        return _descend_nodes(pool, counters, khi, klo, root, active,
+                              cfg=cfg, iters=iters, start=start,
+                              stop_level=stop_level)
     B = khi.shape[0]
     if start is None:
         start = torch.full((B,), int(root), dtype=torch.int32,
@@ -81,6 +98,46 @@ def descend_spmd(pool, counters, khi, klo, root, active, *, cfg: DSMConfig,
     return addr, page, done
 
 
+def _node_sum(mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-node count of a node-major ``[N*R]`` mask -> ``[N]``."""
+    return mask.view(n_nodes, -1).sum(1)
+
+
+def _descend_nodes(pool, counters, khi, klo, root, active, *,
+                   cfg: DSMConfig, iters: int, start=None,
+                   stop_level: int = 0):
+    """``descend_spmd`` over ``machine_nr > 1`` node blocks: each round
+    reads the pending rows' pages through the routed exchange and picks
+    the next hop elementwise; the loop exits on the all-node pending
+    count (the reference's psum)."""
+    N = cfg.machine_nr
+    if start is None:
+        start = torch.full(khi.shape, int(root), dtype=torch.int32,
+                           device=khi.device)
+    addr = start
+    done = ~active
+    nreads = torch.zeros(N, dtype=torch.int64, device=khi.device)
+    it = 0
+    while it < iters and bool((~done).any()):   # one host sync per round
+        nreads += _node_sum(~done, N)
+        pages, ok = D.read_pages_spmd(pool, addr, cfg=cfg, active=~done)
+        chase = layout.needs_sibling_chase(pages, khi, klo)
+        at_leaf = (layout.h_level(pages) == stop_level) & ~chase
+        nxt = torch.where(chase, layout.h_sibling(pages),
+                          layout.internal_pick_child(pages, khi, klo))
+        del pages
+        step_ok = ok & ~done
+        addr = torch.where(step_ok & ~at_leaf, nxt, addr)
+        done = done | (step_ok & at_leaf)
+        it += 1
+    page, ok_f = D.read_pages_spmd(pool, addr, cfg=cfg, active=done & active)
+    nreads += _node_sum(done & active, N)
+    done = done & active & ok_f
+    D.count_nodes(counters, D.CNT_READ_OPS, nreads)
+    D.count_nodes(counters, D.CNT_READ_PAGES, nreads)
+    return addr, page, done
+
+
 def search_routed_spmd(pool, counters, khi, klo, root, active, start, *,
                        cfg: DSMConfig, iters: int):
     """Cache-seeded search: one full-batch round from the router seeds,
@@ -99,6 +156,9 @@ def _routed_resolve(pool, counters, khi, klo, active, start, *, iters: int,
     index B, and later rounds run on that buffer only.  Rows beyond the
     buffer stay not-done (callers retry them by full descent).
     -> (done, addr, found, vhi, vlo)."""
+    if cfg.machine_nr > 1:
+        return _routed_resolve_nodes(pool, counters, khi, klo, active,
+                                     start, iters=iters, cfg=cfg)
     B = khi.shape[0]
     dev = khi.device
     S = max(min(1024, B), B // 16)
@@ -152,6 +212,87 @@ def _routed_resolve(pool, counters, khi, klo, active, start, *, iters: int,
     n_reads = active.sum() + loop_reads
     D.count(counters, D.CNT_READ_OPS, n_reads)
     D.count(counters, D.CNT_READ_PAGES, n_reads)
+    done = done & active
+    return done, addr, found & done, vhi, vlo
+
+
+def _routed_resolve_nodes(pool, counters, khi, klo, active, start, *,
+                          iters: int, cfg: DSMConfig):
+    """``_routed_resolve`` over ``machine_nr > 1`` node blocks of ``B``
+    rows.  Round 1 reads every active row's seed page through the routed
+    exchange at ``step_capacity``; each node then compacts its first
+    ``S`` pending rows, in row order, into its own ``S``-row buffer, and
+    the straggler rounds read through an exchange of capacity ``S``
+    (both per node, as the reference sizes them).  The loop exits on
+    the all-node pending count.  -> (done, addr, found, vhi, vlo)."""
+    N = cfg.machine_nr
+    B = khi.shape[0] // N
+    dev = khi.device
+    S = max(min(1024, B), B // 16)
+    max_rounds = iters * 4
+    loop_cfg = dataclasses.replace(cfg, step_capacity=S)
+
+    pg, ok = D.read_pages_spmd(pool, start, cfg=cfg, active=active)
+    chase = layout.needs_sibling_chase(pg, khi, klo)
+    at_leaf = ok & (layout.h_level(pg) == 0) & ~chase
+    f, vh, vl, _ = layout.leaf_find_key(pg, khi, klo)
+    sib1 = layout.h_sibling(pg)
+    del pg
+    done = ~active | at_leaf
+    found = active & at_leaf & f
+    vhi = torch.where(found, vh, 0)
+    vlo = torch.where(found, vl, 0)
+    addr = torch.where(ok & chase, sib1, start)
+
+    # per node: the first S pending rows in row order; fill slots hold B
+    pend = (~done).view(N, B)
+    rank = torch.cumsum(pend, 1) - 1
+    n_i, r_i = torch.nonzero(pend & (rank < S), as_tuple=True)
+    sidx = torch.full((N, S), B, dtype=torch.int64, device=dev)
+    sidx[n_i, rank[n_i, r_i]] = r_i
+    valid = (sidx < B).view(-1)
+    gidx = (torch.arange(N, device=dev)[:, None] * B
+            + sidx.clamp(0, B - 1)).view(-1)
+    s_kh, s_kl, s_addr = khi[gidx], klo[gidx], addr[gidx]
+    s_done = ~valid
+    s_f = torch.zeros(N * S, dtype=torch.bool, device=dev)
+    s_vh = torch.zeros(N * S, dtype=torch.int32, device=dev)
+    s_vl = torch.zeros(N * S, dtype=torch.int32, device=dev)
+    loop_reads = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    it, n_pend = 1, int((~s_done).sum())
+    while it < max_rounds and n_pend > 0:
+        loop_reads += _node_sum(~s_done, N)
+        pg, ok = D.read_pages_spmd(pool, s_addr, cfg=loop_cfg,
+                                   active=~s_done)
+        ok = ok & ~s_done
+        chase = layout.needs_sibling_chase(pg, s_kh, s_kl)
+        at_leaf = ok & (layout.h_level(pg) == 0) & ~chase
+        nxt = torch.where(chase, layout.h_sibling(pg),
+                          layout.internal_pick_child(pg, s_kh, s_kl))
+        f, vh, vl, _ = layout.leaf_find_key(pg, s_kh, s_kl)
+        del pg
+        fin = ok & at_leaf
+        s_f = torch.where(fin, f, s_f)
+        s_vh = torch.where(fin & f, vh, s_vh)
+        s_vl = torch.where(fin & f, vl, s_vl)
+        s_done = s_done | fin
+        s_addr = torch.where(ok & ~at_leaf, nxt, s_addr)
+        it += 1
+        n_pend = int((~s_done).sum())           # one host sync per round
+
+    # one scatter of the compacted results back to the node blocks
+    res = valid & s_done
+    tgt = gidx[res]
+    done[tgt] = True
+    found[tgt] = s_f[res]
+    vhi[tgt] = torch.where(s_f, s_vh, 0)[res]
+    vlo[tgt] = torch.where(s_f, s_vl, 0)[res]
+    addr[tgt] = s_addr[res]
+
+    n_reads = _node_sum(active, N) + loop_reads
+    D.count_nodes(counters, D.CNT_READ_OPS, n_reads)
+    D.count_nodes(counters, D.CNT_READ_PAGES, n_reads)
     done = done & active
     return done, addr, found & done, vhi, vlo
 
@@ -314,13 +455,45 @@ def _mark_dirty_pages(dirty, page_idx, active) -> None:
 
 def _route_and_apply(pool, locks, counters, dirty, addr, eligible, fields, *,
                      cfg: DSMConfig):
-    """Apply ``eligible`` upserts on the node (one node: no routing).
-    Returns status [B], ST_RETRY for rows that were not eligible."""
+    """Apply ``eligible`` upserts at their leaf's owner.  One node applies
+    directly; with ``machine_nr > 1`` each node bucketizes its rows by
+    owner, the request fields are exchanged, every owner applies its
+    source-major incoming buffer on its own shard, and the statuses are
+    exchanged back.  Returns status [B], ST_RETRY for rows that were not
+    eligible or missed their bucket's capacity."""
+    if cfg.machine_nr > 1:
+        return _route_and_apply_nodes(pool, locks, counters, dirty, addr,
+                                      eligible, fields, cfg=cfg)
     inc = {"active": eligible, "addr": addr, **fields}
     if dirty is not None:
         _mark_dirty_pages(dirty, bits.addr_page(addr), eligible)
     st = leaf_apply_spmd(pool, locks, counters, inc, cfg=cfg)
     return torch.where(eligible, st, ST_RETRY)
+
+
+def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
+                           fields, *, cfg: DSMConfig):
+    N, cap = cfg.machine_nr, cfg.step_capacity
+    P = cfg.pages_per_node
+    nd = lambda x: x.view(N, -1)
+    elig = nd(eligible)
+    bucket_idx, routed = T.bucketize(bits.addr_node(nd(addr)), elig, N, cap)
+    out = {"active": elig & routed, "addr": nd(addr),
+           **{k: nd(v) for k, v in fields.items()}}
+    inc = T.exchange({k: T.scatter_to_buckets(v, bucket_idx, N * cap)
+                      for k, v in out.items()})
+    st = torch.empty((N, N * cap), dtype=torch.int32, device=pool.device)
+    for d in range(N):
+        inc_d = {k: v[d] for k, v in inc.items()}
+        if dirty is not None:
+            _mark_dirty_pages(dirty[d * P:(d + 1) * P],
+                              bits.addr_page(inc_d["addr"]), inc_d["active"])
+        st[d] = leaf_apply_spmd(*D.shards(cfg, d, pool, locks, counters),
+                                inc_d, cfg=cfg)
+    rep = T.exchange(st)
+    safe_b = torch.where(routed, bucket_idx, 0)
+    return torch.where(elig & routed, T.take_local(rep, safe_b),
+                       ST_RETRY).view(-1)
 
 
 def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
@@ -351,13 +524,17 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
 # ---------------------------------------------------------------------------
 
 def _leaf_directory(tree) -> tuple[np.ndarray, np.ndarray]:
-    """Every live leaf of any tree, sorted by lowest fence: -> (addrs
-    int64, lows uint64) — the shape of the bulk-load leaf directory."""
+    """Every live leaf of any tree, on every node, sorted by lowest fence:
+    -> (addrs int64, lows uint64) — the shape of the bulk-load leaf
+    directory."""
     pool = tree.dsm.pool
-    P = tree.cfg.pages_per_node
-    nxt = tree.cluster.directories[0].allocator.pages_used
-    ridx = torch.arange(P, device=pool.device)
-    allocated = (ridx >= 1) & (ridx < nxt)
+    N, P = tree.cfg.machine_nr, tree.cfg.pages_per_node
+    nxt = torch.ones(N, dtype=torch.int64)
+    for d in tree.cluster.directories:
+        nxt[d.node_id] = d.allocator.pages_used
+    ridx = torch.arange(N * P, device=pool.device)
+    pg_i = ridx % P
+    allocated = (pg_i >= 1) & (pg_i < nxt.to(pool.device)[ridx // P])
     hi_hi, hi_lo = pool[:, C.W_HIGH_HI], pool[:, C.W_HIGH_LO]
     act = allocated & (pool[:, C.W_FRONT_VER] != 0) \
         & ~((hi_hi == 0) & (hi_lo == 0))
@@ -365,7 +542,8 @@ def _leaf_directory(tree) -> tuple[np.ndarray, np.ndarray]:
     rows = torch.nonzero(leaf).squeeze(1)
     lh = pool[rows, C.W_LOW_HI].cpu().numpy()
     ll = pool[rows, C.W_LOW_LO].cpu().numpy()
-    addrs = rows.cpu().numpy().astype(np.int64)
+    rows = rows.cpu().numpy().astype(np.int64)
+    addrs = ((rows // P) << C.ADDR_PAGE_BITS) | (rows % P)
     lows = bits.pairs_to_keys(lh, ll)
     order = np.argsort(lows)
     return addrs[order], lows[order]
@@ -373,9 +551,9 @@ def _leaf_directory(tree) -> tuple[np.ndarray, np.ndarray]:
 
 class BatchedEngine:
     """Batched ops over a :class:`~sherman_tpu_torch.models.btree.Tree`:
-    every call pads its batch to ``batch_per_node`` rows, so the compacted
-    straggler buffer and the counters match the reference step for
-    step."""
+    every call pads its batch to ``machine_nr * batch_per_node`` rows
+    (node ``n`` owning rows ``n*B:(n+1)*B``), so the compacted straggler
+    buffers and the counters match the reference step for step."""
 
     def __init__(self, tree, batch_per_node: int = 1024,
                  tcfg: TreeConfig | None = None):
@@ -384,6 +562,7 @@ class BatchedEngine:
         self.cfg = tree.cfg
         self.tcfg = tcfg if tcfg is not None else TreeConfig()
         self.B = batch_per_node
+        self.total = self.cfg.machine_nr * batch_per_node
         self.device = self.dsm.device
         self.router = None
         # engine steps and host DSM steps both mutate the pool in place
@@ -416,11 +595,12 @@ class BatchedEngine:
 
     def _pad(self, arr: np.ndarray, fill=0) -> np.ndarray:
         n = arr.shape[0]
-        if n > self.B:
-            raise ConfigError(f"batch of {n} exceeds batch_per_node={self.B}")
-        if n == self.B:
+        if n > self.total:
+            raise ConfigError(f"batch of {n} exceeds machine_nr * "
+                              f"batch_per_node={self.total}")
+        if n == self.total:
             return arr
-        pad = np.full((self.B - n,) + arr.shape[1:], fill, arr.dtype)
+        pad = np.full((self.total - n,) + arr.shape[1:], fill, arr.dtype)
         return np.concatenate([arr, pad])
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
@@ -434,14 +614,15 @@ class BatchedEngine:
     # -- public ops ----------------------------------------------------------
 
     def search(self, keys, _depth: int = 0) -> tuple[np.ndarray, np.ndarray]:
-        """Batched lookup of uint64 ``keys`` (chunked to ``B`` rows).
+        """Batched lookup of uint64 ``keys`` (chunked to
+        ``machine_nr * batch_per_node`` rows).
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
         self._check_range(keys)
         n = keys.shape[0]
-        if n > self.B:
-            parts = [self.search(keys[i:i + self.B])
-                     for i in range(0, n, self.B)]
+        if n > self.total:
+            parts = [self.search(keys[i:i + self.total])
+                     for i in range(0, n, self.total)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
         khi, klo = bits.keys_to_pairs(keys)
@@ -484,7 +665,7 @@ class BatchedEngine:
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
         uk, inv = np.unique(keys, return_inverse=True)
-        if self.router is None or not 0 < uk.size <= self.B:
+        if self.router is None or not 0 < uk.size <= self.total:
             vals, found = self.search(uk)
             return vals[inv], found[inv]
         self._check_range(keys)
@@ -499,8 +680,13 @@ class BatchedEngine:
                 self.dsm.pool, self.dsm.counters, kt, lt,
                 self.tree._root_addr, active, start, cfg=self.cfg,
                 iters=self._iters())
-        # packed answer fan-out: one gather of [U, 3] rows per request
-        ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)[inv_t]
+        # packed answer fan-out: one gather of [U, 3] rows per request;
+        # with several nodes, from the all-gathered table by global index
+        # (the reference's table adds a zero fourth lane, TPU padding)
+        ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
+        if self.cfg.machine_nr > 1:
+            ans = T.gather_rows(ans.view(self.cfg.machine_nr, self.B, 3))
+        ans = ans[inv_t]
         if not bool(done[:uk.size].all()):
             vals, fnd = self.search(uk)      # straggler rescue
             return vals[inv], fnd[inv]

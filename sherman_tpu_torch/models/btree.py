@@ -1,5 +1,6 @@
-"""The B-link tree handle over the one-node DSM (counterpart of the root
-management in ``sherman_tpu/models/btree.py``).
+"""The B-link tree handle over the DSM (counterpart of the root
+management in ``sherman_tpu/models/btree.py``).  The root and the meta
+page live on node 0.
 
 This slice carries what the batched serving path needs: adopting or
 CAS-installing the root leaf, and re-reading the root.  The host insert,

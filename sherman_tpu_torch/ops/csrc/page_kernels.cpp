@@ -1,4 +1,5 @@
-// C binding of the page kernels (page_kernels.cu).  Each entry point runs
+// C binding of the page kernels (page_kernels.cu) and of the exchange
+// all-to-all (parallel/csrc/exchange.cu).  Each entry point runs
 // on PyTorch's current stream of the tensors' device, checks the launch
 // with C10_CUDA_KERNEL_LAUNCH_CHECK, and reports a failure as a nonzero
 // return with the message copied into ``err`` (the Python wrapper raises
@@ -31,6 +32,9 @@ void sherman_launch_writeback(int32_t* pool, int64_t P, const int32_t* page,
                               const int32_t* slot, const bool* applied,
                               const int32_t* ent, int64_t M, int L,
                               const int* field_w, cudaStream_t stream);
+void sherman_launch_exchange(const int32_t* x, int32_t* out, int64_t n_nodes,
+                             int64_t rows_per_peer, int64_t width,
+                             cudaStream_t stream);
 
 namespace {
 
@@ -95,6 +99,16 @@ int sherman_writeback(int device, void* pool, int64_t P, const void* page,
         static_cast<int32_t*>(pool), P, static_cast<const int32_t*>(page),
         static_cast<const int32_t*>(slot), static_cast<const bool*>(applied),
         static_cast<const int32_t*>(ent), M, L, field_w, s);
+  });
+}
+
+int sherman_exchange(int device, const void* x, void* out, int64_t n_nodes,
+                     int64_t rows_per_peer, int64_t width, char* err,
+                     int64_t err_len) {
+  return guarded(device, err, err_len, [&](cudaStream_t s) {
+    sherman_launch_exchange(static_cast<const int32_t*>(x),
+                            static_cast<int32_t*>(out), n_nodes,
+                            rows_per_peer, width, s);
   });
 }
 

@@ -18,7 +18,10 @@ launches its kernel, so a run can show that its path went through it.
 
 The extension is built at first use with ``torch.utils.cpp_extension.load``
 into ``ops/_build/`` (nvcc ``-gencode=arch=compute_90a,code=sm_90a``);
-importing this module builds nothing.
+importing this module builds nothing.  The one build also holds the
+exchange all-to-all of :mod:`sherman_tpu_torch.parallel.transport_kernel`
+(``parallel/csrc/exchange.cu``), which counts its launches in its own
+module.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from sherman_tpu_torch.ops import bits, layout
 _PW = C.PAGE_WORDS
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_HERE, "csrc", "page_kernels.cpp"),
-           os.path.join(_HERE, "csrc", "page_kernels.cu"))
+           os.path.join(_HERE, "csrc", "page_kernels.cu"),
+           os.path.join(os.path.dirname(_HERE), "parallel", "csrc",
+                        "exchange.cu"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 _EXT_NAME = "sherman_page_kernels"
 
@@ -58,7 +63,7 @@ _lib_mu = threading.Lock()
 
 
 def _build() -> ctypes.CDLL:
-    """Compile both sources with ninja (nvcc for the .cu, the host
+    """Compile every source with ninja (nvcc for the .cu files, the host
     compiler for the binding, in parallel) and load the library."""
     from torch.utils import cpp_extension
     os.environ["TORCH_CUDA_ARCH_LIST"] = "9.0a"
@@ -76,8 +81,10 @@ def _build() -> ctypes.CDLL:
                                          ctypes.c_char_p, i64]
     lib.sherman_writeback.argtypes = [i32, p, i64, p, p, p, p, i64, i32, p,
                                       ctypes.c_char_p, i64]
+    lib.sherman_exchange.argtypes = [i32, p, p, i64, i64, i64,
+                                     ctypes.c_char_p, i64]
     for fn in (lib.sherman_descent_round, lib.sherman_gather_pages,
-               lib.sherman_writeback):
+               lib.sherman_writeback, lib.sherman_exchange):
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,14 +106,16 @@ def load_library(kernel: str = "page_kernels") -> ctypes.CDLL:
         return _lib
 
 
-def _call(kernel: str, fn_name: str, *args) -> None:
+def _call(kernel: str, fn_name: str, *args, launches=None) -> None:
+    """Launch ``fn_name`` and count it in ``launches`` (this module's
+    ``LAUNCHES`` unless the caller keeps its own)."""
     lib = load_library(kernel)
     err = ctypes.create_string_buffer(1024)
     rc = getattr(lib, fn_name)(*args, err, len(err))
     if rc != 0:
         raise KernelUnavailableError(
             kernel, "launch failed: " + err.value.decode(errors="replace"))
-    LAUNCHES[kernel] += 1
+    (LAUNCHES if launches is None else launches)[kernel] += 1
 
 
 def _dev_index(dev: torch.device) -> int:

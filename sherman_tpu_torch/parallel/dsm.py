@@ -1,14 +1,19 @@
 """DSM — the one-sided remote-memory runtime on one card (counterpart of
-``sherman_tpu/parallel/dsm.py``, single-node branches only).
+``sherman_tpu/parallel/dsm.py``).
 
-The pool is one ``[P, 256]`` int32 tensor on the cluster's device, beside
-a lock-word table, op counters (int64 holding uint32 values, counted mod
-2^32 as the reference's uint32 counters are) and a dirty-page mask.  One
+The ``machine_nr`` nodes of a cluster share the card.  Their state is the
+reference's global arrays, node-major: a ``[N*P, 256]`` int32 pool beside
+a ``[N*L]`` lock-word table, ``[N*N_COUNTERS]`` op counters (int64 holding
+uint32 values, counted mod 2^32 as the reference's uint32 counters are)
+and a ``[N*P]`` dirty-page mask; node ``n`` owns block ``n`` of each.  One
 host *step* applies a batch of requests with the reference's semantics:
 reads snapshot the pre-step pool, and the apply order within a step is
 READ < CAS < FAA < WRITE_WORD < WRITE, with at most one CAS winner per
-word per step (the lowest request index whose expected value matches)
-and serial prefix values for same-word FAAs.
+word per step (the lowest request index of the owner's incoming buffer
+whose expected value matches) and serial prefix values for same-word
+FAAs.  With more than one node, requests are bucket-routed to their owner
+and the replies routed back (:mod:`sherman_tpu_torch.parallel.transport`),
+as ``shard_map`` does on each device of the reference's mesh.
 
 Where the reference mutates a functional array, this module updates the
 pool tensors in place (the step mutex serializes host steps).
@@ -16,6 +21,7 @@ pool tensors in place (the step mutex serializes host steps).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass
 
@@ -24,9 +30,10 @@ import torch
 
 from sherman_tpu_torch import config as CFG
 from sherman_tpu_torch.config import DSMConfig, PAGE_WORDS
-from sherman_tpu_torch.errors import ProtocolError
+from sherman_tpu_torch.errors import ConfigError, ProtocolError
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.ops import page_kernels as PK
+from sherman_tpu_torch.parallel import transport as T
 
 # Request opcodes.
 OP_NOP = 0
@@ -64,6 +71,21 @@ def count(counters: torch.Tensor, slot: int, n) -> None:
     """``counters[slot] += n`` mod 2^32, in place and without a host sync
     (``n`` may be a device scalar)."""
     counters[slot] = (counters[slot] + n) & _U32
+
+
+def count_nodes(counters: torch.Tensor, slot: int, n) -> None:
+    """Every node's ``counters[slot] += n[node]`` mod 2^32 over the
+    node-major ``[N*N_COUNTERS]`` counters; ``n`` is ``[N]``."""
+    c = counters.view(-1, N_COUNTERS)
+    c[:, slot] = (c[:, slot] + n) & _U32
+
+
+def shards(cfg: DSMConfig, d: int, pool, locks, counters):
+    """Node ``d``'s blocks of the cluster state: views that write
+    through to the node-major tensors."""
+    P, L = cfg.pages_per_node, cfg.locks_per_node
+    return (pool[d * P:(d + 1) * P], locks[d * L:(d + 1) * L],
+            counters[d * N_COUNTERS:(d + 1) * N_COUNTERS])
 
 
 def empty_requests(n: int) -> dict[str, np.ndarray]:
@@ -211,13 +233,71 @@ def _apply(pool, locks, counters, req):
     return data, old, ok
 
 
+def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
+    """One DSM step of every node (``machine_nr > 1``): each node's
+    requests are bucketized by owner, exchanged, applied by the owner on
+    its own shard, and the replies exchanged back.
+
+    reqs: dict of global ``[N*R]`` tensors (+ payload ``[N*R, 256]``),
+    node ``n``'s requests in rows ``n*R:(n+1)*R``.  Updates the state in
+    place; returns {"data": [N*R, 256], "old": [N*R], "ok": [N*R]}."""
+    N, C = cfg.machine_nr, cfg.step_capacity
+    R = reqs["op"].shape[0] // N
+    nd = {k: v.view((N, R) + v.shape[1:]) for k, v in reqs.items()}
+    active = nd["op"] != OP_NOP
+    bucket_idx, routed = T.bucketize(bits.addr_node(nd["addr"]), active,
+                                     N, C)
+    inc = T.exchange({k: T.scatter_to_buckets(v, bucket_idx, N * C)
+                      for k, v in nd.items()})
+    outs = [_apply(*shards(cfg, d, pool, locks, counters),
+                   {k: v[d] for k, v in inc.items()}) for d in range(N)]
+    rep = T.exchange({"data": torch.stack([o[0] for o in outs]),
+                      "old": torch.stack([o[1] for o in outs]),
+                      "ok": torch.stack([o[2] for o in outs])})
+    safe_b = torch.where(routed, bucket_idx, 0)
+    served = active & routed
+    data = T.take_local(rep["data"], safe_b)
+    data.masked_fill_(~served[..., None], 0)
+    return {
+        "data": data.view(N * R, PAGE_WORDS),
+        "old": torch.where(served, T.take_local(rep["old"], safe_b),
+                           0).view(-1),
+        "ok": torch.where(active, routed & T.take_local(rep["ok"], safe_b),
+                          True).view(-1),
+    }
+
+
 def read_pages_spmd(pool, addrs, *, cfg: DSMConfig, active=None):
-    """Fetch pages for a batch of addrs on the one node: (pages [R, 256]
-    zeroed where not ok, ok [R]) — through the gather kernel."""
+    """Fetch pages for a batch of addrs: (pages [R, 256] zeroed where not
+    ok, ok [R]).  One node reads its pool through the gather kernel.
+    With ``machine_nr > 1``, ``addrs`` are global ``[N*R]`` (node ``n``'s
+    in rows ``n*R:(n+1)*R``): each node sends a 1-word request per page to
+    its owner, the owners read their shards through the gather kernel,
+    and ``{data, okb}`` replies come back; rows past the step capacity
+    are not served."""
     if active is None:
         active = torch.ones(addrs.shape, dtype=torch.bool,
                             device=addrs.device)
-    return PK.read_pages_local(pool, addrs, active)
+    N = cfg.machine_nr
+    if N == 1:
+        return PK.read_pages_local(pool, addrs, active)
+    C, P = cfg.step_capacity, cfg.pages_per_node
+    R = addrs.shape[0] // N
+    a, act = addrs.view(N, R), active.view(N, R)
+    bucket_idx, routed = T.bucketize(bits.addr_node(a), act, N, C)
+    inc = T.exchange(T.scatter_to_buckets(bits.addr_page(a), bucket_idx,
+                                          N * C))
+    # owner d reads pool[d*P + clip(page, 0, P-1)]: its own shard
+    own = torch.arange(N, dtype=torch.int32, device=pool.device)[:, None]
+    rows = own * P + inc.clamp(0, P - 1)
+    data = PK.gather_pages(pool, rows.view(-1)).view(N, N * C, PAGE_WORDS)
+    rep = T.exchange({"data": data, "okb": (inc >= 0) & (inc < P)})
+    del data
+    safe_b = torch.where(routed, bucket_idx, 0)
+    served = act & routed & T.take_local(rep["okb"], safe_b)
+    pages = T.take_local(rep["data"], safe_b)
+    pages.masked_fill_(~served[..., None], 0)
+    return pages.view(N * R, PAGE_WORDS), served.view(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -276,35 +356,49 @@ class _HostOps:
 
 
 class DSM(_HostOps):
-    """Host handle to the one-node cluster: owns the pool, lock table,
+    """Host handle to the cluster: owns the node-major pool, lock table,
     counters and dirty mask on ``cfg.device``."""
 
     def __init__(self, cfg: DSMConfig):
         self.cfg = cfg
         self.device = cfg.torch_device()
-        P, L = cfg.pages_per_node, cfg.locks_per_node
+        N, P, L = cfg.machine_nr, cfg.pages_per_node, cfg.locks_per_node
         z = lambda *shape, dtype: torch.zeros(shape, dtype=dtype,
                                               device=self.device)
-        self.pool = z(P, PAGE_WORDS, dtype=torch.int32)
-        self.locks = z(L, dtype=torch.int32)
-        self.counters = z(N_COUNTERS, dtype=torch.int64)
+        self.pool = z(N * P, PAGE_WORDS, dtype=torch.int32)
+        self.locks = z(N * L, dtype=torch.int32)
+        self.counters = z(N * N_COUNTERS, dtype=torch.int64)
         # dirty pages: the engine's write steps mark the device mask,
         # host steps and direct installs the host set
-        self.dirty = z(P, dtype=torch.bool)
+        self.dirty = z(N * P, dtype=torch.bool)
         self._dirty_host: set[int] = set()
         self.host_capacity = min(cfg.step_capacity, cfg.host_step_capacity)
+        # the host step's own small routing capacity
+        self._host_cfg = dataclasses.replace(
+            cfg, step_capacity=self.host_capacity)
         self._step_mutex = threading.Lock()
 
     # -- raw step ------------------------------------------------------------
 
     def step(self, reqs: dict[str, np.ndarray]) -> Replies:
-        """Run one DSM step over request arrays [R]; thread-safe.  Active
-        requests past the step capacity, or addressed to another node,
-        are refused with ok=False (the reference's bucket overflow)."""
+        """Run one DSM step over global request arrays [N*R] (node ``n``
+        sends rows ``n*R:(n+1)*R``); thread-safe.  Active requests past a
+        bucket's capacity, or addressed to no node of the cluster, are
+        refused with ok=False (the reference's bucket overflow)."""
         self._mark_dirty_from_reqs(reqs)
         dev = self.device
         t = {k: torch.as_tensor(np.asarray(v, np.int32), device=dev)
              for k, v in reqs.items()}
+        N = self.cfg.machine_nr
+        if N > 1:
+            if t["op"].shape[0] % N:
+                raise ConfigError(
+                    f"DSM.step: {t['op'].shape[0]} request rows do not "
+                    f"split into {N} equal node blocks")
+            with self._step_mutex:
+                rep = dsm_step_spmd(self.pool, self.locks, self.counters,
+                                    t, cfg=self._host_cfg)
+            return Replies(**{k: v.cpu().numpy() for k, v in rep.items()})
         active = t["op"] != OP_NOP
         to_me = active & (bits.addr_node(t["addr"]) == 0)
         rank = torch.cumsum(to_me.long(), 0) - 1
@@ -332,16 +426,19 @@ class DSM(_HostOps):
         a = np.asarray(reqs["addr"]).ravel()[wr].astype(np.int64) & _U32
         node = a >> CFG.ADDR_PAGE_BITS
         page = a & CFG.ADDR_PAGE_MASK
-        keep = (node < self.cfg.machine_nr) & (page < self.cfg.pages_per_node)
-        self._dirty_host.update(int(r) for r in np.unique(page[keep]))
+        P = self.cfg.pages_per_node
+        keep = (node < self.cfg.machine_nr) & (page < P)
+        rows = node[keep] * P + page[keep]
+        self._dirty_host.update(int(r) for r in np.unique(rows))
 
     def mark_dirty_rows(self, rows) -> None:
-        """Mark pool rows dirty (direct installs that bypass the steps)."""
+        """Mark global pool rows dirty (direct installs that bypass the
+        steps)."""
         self._dirty_host.update(int(r) for r in np.asarray(rows).ravel())
 
     def dirty_rows(self) -> np.ndarray:
-        """Sorted pool rows written since construction: the device mask
-        united with the host set."""
+        """Sorted global pool rows written since construction: the device
+        mask united with the host set."""
         dev = torch.nonzero(self.dirty).squeeze(1).cpu().numpy()
         host = np.fromiter(self._dirty_host, np.int64, len(self._dirty_host))
         return np.union1d(dev.astype(np.int64), host)
@@ -349,7 +446,10 @@ class DSM(_HostOps):
     # -- host convenience ops --------------------------------------------------
 
     def _batch(self, rows: list[dict]) -> Replies:
+        # at most host_capacity rows per step, spread round-robin over the
+        # source nodes, so no destination bucket can overflow
         cap = self.host_capacity
+        n_src = self.cfg.machine_nr
         if len(rows) > cap:
             out = [self._batch(rows[i:i + cap])
                    for i in range(0, len(rows), cap)]
@@ -357,8 +457,9 @@ class DSM(_HostOps):
                 data=np.concatenate([r.data for r in out]),
                 old=np.concatenate([r.old for r in out]),
                 ok=np.concatenate([r.ok for r in out]))
-        reqs = empty_requests(cap)
-        for slot, row in enumerate(rows):
+        reqs = empty_requests(n_src * cap)
+        slots = [(i % n_src) * cap + i // n_src for i in range(len(rows))]
+        for slot, row in zip(slots, rows):
             for k, v in row.items():
                 if k == "payload":
                     v = np.asarray(v, np.int32)
@@ -367,17 +468,20 @@ class DSM(_HostOps):
                     # accept full uint32 bit patterns
                     reqs[k][slot] = np.uint32(int(v) & _U32).astype(np.int32)
         rep = self.step(reqs)
-        n = len(rows)
-        return Replies(data=rep.data[:n], old=rep.old[:n], ok=rep.ok[:n])
+        sl = np.array(slots, np.int64)
+        return Replies(data=rep.data[sl], old=rep.old[sl], ok=rep.ok[sl])
 
     # -- observability ---------------------------------------------------------
 
     def counters_np(self) -> np.ndarray:
-        """The counter slots as uint32 (the reference's dtype)."""
+        """Every node's counter slots, node-major, as uint32 (the
+        reference's dtype)."""
         return self.counters.cpu().numpy().astype(np.uint32)
 
     def counter_snapshot(self) -> dict[str, int]:
-        tot = self.counters_np().astype(np.uint64)
+        """Op counters summed over the nodes."""
+        tot = self.counters_np().reshape(-1, N_COUNTERS).sum(
+            axis=0, dtype=np.uint64)
         return {
             "read_ops": int(tot[CNT_READ_OPS]),
             "read_bytes": int(tot[CNT_READ_PAGES]) * CFG.PAGE_BYTES,

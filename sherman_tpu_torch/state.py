@@ -24,34 +24,43 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
                     leaf_dir=None, *, device, batch_per_node: int = 1024,
                     tcfg: TreeConfig | None = None, **cfg_kw):
     """-> (cluster, tree, engine) whose pool, locks, counters, root and
-    allocator high-water mark equal the given arrays'.
+    allocator high-water marks equal the given arrays'.
 
-    ``pool`` is ``[P, 256]`` int32, ``locks`` ``[L]`` int32, ``counters``
-    ``[N_COUNTERS]`` uint32 (one node); ``alloc_next`` is node 0's
-    ``GlobalAllocator.pages_used``; ``leaf_dir`` optionally the bulk-load
-    leaf directory ``(addrs, lows)`` that seeds the router.  Extra
-    keyword arguments go to :class:`DSMConfig`."""
+    The arrays are the reference's global, node-major ones for ``N``
+    nodes: ``pool`` ``[N*P, 256]`` int32, ``locks`` ``[N*L]`` int32,
+    ``counters`` ``[N*N_COUNTERS]`` uint32; ``alloc_next`` holds each
+    node's ``GlobalAllocator.pages_used`` (one int for one node), and its
+    length is ``N``.  ``leaf_dir`` optionally the bulk-load leaf
+    directory ``(addrs, lows)`` that seeds the router.  Extra keyword
+    arguments go to :class:`DSMConfig`."""
     # writable host copies only where needed: torch refuses to wrap the
     # read-only buffers np.asarray gives for a JAX array
     pool = np.require(pool, np.int32, ("C", "W"))
     locks = np.require(locks, np.int32, ("C", "W"))
     counters = np.asarray(counters).astype(np.uint32).ravel()
-    if pool.ndim != 2 or pool.shape[1] != PAGE_WORDS:
-        raise ConfigError(f"pool shape {pool.shape}: want [P, {PAGE_WORDS}]")
-    if counters.shape != (N_COUNTERS,):
+    alloc_next = np.atleast_1d(np.asarray(alloc_next, np.int64))
+    N = alloc_next.shape[0]
+    if pool.ndim != 2 or pool.shape[1] != PAGE_WORDS or pool.shape[0] % N:
+        raise ConfigError(f"pool shape {pool.shape}: want [{N}*P, "
+                          f"{PAGE_WORDS}]")
+    if locks.ndim != 1 or locks.shape[0] % N:
+        raise ConfigError(f"locks shape {locks.shape}: want [{N}*L]")
+    if counters.shape != (N * N_COUNTERS,):
         raise ConfigError(f"counters shape {counters.shape}: want "
-                          f"[{N_COUNTERS}] (one node)")
+                          f"[{N * N_COUNTERS}] ({N} nodes)")
     if int(pool[0, 0]) != int(root_addr):
         raise ConfigError(
             f"root_addr={root_addr} disagrees with the pool's meta word "
             f"{int(pool[0, 0])}")
-    cfg = DSMConfig(machine_nr=1, pages_per_node=pool.shape[0],
-                    locks_per_node=locks.shape[0], device=device, **cfg_kw)
+    cfg = DSMConfig(machine_nr=N, pages_per_node=pool.shape[0] // N,
+                    locks_per_node=locks.shape[0] // N, device=device,
+                    **cfg_kw)
     cluster = Cluster(cfg)
     dsm = cluster.dsm
     dsm.pool.copy_(torch.from_numpy(pool))
     dsm.locks.copy_(torch.from_numpy(locks))
-    cluster.directories[0].allocator._next = int(alloc_next)
+    for d in cluster.directories:
+        d.allocator._next = int(alloc_next[d.node_id])
     # the root is installed, so the tree adopts it instead of building one
     tree = Tree(cluster)
     if (tree._root_addr, tree._root_level) != (int(root_addr),

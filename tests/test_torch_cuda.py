@@ -7,7 +7,9 @@ also runs where JAX is not installed:
 
 Garbage pools and addresses of every validity class, real pages of a
 bulk-loaded tree, both stop levels and batch sizes that are not block
-multiples; every comparison is exact equality.
+multiples; the exchange all-to-all at vector-copy and word-copy widths and
+through its packer; the multi-node serving path.  Every comparison is
+exact equality.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.ops import page_kernels as PK
+from sherman_tpu_torch.parallel import transport as T
+from sherman_tpu_torch.parallel import transport_kernel as TK
 
 pytestmark = pytest.mark.cuda
 
@@ -133,4 +137,85 @@ def test_serving_path_on_the_card_matches_the_plain_path(dev):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     assert all(v > 0 for v in runs["cuda"][3].values())
+    assert not any(runs["cpu"][3].values())
+
+
+# (N, C, W): the vector path, the word path (C*W % 4 != 0) and the size of
+# a round-1 page reply (W = 257)
+EXCHANGE_SHAPES = [(8, 4, 1), (4, 8, 16), (8, 1024, 257), (3, 5, 3),
+                   (1, 7, 2)]
+
+
+@pytest.mark.parametrize("n,c,w", EXCHANGE_SHAPES)
+def test_exchange_matches_plain_on_garbage(dev, n, c, w):
+    rng = np.random.default_rng(n * c + w)
+    x = _words(rng, (n, n * c, w))
+    TK.reset_launches()
+    got = TK.all_to_all(x.to(dev))
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["exchange"] == 1
+    assert torch.equal(got.cpu(), TK.all_to_all_ref(x))
+    # a view one word into its buffer: the kernel takes its word path on
+    # a base that is not 16-byte aligned
+    buf = _words(rng, (n * n * c * w + 1,)).to(dev)
+    y = buf[1:].view(n, n * c, w)
+    assert torch.equal(TK.all_to_all(y).cpu(), TK.all_to_all_ref(y.cpu()))
+
+
+def test_exchange_packer_on_the_card(dev):
+    """Bools, float32 (NaN payloads) and int32 pages in one launch."""
+    n, c = 8, 16
+    rng = np.random.default_rng(5)
+    tree = {"page": _words(rng, (n, n * c, 256)),
+            "ok": torch.from_numpy(rng.integers(0, 2, (n, n * c))
+                                   .astype(bool)),
+            "f": _words(rng, (n, n * c)).view(torch.float32)}
+    TK.reset_launches()
+    got = T.exchange({k: v.to(dev) for k, v in tree.items()})
+    want = T.exchange(tree)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["exchange"] == 1
+    for k in tree:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k].cpu().contiguous().view(torch.uint8),
+                           want[k].contiguous().view(torch.uint8)), k
+
+
+def test_multinode_path_on_the_card_matches_the_plain_path(dev):
+    """Eight nodes on the card: bulk load, routed lookups and fused
+    read/update steps leave the same pool, counters and answers as on
+    the CPU, through the exchange kernel."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    rng = np.random.default_rng(1)
+    keys = np.unique(rng.integers(1, 1 << 63, 20_000, dtype=np.uint64))
+    q = keys[rng.integers(0, keys.size, 4096)]
+    is_read = rng.random(4096) < 0.5
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=8, pages_per_node=256,
+                               locks_per_node=1024, step_capacity=256,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=512,
+                                    tcfg=TreeConfig(sibling_chase_budget=1))
+        batched.bulk_load(tree, keys, keys ^ np.uint64(7))
+        eng.attach_router()
+        PK.reset_launches()
+        TK.reset_launches()
+        out = [eng.search_combined(q), eng.mixed(q, q ^ np.uint64(9),
+                                                 is_read), eng.search(q)]
+        runs[d] = (cl.dsm.pool.cpu(), cl.dsm.counters.cpu(), out,
+                   {**PK.LAUNCHES, **TK.LAUNCHES})
+    assert torch.equal(runs["cuda"][0], runs["cpu"][0])
+    assert torch.equal(runs["cuda"][1], runs["cpu"][1])
+    for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    launched = runs["cuda"][3]
+    assert launched["exchange"] > 0 and launched["gather_pages"] > 0
+    assert launched["writeback"] > 0
     assert not any(runs["cpu"][3].values())

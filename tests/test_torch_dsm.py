@@ -222,8 +222,11 @@ def test_long_batches_are_chunked_and_marked_dirty():
 
 
 def test_port_config_is_one_node_on_an_explicit_device():
-    with pytest.raises(ConfigError, match="machine_nr"):
-        DSMConfig(machine_nr=2, device="cpu")
+    for bad in (0, 257):                 # the node field is 8 bits
+        with pytest.raises(ConfigError, match="machine_nr"):
+            DSMConfig(machine_nr=bad, device="cpu")
+    assert DSMConfig(machine_nr=8, device="cpu").machine_nr == 8
+    assert DSMConfig(machine_nr=256, device="cpu").machine_nr == 256
     with pytest.raises(ConfigError, match="device"):
         DSMConfig(device="tpu")
     assert DSMConfig().device == "cuda"
