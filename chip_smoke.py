@@ -9,10 +9,14 @@ one node, then on 8 nodes emulated on the card — and holds every CUDA
 kernel of those paths against its plain PyTorch version:
 
 1. build the kernels from ``sherman_tpu_torch/ops/csrc`` and
-   ``sherman_tpu_torch/parallel/csrc`` and check each against its plain
-   version on garbage inputs (exact equality): the page kernels K1-K3 on
-   garbage pools, the exchange all-to-all K4 at several (N, C, W) and
-   through its packer;
+   ``sherman_tpu_torch/parallel/csrc``, and at the same time the earlier
+   designs of K1 and K3 (``ops/csrc/baseline_kernels.cu``, the yardstick
+   ``ms_before``) and a ``-Xptxas -v`` compile of the page kernels (the
+   ``ptxas`` line: registers, shared memory, spills); check each kernel
+   against its plain version on garbage inputs (exact equality): the page
+   kernels K1-K3 on garbage pools (K3 also through a mask view that is
+   not 16-byte aligned), the exchange all-to-all K4 at several (N, C, W)
+   and through its packer;
 2. one node at 20,000 keys on the card and on the CPU from one seed:
    pools and counters bit-identical;
 3. one node: bulk-load 100 M keys (``key = mix64(rank ^ salt)``, ``value
@@ -25,9 +29,13 @@ kernel of those paths against its plain PyTorch version:
 4. K1-K3 replayed at every input shape phase 3 launched them at, on the
    inputs of that shape's first launch (exact equality), timed with CUDA
    events beside their plain versions, a PyTorch library call where one
-   computes the same function, and their device-memory bound; K1 from
-   the root and K2 with its ``ok`` mask on real pages; one profiled step
-   of each kind;
+   computes the same function, and their device-memory bound; K1 and K3
+   also in turns with their earlier designs (``ms_before``), with the
+   host time of a wrapper call (``host_ms``); K1 with two ablations of
+   its earlier design (every row inactive; the page fetch without the
+   search), K3 with an empty mask; K1 from the root and K2 with its
+   ``ok`` mask on real pages;
+   one profiled step of each kind;
 5. 8 nodes at 20,000 keys on the card and on the CPU from one seed:
    pools, locks and counters bit-identical;
 6. 8 nodes: the same 100 M keys over ``machine_nr = 8`` pools of 524,288
@@ -43,19 +51,25 @@ kernel of those paths against its plain PyTorch version:
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch); in both windows the launches are also counted by input shape.
-A kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are
-means per launch over its shapes, each listed under ``shapes``.  The
-second-to-last lines are the ``kernels`` JSON record and the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
-failure raises: the script exits nonzero and prints no ``ok`` line, also
-when no CUDA device is present.
+Every time is the device time of one call (median of 21, plain versions
+5): a spin kernel queued before the start event keeps the card busy
+while the host enqueues the call, so a one-element ``fill_`` shows the
+floor of the method (``launch_floor_ms``). A kernel's ``ms``,
+``ms_before``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are means
+per launch over its shapes, each listed under ``shapes``. The lines
+before the last are the K1 and K3 ablations, the ``kernels`` JSON record
+and the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``. Any failure raises: the script exits nonzero and
+prints no ``ok`` line, also when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,21 +99,58 @@ def keys_of(ranks: np.ndarray, salt: int) -> np.ndarray:
 # Timing helpers.
 # ---------------------------------------------------------------------------
 
+SPIN_CYCLES = 2_000_000        # ~1 ms of the card's clock
+
+
+def _event_ms(fn) -> float:
+    """One call timed with CUDA events, in ms: the device time of what
+    ``fn`` launches.  A spin kernel queued before the start event keeps
+    the card busy while the host enqueues ``fn``'s launches, so the
+    interval holds no host time unless ``fn`` waits for the card."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_ms(fn, reps: int = 21, warmup: int = 2) -> float:
     """Median of ``reps`` single-call CUDA-event timings, in ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ts = []
+    return float(np.median([_event_ms(fn) for _ in range(reps)]))
+
+
+def host_ms(fn, reps: int = 21) -> float:
+    """Mean host time to enqueue one call of ``fn`` (wrapper and launch),
+    in ms, with the card kept busy so no call waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * reps)
+    t = time.perf_counter()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return float(np.median(ts))
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
+def time_ab(fa, fb, reps: int = 21, warmup: int = 2) -> tuple[float, float]:
+    """Medians of ``reps`` single-call timings of ``fa`` and of ``fb``,
+    taken in turns (a b, b a, a b, ...) so that drift falls on both."""
+    for _ in range(warmup):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for k in range(reps):
+        for f, ts in ((fa, ta), (fb, tb))[::1 if k % 2 == 0 else -1]:
+            ts.append(_event_ms(f))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def bound(nbytes: int, nops: int) -> dict:
@@ -110,6 +161,108 @@ def bound(nbytes: int, nops: int) -> dict:
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bytes": nbytes}
+
+
+# ---------------------------------------------------------------------------
+# The earlier designs of K1 and K3 (``ms_before``, the K1 ablations) and the
+# compiler's report on every kernel, built with nvcc beside the extension.
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BASELINE_SRC = "sherman_tpu_torch/ops/csrc/baseline_kernels.cu"
+_PTXAS_KERNEL = re.compile(r"(descent_round_kernel|gather_pages_kernel|"
+                           r"writeback_kernel)(?:I(?:Lb|Li)(\d+)E)?")
+
+
+def start_nvcc_builds() -> dict:
+    """Start nvcc on the baseline kernels (a ctypes library) and on
+    page_kernels.cu alone with ``-Xptxas -v``, both at once; the
+    extension's own build runs meanwhile.  -> {what: Popen}"""
+    from torch.utils import cpp_extension
+    from sherman_tpu_torch.ops import page_kernels as PK
+    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
+                        "nvcc")
+    os.makedirs(PK.BUILD_DIR, exist_ok=True)
+    flags = [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xptxas", "-v"]
+    out = {"baseline": flags + [
+               "-shared", "-Xcompiler", "-fPIC", "-o",
+               os.path.join(PK.BUILD_DIR, "libbaseline_kernels.so"),
+               os.path.join(ROOT, BASELINE_SRC)],
+           "page_kernels": flags + [
+               "-c", "-o", os.path.join(PK.BUILD_DIR, "ptxas_report.o"),
+               PK.SOURCES[1]]}
+    return {k: subprocess.Popen(v, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+            for k, v in out.items()}
+
+
+def finish_nvcc_builds(procs: dict) -> "Baseline":
+    """Wait for :func:`start_nvcc_builds`, print each kernel's registers,
+    shared memory and spills as ptxas reports them, and load the baseline
+    library."""
+    from sherman_tpu_torch.ops import page_kernels as PK
+    report = {}
+    for what, p in procs.items():
+        text = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc ({what}) failed:\n{text}")
+        name = None
+        for line in text.splitlines():
+            m = _PTXAS_KERNEL.search(line)
+            if "Compiling entry function" in line and m:
+                name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            elif name and "Used" in line:
+                report[f"{what}:{name}"] = line.split(":", 1)[1].strip()
+            elif name and "spill" in line:
+                report[f"{what}:{name}:spill"] = line.strip()
+    _log("ptxas: " + json.dumps(report))
+    return Baseline(os.path.join(PK.BUILD_DIR, "libbaseline_kernels.so"))
+
+
+class Baseline:
+    """The earlier one-warp-per-row descent round (``mode`` 0; 1 is its
+    fetch-only ablation) and one-thread-per-lane write-back, on the
+    current stream; they count no launch."""
+
+    def __init__(self, path: str):
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        self.lib = lib = ctypes.CDLL(path)
+        lib.baseline_descent_round.argtypes = (
+            [i32, p, i64, p, p, p, p, i64, i32] + [p] * 8)
+        lib.baseline_writeback.argtypes = [p, i64, p, p, p, p, i64, i32, p, p]
+        lib.baseline_descent_round.restype = i32
+        lib.baseline_writeback.restype = i32
+
+    @staticmethod
+    def _ok(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"baseline {what} launch failed: CUDA error "
+                               f"{rc}")
+
+    def descent_round(self, pool, addr, khi, klo, active, *, stop_level=0,
+                      mode=0):
+        B, dev = addr.shape[0], pool.device
+        outs = [torch.empty(B, dtype=dt, device=dev) for dt in
+                (torch.int32,) + (torch.bool,) * 4 + (torch.int32,) * 2]
+        self._ok(self.lib.baseline_descent_round(
+            mode, pool.data_ptr(), pool.shape[0], addr.data_ptr(),
+            khi.data_ptr(), klo.data_ptr(), active.data_ptr(), B,
+            int(stop_level), *[o.data_ptr() for o in outs],
+            torch.cuda.current_stream().cuda_stream), "descent_round")
+        return tuple(outs)
+
+    def writeback(self, pool, page, slot, applied, ent, field_w):
+        fw = (ctypes.c_int * 5)(*[int(w) for w in field_w])
+        self._ok(self.lib.baseline_writeback(
+            pool.data_ptr(), pool.shape[0], page.data_ptr(), slot.data_ptr(),
+            applied.data_ptr(), ent.data_ptr(), page.shape[0], len(field_w),
+            ctypes.cast(fw, ctypes.c_void_p),
+            torch.cuda.current_stream().cuda_stream), "writeback")
+        return pool
+
+
+BASELINE: Baseline | None = None      # set by main() after the build
 
 
 # largest |kernel - plain| seen per kernel; every check requires 0
@@ -177,13 +330,19 @@ def garbage_parity(dev) -> None:
             rng.integers(0, C.LEAF_CAP, B).astype(np.int32)).to(dev)
         applied = _unique_targets(page, slot) & \
             torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+        # applied also as a view 5 bytes into its buffer (not 16-aligned)
+        shifted = torch.zeros(B + 5, dtype=torch.bool, device=dev)
+        shifted[5:] = applied
         for lanes in ((C.L_VER_W, C.L_VHI_W, C.L_VLO_W),
                       (C.L_VER_W, C.L_KHI_W, C.L_KLO_W, C.L_VHI_W,
                        C.L_VLO_W)):
             ent = rw((B, len(lanes)))
-            _eq(PK.writeback(pool.clone(), page, slot, applied, ent, lanes),
-                PK.writeback_ref(pool.clone(), page, slot, applied, ent,
-                                 lanes), f"writeback B={B} L={len(lanes)}")
+            want = PK.writeback_ref(pool.clone(), page, slot, applied, ent,
+                                    lanes)
+            for app in (applied, shifted[5:]):
+                _eq(PK.writeback(pool.clone(), page, slot, app, ent, lanes),
+                    want, f"writeback B={B} L={len(lanes)} "
+                          f"applied at +{app.data_ptr() % 16} B")
     torch.cuda.synchronize()
 
 
@@ -513,26 +672,42 @@ class ShapeLog:
 
 
 def replay_descent_round(pool, addr, khi, klo, active, *, stop_level=0):
+    """K1 against its plain version, then timed in turns with the earlier
+    design (``ms_before``) on the same inputs, and the earlier design's
+    two ablations: every row inactive, and the page fetch without the
+    search."""
     from sherman_tpu_torch import config as C
     from sherman_tpu_torch.ops import bits
     from sherman_tpu_torch.ops import page_kernels as PK
     args, kw = (pool, addr, khi, klo, active), {"stop_level": stop_level}
     B = addr.shape[0]
     out = PK.descent_round(*args, **kw)
-    _eq(out, PK.descent_round_ref(*args, **kw),
-        f"descent_round B={B} P={pool.shape[0]}")
+    want = PK.descent_round_ref(*args, **kw)
+    _eq(out, want, f"descent_round B={B} P={pool.shape[0]}")
+    if not all(torch.equal(x, y) for x, y in
+               zip(BASELINE.descent_round(*args, **kw), want)):
+        raise AssertionError(f"the earlier descent_round disagrees at B={B}")
     n_act = int(active.sum())
-    # each input read once: the per-row words, and every distinct page the
-    # active rows need (zipf batches share leaves); the seven outputs
+    # each input read once: the mask, addr/khi/klo of the active rows, every
+    # distinct page the ok rows need (zipf batches share leaves); the seven
+    # outputs
     pages = int(torch.unique(bits.addr_page(addr)[out[3]]).numel())
-    del out
-    nbytes = B * (3 * 4 + 1) + B * (3 * 4 + 4) + pages * C.PAGE_BYTES
+    del out, want
+    nbytes = B * 1 + n_act * 3 * 4 + B * (3 * 4 + 4) + pages * C.PAGE_BYTES
     # per active row: ~6 operations on each of the 82 entry and 49 slot
     # words searched
     nops = n_act * 6 * (C.INTERNAL_CAP + C.LEAF_CAP)
+    ms, ms_before = time_ab(lambda: PK.descent_round(*args, **kw),
+                            lambda: BASELINE.descent_round(*args, **kw))
+    none = torch.zeros_like(active)
     return {"rows": B, "pool_pages": pool.shape[0], "stop_level": stop_level,
             "active_rows": n_act, "distinct_pages": pages,
-            "ms": time_ms(lambda: PK.descent_round(*args, **kw)),
+            "ms": ms, "ms_before": ms_before,
+            "host_ms": host_ms(lambda: PK.descent_round(*args, **kw)),
+            "ablation_inactive_ms": time_ms(lambda: BASELINE.descent_round(
+                pool, addr, khi, klo, none, **kw)),
+            "ablation_fetch_only_ms": time_ms(lambda: BASELINE.descent_round(
+                *args, **kw, mode=1)),
             "plain_ms": time_ms(lambda: PK.descent_round_ref(*args, **kw),
                                 reps=5),
             "library_ms": None, **bound(nbytes, nops)}
@@ -562,7 +737,9 @@ def replay_gather_pages(pool, rows, ok=None):
 
 def replay_writeback(pool, page, slot, applied, ent, field_w):
     """Parity on clones with fresh values; timing in place with the words
-    the targets hold now, so the pool is left as it is."""
+    the targets hold now, so the pool is left as it is.  The kernel is
+    timed in turns with the earlier design (``ms_before``); the library
+    call is handed the compacted indices."""
     from sherman_tpu_torch import config as C
     from sherman_tpu_torch.ops import page_kernels as PK
     M, L = page.shape[0], len(field_w)
@@ -572,21 +749,32 @@ def replay_writeback(pool, page, slot, applied, ent, field_w):
     flat = pool.view(-1)
     ent_same = flat[idx].contiguous()
     ent_new = ent ^ 0x5A5A5A5A
-    _eq(PK.writeback(pool.clone(), page, slot, applied, ent_new, field_w),
-        PK.writeback_ref(pool.clone(), page, slot, applied, ent_new, field_w),
+    wb_args = (page, slot, applied, ent_new, field_w)
+    want = PK.writeback_ref(pool.clone(), *wb_args)
+    _eq(PK.writeback(pool.clone(), *wb_args), want,
         f"writeback M={M} P={pool.shape[0]} L={L}")
+    if not torch.equal(BASELINE.writeback(pool.clone(), *wb_args), want):
+        raise AssertionError(f"the earlier writeback disagrees at M={M}")
+    del want
     n_app = int(applied.sum())
     sel = applied[:, None].expand_as(idx)
     flat_idx, flat_val = idx[sel], ent_same[sel]
-    nbytes = M * (4 + 4 + 1 + 4 * L) + n_app * 4 * L
+    # the mask; per applied row its page, slot and L entries read and L
+    # words written
+    nbytes = M + n_app * (4 + 4 + 8 * L)
+    same = (page, slot, applied, ent_same, field_w)
+    ms, ms_before = time_ab(lambda: PK.writeback(pool, *same),
+                            lambda: BASELINE.writeback(pool, *same))
+    empty = (page, slot, torch.zeros_like(applied), ent_same, field_w)
     return {"rows": M, "pool_pages": pool.shape[0], "lanes": L,
-            "applied_rows": n_app,
-            "ms": time_ms(lambda: PK.writeback(pool, page, slot, applied,
-                                               ent_same, field_w)),
-            "plain_ms": time_ms(lambda: PK.writeback_ref(
-                pool, page, slot, applied, ent_same, field_w), reps=5),
+            "applied_rows": n_app, "ms": ms, "ms_before": ms_before,
+            "host_ms": host_ms(lambda: PK.writeback(pool, *same)),
+            "ablation_empty_mask_ms": time_ms(
+                lambda: PK.writeback(pool, *empty)),
+            "plain_ms": time_ms(lambda: PK.writeback_ref(pool, *same),
+                                reps=5),
             "library_ms": time_ms(
-                lambda: flat.index_put_((flat_idx,), flat_val), reps=5),
+                lambda: flat.index_put_((flat_idx,), flat_val)),
             **bound(nbytes, 0)}
 
 
@@ -661,6 +849,8 @@ def kernel_record(name: str, shapes: list[dict]) -> dict:
                             * s["bound_ms"])["bound_by"],
             "library_ms": (mean("library_ms") if all(
                 s["library_ms"] is not None for s in shapes) else None),
+            "ms_before": (mean("ms_before") if all(
+                "ms_before" in s for s in shapes) else None),
             "bytes": round(mean("bytes")), "launches_by_path": by_path,
             "shapes": shapes}
 
@@ -787,9 +977,13 @@ def main() -> int:
     dev = torch.device("cuda")
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
+    global BASELINE
     t = time.perf_counter()
+    nvcc = start_nvcc_builds()
     PK.load_library()
-    _log(f"build: {time.perf_counter() - t:.3f} s")
+    BASELINE = finish_nvcc_builds(nvcc)
+    _log(f"build (the extension, the earlier K1/K3 and the ptxas report, "
+         f"in parallel): {time.perf_counter() - t:.3f} s")
     garbage_parity(dev)
     exchange_parity(dev)
     _log("parity on garbage inputs (K1-K4): exact")
@@ -825,6 +1019,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"k1_ablations": [
+        {k: e[k] for k in ("path", "rows", "active_rows", "launches", "ms",
+                           "ms_before", "host_ms", "ablation_inactive_ms",
+                           "ablation_fetch_only_ms", "bound_ms")}
+        for e in shapes["descent_round"]]}), flush=True)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(json.dumps({"k3_ablations": [
+        {k: e[k] for k in ("path", "rows", "applied_rows", "launches", "ms",
+                           "ms_before", "host_ms", "ablation_empty_mask_ms",
+                           "library_ms")}
+        for e in shapes["writeback"]],
+        "launch_floor_ms": time_ms(lambda: one.fill_(1))}), flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

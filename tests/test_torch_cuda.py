@@ -7,9 +7,11 @@ also runs where JAX is not installed:
 
 Garbage pools and addresses of every validity class, real pages of a
 bulk-loaded tree, both stop levels and batch sizes that are not block
-multiples; the exchange all-to-all at vector-copy and word-copy widths and
-through its packer; the multi-node serving path.  Every comparison is
-exact equality.
+multiples; descent rounds with no, every, or a leading run of rows
+active; write-back masks of every class at sizes on either side of 16
+rows, also through views that are not 16-byte aligned; the exchange
+all-to-all at vector-copy and word-copy widths and through its packer;
+the multi-node serving path.  Every comparison is exact equality.
 """
 
 import numpy as np
@@ -103,6 +105,77 @@ def test_kernels_match_plain_on_garbage(dev, seed, B, P, stop_level):
                                 lanes)
         assert torch.equal(got.cpu(), want)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["inactive", "active", "head"])
+@pytest.mark.parametrize("B", [1, 31, 33, 255, 257, 100_003])
+def test_descent_round_batches_on_the_card(dev, B, kind):
+    """Batches with no row, every row, or only a leading run of rows
+    active (``search_combined`` pads its distinct keys so: key 0, inactive)
+    on either side of the kernel's 256-row blocks."""
+    P = 512
+    pool, addr, khi, klo, active = _inputs(B, B, P)
+    if kind == "inactive":
+        active[:] = False
+    elif kind == "active":
+        active[:] = True
+    else:
+        head = max(1, B * 36 // 100)
+        active[:head] = True
+        active[head:] = False
+        khi[head:] = 0
+        klo[head:] = 0
+        addr[head:] = addr[0] & C.ADDR_PAGE_MASK
+    stop = B % 2
+    PK.reset_launches()
+    got = PK.descent_round(*[t.to(dev) for t in (pool, addr, khi, klo,
+                                                 active)], stop_level=stop)
+    want = PK.descent_round_ref(pool, addr, khi, klo, active,
+                                stop_level=stop)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["descent_round"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+WB_MASKS = ("none", "all", "sparse", "group_first", "group_last")
+
+
+def _wb_mask(kind, M, rng):
+    r = torch.arange(M)
+    return {"none": torch.zeros(M, dtype=torch.bool),
+            "all": torch.ones(M, dtype=torch.bool),
+            "sparse": torch.from_numpy(rng.random(M) < 0.03),
+            "group_first": r % 16 == 0, "group_last": r % 16 == 15}[kind]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 15])
+@pytest.mark.parametrize("kind", WB_MASKS)
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 1000, 100_003])
+def test_writeback_mask_classes_on_the_card(dev, M, kind, offset):
+    """Every mask class at sizes on either side of 16 rows and of a block,
+    with ``applied`` as a view ``offset`` bytes into its buffer (not
+    16-byte aligned unless offset is 0)."""
+    rng = np.random.default_rng(M + offset)
+    P = max(32, M // 16)
+    lanes = (INSERT_LANES, UPDATE_LANES, (C.L_VER_W,))[M % 3]
+    pool = _words(rng, (P, C.PAGE_WORDS))
+    tgt = torch.from_numpy(rng.permutation(P * C.LEAF_CAP)[:M])
+    page = (tgt // C.LEAF_CAP).to(torch.int32)
+    slot = (tgt % C.LEAF_CAP).to(torch.int32)
+    applied = _wb_mask(kind, M, rng)
+    full = torch.zeros(M + offset, dtype=torch.bool)
+    full[offset:] = applied
+    applied_dev = full.to(dev)[offset:]
+    assert applied_dev.data_ptr() % 16 == offset
+    ent = _words(rng, (M, len(lanes)))
+    PK.reset_launches()
+    got = PK.writeback(pool.to(dev), page.to(dev), slot.to(dev), applied_dev,
+                       ent.to(dev), lanes)
+    want = PK.writeback_ref(pool.clone(), page, slot, applied, ent, lanes)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["writeback"] == 1
+    assert torch.equal(got.cpu(), want)
 
 
 def test_serving_path_on_the_card_matches_the_plain_path(dev):

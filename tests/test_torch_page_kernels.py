@@ -130,6 +130,50 @@ def test_descent_round_ref_matches_xla_twin(seed, B, P, stop_level):
     _eq_all(got, want, DR_NAMES)
 
 
+NOT_OK = (0, False, True, False, False, 0, 0)   # the search of a zero page
+
+
+def _not_ok_inputs(seed, B, P, kind):
+    """Garbage pool and keys; rows inactive ("inactive"), active on pages
+    past the pool ("past_pool"), or each at random one of the two."""
+    rng = np.random.default_rng(seed)
+    pool = _words(rng, (P, C.PAGE_WORDS))
+    khi, klo = _words(rng, B), _words(rng, B)
+    addr = _mixed_addrs(rng, B, P)
+    past = rng.integers(P, C.ADDR_PAGE_MASK + 1, B).astype(np.int32)
+    past |= _words(rng, B) & ~np.int32(C.ADDR_PAGE_MASK)   # node bits
+    inactive = {"inactive": np.ones(B, bool), "past_pool": np.zeros(B, bool),
+                "both": rng.integers(0, 2, B).astype(bool)}[kind]
+    addr = np.where(inactive, addr, past).astype(np.int32)
+    return pool, addr, khi, klo, ~inactive
+
+
+@pytest.mark.parametrize("kind", ["inactive", "past_pool", "both"])
+@pytest.mark.parametrize("stop_level", [0, 1])
+@pytest.mark.parametrize("seed,B,P,ref", [(8, 300, 32, "interpret"),
+                                          (9, 2000, 64, "xla")])
+def test_descent_round_ref_rows_not_ok_are_constant(seed, B, P, ref, kind,
+                                                     stop_level):
+    """A row that is not ok has the verdicts of a search of a zero page,
+    whatever its page and key hold: the CUDA kernel writes these constants
+    without searching."""
+    pool, addr, khi, klo, active = _not_ok_inputs(seed + stop_level, B, P,
+                                                  kind)
+    if ref == "interpret":
+        want = PP.descent_round(jnp.asarray(pool), jnp.asarray(addr),
+                                jnp.asarray(khi), jnp.asarray(klo),
+                                jnp.asarray(active), stop_level=stop_level,
+                                interpret=True)
+    else:
+        want = jax.jit(lambda *a: PP.descent_round_xla(
+            *a, stop_level=stop_level))(pool, addr, khi, klo, active)
+    got = PK.descent_round_ref(_t(pool), _t(addr), _t(khi), _t(klo),
+                               _t(active), stop_level=stop_level)
+    _eq_all(got, want, DR_NAMES)
+    for g, c, name in zip(got, NOT_OK, DR_NAMES):
+        assert (g == c).all(), name
+
+
 def test_descent_round_wrapper_on_cpu_is_the_plain_version():
     pool, addr, khi, klo, active = _descent_inputs(6, 300, 32, True)
     args = [_t(x) for x in (pool, addr, khi, klo, active)]
@@ -228,6 +272,45 @@ def test_writeback_ref_matches_xla_twin(seed, M, P, lanes):
                        _t(ent), lanes)
     np.testing.assert_array_equal(got.numpy(), want)
     assert PK.LAUNCHES["writeback"] == 0
+
+
+WB_MASKS = ("none", "all", "sparse", "group_first", "group_last")
+
+
+def wb_mask(kind, M, rng):
+    """Write-back mask classes: empty, full, ~3% set, and set only on the
+    first or the last row of each 16-row group (the edges of a grouped
+    pass over the mask)."""
+    r = np.arange(M)
+    return {"none": np.zeros(M, bool), "all": np.ones(M, bool),
+            "sparse": rng.random(M) < 0.03,
+            "group_first": r % 16 == 0, "group_last": r % 16 == 15}[kind]
+
+
+@pytest.mark.parametrize("kind", WB_MASKS)
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 1000])
+def test_writeback_ref_mask_classes(M, kind):
+    """Every row carries its own (page, slot) target, so any mask keeps
+    the write-back contract."""
+    P = 32
+    rng = np.random.default_rng(M * 7 + WB_MASKS.index(kind))
+    lanes = INSERT_LANES if M % 2 else UPDATE_LANES
+    pool = _words(rng, (P, C.PAGE_WORDS))
+    tgt = rng.permutation(P * C.LEAF_CAP)[:M]
+    page = (tgt // C.LEAF_CAP).astype(np.int32)
+    slot = (tgt % C.LEAF_CAP).astype(np.int32)
+    applied = wb_mask(kind, M, rng)
+    ent = _words(rng, (M, len(lanes)))
+    got = PK.writeback_ref(_t(pool.copy()), _t(page), _t(slot), _t(applied),
+                           _t(ent), lanes).numpy()
+    args = (pool, page, slot, applied, ent)
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(
+        lambda *a: PP.writeback_xla(*a, field_w=lanes))(*args)))
+    if M <= 17:
+        np.testing.assert_array_equal(got, np.asarray(PP.writeback(
+            *map(jnp.asarray, args), field_w=lanes, interpret=True)))
+    assert (got != pool).any(axis=1).sum() <= applied.sum()
+    assert applied.any() == (not np.array_equal(got, pool))
 
 
 # ---------------------------------------------------------------------------
