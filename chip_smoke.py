@@ -48,9 +48,31 @@ kernel of those paths against its plain PyTorch version:
    words of the shape: its work does not depend on the data); one
    profiled step of each kind.
 
+The device-staged loops (``workload/device_prep.py``: zipf ranks,
+keys, combining, router probe, serve and the check of every answer, all
+on the card) run beside each path:
+
+- before phase 3, and again before phase 6, the staged reference check
+  at 20,000 keys on 1 and on 8 nodes: 3 steps each of staged YCSB-C
+  (``aligned``, ``pipelined``) and YCSB-A (``chained``, ``pipelined``)
+  with the quantile-table sampler on the card and on the plain path on
+  the CPU — carries, pools, locks and counters bit-identical; then the
+  analytic sampler on a fresh tree: equal receipts, and the count of
+  ranks the card and the CPU draw differently;
+- after phase 4, and again after phase 7, on the same tree (the keys
+  the host-staged YCSB-A updated written back to their bulk values
+  first): staged YCSB-C ``aligned`` and ``pipelined`` and staged YCSB-A
+  50/50 ``chained`` and ``pipelined`` (batches of 4,194,304 and
+  1,048,576 clients; 8 timed steps each on one node, 4 on 8 nodes),
+  every receipt asserted; for each loop ops/s, ms per step, the
+  per-phase times, the host syncs of one step and one profiled step;
+  then every (kernel, shape) those windows launched replayed as in
+  phase 4.
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
-launch); in both windows the launches are also counted by input shape.
+launch) and around each staged window; in every window the launches are
+also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
 while the host enqueues the call, so a one-element ``fill_`` shows the
@@ -82,7 +104,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
                                # (67 TFLOP/s fp32, data sheet), for the compares
-SALT = 0x5E17AB1E5A17
+STAGED_STEPS_8 = 4             # timed steps of each staged loop on 8 nodes
 VAL_XOR = np.uint64(0xDEADBEEF)
 
 
@@ -403,49 +425,16 @@ def serve(n_keys: int, batch_c: int, batch_a: int, steps: int,
           step_capacity: int | None = None, chunk_pages: int = 4096) -> dict:
     """Build, load and serve one tree; ``batch_c``/``batch_a`` are the
     whole batches, split into ``machine_nr`` node blocks."""
-    from sherman_tpu_torch import config as C
-    from sherman_tpu_torch.cluster import Cluster
-    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.bench import build
     from sherman_tpu_torch.models import batched
-    from sherman_tpu_torch.models.btree import Tree
     from sherman_tpu_torch.workload.zipf import ZipfGen
 
-    per_leaf = int(C.LEAF_CAP * 0.75)
-    est_pages = int(n_keys / per_leaf * 1.10) + 8192
-    pages = 1 << max(14, (est_pages - 1).bit_length())   # in all nodes
-    N = machine_nr
-    cfg = DSMConfig(machine_nr=N, pages_per_node=pages // N,
-                    locks_per_node=65_536,
-                    step_capacity=step_capacity or batch_c // N,
-                    chunk_pages=chunk_pages, device=device)
-    cluster = Cluster(cfg)
-    tree = Tree(cluster)
-    tcfg = TreeConfig(sibling_chase_budget=1)
-    eng_c = batched.BatchedEngine(tree, batch_per_node=batch_c // N,
-                                  tcfg=tcfg)
-    eng_a = batched.BatchedEngine(tree, batch_per_node=batch_a // N,
-                                  tcfg=tcfg)
-
-    t0 = time.perf_counter()
-    salt = SALT
-    while True:   # mix64 is a bijection: keys are unique; skip sentinels
-        keys = keys_of(np.arange(n_keys, dtype=np.uint64), salt)
-        if keys.min() >= C.KEY_MIN and keys.max() <= C.KEY_MAX:
-            break
-        salt += 1
-    vals = keys ^ VAL_XOR
-    t_gen = time.perf_counter() - t0
-    stats = batched.bulk_load(tree, keys, vals, fill=0.75)
-    router = eng_c.attach_router()
-    eng_a.router = router
-    if device != "cpu":
-        torch.cuda.synchronize()
-    t_load = time.perf_counter() - t0
-    log(f"bulk_load: nodes={N} keys={n_keys} pages={pages} "
-        f"pages_per_node={pages // N} step_capacity={cfg.step_capacity} "
-        f"stats={stats} "
-         f"router_log2_buckets={router.lb} keygen_s={t_gen:.3f} "
-         f"total_s={t_load:.3f}")
+    b = build(n_keys, batch_c, batch_a, device, log=log,
+              machine_nr=machine_nr, step_capacity=step_capacity,
+              chunk_pages=chunk_pages)
+    cluster, tree, eng_c, eng_a = b["cluster"], b["tree"], b["eng_c"], \
+        b["eng_a"]
+    salt, vals, N = b["salt"], b["vals"], machine_nr
 
     rng = np.random.default_rng(seed)
     zipf = ZipfGen(n_keys, 0.99, rng=rng)
@@ -520,7 +509,8 @@ def serve(n_keys: int, batch_c: int, batch_a: int, steps: int,
         log("counters_per_node: " + json.dumps(
             cluster.dsm.counters_np().reshape(N, -1).tolist()))
     return {"tree": tree, "eng_c": eng_c, "eng_a": eng_a, "zipf": zipf,
-            "salt": salt, "ops_c": ops_c, "ops_a": ops_a}
+            "salt": salt, "ops_c": ops_c, "ops_a": ops_a, "n_keys": n_keys,
+            "updated_ranks": ur}
 
 
 def reference_check(**kw) -> None:
@@ -832,6 +822,9 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
     return out
 
 
+PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged")
+
+
 def kernel_record(name: str, shapes: list[dict]) -> dict:
     """One kernel's line: its launches over both paths; ``ms``,
     ``plain_ms``, ``library_ms`` and ``bound_ms`` are means per launch
@@ -840,7 +833,7 @@ def kernel_record(name: str, shapes: list[dict]) -> dict:
     n = sum(s["launches"] for s in shapes)
     mean = lambda k: sum(s["launches"] * s[k] for s in shapes) / n
     by_path = {p: sum(s["launches"] for s in shapes if s["path"] == p)
-               for p in ("one_node", "eight_nodes")}
+               for p in PATHS}
     rep, src = KERNELS[name]
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": MAX_ERR[name], "ms": mean("ms"),
@@ -963,7 +956,257 @@ def multinode(n_keys, batch_c, batch_a, steps) -> dict:
     profile_step("ycsb_c_8_nodes", lambda: ctx["eng_c"].search_combined(qc))
     profile_step("ycsb_a_8_nodes",
                  lambda: ctx["eng_a"].mixed(qa, qa ^ VAL_XOR, ra))
+    del real, qc, qa
+    for k, v in staged_windows(ctx, "eight_nodes", batch_c // N,
+                               batch_a // N, STAGED_STEPS_8,
+                               ("gather_pages", "writeback",
+                                "exchange")).items():
+        shapes.setdefault(k, []).extend(v)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# The device-staged loops (prep -> serve -> verify on the card).
+# ---------------------------------------------------------------------------
+
+def count_syncs(fn) -> int:
+    """Host syncs that ``fn`` makes (item(), nonzero, device-to-host
+    copies), as torch's sync debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _ints(carry) -> list:
+    return [int(x) for x in carry]
+
+
+def staged_read(eng, n_keys, salt, batch, dev_b, staged, fusion, steps,
+                sampler="analytic") -> tuple[dict, object]:
+    """``bench.staged_read`` (3 synced steps), then the host syncs of
+    one step; the step gets ``replay`` (one fresh-carry step) and
+    ``profile`` (its phase times).  -> (record, step)."""
+    from sherman_tpu_torch import bench
+    rec, step, new_carry = bench.staged_read(
+        eng, n_keys, 0.99, salt, batch, dev_b, staged, sampler=sampler,
+        fusion=fusion, steps=steps, lat_steps=3)
+    pool, counters = eng.dsm.pool, eng.dsm.counters
+    box = {"carry": new_carry()}     # made outside the counted step
+
+    def one():
+        box["carry"] = step(pool, counters, *staged, box["carry"])[1]
+
+    rec["host_syncs_per_step"] = count_syncs(one)
+    step.drain(box["carry"])
+    step.replay = lambda: step.drain(step(pool, counters, *staged,
+                                          new_carry())[1])
+    step.profile = lambda: step.phase_profile(pool, counters, *staged,
+                                              reps=2)[0]
+    return rec, step
+
+
+def staged_mixed(eng, n_keys, salt, batch, carry, caps, staged, fusion,
+                 steps, dev_b, sampler="analytic"):
+    """``bench.staged_mixed``, then the host syncs of one more step; the
+    step gets ``replay`` (one step continuing the carry) and ``profile``
+    (its phase times).  -> (record, step, carry, caps, staged)."""
+    from sherman_tpu_torch import bench
+    rec, step, carry, caps, staged = bench.staged_mixed(
+        eng, n_keys, 0.99, salt, batch, sampler=sampler, dev_b=dev_b,
+        fusion=fusion, steps=steps, carry=carry, caps=caps, staged=staged)
+    pool, locks, counters = eng.dsm.pool, eng.dsm.locks, eng.dsm.counters
+    box = {"carry": carry}
+
+    def one():
+        box["carry"] = step.drain(step(pool, locks, counters, *staged,
+                                       box["carry"])[2])
+
+    rec["host_syncs_per_step"] = count_syncs(one)
+    step.replay = one
+    step.profile = lambda: step.phase_profile(pool, locks, counters,
+                                              *staged, reps=2)[0]
+    return rec, step, box["carry"], caps, staged
+
+
+def prep_breakdown(eng, n_keys: int, salt: int, batch: int, dev_b: int,
+                   staged, reps: int = 5) -> dict:
+    """Device time of each piece of one staged read prep (the analytic
+    sampler), mean of ``reps`` calls between CUDA events: the Threefry
+    draws, the rank sampler, the rank->key map, the combining sort and
+    the router probe."""
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload import threefry
+    N = eng.cfg.machine_nr
+    tb, rt, rk = staged
+    gen, _ = DP._rank_sampler("analytic", n_keys, 0.99, 20, rk.device)
+    nodes = torch.arange(N, dtype=torch.int64, device=rk.device)
+    keys = lambda: threefry.fold_in(rk, nodes)
+    w = threefry.bits(keys(), (2, batch)).transpose(0, 1)
+    rank = gen(tb, w)
+    khi, klo = DP._keys_of_ranks(rank, *DP._words(salt))
+    ukhi, uklo = DP._sort_combine(khi, klo, dev_b)[2:4]
+    pieces = {
+        "threefry": lambda: threefry.bits(keys(), (2, batch)),
+        "ranks": lambda: gen(tb, w),
+        "mix64": lambda: DP._keys_of_ranks(rank, *DP._words(salt)),
+        "sort_combine": lambda: DP._sort_combine(khi, klo, dev_b),
+        "router_probe": lambda: DP._router_probe(
+            rt, ukhi, uklo, eng.router.shift, eng.router.nb)}
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out[name] = a.elapsed_time(b) / reps
+    return out
+
+
+def restore_bulk_values(ctx: dict) -> None:
+    """Write every key the host-staged YCSB-A window updated back to its
+    bulk value ``key ^ 0xDEADBEEF``: the staged loops verify every read
+    against that value (or a value stamped by a staged write)."""
+    from sherman_tpu_torch.models import batched
+    eng, ur = ctx["eng_a"], ctx["updated_ranks"]
+    for i in range(0, ur.size, eng.total):
+        k = keys_of(ur[i:i + eng.total], ctx["salt"])
+        _, _, st = eng.mixed(k, k ^ VAL_XOR, np.zeros(k.size, bool))
+        if not (st == batched.ST_APPLIED).all():
+            raise AssertionError("restoring the bulk values failed")
+
+
+def staged_windows(ctx: dict, path: str, batch_r: int, batch_m: int,
+                   steps: int, must_launch) -> dict:
+    """The four staged loops on ``ctx``'s tree — YCSB-C aligned and
+    pipelined, then YCSB-A chained and pipelined — inside one launch
+    window; then each loop's phase profile and one profiled step, and
+    every launched (kernel, shape) replayed.  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch.bench import size_dev_b
+    eng_c, eng_a = ctx["eng_c"], ctx["eng_a"]
+    n_keys, salt = ctx["n_keys"], ctx["salt"]
+    restore_bulk_values(ctx)
+    recs, steps_of = [], {}
+    with ShapeLog() as log:
+        dev_b, staged = size_dev_b(eng_c, n_keys, 0.99, salt, batch_r,
+                                   "analytic")
+        for fusion in ("aligned", "pipelined"):
+            rec, st = staged_read(eng_c, n_keys, salt, batch_r, dev_b,
+                                  staged, fusion, steps)
+            recs.append(rec)
+            steps_of[("ycsb_c", fusion)] = st
+        carry = caps = staged_m = None
+        for fusion in ("chained", "pipelined"):
+            rec, st, carry, caps, staged_m = staged_mixed(
+                eng_a, n_keys, salt, batch_m, carry, caps, staged_m, fusion,
+                steps, dev_b)
+            recs.append(rec)
+            steps_of[("ycsb_a", fusion)] = st
+    log.check(f"{path} staged", must_launch)
+    _log(f"staged_prep_breakdown_ms_{path}: " + json.dumps(prep_breakdown(
+        eng_c, n_keys, salt, batch_r, dev_b, staged)))
+    # after every receipt-checked window: the mixed phase profile
+    # re-applies one prepped batch
+    for rec in recs:
+        st = steps_of[(rec["loop"], rec["fusion"])]
+        rec["phase_ms"] = st.profile()
+        profile_step(f"staged_{rec['loop']}_{rec['fusion']}_{path}",
+                     st.replay)
+        _log("staged: " + json.dumps(rec))
+    shapes = replay(log, path + "_staged")
+    _log(f"{path} staged parity at every launched shape: exact")
+    return shapes
+
+
+def staged_reference_check(machine_nr: int,
+                           devices=("cuda", "cpu")) -> None:
+    """The staged loops at 20,000 keys on the card and on the plain path
+    on the CPU from one seed (3 steps of each form, ``sampler="table"``):
+    carries, pools, locks and counters bit-identical.  Then the analytic
+    sampler: equal receipts, and the count of ranks the card and the CPU
+    draw differently (their f32 ``exp``/``log`` round differently)."""
+    from sherman_tpu_torch.bench import build
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload import threefry
+    N, n_keys = machine_nr, 20_000
+    bc, bm = 2048 if N == 1 else 1024, 1024 if N == 1 else 512
+    out = []
+    for d in devices:
+        b = build(n_keys, bc * N, bm * N, d, log=lambda m: None,
+                  machine_nr=N, chunk_pages=64)
+        eng_c, eng_a, salt = b["eng_c"], b["eng_a"], b["salt"]
+        dsm = eng_c.dsm
+        carries = []
+        for fusion in ("aligned", "pipelined"):
+            step, (nc, tb, rt, rk) = DP.make_staged_step(
+                eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=bc,
+                dev_b=bc, log2_bins=16, fusion=fusion)
+            c = nc()
+            for _ in range(3):
+                _, c = step(dsm.pool, dsm.counters, tb, rt, rk, c)
+            carries.append(_ints(step.drain(c)))
+        c = None
+        for fusion in ("chained", "pipelined"):
+            step, (nc, tb, rt, rk) = DP.make_staged_mixed_step(
+                eng_a, n_keys=n_keys, theta=0.99, salt=salt, batch=bm,
+                read_ratio=0.5, dev_rb=bm // 2, dev_wb=bm // 2,
+                log2_bins=16, fusion=fusion)
+            c = nc() if c is None else c
+            for _ in range(3):
+                _, _, c = step(dsm.pool, dsm.locks, dsm.counters, tb, rt, rk,
+                               c)
+            c = step.drain(c)
+            carries.append(_ints(c))
+        state = [t.cpu() for t in (dsm.pool, dsm.locks, dsm.counters)]
+        # the analytic sampler on a fresh tree: the card and the CPU may
+        # draw other tail ranks, so its counters are not compared
+        b = build(n_keys, bc * N, bm * N, d, log=lambda m: None,
+                  machine_nr=N, chunk_pages=64)
+        eng, dsm = b["eng_c"], b["eng_c"].dsm
+        step, (nc, tb, rt, rk) = DP.make_staged_step(
+            eng, n_keys=n_keys, theta=0.99, salt=salt, batch=bc, dev_b=bc,
+            sampler="analytic")
+        c = nc()
+        for _ in range(3):
+            _, c = step(dsm.pool, dsm.counters, tb, rt, rk, c)
+        analytic = _ints(c)
+        ranks = []
+        for n in (n_keys, 100_000_000):
+            gen, _ = DP._rank_sampler("analytic", n, 0.99, 20, d)
+            w = threefry.bits(threefry.PRNGKey(11, device=d), (2, 1 << 20))
+            ranks.append(gen(None, w).cpu())
+        out.append((carries, analytic, ranks, state))
+    (ca, aa, ra, sa), (cb, ab, rb, sb) = out
+    if ca != cb or not all(torch.equal(x, y) for x, y in zip(sa, sb)):
+        raise AssertionError(f"staged loops ({N} nodes) on the card "
+                             f"disagree with the plain path: {ca} vs {cb}")
+    for c in ca[:2]:
+        if c[1] != 1 or c[2] != 3 * bc * N:
+            raise AssertionError(f"staged reference receipts {c}")
+    # the mixed forms continue one carry: 3, then 6 steps' reads
+    for k, c in ((1, ca[2]), (2, ca[3])):
+        if c[1] != 1 or c[2] != 3 * k * bm // 2 * N:
+            raise AssertionError(f"staged mixed reference receipts {c}")
+    if aa[:3] != ab[:3] or aa[2] != 3 * bc * N:
+        raise AssertionError(f"analytic receipts differ: {aa} vs {ab}")
+    diffs = [int((x != y).sum()) for x, y in zip(ra, rb)]
+    _log(f"staged reference check ({N} node(s), 20,000 keys, card vs plain "
+         f"path on the CPU, sampler=table): carries {ca}, pools, locks and "
+         f"counters bit-identical; analytic sampler receipts equal "
+         f"({aa[:3]}), ranks drawn differently by the card and the CPU: "
+         f"{diffs[0]} of {1 << 20} at 20,000 keys, {diffs[1]} of {1 << 20} "
+         f"at 100,000,000 keys")
 
 
 def main() -> int:
@@ -990,6 +1233,7 @@ def main() -> int:
     reference_check()
     _log("reference check (one node, 20,000 keys, card vs plain path on the "
          "CPU): pools, locks and counters bit-identical")
+    staged_reference_check(1)
 
     with ShapeLog() as log:
         ctx = serve(n_keys, batch_c, batch_a, steps, "cuda")
@@ -1004,13 +1248,19 @@ def main() -> int:
     ra = np.random.default_rng(5).random(batch_a) < 0.5
     profile_step("ycsb_a", lambda: ctx["eng_a"].mixed(qa, qa ^ VAL_XOR, ra))
     host_breakdown(ctx, batch_c)
-    del ctx, qc, qa
+    del qc, qa
+    for k, v in staged_windows(ctx, "one_node", batch_c, batch_a, steps,
+                               ("descent_round", "gather_pages",
+                                "writeback")).items():
+        shapes.setdefault(k, []).extend(v)
+    del ctx
     gc.collect()
     torch.cuda.empty_cache()
 
     reference_check(machine_nr=8, step_capacity=32, chunk_pages=64)
     _log("reference check (8 nodes, 20,000 keys, step capacity 32, card vs "
          "plain path on the CPU): pools, locks and counters bit-identical")
+    staged_reference_check(8)
     for k, v in multinode(n_keys, batch_c, batch_a, steps).items():
         shapes.setdefault(k, []).extend(v)
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]

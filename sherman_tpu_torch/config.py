@@ -10,6 +10,7 @@ values as (hi, lo) int32 pairs, packed 32-bit page addresses
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from sherman_tpu_torch.errors import ConfigError
 
@@ -134,3 +135,40 @@ class TreeConfig:
     sibling_chase_budget: int = 4
     # Bulk-load leaf fill fraction.
     bulk_fill: float = 0.75
+
+
+# ---------------------------------------------------------------------------
+# Staged serving loop.
+# ---------------------------------------------------------------------------
+
+STAGED_FUSIONS = ("aligned", "pipelined")
+# Program-structure forms of the reference's staged step that the port
+# does not build yet: "chained" folds the receipts into a fused serve
+# program and "fused" compiles the whole step as one XLA program.
+STAGED_FUSIONS_NOT_BUILT = ("chained", "fused")
+
+
+def staged_fusion() -> str:
+    """Structure of the device-staged read step
+    (``workload.device_prep.make_staged_step``), from the
+    ``SHERMAN_STAGED_FUSION`` environment variable:
+
+    - ``aligned`` (default): prep -> serve -> verify, where the serve is
+      the engine's combined-search fan-out (the host-staged serve);
+    - ``pipelined``: the same three phases dispatched as a two-deep
+      pipeline (verify k-1, prep k, serve k); after ``step.drain`` the
+      receipts equal ``aligned``'s.
+
+    ``chained`` and ``fused`` are XLA program-structure forms of the
+    reference that the port does not build yet: they raise."""
+    v = os.environ.get("SHERMAN_STAGED_FUSION", "aligned").lower()
+    if v in STAGED_FUSIONS_NOT_BUILT:
+        raise ConfigError(
+            f"SHERMAN_STAGED_FUSION={v!r}: 'chained' and 'fused' are XLA "
+            "program-structure forms (receipts fused into the serve "
+            "program; the whole step as one program) that the port does "
+            "not build yet; want aligned|pipelined")
+    if v not in STAGED_FUSIONS:
+        raise ConfigError(f"SHERMAN_STAGED_FUSION={v!r}: want "
+                          "aligned|pipelined")
+    return v

@@ -337,12 +337,19 @@ def _lex_order(*keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig):
+def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
+                    update_only: bool = False):
     """Apply routed upserts to their leaf pages (``leaf_page_store``):
     update an existing key in place, or insert into a free slot, writing
     only the touched 5-word entry.  Same-key requests are deduplicated
     (the lowest row index wins).  This slice has no split grants: an
     insert that does not fit reports ST_FULL.
+
+    ``update_only`` is the steady-state update kernel: a winner whose key
+    is absent reports ST_FULL (the caller escalates it to the insert
+    path) instead of inserting, no insert rank is computed, and the
+    write-back carries the 3 words an update changes (version pair, vhi,
+    vlo).
 
     inc: dict of [M] tensors — active, addr (leaf), khi, klo, vhi, vlo.
     Updates ``pool``/``counters`` in place; returns status [M]."""
@@ -364,9 +371,10 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig):
     ok_req = sane & ~locked
 
     found, _, _, fslot = layout.leaf_find_key(pg, khi, klo)
-    free = ~layout.leaf_slot_used(pg)                       # [M, CAP]
-    cumfree = torch.cumsum(free.to(torch.int32), dim=-1)
-    freec = cumfree[:, -1]                                  # page free slots
+    if not update_only:
+        free = ~layout.leaf_slot_used(pg)                   # [M, CAP]
+        cumfree = torch.cumsum(free.to(torch.int32), dim=-1)
+        freec = cumfree[:, -1]                              # page free slots
 
     # --- dedupe + insert rank in one sorted pass -----------------------------
     # rows ordered by (page, key as uint64, row index): groups of the same
@@ -377,47 +385,62 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig):
     uklo = klo.long() & _U32
     sidx = _lex_order(pk, ukhi, uklo)
     sp, skhi, sklo = pk[sidx], ukhi[sidx], uklo[sidx]
-    sfound, sfreec = found[sidx], freec[sidx]
+    sfound = found[sidx]
     sok = sp < P
     same_prev = torch.zeros(M, dtype=torch.bool, device=dev)
     same_prev[1:] = ((sp[1:] == sp[:-1]) & (skhi[1:] == skhi[:-1])
                      & (sklo[1:] == sklo[:-1]) & sok[1:])
     winner_s = sok & ~same_prev
-    need_ins_s = winner_s & ~sfound
-    # rank among the page's fresh inserts: running count minus the count
-    # at the page segment's head
-    page_head = torch.ones(M, dtype=torch.bool, device=dev)
-    page_head[1:] = sp[1:] != sp[:-1]
-    cum = torch.cumsum(need_ins_s.long(), 0)
-    cum_excl = cum - need_ins_s.long()
-    base = torch.cummax(torch.where(page_head, cum_excl, -1), 0).values
-    rank_s = cum_excl - base
-    applied_s = winner_s & (sfound | (rank_s < sfreec))
+    escalate = 2 * M     # update_only's key-absent code, above any rank
+    if update_only:
+        # winners apply iff their key exists; absent-key winners escalate
+        applied_s = winner_s & sfound
+        ins_code_s = torch.full((M,), escalate, dtype=torch.int64,
+                                device=dev)
+    else:
+        sfreec = freec[sidx]
+        need_ins_s = winner_s & ~sfound
+        # rank among the page's fresh inserts: running count minus the
+        # count at the page segment's head
+        page_head = torch.ones(M, dtype=torch.bool, device=dev)
+        page_head[1:] = sp[1:] != sp[:-1]
+        cum = torch.cumsum(need_ins_s.long(), 0)
+        cum_excl = cum - need_ins_s.long()
+        base = torch.cummax(torch.where(page_head, cum_excl, -1), 0).values
+        rank_s = cum_excl - base
+        applied_s = winner_s & (sfound | (rank_s < sfreec))
+        ins_code_s = rank_s
     # hand the group head's verdict to its losers (position-encoded
     # running max: groups are contiguous, heads are winners)
     enc = torch.cummax(torch.where(winner_s, idx0 * 2 + applied_s.long(),
                                    -1), 0).values
     grp_winner_applied = (enc & 1) == 1
     # verdicts: -4 loser whose winner did not apply (retry), -3 dropped,
-    # -2 superseded, -1 winner-found (update), r >= 0 insert rank
+    # -2 superseded, -1 winner-found (update), r >= 0 insert rank,
+    # ``escalate`` update_only's key-absent winner
     code_s = torch.where(
         ~sok, -3,
         torch.where(~winner_s, torch.where(grp_winner_applied, -2, -4),
-                    torch.where(sfound, -1, rank_s)))
+                    torch.where(sfound, -1, ins_code_s)))
     code = torch.empty_like(code_s)
     code[sidx] = code_s                                     # un-sort
     winner_upd = code == -1
     superseded = code == -2
     loser_retry = code == -4
-    winner_ins = code >= 0
-    rank = torch.where(winner_ins, code, 0)
-    have_slot = freec >= (rank + 1)
-    full = winner_ins & ~have_slot
-    applied = winner_upd | (winner_ins & have_slot)
-
-    islot = torch.argmax((cumfree >= (rank + 1)[:, None]).to(torch.uint8),
-                         dim=-1).to(torch.int32)
-    slot = torch.where(found, fslot, islot)
+    if update_only:
+        full = code == escalate
+        applied = winner_upd
+        slot = fslot
+    else:
+        winner_ins = code >= 0
+        rank = torch.where(winner_ins, code, 0)
+        have_slot = freec >= (rank + 1)
+        full = winner_ins & ~have_slot
+        applied = winner_upd | (winner_ins & have_slot)
+        islot = torch.argmax(
+            (cumfree >= (rank + 1)[:, None]).to(torch.uint8),
+            dim=-1).to(torch.int32)
+        slot = torch.where(found, fslot, islot)
 
     # --- single-entry write-back ------------------------------------------------
     ver_blk = pg[:, C.L_VER_W:C.L_VER_W + C.LEAF_CAP]
@@ -427,8 +450,13 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig):
     new_ver = (old_fv + 1) & C.ENTRY_VER_MASK
     new_ver = torch.where(new_ver == 0, 1, new_ver)
     new_pair = layout.ver_pack(new_ver)
-    ent = torch.stack([new_pair, khi, klo, inc["vhi"], inc["vlo"]], dim=-1)
-    lanes = (C.L_VER_W, C.L_KHI_W, C.L_KLO_W, C.L_VHI_W, C.L_VLO_W)
+    if update_only:
+        ent = torch.stack([new_pair, inc["vhi"], inc["vlo"]], dim=-1)
+        lanes = (C.L_VER_W, C.L_VHI_W, C.L_VLO_W)
+    else:
+        ent = torch.stack([new_pair, khi, klo, inc["vhi"], inc["vlo"]],
+                          dim=-1)
+        lanes = (C.L_VER_W, C.L_KHI_W, C.L_KLO_W, C.L_VHI_W, C.L_VLO_W)
     PK.writeback(pool, safe_page.contiguous(), slot.contiguous(),
                  applied.contiguous(), ent.contiguous(), lanes)
 
@@ -442,7 +470,8 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig):
 
     n_app = applied.sum()
     D.count(counters, D.CNT_WRITE_OPS, n_app)
-    D.count(counters, D.CNT_WRITE_WORDS, n_app * C.LEAF_ENTRY_WORDS)
+    D.count(counters, D.CNT_WRITE_WORDS,
+            n_app * (3 if update_only else C.LEAF_ENTRY_WORDS))
     return status
 
 
@@ -454,7 +483,7 @@ def _mark_dirty_pages(dirty, page_idx, active) -> None:
 
 
 def _route_and_apply(pool, locks, counters, dirty, addr, eligible, fields, *,
-                     cfg: DSMConfig):
+                     cfg: DSMConfig, update_only: bool = False):
     """Apply ``eligible`` upserts at their leaf's owner.  One node applies
     directly; with ``machine_nr > 1`` each node bucketizes its rows by
     owner, the request fields are exchanged, every owner applies its
@@ -463,16 +492,19 @@ def _route_and_apply(pool, locks, counters, dirty, addr, eligible, fields, *,
     eligible or missed their bucket's capacity."""
     if cfg.machine_nr > 1:
         return _route_and_apply_nodes(pool, locks, counters, dirty, addr,
-                                      eligible, fields, cfg=cfg)
+                                      eligible, fields, cfg=cfg,
+                                      update_only=update_only)
     inc = {"active": eligible, "addr": addr, **fields}
     if dirty is not None:
         _mark_dirty_pages(dirty, bits.addr_page(addr), eligible)
-    st = leaf_apply_spmd(pool, locks, counters, inc, cfg=cfg)
+    st = leaf_apply_spmd(pool, locks, counters, inc, cfg=cfg,
+                         update_only=update_only)
     return torch.where(eligible, st, ST_RETRY)
 
 
 def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
-                           fields, *, cfg: DSMConfig):
+                           fields, *, cfg: DSMConfig,
+                           update_only: bool = False):
     N, cap = cfg.machine_nr, cfg.step_capacity
     P = cfg.pages_per_node
     nd = lambda x: x.view(N, -1)
@@ -489,7 +521,7 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
             _mark_dirty_pages(dirty[d * P:(d + 1) * P],
                               bits.addr_page(inc_d["addr"]), inc_d["active"])
         st[d] = leaf_apply_spmd(*D.shards(cfg, d, pool, locks, counters),
-                                inc_d, cfg=cfg)
+                                inc_d, cfg=cfg, update_only=update_only)
     rep = T.exchange(st)
     safe_b = torch.where(routed, bucket_idx, 0)
     return torch.where(elig & routed, T.take_local(rep, safe_b),
@@ -498,12 +530,19 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
 
 def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
                     active_r, active_w, start=None, *, cfg: DSMConfig,
-                    iters: int, dirty=None):
+                    iters: int, dirty=None, write_lo: int | None = None,
+                    update_only: bool = False):
     """One fused step of searches (``active_r``) and upserts
     (``active_w``) through a single descent.  Reads that resolve see the
     pre-step pool and writes land at the step boundary, so the serial
     order is (resolved reads) < (writes); reads that overran the budget
     (done_r False) are retried later and may see this step's writes.
+
+    ``write_lo``: when every node's block is laid out ``[reads |
+    writes]`` with its writes in rows ``[write_lo:]``, the apply runs on
+    those rows of each node only (its snapshot gather, dedup sort and
+    write-back cost per row).  ``update_only``: the steady-state update
+    apply (see :func:`leaf_apply_spmd`).
     -> (status [B], done_r [B], found [B], vhi [B], vlo [B])."""
     active = active_r | active_w
     done, addr, found, rvh, rvl = _resolve_leaves(
@@ -512,9 +551,19 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     found = found & done_r
     rvh = torch.where(found, rvh, 0)
     rvl = torch.where(found, rvl, 0)
+    N = cfg.machine_nr
+    lo = 0 if write_lo is None else int(write_lo)
+    # each node's rows [lo:] of a node-major [N*B] tensor
+    w = (lambda x: x) if not lo else \
+        (lambda x: x.view(N, -1)[:, lo:].reshape(-1))
     st_w = _route_and_apply(
-        pool, locks, counters, dirty, addr, done & active_w,
-        {"khi": khi, "klo": klo, "vhi": vhi, "vlo": vlo}, cfg=cfg)
+        pool, locks, counters, dirty, w(addr), w(done & active_w),
+        {"khi": w(khi), "klo": w(klo), "vhi": w(vhi), "vlo": w(vlo)},
+        cfg=cfg, update_only=update_only)
+    if lo:
+        st_w = torch.cat([torch.full((N, lo), ST_INVALID, dtype=st_w.dtype,
+                                     device=st_w.device),
+                          st_w.view(N, -1)], dim=1).view(-1)
     status = torch.where(active_w, st_w, ST_INVALID)
     return status, done_r, found, rvh, rvl
 
@@ -565,6 +614,7 @@ class BatchedEngine:
         self.total = self.cfg.machine_nr * batch_per_node
         self.device = self.dsm.device
         self.router = None
+        self._search_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
 
@@ -659,9 +709,44 @@ class BatchedEngine:
             vals[miss], fnd[miss] = self.search(keys[miss], _depth=_depth + 1)
         return vals, fnd
 
+    def _get_search_fanout(self, iters: int):
+        """The combined-search serve: search over the unique-key rows,
+        then the packed fan-out of every client request's answer.  One
+        function object per ``iters``, shared by :meth:`search_combined`
+        and the device-staged loop
+        (``workload.device_prep.make_staged_step``), so the two serve
+        through one code path.
+
+        ``fn(pool, counters, khi, klo, root, active, start, inv) ->
+        (done, found, vhi, vlo)``: ``done`` per unique row, the rest per
+        client row; ``inv`` holds each client's unique row, a global
+        index into the node-major answer table with several nodes (each
+        node's answers are gathered for every node, as the reference's
+        all-gather does).  ``counters`` is updated in place."""
+        fn = self._search_cache.get(("fanout", iters))
+        if fn is None:
+            cfg = self.cfg
+            N = cfg.machine_nr
+
+            def fn(pool, counters, khi, klo, root, active, start, inv):
+                done, found, vhi, vlo = search_routed_spmd(
+                    pool, counters, khi, klo, root, active, start, cfg=cfg,
+                    iters=iters)
+                # one gather of packed [U, 3] rows per client (the
+                # reference's table adds a zero fourth lane, TPU padding)
+                ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
+                if N > 1:
+                    ans = T.gather_rows(ans.view(N, -1, 3))
+                out = ans[inv.clamp(0, ans.shape[0] - 1)]
+                return done, out[:, 0] != 0, out[:, 1], out[:, 2]
+
+            self._search_cache[("fanout", iters)] = fn
+        return fn
+
     def search_combined(self, keys) -> tuple[np.ndarray, np.ndarray]:
         """Batched lookup with request combining: duplicate keys share one
-        descent, and every request's answer is fanned out on the device.
+        descent, and every request's answer is fanned out on the device
+        (through :meth:`_get_search_fanout`).
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
         uk, inv = np.unique(keys, return_inverse=True)
@@ -675,21 +760,16 @@ class BatchedEngine:
         start = self._dev(self.router.host_start(khi, klo))
         kt, lt = self._dev(khi), self._dev(klo)
         inv_t = self._dev(inv.astype(np.int64))
+        fn = self._get_search_fanout(self._iters())
         with self._step_mutex:
-            done, found, vhi, vlo = search_routed_spmd(
+            done, found, vhi, vlo = fn(
                 self.dsm.pool, self.dsm.counters, kt, lt,
-                self.tree._root_addr, active, start, cfg=self.cfg,
-                iters=self._iters())
-        # packed answer fan-out: one gather of [U, 3] rows per request;
-        # with several nodes, from the all-gathered table by global index
-        # (the reference's table adds a zero fourth lane, TPU padding)
-        ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
-        if self.cfg.machine_nr > 1:
-            ans = T.gather_rows(ans.view(self.cfg.machine_nr, self.B, 3))
-        ans = ans[inv_t]
+                self.tree._root_addr, active, start, inv_t)
         if not bool(done[:uk.size].all()):
             vals, fnd = self.search(uk)      # straggler rescue
             return vals[inv], fnd[inv]
+        # one device-to-host copy of the packed answers
+        ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
         ans = ans.cpu().numpy()
         return bits.pairs_to_keys(ans[:, 1], ans[:, 2]), ans[:, 0] != 0
 

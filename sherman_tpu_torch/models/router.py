@@ -33,6 +33,11 @@ class LeafRouter:
         self._mu = threading.Lock()
         tree.router = self
 
+    def _read_locked(self):
+        """Context that holds (shift, table) still while it is open: the
+        staged loop copies ``table_np`` under it."""
+        return self._mu
+
     # -- maintenance ---------------------------------------------------------
 
     def seed_from_leaves(self, leaf_addrs: np.ndarray,

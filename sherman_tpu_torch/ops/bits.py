@@ -168,3 +168,97 @@ def mix64_np(x: np.ndarray) -> np.ndarray:
     x *= np.uint64(0x94D049BB133111EB)
     x ^= x >> np.uint64(31)
     return x
+
+
+# -- 64-bit pair arithmetic on uint32 words ------------------------------------
+# The device-resident workload generator composes a few uint64 operations
+# (the splitmix64 finalizer, the router's bucket shift) from (hi, lo) uint32
+# words.  Torch has no unsigned 32-bit type, so here a word is an int64
+# tensor holding a value in [0, 2^32): every sum and shift is masked back
+# to 32 bits, and a 32x32-bit product is built from 16-bit limbs, whose
+# partial products fit in 32 bits (a full product would overflow int64's
+# sign).  Shift amounts of the static forms are Python ints.
+
+U32_MASK = _U32_MASK
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns (or any integer tensor) -> uint32 words in int64."""
+    return x.to(torch.int64) & _U32_MASK
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 words in int64 -> the same bits as int32."""
+    return x.to(torch.int32)
+
+
+def u32_mul_full(a, b):
+    """Full 32x32 -> 64-bit product of uint32 words via 16-bit limbs:
+    returns (hi, lo) words."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    p00, p01 = a0 * b0, a0 * b1
+    p10, p11 = a1 * b0, a1 * b1
+    t = (p00 >> 16) + (p01 & 0xFFFF) + (p10 & 0xFFFF)
+    lo = (p00 & 0xFFFF) | ((t & 0xFFFF) << 16)
+    hi = (p11 + (p01 >> 16) + (p10 >> 16) + (t >> 16)) & _U32_MASK
+    return hi, lo
+
+
+def _u32_mul_lo(a, b):
+    """Low word of the product of two uint32 words (the wrapping uint32
+    multiply); the limb cross terms stay below 2^49."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    return (a0 * b0 + ((a0 * b1 + a1 * b0) << 16)) & _U32_MASK
+
+
+def u64_mul(ahi, alo, bhi, blo):
+    """(ahi, alo) * (bhi, blo) mod 2^64 -> (hi, lo) words.  The cross
+    terms reach only the high word, so their low words suffice."""
+    hi, lo = u32_mul_full(alo, blo)
+    hi = (hi + _u32_mul_lo(alo, bhi) + _u32_mul_lo(ahi, blo)) & _U32_MASK
+    return hi, lo
+
+
+def u64_shr(hi, lo, s: int):
+    """Logical right shift of a (hi, lo) word pair by a static ``s``."""
+    if s == 0:
+        return hi, lo
+    if s < 32:
+        return hi >> s, ((lo >> s) | (hi << (32 - s))) & _U32_MASK
+    if s == 32:
+        return torch.zeros_like(hi), hi
+    return torch.zeros_like(hi), hi >> (s - 32)
+
+
+def u64_shr_dyn(hi, lo, s):
+    """Logical right shift of a (hi, lo) word pair by a tensor shift
+    ``s`` (0 <= s <= 63, broadcast against the words).  Each branch
+    shifts by an amount clamped into range and ``torch.where`` picks."""
+    s = torch.as_tensor(s, dtype=torch.int64, device=hi.device)
+    s_lo = s.clamp(max=31)
+    s_hi = torch.where(s >= 32, s - 32, 0)
+    lo_small = ((lo >> s_lo) | (hi << (32 - s_lo))) & _U32_MASK
+    big = s >= 32
+    out_hi = torch.where(big, 0, hi >> s_lo)
+    out_lo = torch.where(big, hi >> s_hi, lo_small)
+    return out_hi, out_lo
+
+
+_MIX64_C1 = (0xBF58476D, 0x1CE4E5B9)  # splitmix64 finalizer constants
+_MIX64_C2 = (0x94D049BB, 0x133111EB)
+
+
+def mix64_pair(hi, lo):
+    """splitmix64 finalizer on (hi, lo) uint32 words — the device twin of
+    :func:`mix64_np`, so a device-generated batch hits exactly the keys
+    the bulk load wrote."""
+    h, l = u64_shr(hi, lo, 30)
+    hi, lo = hi ^ h, lo ^ l
+    hi, lo = u64_mul(hi, lo, _MIX64_C1[0], _MIX64_C1[1])
+    h, l = u64_shr(hi, lo, 27)
+    hi, lo = hi ^ h, lo ^ l
+    hi, lo = u64_mul(hi, lo, _MIX64_C2[0], _MIX64_C2[1])
+    h, l = u64_shr(hi, lo, 31)
+    return hi ^ h, lo ^ l

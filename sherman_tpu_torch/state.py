@@ -17,12 +17,14 @@ from sherman_tpu_torch.config import DSMConfig, PAGE_WORDS, TreeConfig
 from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.models.batched import BatchedEngine
 from sherman_tpu_torch.models.btree import Tree
+from sherman_tpu_torch.models.router import LeafRouter
 from sherman_tpu_torch.parallel.dsm import N_COUNTERS
 
 
 def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
                     leaf_dir=None, *, device, batch_per_node: int = 1024,
-                    tcfg: TreeConfig | None = None, **cfg_kw):
+                    tcfg: TreeConfig | None = None, router_table=None,
+                    router_shift: int | None = None, **cfg_kw):
     """-> (cluster, tree, engine) whose pool, locks, counters, root and
     allocator high-water marks equal the given arrays'.
 
@@ -31,8 +33,12 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
     ``counters`` ``[N*N_COUNTERS]`` uint32; ``alloc_next`` holds each
     node's ``GlobalAllocator.pages_used`` (one int for one node), and its
     length is ``N``.  ``leaf_dir`` optionally the bulk-load leaf
-    directory ``(addrs, lows)`` that seeds the router.  Extra keyword
-    arguments go to :class:`DSMConfig`."""
+    directory ``(addrs, lows)`` that seeds the router.  ``router_table``
+    optionally the reference router's ``table_np`` (a power-of-two number
+    of int32 start addresses) with its ``router_shift``: the engine gets
+    a router holding exactly that table, so a staged loop carried across
+    probes the same start pages.  Extra keyword arguments go to
+    :class:`DSMConfig`."""
     # writable host copies only where needed: torch refuses to wrap the
     # read-only buffers np.asarray gives for a JAX array
     pool = np.require(pool, np.int32, ("C", "W"))
@@ -76,5 +82,25 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
                                np.asarray(leaf_dir[1], np.uint64).copy())
     cluster.broadcast_new_root(tree._root_addr, tree._root_level)
     engine = BatchedEngine(tree, batch_per_node=batch_per_node, tcfg=tcfg)
+    if router_table is not None:
+        engine.router = _router_of(tree, router_table, router_shift)
     return cluster, tree, engine
+
+
+def _router_of(tree, table, shift):
+    """A :class:`LeafRouter` of ``tree`` holding ``table`` and ``shift``
+    as they are."""
+    table = np.array(table, np.int32).ravel()
+    nb = table.shape[0]
+    if nb < 2 or nb & (nb - 1):
+        raise ConfigError(f"router_table of {nb} entries: want a power of "
+                          "two >= 2")
+    lb = nb.bit_length() - 1
+    if shift is None or not 0 <= int(shift) <= 64 - lb:
+        raise ConfigError(f"router_shift={shift!r}: want 0..{64 - lb} "
+                          "beside router_table")
+    r = LeafRouter(tree, lb)
+    with r._read_locked():
+        r.table_np, r.shift = table, int(shift)
+    return r
 

@@ -292,3 +292,68 @@ def test_multinode_path_on_the_card_matches_the_plain_path(dev):
     assert launched["exchange"] > 0 and launched["gather_pages"] > 0
     assert launched["writeback"] > 0
     assert not any(runs["cpu"][3].values())
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_staged_loops_on_the_card_match_the_plain_path(dev, machine_nr):
+    """The device-staged read loop (aligned, pipelined) and mixed loop
+    (chained, pipelined) at 20,000 keys with the quantile-table sampler:
+    the card and the CPU leave the same carries, pool, locks and
+    counters, the card through its kernels."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.workload import device_prep as DP
+
+    N, n_keys, salt = machine_nr, 20_000, 0x5E17AB1E5A17
+    B = 2048 if N == 1 else 512
+    keys = bits.mix64_np(np.arange(n_keys, dtype=np.uint64)
+                         ^ np.uint64(salt))
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=2048 // N * 2,
+                               locks_per_node=1024, step_capacity=B,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=B,
+                                    tcfg=TreeConfig(sibling_chase_budget=1))
+        batched.bulk_load(tree, keys, keys ^ np.uint64(0xDEADBEEF), fill=0.8)
+        eng.attach_router()
+        dsm = cl.dsm
+        PK.reset_launches()
+        TK.reset_launches()
+        carries = []
+        for fusion in ("aligned", "pipelined"):
+            step, (nc, tb, rt, rk) = DP.make_staged_step(
+                eng, n_keys=n_keys, theta=0.99, salt=salt, batch=B,
+                dev_b=B, log2_bins=16, fusion=fusion)
+            assert step.jserve is eng._get_search_fanout(eng._iters())
+            c = nc()
+            for _ in range(3):
+                _, c = step(dsm.pool, dsm.counters, tb, rt, rk, c)
+            carries.append([int(x) for x in step.drain(c)])
+        c = None
+        for fusion in ("chained", "pipelined"):
+            step, (nc, tb, rt, rk) = DP.make_staged_mixed_step(
+                eng, n_keys=n_keys, theta=0.99, salt=salt, batch=B,
+                read_ratio=0.5, dev_rb=B // 2, dev_wb=B // 2, log2_bins=16,
+                fusion=fusion)
+            c = nc() if c is None else c
+            for _ in range(3):
+                _, _, c = step(dsm.pool, dsm.locks, dsm.counters, tb, rt, rk,
+                               c)
+            c = step.drain(c)
+            carries.append([int(x) for x in c])
+        runs[d] = (carries, dsm.pool.cpu(), dsm.locks.cpu(),
+                   dsm.counters.cpu(), {**PK.LAUNCHES, **TK.LAUNCHES})
+    (ca, *sa, la), (cb, *sb, lb) = runs["cuda"], runs["cpu"]
+    assert ca == cb
+    assert ca[0][:3] == ca[1][:3] == [3, 1, 3 * B * N]
+    assert ca[3][:4] == [6, 1, 6 * B // 2 * N, 6 * B // 2 * N]
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+    assert la["gather_pages"] > 0 and la["writeback"] > 0
+    assert la["descent_round" if N == 1 else "exchange"] > 0
+    assert not any(lb.values())
