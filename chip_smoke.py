@@ -69,9 +69,32 @@ on the card) run beside each path:
   then every (kernel, shape) those windows launched replayed as in
   phase 4.
 
+The fresh-insert split storm (``BatchedEngine.insert`` with device leaf
+splits, ``flush_parents`` and the router's split notes), after phase 7,
+in ``tools/insert_bench.py``'s configuration:
+
+8. the storm reference check at 20,000 warm keys (fill 0.9) and 20,000
+   fresh ones (``split_slots`` 256) on 1 and on 8 nodes, card against the
+   plain path on the CPU: stats, pools, locks and counters bit-identical,
+   ``Tree.check_structure`` equal, every key found;
+9. one node: 10,000,000 warm keys ``mix64(rank ^ 0x5E17AB1E5A17)``
+   bulk-loaded at fill 0.9 (values ``key ^ 0xBEEF``) with the router, a
+   524,288-page pool, then 3,000,000 fresh keys (the next ranks, shuffled
+   with numpy seed 13): one warm-up chunk of 16,384 outside the timed
+   window (its host syncs counted), the rest in chunks of 1,048,576
+   through ``eng.insert`` (``split_slots`` 16,384, parents flushed once
+   16,384 are pending); the ``storm`` line (the tool's fields, and the
+   wall split into device rounds, ``_drain_split_log``,
+   ``flush_parents`` and the rest of the host); every one of the 13 M
+   keys searched with ``search_combined``; K1-K3 replayed at every shape
+   the timed window launched, as in phase 4;
+10. eight nodes: the same at 2,000,000 + 600,000 keys, 131,072 rows a
+    node (``reduced`` in its line), K2-K4 replayed.
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
-launch) and around each staged window; in every window the launches are
+launch), around each staged window and around each storm's timed window
+(K1-K3 on one node; K2-K4 on eight); in every window the launches are
 also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -822,7 +845,8 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
     return out
 
 
-PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged")
+PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
+         "one_node_storm", "eight_nodes_storm")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1208,6 +1232,208 @@ def staged_reference_check(machine_nr: int,
          f"{diffs[0]} of {1 << 20} at 20,000 keys, {diffs[1]} of {1 << 20} "
          f"at 100,000,000 keys")
 
+# ---------------------------------------------------------------------------
+# The fresh-insert split storm (``tools/insert_bench.py``'s configuration).
+# ---------------------------------------------------------------------------
+
+STORM_SALT = 0x5E17AB1E5A17
+STORM_XOR = np.uint64(0xBEEF)
+
+
+def storm_build(n_warm: int, n_fresh: int, device: str, *,
+                machine_nr: int = 1, batch: int = 1 << 20,
+                split_slots: int = 16_384, fill: float = 0.9,
+                locks_per_node: int = 65_536, chunk_pages: int = 4096,
+                host_step_capacity: int = 8192, log=_log) -> dict:
+    """The split storm's tree, sized as ``tools/insert_bench.py`` sizes it:
+    keys ``mix64(rank ^ 0x5E17AB1E5A17)``, the ``n_warm`` lowest ranks
+    bulk-loaded (values ``key ^ 0xBEEF``) at ``fill`` with the router
+    attached, the next ``n_fresh`` ranks shuffled with numpy seed 13; a
+    pool of ``1 << max(14, bits(1.35 x leaves of all keys + 8192))`` pages
+    a node; ``batch`` rows a call (``batch / machine_nr`` a node, the step
+    capacity); ``parent_flush_threshold = split_slots``.
+    -> {tree, eng, warm_ranks, fresh, keys}."""
+    from sherman_tpu_torch import config as C
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    N = machine_nr
+    total = n_warm + n_fresh
+    est = int(total / int(C.LEAF_CAP * fill) * 1.35) + 8192
+    pages = 1 << max(14, (est - 1).bit_length())
+    cfg = DSMConfig(machine_nr=N, pages_per_node=pages,
+                    locks_per_node=locks_per_node, step_capacity=batch // N,
+                    chunk_pages=chunk_pages,
+                    host_step_capacity=host_step_capacity, device=device)
+    tree = Tree(Cluster(cfg))
+    eng = batched.BatchedEngine(tree, batch_per_node=batch // N,
+                                split_slots=split_slots)
+    eng.parent_flush_threshold = eng.split_slots
+    keys = keys_of(np.arange(total, dtype=np.uint64), STORM_SALT)
+    if keys.min() < C.KEY_MIN or keys.max() > C.KEY_MAX:
+        raise AssertionError("the storm key space holds a fence sentinel")
+    warm = np.sort(keys[:n_warm])
+    fresh = keys[n_warm:].copy()
+    np.random.default_rng(13).shuffle(fresh)
+    t = time.perf_counter()
+    stats = batched.bulk_load(tree, warm, warm ^ STORM_XOR, fill=fill)
+    router = eng.attach_router()
+    log(f"storm tree: nodes={N} warm={n_warm} fresh={n_fresh} fill={fill} "
+        f"pages_per_node={pages} batch={batch} split_slots="
+        f"{eng.split_slots} {stats} router_log2_buckets={router.lb} "
+        f"load_s={time.perf_counter() - t:.3f}")
+    return {"tree": tree, "eng": eng, "fresh": fresh, "keys": keys}
+
+
+def verify_all(eng, keys: np.ndarray) -> None:
+    """``search_combined`` every key in batches of the engine's width: each
+    must be found with the value ``key ^ 0xBEEF``."""
+    bad = 0
+    for i in range(0, keys.size, eng.total):
+        k = keys[i:i + eng.total]
+        v, f = eng.search_combined(k)
+        bad += int((~f | (v != (k ^ STORM_XOR))).sum())
+    if bad:
+        raise AssertionError(f"{bad} of {keys.size} keys missing or wrong "
+                             "after the storm")
+
+
+class StormTimers:
+    """Wall time an engine spends in its insert steps (each synced, so the
+    device work is inside), in ``_drain_split_log`` and in
+    ``flush_parents`` (with its descents and host steps), and the
+    flushes that had entries; installed on the instance, removed by
+    :meth:`close`."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.s = {"device_rounds": 0.0, "drain_split_log": 0.0,
+                  "flush_parents": 0.0}
+        self.flushes = 0
+        dev = eng.device
+        get, drain, flush = (eng._get_insert, eng._drain_split_log,
+                             eng.flush_parents)
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                self.s[key] += time.perf_counter() - t
+                return out
+            return call
+
+        def flush_counted():
+            n = flush()
+            self.flushes += n > 0
+            return n
+
+        eng._get_insert = lambda *a, **kw: timed("device_rounds",
+                                                 get(*a, **kw))
+        eng._drain_split_log = timed("drain_split_log", drain)
+        eng.flush_parents = timed("flush_parents", flush_counted)
+
+    def close(self) -> None:
+        for a in ("_get_insert", "_drain_split_log", "flush_parents"):
+            delattr(self.eng, a)
+
+
+def storm(ctx: dict, path: str, chunk: int, must_launch,
+          reduced: list) -> dict:
+    """One warm-up chunk outside the timed window (its host syncs counted
+    on the card), then every other fresh key through ``eng.insert`` in
+    chunks of ``chunk`` inside a launch window; the ``storm`` line; every
+    key searched; every launched (kernel, shape) replayed.
+    -> {kernel: [shapes]}."""
+    eng, fresh = ctx["eng"], ctx["fresh"]
+    w = max(4096, chunk // 64)
+    box = {}
+    warm_up = lambda: box.update(st=eng.insert(fresh[:w],
+                                               fresh[:w] ^ STORM_XOR))
+    syncs = count_syncs(warm_up) if eng.device.type == "cuda" else None
+    if syncs is None:
+        warm_up()
+    ws = {k: v for k, v in box["st"].items() if k != "lock_timeout_keys"}
+    agg = {k: 0 for k in ("applied", "superseded", "host_path", "rounds",
+                          "st_locked", "lock_timeouts", "device_splits")}
+    timers = StormTimers(eng)
+    chunks = 0
+    try:
+        with ShapeLog() as log:
+            t0 = time.perf_counter()
+            for i in range(w, fresh.size, chunk):
+                ck = fresh[i:i + chunk]
+                st = eng.insert(ck, ck ^ STORM_XOR)
+                for k in agg:
+                    agg[k] += st.get(k, 0)
+                chunks += 1
+            elapsed = time.perf_counter() - t0
+    finally:
+        timers.close()
+    log.check(f"{path} storm", must_launch)
+    n_storm = fresh.size - w
+    if agg["applied"] != n_storm or agg["lock_timeouts"]:
+        raise AssertionError(f"{path} storm: {agg} for {n_storm} keys")
+    t = time.perf_counter()
+    verify_all(eng, ctx["keys"])
+    t_verify = time.perf_counter() - t
+    walls = dict(timers.s)
+    walls["other_host"] = elapsed - sum(timers.s.values())
+    _log("storm: " + json.dumps({
+        "path": path, "nodes": eng.cfg.machine_nr,
+        "keys_warm": int(ctx["keys"].size - fresh.size),
+        "keys_fresh": int(n_storm), "chunk": chunk,
+        "split_slots": eng.split_slots, "elapsed_s": elapsed,
+        "fresh_insert_ops_s": n_storm / elapsed,
+        "splits_s": agg["device_splits"] / elapsed,
+        "device_splits": agg["device_splits"],
+        "host_path": agg["host_path"], "st_locked": agg["st_locked"],
+        "lock_timeouts": agg["lock_timeouts"],
+        "rounds_per_chunk": agg["rounds"] / max(1, chunks),
+        "rounds": agg["rounds"], "chunks": chunks,
+        "parent_flushes": timers.flushes, "wall_s": walls,
+        "host_syncs_per_round": (None if syncs is None
+                                 else syncs / max(1, ws["rounds"])),
+        "warmup_chunk": w, "warmup_stats": ws,
+        "router_splits_noted": eng.router.splits_noted,
+        "verified_keys": int(ctx["keys"].size), "verify_s": t_verify,
+        "reduced": reduced}))
+    return replay(log, path)
+
+
+def storm_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """The storm at 20,000 warm keys (fill 0.9) and 20,000 fresh keys
+    (``split_slots`` 256, one ``eng.insert`` call) on the card and on the
+    plain path on the CPU from one seed: the stats, pools, locks and
+    counters bit-identical, ``Tree.check_structure`` equal and every key
+    found on both."""
+    N = machine_nr
+    out = []
+    for d in devices:
+        ctx = storm_build(20_000, 20_000, d, machine_nr=N,
+                          batch=2048, split_slots=256, locks_per_node=4096,
+                          chunk_pages=64, host_step_capacity=64,
+                          log=lambda m: None)
+        eng = ctx["eng"]
+        st = eng.insert(ctx["fresh"], ctx["fresh"] ^ STORM_XOR)
+        structure = ctx["tree"].check_structure()
+        verify_all(eng, ctx["keys"])
+        out.append((st, structure, [t.cpu() for t in (
+            eng.dsm.pool, eng.dsm.locks, eng.dsm.counters)]))
+    (sa, ca, xa), (sb, cb, xb) = out
+    if sa != sb or ca != cb or not all(torch.equal(x, y)
+                                       for x, y in zip(xa, xb)):
+        raise AssertionError(f"the storm ({N} nodes) on the card disagrees "
+                             f"with the plain path: {sa} {ca} vs {sb} {cb}")
+    if sa["host_path"] or ca["keys"] != 40_000:
+        raise AssertionError(f"storm reference: {sa} {ca}")
+    _log(f"storm reference check ({N} node(s), 20,000 + 20,000 keys, card "
+         f"vs plain path on the CPU): stats {sa}, structure {ca}; pools, "
+         f"locks and counters bit-identical")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1263,6 +1489,31 @@ def main() -> int:
     staged_reference_check(8)
     for k, v in multinode(n_keys, batch_c, batch_a, steps).items():
         shapes.setdefault(k, []).extend(v)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    storm_reference_check(1)
+    storm_reference_check(8)
+    ctx = storm_build(10_000_000, 3_000_000, "cuda")
+    for k, v in storm(ctx, "one_node_storm", 1 << 20,
+                      ("descent_round", "gather_pages", "writeback"),
+                      []).items():
+        shapes.setdefault(k, []).extend(v)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = storm_build(2_000_000, 600_000, "cuda", machine_nr=8)
+    for k, v in storm(ctx, "eight_nodes_storm", 1 << 20,
+                      ("gather_pages", "writeback", "exchange"),
+                      ["keys_warm 10,000,000 -> 2,000,000 and keys_fresh "
+                       "3,000,000 -> 600,000 (the same 30% growth at fill "
+                       "0.9), for the smoke's time limit",
+                       "1,048,576 rows a call as 8 nodes of 131,072 "
+                       "(step_capacity 131,072), not 1,048,576 a node"]
+                      ).items():
+        shapes.setdefault(k, []).extend(v)
+    del ctx
+    _log("storm parity at every launched shape (K1-K4): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     smi = subprocess.run(

@@ -23,6 +23,8 @@ class ClientContext:
 
     client_id: int
     alloc: LocalAllocator
+    # lease epoch of this client's lock acquisitions (bumped by
+    # Cluster.expire_client: a lock word holding an old epoch is revocable)
     epoch: int = 1
 
     @property
@@ -46,15 +48,39 @@ class Cluster:
         self.directories = [Directory(n, cfg) for n in self.node_ids]
         # one process drives every node: host ops go straight to the DSM
         self.host_dsm = self.dsm
+        # The node-local ticket tier of the hierarchical lock needs the
+        # reference's native library, which the port does not carry: host
+        # Tree clients take the global lock words directly (the
+        # reference's behaviour when its native library is absent).
+        self.local_locks = None
         self._next_client = 0
+        # lock-lease epoch table: owner tag -> current lease epoch of every
+        # registered client; a lock word whose (owner, epoch) is absent or
+        # stale here belongs to a dead client and may be revoked
+        self.lease_epochs: dict[int, int] = {}
         self.keeper.barrier("DSM-init")
 
     def register_client(self) -> ClientContext:
-        """Per-client context (``DSM::registerThread``)."""
+        """Per-client context (``DSM::registerThread``); records its lease
+        epoch."""
         cid = self._next_client
         self._next_client += 1
-        return ClientContext(client_id=cid,
-                             alloc=LocalAllocator(self.directories))
+        ctx = ClientContext(client_id=cid,
+                            alloc=LocalAllocator(self.directories))
+        self.lease_epochs[ctx.tag] = ctx.epoch
+        return ctx
+
+    def lease_is_live(self, owner_tag: int, epoch: int) -> bool:
+        """True iff a lock word's (owner, epoch) names a live lease: the
+        tag is registered and the epoch is its current one."""
+        return self.lease_epochs.get(int(owner_tag)) == int(epoch)
+
+    def expire_client(self, owner_tag: int) -> None:
+        """Declare a client's current lease dead: bump its epoch so a lock
+        word it still holds fails :meth:`lease_is_live` and becomes
+        revocable."""
+        t = int(owner_tag)
+        self.lease_epochs[t] = self.lease_epochs.get(t, 0) + 1
 
     def broadcast_new_root(self, addr: int, level: int) -> None:
         """NEW_ROOT: update the directories' advisory root hints."""

@@ -127,14 +127,22 @@ KEY_MAX = KEY_POS_INF - 1
 
 @dataclasses.dataclass(frozen=True)
 class TreeConfig:
-    """Tree-level knobs the one-node serving path reads."""
+    """Tree-level knobs of the batched engine."""
 
     # Max tree height the batched descents loop over.
     max_level: int = 8
     # Extra descent iterations budgeted for B-link sibling chases per op.
     sibling_chase_budget: int = 4
+    # Rounds of the engine's insert retry loop before the host path (the
+    # loop runs on while rounds make progress, up to 16x this).
+    insert_rounds: int = 16
     # Bulk-load leaf fill fraction.
     bulk_fill: float = 0.75
+    # Every this-many consecutive rounds an insert row stays blocked on a
+    # held page lock, the engine probes the lease table and revokes a dead
+    # holder's lock; rows still blocked by a live holder when the round
+    # budget runs out are rejected with ST_LOCK_TIMEOUT.
+    lock_retry_rounds: int = 3
 
 
 # ---------------------------------------------------------------------------

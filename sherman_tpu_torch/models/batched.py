@@ -24,6 +24,11 @@ Consistency is the reference's: a step's reads see one snapshot of the
 pool, its writes land together at the step boundary, and same-key writes
 in a step are linearized by request order (the lowest index wins).
 
+Inserts run in rounds (``BatchedEngine.insert``): a leaf that overflows
+splits on its owner into a page the host granted before the round, and
+the split log defers the parent entries to ``flush_parents``; rows the
+rounds cannot place fall back to the host ``Tree`` path.
+
 The reference's ``lax.while_loop`` with a data-dependent exit is a Python
 loop here that reads one pending count back per round (one host sync per
 descent round; ROADMAP.md lists removing it).
@@ -31,14 +36,17 @@ descent round; ROADMAP.md lists removing it).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import time
 
 import numpy as np
 import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import ConfigError, KeyRangeError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError, KeyRangeError
 from sherman_tpu_torch.models.btree import META_ADDR
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
@@ -54,6 +62,8 @@ ST_LOCKED = 4       # page lock held -> retry
 ST_RETRY = 5        # descent incomplete / winner did not apply -> retry
 ST_BAD = 6          # failed sanity checks (not a level-0 page / fence)
 ST_NOT_FOUND = 7    # delete: key absent
+ST_LOCK_TIMEOUT = 8  # host-side terminal: the key's page lock was still held
+                     # by a LIVE lease when the insert round budget ran out
 
 _PW = C.PAGE_WORDS
 _U32 = 0xFFFFFFFF
@@ -337,13 +347,24 @@ def _lex_order(*keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
-def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
-                    update_only: bool = False):
+def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
+                    cfg: DSMConfig, update_only: bool = False):
     """Apply routed upserts to their leaf pages (``leaf_page_store``):
     update an existing key in place, or insert into a free slot, writing
     only the touched 5-word entry.  Same-key requests are deduplicated
-    (the lowest row index wins).  This slice has no split grants: an
-    insert that does not fit reports ST_FULL.
+    (the lowest row index wins).
+
+    ``fresh``: optional [F] int32 pre-allocated pages of this node (0 = no
+    grant) enabling device leaf splits.  The first overflowing insert
+    winner of a page (its in-page rank equals the page's free-slot count)
+    becomes the page's splitter and takes the next grant; after the
+    write-back the owner sorts the page's slots plus the pending entry,
+    writes the upper half to the fresh right sibling and rewrites the left
+    page with new fences and sibling (:func:`_leaf_split_apply`).  On a
+    splitting page, updates and inserts that fit still apply (the split
+    reads the post-apply page); inserts ranked past the free slots report
+    ST_RETRY.  Without a grant an insert that does not fit reports
+    ST_FULL.
 
     ``update_only`` is the steady-state update kernel: a winner whose key
     is absent reports ST_FULL (the caller escalates it to the insert
@@ -352,7 +373,8 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
     vlo).
 
     inc: dict of [M] tensors — active, addr (leaf), khi, klo, vhi, vlo.
-    Updates ``pool``/``counters`` in place; returns status [M]."""
+    Updates ``pool``/``counters`` in place; returns status [M], and with
+    ``fresh`` also the split log (dict of [F] tensors)."""
     M = inc["addr"].shape[0]
     P = pool.shape[0]
     L = locks.shape[0]
@@ -371,7 +393,9 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
     ok_req = sane & ~locked
 
     found, _, _, fslot = layout.leaf_find_key(pg, khi, klo)
-    if not update_only:
+    if update_only:
+        assert fresh is None, "update_only excludes the split path"
+    else:
         free = ~layout.leaf_slot_used(pg)                   # [M, CAP]
         cumfree = torch.cumsum(free.to(torch.int32), dim=-1)
         freec = cumfree[:, -1]                              # page free slots
@@ -391,7 +415,10 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
     same_prev[1:] = ((sp[1:] == sp[:-1]) & (skhi[1:] == skhi[:-1])
                      & (sklo[1:] == sklo[:-1]) & sok[1:])
     winner_s = sok & ~same_prev
-    escalate = 2 * M     # update_only's key-absent code, above any rank
+    # sorted-space codes: ranks lie below M (at most M rows per page), a
+    # granted splitter holds split_code + its fresh slot, and update_only's
+    # key-absent winner holds escalate
+    split_code, escalate = M, 2 * M
     if update_only:
         # winners apply iff their key exists; absent-key winners escalate
         applied_s = winner_s & sfound
@@ -416,26 +443,47 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
                                    -1), 0).values
     grp_winner_applied = (enc & 1) == 1
     # verdicts: -4 loser whose winner did not apply (retry), -3 dropped,
-    # -2 superseded, -1 winner-found (update), r >= 0 insert rank,
-    # ``escalate`` update_only's key-absent winner
+    # -2 superseded, -1 winner-found (update), r >= 0 insert rank
     code_s = torch.where(
         ~sok, -3,
         torch.where(~winner_s, torch.where(grp_winner_applied, -2, -4),
                     torch.where(sfound, -1, ins_code_s)))
+    if fresh is not None:
+        F = fresh.shape[0]
+        # the page's FIRST overflowing insert (rank == free count) splits,
+        # taking the grant of its running count over the sorted rows
+        splitter_s = need_ins_s & (rank_s == sfreec)
+        sf_idx = torch.cumsum(splitter_s.long(), 0) - 1
+        grant = fresh[sf_idx.clamp(0, F - 1)]
+        granted_s = splitter_s & (sf_idx < F) & (grant != 0)
+        code_s = torch.where(granted_s, split_code + sf_idx, code_s)
     code = torch.empty_like(code_s)
     code[sidx] = code_s                                     # un-sort
     winner_upd = code == -1
     superseded = code == -2
     loser_retry = code == -4
+    splitter = torch.zeros(M, dtype=torch.bool, device=dev)
+    suppressed = splitter
     if update_only:
         full = code == escalate
         applied = winner_upd
         slot = fslot
     else:
-        winner_ins = code >= 0
+        if fresh is not None:
+            splitter = (code >= split_code) & (code < escalate)
+        winner_ins = (code >= 0) & ~splitter
         rank = torch.where(winner_ins, code, 0)
         have_slot = freec >= (rank + 1)
-        full = winner_ins & ~have_slot
+        if fresh is not None:
+            has_split = torch.zeros(P, dtype=torch.bool, device=dev)
+            has_split[safe_page[splitter].long()] = True
+            page_splitting = has_split[safe_page.long()]
+            # inserts past the free slots of a splitting page land in its
+            # halves next round
+            suppressed = winner_ins & page_splitting & ~have_slot
+            full = winner_ins & ~have_slot & ~page_splitting
+        else:
+            full = winner_ins & ~have_slot
         applied = winner_upd | (winner_ins & have_slot)
         islot = torch.argmax(
             (cumfree >= (rank + 1)[:, None]).to(torch.uint8),
@@ -460,19 +508,108 @@ def leaf_apply_spmd(pool, locks, counters, inc, *, cfg: DSMConfig,
     PK.writeback(pool, safe_page.contiguous(), slot.contiguous(),
                  applied.contiguous(), ent.contiguous(), lanes)
 
+    # --- device splits (they read the POST-apply page) -------------------------
+    if fresh is not None:
+        log = _leaf_split_apply(pool, counters, inc, splitter,
+                                code - split_code, fresh, safe_page)
+
     status = torch.full((M,), ST_INVALID, dtype=torch.int32, device=dev)
     status = torch.where(act, ST_BAD, status)
     status = torch.where(act & sane & locked, ST_LOCKED, status)
-    status = torch.where(loser_retry, ST_RETRY, status)
+    status = torch.where(loser_retry | suppressed, ST_RETRY, status)
     status = torch.where(superseded, ST_SUPERSEDED, status)
     status = torch.where(full, ST_FULL, status)
-    status = torch.where(applied, ST_APPLIED, status)
+    status = torch.where(applied | splitter, ST_APPLIED, status)
 
     n_app = applied.sum()
     D.count(counters, D.CNT_WRITE_OPS, n_app)
     D.count(counters, D.CNT_WRITE_WORDS,
             n_app * (3 if update_only else C.LEAF_ENTRY_WORDS))
+    if fresh is not None:
+        return status, log
     return status
+
+
+def _leaf_split_apply(pool, counters, inc, splitter, fidx, fresh,
+                      safe_page) -> dict:
+    """Execute the granted leaf splits in a compacted [F] buffer, in place.
+
+    ``splitter``/``fidx`` select the granted rows and their fresh slots.
+    Each split reads the POST-apply page (this step's fitting inserts and
+    updates have landed, so the page splits exactly full), sorts its
+    ``LEAF_CAP`` slots plus the pending entry by key with dead slots last,
+    keeps the lower half on the left page and writes the upper half to the
+    fresh right sibling; both are whole-page rewrites.  Returns the log
+    for the lazy parent insert and the router: valid, skhi/sklo (split
+    key), new_addr, old_hhi/old_hlo (the left page's old high fence)."""
+    M = splitter.shape[0]
+    P = pool.shape[0]
+    F = fresh.shape[0]
+    CAP = C.LEAF_CAP
+    dev = pool.device
+
+    # the granted rows in row order, padded with M to F slots (at most F
+    # rows are granted); a stable sort keeps the compaction on the device
+    order = torch.argsort((~splitter).to(torch.uint8), stable=True)[:F]
+    sidx2 = torch.full((F,), M, dtype=torch.int64, device=dev)
+    sidx2[:order.shape[0]] = torch.where(splitter[order], order, M)
+    valid = sidx2 < M
+    ci = sidx2.clamp(0, M - 1)
+    left_row = safe_page[ci].long()
+    spg = pool[left_row]                           # [F, PW] POST-apply
+    pkhi, pklo = inc["khi"][ci], inc["klo"][ci]
+    pvhi, pvlo = inc["vhi"][ci], inc["vlo"][ci]
+    new_addr = fresh[fidx[ci].clamp(0, F - 1)]
+    right_row = bits.addr_page(new_addr).clamp(0, P - 1).long()
+    valid = valid & (new_addr != 0)
+
+    # sort the slots + pending entry by key as uint64 (one stable sort on
+    # the sign-flipped int64 word); dead slots take the largest word, so
+    # sorted column j is live iff j < n
+    sv = layout.leaf_slots_view(spg)
+    live = torch.cat([layout.leaf_slot_used(spg),
+                      torch.ones((F, 1), dtype=torch.bool, device=dev)], 1)
+    cat = lambda blk, pend: torch.cat([blk, pend[:, None]], dim=1)
+    k_hi, k_lo = cat(sv["khi"], pkhi), cat(sv["klo"], pklo)
+    v_hi, v_lo = cat(sv["vhi"], pvhi), cat(sv["vlo"], pvlo)
+    word = bits._ux(k_hi).long() * (1 << 32) + (k_lo.long() & _U32)
+    word = torch.where(live, word, torch.iinfo(torch.int64).max)
+    perm = torch.sort(word, dim=1, stable=True).indices
+    gkh, gkl, gvh, gvl = (x.gather(1, perm) for x in (k_hi, k_lo, v_hi, v_lo))
+
+    n = live.sum(1).to(torch.int32)                # live incl pending
+    m = n // 2                                     # left keeps m entries
+    cols = torch.arange(CAP + 1, dtype=torch.int32, device=dev)[None, :]
+    at_m = cols == m[:, None]                      # split key: column m
+    skhi = torch.where(at_m, gkh, 0).sum(1).to(torch.int32)
+    sklo = torch.where(at_m, gkl, 0).sum(1).to(torch.int32)
+
+    colsC = cols[:, :CAP]
+    l_live = colsC < m[:, None]
+    ridx = (m[:, None] + colsC).clamp(0, CAP).long()
+    r_live = colsC < (n - m)[:, None]
+    take = lambda a: a.gather(1, ridx)
+
+    old_ver = spg[:, C.W_FRONT_VER]
+    bumped = ((old_ver.long() + 1) & 0x7FFFFFFF).to(torch.int32)
+    lver = torch.where(bumped == 0, 1, bumped)
+    old_hhi, old_hlo = spg[:, C.W_HIGH_HI], spg[:, C.W_HIGH_LO]
+    left = _leaf_pages(gkh[:, :CAP], gkl[:, :CAP], gvh[:, :CAP],
+                       gvl[:, :CAP], l_live, lver, spg[:, C.W_LOW_HI],
+                       spg[:, C.W_LOW_LO], skhi, sklo, new_addr)
+    right = _leaf_pages(take(gkh), take(gkl), take(gvh), take(gvl), r_live,
+                        torch.ones(F, dtype=torch.int32, device=dev), skhi,
+                        sklo, old_hhi, old_hlo, spg[:, C.W_SIBLING])
+    # both halves land together at the step boundary
+    pool[right_row[valid]] = right[valid]
+    pool[left_row[valid]] = left[valid]
+
+    n_valid = valid.sum()
+    D.count(counters, D.CNT_WRITE_OPS, n_valid * 2)
+    D.count(counters, D.CNT_WRITE_WORDS, n_valid * (2 * _PW))
+    return {"valid": valid, "skhi": skhi, "sklo": sklo,
+            "new_addr": torch.where(valid, new_addr, 0),
+            "old_hhi": old_hhi, "old_hlo": old_hlo}
 
 
 def _mark_dirty_pages(dirty, page_idx, active) -> None:
@@ -482,29 +619,36 @@ def _mark_dirty_pages(dirty, page_idx, active) -> None:
     dirty[page_idx[sel].long()] = True
 
 
-def _route_and_apply(pool, locks, counters, dirty, addr, eligible, fields, *,
-                     cfg: DSMConfig, update_only: bool = False):
-    """Apply ``eligible`` upserts at their leaf's owner.  One node applies
-    directly; with ``machine_nr > 1`` each node bucketizes its rows by
-    owner, the request fields are exchanged, every owner applies its
-    source-major incoming buffer on its own shard, and the statuses are
-    exchanged back.  Returns status [B], ST_RETRY for rows that were not
+def _route_and_apply(pool, locks, counters, dirty, apply_fn, addr, eligible,
+                     fields, *, cfg: DSMConfig, fresh=None):
+    """Apply ``eligible`` requests at their leaf's owner with ``apply_fn``
+    (``apply_fn(pool, locks, counters, inc, fresh, cfg=cfg)``, returning
+    the status or ``(status, extra)``).  One node applies directly; with
+    ``machine_nr > 1`` each node bucketizes its rows by owner, the request
+    fields are exchanged, every owner applies its source-major incoming
+    buffer on its own shard (with its own slice of the node-major
+    ``fresh``), and the statuses are exchanged back.  ``extra`` (the split
+    log) stays with its owner: node-major, not routed back.  Returns
+    (status [B], extra); status is ST_RETRY for rows that were not
     eligible or missed their bucket's capacity."""
     if cfg.machine_nr > 1:
-        return _route_and_apply_nodes(pool, locks, counters, dirty, addr,
-                                      eligible, fields, cfg=cfg,
-                                      update_only=update_only)
+        return _route_and_apply_nodes(pool, locks, counters, dirty,
+                                      apply_fn, addr, eligible, fields,
+                                      cfg=cfg, fresh=fresh)
     inc = {"active": eligible, "addr": addr, **fields}
     if dirty is not None:
         _mark_dirty_pages(dirty, bits.addr_page(addr), eligible)
-    st = leaf_apply_spmd(pool, locks, counters, inc, cfg=cfg,
-                         update_only=update_only)
-    return torch.where(eligible, st, ST_RETRY)
+    st, extra = _split_out(apply_fn(pool, locks, counters, inc, fresh,
+                                    cfg=cfg))
+    return torch.where(eligible, st, ST_RETRY), extra
 
 
-def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
-                           fields, *, cfg: DSMConfig,
-                           update_only: bool = False):
+def _split_out(out):
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _route_and_apply_nodes(pool, locks, counters, dirty, apply_fn, addr,
+                           eligible, fields, *, cfg: DSMConfig, fresh=None):
     N, cap = cfg.machine_nr, cfg.step_capacity
     P = cfg.pages_per_node
     nd = lambda x: x.view(N, -1)
@@ -515,17 +659,54 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, addr, eligible,
     inc = T.exchange({k: T.scatter_to_buckets(v, bucket_idx, N * cap)
                       for k, v in out.items()})
     st = torch.empty((N, N * cap), dtype=torch.int32, device=pool.device)
+    extras = []
     for d in range(N):
         inc_d = {k: v[d] for k, v in inc.items()}
         if dirty is not None:
             _mark_dirty_pages(dirty[d * P:(d + 1) * P],
                               bits.addr_page(inc_d["addr"]), inc_d["active"])
-        st[d] = leaf_apply_spmd(*D.shards(cfg, d, pool, locks, counters),
-                                inc_d, cfg=cfg, update_only=update_only)
+        fresh_d = None if fresh is None else nd(fresh)[d]
+        st[d], extra = _split_out(apply_fn(
+            *D.shards(cfg, d, pool, locks, counters), inc_d, fresh_d,
+            cfg=cfg))
+        extras.append(extra)
     rep = T.exchange(st)
     safe_b = torch.where(routed, bucket_idx, 0)
-    return torch.where(elig & routed, T.take_local(rep, safe_b),
-                       ST_RETRY).view(-1)
+    extra = None
+    if extras[0] is not None:
+        extra = {k: torch.cat([e[k] for e in extras]) for k in extras[0]}
+    return (torch.where(elig & routed, T.take_local(rep, safe_b),
+                        ST_RETRY).view(-1), extra)
+
+
+def insert_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
+                     active, start=None, fresh=None, *, cfg: DSMConfig,
+                     iters: int, update_only: bool = False, dirty=None):
+    """One batched insert step: descend, route to the owners, leaf apply.
+
+    With ``fresh`` (node-major pre-allocated pages, ``split_slots`` a
+    node), full leaves split owner-side and the node-major split log is
+    returned too.  ``update_only``: the steady-state update apply (see
+    :func:`leaf_apply_spmd`).  ``dirty``: the dirty-page mask; target
+    leaves and every OFFERED grant are marked (an unconsumed grant is a
+    spare delta row, never a miss).  Updates the state in place; returns
+    status [B], or (status, log) with ``fresh``."""
+    done, addr, _, _, _ = _resolve_leaves(
+        pool, counters, khi, klo, root, active, start, cfg=cfg, iters=iters)
+    if fresh is not None and dirty is not None:
+        N, P = cfg.machine_nr, cfg.pages_per_node
+        for d, f in enumerate(fresh.view(N, -1)):
+            _mark_dirty_pages(dirty[d * P:(d + 1) * P], bits.addr_page(f),
+                              f != 0)
+    status, log = _route_and_apply(
+        pool, locks, counters, dirty,
+        functools.partial(leaf_apply_spmd, update_only=update_only), addr,
+        done, {"khi": khi, "klo": klo, "vhi": vhi, "vlo": vlo}, cfg=cfg,
+        fresh=fresh)
+    status = torch.where(active, status, ST_INVALID)
+    if fresh is not None:
+        return status, log
+    return status
 
 
 def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
@@ -556,10 +737,12 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     # each node's rows [lo:] of a node-major [N*B] tensor
     w = (lambda x: x) if not lo else \
         (lambda x: x.view(N, -1)[:, lo:].reshape(-1))
-    st_w = _route_and_apply(
-        pool, locks, counters, dirty, w(addr), w(done & active_w),
+    st_w, _ = _route_and_apply(
+        pool, locks, counters, dirty,
+        functools.partial(leaf_apply_spmd, update_only=update_only),
+        w(addr), w(done & active_w),
         {"khi": w(khi), "klo": w(klo), "vhi": w(vhi), "vlo": w(vlo)},
-        cfg=cfg, update_only=update_only)
+        cfg=cfg)
     if lo:
         st_w = torch.cat([torch.full((N, lo), ST_INVALID, dtype=st_w.dtype,
                                      device=st_w.device),
@@ -605,7 +788,8 @@ class BatchedEngine:
     buffers and the counters match the reference step for step."""
 
     def __init__(self, tree, batch_per_node: int = 1024,
-                 tcfg: TreeConfig | None = None):
+                 tcfg: TreeConfig | None = None,
+                 split_slots: int | None = None):
         self.tree = tree
         self.dsm = tree.dsm
         self.cfg = tree.cfg
@@ -613,8 +797,23 @@ class BatchedEngine:
         self.B = batch_per_node
         self.total = self.cfg.machine_nr * batch_per_node
         self.device = self.dsm.device
+        # device-split grant slots per node per insert round; unconsumed
+        # grants stay in the host cache and are offered again (pages are
+        # never freed, so dropping them would leak pages every round).  A
+        # split-storm benchmark raises it so one round splits many leaves.
+        self.split_slots = (min(256, batch_per_node) if split_slots is None
+                            else min(split_slots, batch_per_node))
+        # flush the deferred parent entries once this many are pending
+        # (insert() always flushes at its end): 1 flushes every round; a
+        # storm benchmark raises it to about split_slots, since the router's
+        # split notes keep descents short between flushes
+        self.parent_flush_threshold = 1
+        self._fresh_cache: dict[int, list[int]] = {}
+        self._pending_parents: list[tuple[int, int, int]] = []
         self.router = None
         self._search_cache = {}
+        self._insert_cache = {}
+        self._parent_descend_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
 
@@ -779,9 +978,12 @@ class BatchedEngine:
         keys u64 [n], values u64 [n] (ignored where is_read), is_read
         bool [n].  -> (out_values u64 [n], found bool [n] for read rows,
         status int32 [n] for write rows).  Reads that overran the descent
-        budget retry as a later search.  Writes that need a split or a
-        retry (ST_FULL / ST_RETRY / ST_LOCKED) raise NotPortedError: the
-        host insert path comes with the write slice."""
+        budget retry as a later search (they may see this step's writes).
+        Writes that missed the fast path (ST_FULL / ST_RETRY / ST_LOCKED:
+        a split, a stale seed, a held lock) retry through :meth:`insert`,
+        and their status is rewritten to its outcome: the first request of
+        a key APPLIED, later duplicates SUPERSEDED, and ST_LOCK_TIMEOUT
+        where a live lease held the key's lock past the round budget."""
         keys = np.asarray(keys, np.uint64)
         self._check_range(keys)
         values = np.asarray(values, np.uint64)
@@ -810,12 +1012,389 @@ class BatchedEngine:
             out_vals[miss_r], found[miss_r] = self.search(keys[miss_r])
         miss_w = ~is_read & np.isin(status, (ST_FULL, ST_RETRY, ST_LOCKED))
         if miss_w.any():
-            raise NotPortedError(
-                f"{int(miss_w.sum())} write(s) of this mixed step need the "
-                "host insert/split path (statuses FULL/RETRY/LOCKED), which "
-                "comes with the write slice (ROADMAP.md section 1 item 6); "
-                "the step's other writes have landed")
+            st = self.insert(keys[miss_w], values[miss_w])
+            # the rewrite below rests on insert()'s postcondition: every
+            # request ends applied, superseded, applied by the host path
+            # or rejected with ST_LOCK_TIMEOUT
+            resolved = (st["applied"] + st["superseded"] + st["host_path"]
+                        + st["lock_timeouts"])
+            assert resolved == int(miss_w.sum()), (
+                f"insert() postcondition broken: {st} resolved != "
+                f"{int(miss_w.sum())} retried writes")
+            idx_w = np.nonzero(miss_w)[0]
+            first = np.zeros(idx_w.shape[0], bool)
+            first[np.unique(keys[idx_w], return_index=True)[1]] = True
+            status[idx_w[first]] = ST_APPLIED
+            status[idx_w[~first]] = ST_SUPERSEDED
+            if st["lock_timeouts"]:
+                to = np.isin(keys[idx_w],
+                             np.asarray(st["lock_timeout_keys"], np.uint64))
+                status[idx_w[to]] = ST_LOCK_TIMEOUT
         return out_vals, found, status
+
+    # -- insert with device splits ------------------------------------------
+
+    def _get_insert(self, iters: int, with_start: bool,
+                    with_fresh: bool = True, update_only: bool = False):
+        """The insert step ``fn(pool, locks, counters, dirty, khi, klo,
+        vhi, vlo, root, active[, start][, fresh]) -> status`` (``(status,
+        log)`` with ``fresh``), one callable per variant.  ``with_fresh``
+        enables the device splits; rounds that offer no grant run without
+        the split machinery.  ``update_only``: the 3-word update apply."""
+        assert not (update_only and with_fresh)
+        key = (iters, with_start, with_fresh, update_only)
+        fn = self._insert_cache.get(key)
+        if fn is None:
+            cfg = self.cfg
+
+            def fn(pool, locks, counters, dirty, khi, klo, vhi, vlo, root,
+                   active, *rest):
+                start = rest[0] if with_start else None
+                fresh = rest[-1] if with_fresh else None
+                return insert_step_spmd(
+                    pool, locks, counters, khi, klo, vhi, vlo, root, active,
+                    start, fresh, cfg=cfg, iters=iters,
+                    update_only=update_only, dirty=dirty)
+
+            self._insert_cache[key] = fn
+        return fn
+
+    def insert(self, keys, values, max_rounds: int | None = None) -> dict:
+        """Batched upsert with device leaf splits and the host path as the
+        fallback.  Returns stats {applied, superseded, host_path, rounds,
+        st_locked, lock_timeouts, lock_timeout_keys[, device_splits]}:
+        every request ends APPLIED, SUPERSEDED, applied through the host
+        path, or, when a live lease held its page lock past the bounded
+        retry budget, REJECTED with ST_LOCK_TIMEOUT (counted in
+        lock_timeouts, keys in lock_timeout_keys)."""
+        if max_rounds is None:
+            max_rounds = self.tcfg.insert_rounds
+        keys = np.asarray(keys, np.uint64)
+        self._check_range(keys)
+        values = np.asarray(values, np.uint64)
+        n = keys.shape[0]
+        stats = {"applied": 0, "superseded": 0, "host_path": 0, "rounds": 0,
+                 "st_locked": 0, "lock_timeouts": 0, "lock_timeout_keys": []}
+        for i in range(0, n, self.total):
+            self._insert_chunk(keys[i:i + self.total],
+                               values[i:i + self.total], max_rounds, stats)
+        self.flush_parents()
+        return stats
+
+    def _get_parent_descend(self, iters: int, stop_level: int = 1):
+        """``fn(pool, counters, khi, klo, root, active) -> (addr, page,
+        done)``: the descent to ``stop_level``."""
+        key = (iters, stop_level)
+        fn = self._parent_descend_cache.get(key)
+        if fn is None:
+            fn = functools.partial(descend_spmd, cfg=self.cfg, iters=iters,
+                                   stop_level=stop_level)
+            self._parent_descend_cache[key] = fn
+        return fn
+
+    def _descend_to_level(self, keys: np.ndarray, level: int = 1):
+        """Batched root -> level-``level`` descent.  -> (addrs [n],
+        done [n])."""
+        n = keys.shape[0]
+        if n > self.total:
+            parts = [self._descend_to_level(keys[i:i + self.total], level)
+                     for i in range(0, n, self.total)]
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        khi, klo = bits.keys_to_pairs(keys)
+        kt, lt = self._dev(self._pad(khi)), self._dev(self._pad(klo))
+        active = self._dev(self._pad(np.ones(n, bool)))
+        fn = self._get_parent_descend(self._iters(), level)
+        with self._step_mutex:
+            addr, _, done = fn(self.dsm.pool, self.dsm.counters, kt, lt,
+                               self.tree._root_addr, active)
+        return addr.cpu().numpy()[:n], done.cpu().numpy()[:n]
+
+    def flush_parents(self) -> int:
+        """Insert the deferred parent entries of the device splits,
+        batched at every level: per pending level one device descent to
+        that level, one host step that locks and reads every touched
+        internal page, a host merge (an overflowing page splits in the
+        batch, its promoted middle entry joining the next attempt one
+        level up), and one step writing every rebuilt page with all the
+        unlocks.  Root growth goes through the host path.  Searches are
+        correct without any of this (the B-link reaches the new pages);
+        it trims sibling chases.  Returns the entries flushed."""
+        # swap the list out first, so an entry appended meanwhile is kept
+        raw, self._pending_parents = self._pending_parents, []
+        if not raw:
+            return 0
+        return self._flush_parents_drained(raw)
+
+    def _flush_parents_drained(self, raw) -> int:
+        pend = list(raw)
+        tree, dsm = self.tree, self.dsm
+        for _attempt in range(12):
+            if not pend:
+                break
+            tree._refresh_root()
+            # entries above the current root grow the tree (once a level)
+            grow = [t for t in pend if t[2] > tree._root_level]
+            pend = [t for t in pend if t[2] <= tree._root_level]
+            for k, c, lv in grow:
+                tree._insert_parent(int(k), int(c), int(lv), {})
+            if not pend:
+                continue
+
+            next_pend = []
+            for lv in sorted({t[2] for t in pend}):
+                at_lv = [t for t in pend if t[2] == lv]
+                keysu = np.array([k for k, _, _ in at_lv], np.uint64)
+                addrs, done = self._descend_to_level(keysu, lv)
+
+                # lock + read every distinct target page in ONE step; two
+                # pages on one lock word: the second CAS loses and its
+                # entries wait for the next attempt
+                uaddr = [int(a) for a in np.unique(addrs[done])]
+                rows = []
+                for a in uaddr:
+                    la = tree._lock_word_addr(a)
+                    rows.append({"op": D.OP_CAS, "addr": la, "woff": 0,
+                                 "arg0": 0, "arg1": tree.ctx.lease,
+                                 "space": D.SPACE_LOCK})
+                    rows.append({"op": D.OP_READ, "addr": a})
+                rep = dsm._batch(rows)
+                pages, unlock_rows = {}, []
+                for i, a in enumerate(uaddr):
+                    if bool(rep.ok[2 * i]):
+                        pages[a] = np.array(rep.data[2 * i + 1])
+                        unlock_rows.append(tree._unlock_row(
+                            tree._lock_word_addr(a)))
+
+                group = collections.defaultdict(list)
+                for (k, c, _), a, d in zip(at_lv, addrs, done):
+                    if d and int(a) in pages:
+                        group[int(a)].append((int(k), int(c)))
+                    else:
+                        next_pend.append((k, c, lv))
+
+                write_rows, host_fb = [], []
+                for a, ents_new in group.items():
+                    pg = pages[a]
+                    lo, hi = layout.np_lowest(pg), layout.np_highest(pg)
+                    stay = [(k, c) for k, c in ents_new if lo <= k < hi]
+                    next_pend += [(k, c, lv) for k, c in ents_new
+                                  if not (lo <= k < hi)]  # fence moved
+                    if not stay:
+                        continue
+                    ents = sorted(set(layout.np_internal_entries(pg)
+                                      + stay))
+                    if len(ents) <= C.INTERNAL_CAP:
+                        newpg = layout.np_internal_rebuild(pg, ents, lv)
+                        write_rows.append({"op": D.OP_WRITE, "addr": a,
+                                           "woff": 0, "nw": C.PAGE_WORDS,
+                                           "payload": newpg})
+                        continue
+                    if len(ents) > 2 * C.INTERNAL_CAP:
+                        host_fb += stay  # needs more than one split
+                        continue
+                    # split the locked page here: both halves join the
+                    # same write step, the middle entry moves up a level
+                    try:
+                        sib_addr = tree.ctx.alloc.alloc()
+                    except MemoryError:
+                        host_fb += stay
+                        continue
+                    m = len(ents) // 2
+                    up_key, up_child = ents[m]
+                    old_sib = int(pg[C.W_SIBLING])
+                    ver = ((int(pg[C.W_FRONT_VER]) + 1) & 0x7FFFFFFF) or 1
+                    right = layout.np_empty_page(lv, up_key, hi,
+                                                 sibling=old_sib,
+                                                 leftmost=up_child)
+                    for i, (k2, c2) in enumerate(ents[m + 1:]):
+                        layout.np_internal_set_entry(right, i, k2, c2)
+                    right[C.W_NKEYS] = len(ents) - m - 1
+                    left = layout.np_empty_page(
+                        lv, lo, up_key, sibling=sib_addr,
+                        leftmost=int(pg[C.W_LEFTMOST]), version=ver)
+                    for i, (k2, c2) in enumerate(ents[:m]):
+                        layout.np_internal_set_entry(left, i, k2, c2)
+                    left[C.W_NKEYS] = m
+                    write_rows.append({"op": D.OP_WRITE, "addr": sib_addr,
+                                       "woff": 0, "nw": C.PAGE_WORDS,
+                                       "payload": right})
+                    write_rows.append({"op": D.OP_WRITE, "addr": a,
+                                       "woff": 0, "nw": C.PAGE_WORDS,
+                                       "payload": left})
+                    next_pend.append((up_key, sib_addr, lv + 1))
+                if write_rows or unlock_rows:
+                    dsm.write_rows(write_rows + unlock_rows)
+                for k, c in host_fb:
+                    tree._insert_parent(k, c, lv, {})
+            pend = next_pend
+        for k, c, lv in pend:
+            tree._insert_parent(int(k), int(c), int(lv), {})
+        return len(raw)
+
+    def _fill_fresh(self, grant: bool) -> np.ndarray:
+        """Per-node fresh-page grants for the next insert round ([N*F],
+        0 = no grant).  A grant is a page of the node that owns the
+        splitting leaf; unconsumed grants stay cached for the next
+        round."""
+        N, F = self.cfg.machine_nr, self.split_slots
+        arr = np.zeros(N * F, np.int32)
+        if not grant:
+            return arr
+        for nd in range(N):
+            lst = self._fresh_cache.setdefault(nd, [])
+            while len(lst) < F:
+                try:
+                    lst.append(self.tree.ctx.alloc.alloc(node=nd))
+                except (KeyError, MemoryError):
+                    break  # partition exhausted
+            arr[nd * F:nd * F + len(lst[:F])] = lst[:F]
+        return arr
+
+    def _drain_split_log(self, log, stats) -> None:
+        """Apply a round's split log: drop the consumed grants from the
+        cache, note the splits in the router, and queue the parent
+        entries (the B-link already reaches the new pages)."""
+        valid, new_addr, skhi, sklo, ohhi, ohlo = (
+            log[k].cpu().numpy() for k in ("valid", "new_addr", "skhi",
+                                           "sklo", "old_hhi", "old_hlo"))
+        if not valid.any():
+            return
+        new_addr = new_addr[valid]
+        sk = bits.pairs_to_keys(skhi[valid], sklo[valid])
+        oh = bits.pairs_to_keys(ohhi[valid], ohlo[valid])
+        consumed = set(int(a) for a in new_addr)
+        for nd, lst in self._fresh_cache.items():
+            self._fresh_cache[nd] = [a for a in lst if a not in consumed]
+        stats["device_splits"] = stats.get("device_splits", 0) + len(sk)
+        if self.router is not None:
+            self.router.note_splits_batch(sk, new_addr, oh)
+        self._pending_parents += [(int(k), int(a), 1)
+                                  for k, a in zip(sk, new_addr)]
+
+    def _insert_chunk(self, keys, values, max_rounds, stats) -> None:
+        n = keys.shape[0]
+        pending = np.ones(n, bool)
+        # consecutive rounds each row spent blocked on a held page lock
+        locked_rounds = np.zeros(n, np.int32)
+        fresh_np = self._fill_fresh(False)  # round 0: optimistic, no splits
+        # Keep going past max_rounds while rounds make progress (an append
+        # drains the rightmost leaf a few keys a round); stop after 2
+        # stalled rounds or at 16x the budget.
+        round_i, stalled = 0, 0
+        router_usable = self.router is not None
+        while round_i < max_rounds or (stalled < 2
+                                       and round_i < max_rounds * 16):
+            round_i += 1
+            if not pending.any():
+                return
+            n_before = int(pending.sum())
+            stats["rounds"] += 1
+            idx = np.nonzero(pending)[0]
+            khi, klo = bits.keys_to_pairs(keys[idx])
+            vhi, vlo = bits.keys_to_pairs(values[idx])
+            khi, klo, vhi, vlo = (self._pad(x) for x in (khi, klo, vhi, vlo))
+            active = self._pad(np.ones(idx.shape[0], bool))
+            # once a round makes no progress, stop using the router for the
+            # rest of the chunk: seeds far left of a key's leaf could cost
+            # more chases than the descent budget, forever
+            if stalled > 0:
+                router_usable = False
+            use_router = router_usable
+            with_fresh = bool(fresh_np.any())
+            fn = self._get_insert(self._iters(), use_router, with_fresh)
+            args = [self._dev(x) for x in (khi, klo, vhi, vlo)]
+            args += [self.tree._root_addr, self._dev(active)]
+            if use_router:
+                args.append(self._dev(self.router.host_start(khi, klo)))
+            if with_fresh:
+                args.append(self._dev(fresh_np))
+            with self._step_mutex:
+                out = fn(self.dsm.pool, self.dsm.locks, self.dsm.counters,
+                         self.dsm.dirty, *args)
+            status, log = out if with_fresh else (out, None)
+            # the round's one status read-back
+            status = status.cpu().numpy()[:idx.shape[0]]
+            stats["st_locked"] += int((status == ST_LOCKED).sum())
+            if log is not None:
+                self._drain_split_log(log, stats)
+            if len(self._pending_parents) >= self.parent_flush_threshold:
+                self.flush_parents()
+
+            stats["applied"] += int((status == ST_APPLIED).sum())
+            stats["superseded"] += int((status == ST_SUPERSEDED).sum())
+            done = (status == ST_APPLIED) | (status == ST_SUPERSEDED)
+            pending[idx[done]] = False
+
+            # bounded lock retry: every lock_retry_rounds consecutive
+            # blocked rounds, probe the lease table; a dead holder is
+            # revoked and the row retries fresh, a live one keeps its count
+            lr = status == ST_LOCKED
+            locked_rounds[idx[lr]] += 1
+            locked_rounds[idx[~lr]] = 0
+            probe = np.zeros(n, bool)
+            probe[idx] = lr & (locked_rounds[idx]
+                               % self.tcfg.lock_retry_rounds == 0)
+            if probe.any():
+                live = self._recover_wedged_locks(keys[probe])
+                rows_p = np.nonzero(probe)[0]
+                locked_rounds[rows_p[~live]] = 0
+            if lr.any():
+                # backoff before spinning on held locks again (doubles per
+                # consecutive blocked round, capped)
+                time.sleep(min(2e-4 * (1 << min(int(locked_rounds.max()),
+                                                6)), 2e-2))
+
+            # ST_BAD should not happen: such rows go through the host path
+            bad = status == ST_BAD
+            for j in idx[bad]:
+                self.tree.insert(int(keys[j]), int(values[j]))
+                stats["host_path"] += 1
+                pending[j] = False
+            if bad.any():
+                self.tree._refresh_root()
+            # grant pages whenever anything retries: a suppressed writer on
+            # a splitting page may need to split again next round
+            fresh_np = self._fill_fresh(
+                bool(((status == ST_FULL) | (status == ST_RETRY)).any()))
+            stalled = stalled + 1 if int(pending.sum()) == n_before else 0
+        # Budget spent: rows still blocked by a LIVE lease get the typed
+        # ST_LOCK_TIMEOUT rejection (one last probe revokes a holder that
+        # died after the last round); the rest go through the host path.
+        still = np.nonzero(pending)[0]
+        blocked = still[locked_rounds[still] > 0]
+        if blocked.size:
+            to = blocked[self._recover_wedged_locks(keys[blocked])]
+            if to.size:
+                stats["lock_timeouts"] += int(to.size)
+                stats["lock_timeout_keys"] += [int(k) for k in keys[to]]
+                pending[to] = False
+        for j in np.nonzero(pending)[0]:
+            self.tree.insert(int(keys[j]), int(values[j]))
+            stats["host_path"] += 1
+
+    def _recover_wedged_locks(self, keys: np.ndarray) -> np.ndarray:
+        """For keys blocked on held page locks: find each key's leaf with
+        one device descent, read the leaves' lock words in one step, and
+        revoke every holder whose lease is dead (``Tree._try_revoke_lease``
+        decides).  -> live_mask [bool, aligned with keys]: True where a
+        LIVE lease holds the lock (never revoked here)."""
+        tree = self.tree
+        keys = np.asarray(keys, np.uint64)
+        addrs, done = self._descend_to_level(keys, 0)
+        la_by_key = np.array(
+            [tree._lock_word_addr(int(a)) if d else -1
+             for a, d in zip(addrs, done)], np.int64)
+        las = sorted({int(la) for la in la_by_key if la != -1})
+        if not las:
+            return np.zeros(keys.shape[0], bool)
+        rep = self.dsm._batch(
+            [{"op": D.OP_READ_WORD, "addr": la, "woff": 0,
+              "space": D.SPACE_LOCK} for la in las])
+        live_las = {la for la, w in zip(las, rep.old)
+                    if int(w) != 0
+                    and not tree._try_revoke_lease(la, int(w))}
+        return np.array([int(la) in live_las for la in la_by_key])
 
 
 # ---------------------------------------------------------------------------

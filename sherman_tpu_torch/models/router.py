@@ -85,6 +85,36 @@ class LeafRouter:
                 self.table_np[b_lo:b_hi] = np.int32(new_addr)
             self.splits_noted += 1
 
+    def note_splits_batch(self, split_keys, new_addrs, old_highs) -> None:
+        """:meth:`note_split` for a whole device split log in one
+        vectorized table pass.  The splits are of distinct leaves, so
+        their bucket ranges are disjoint and their order does not matter;
+        an out-of-span split grows the span first."""
+        sk = np.asarray(split_keys, np.uint64)
+        na = np.asarray(new_addrs, np.int64)
+        oh = np.asarray(old_highs, np.uint64)
+        if not sk.size:
+            return
+        with self._mu:
+            mx = int(sk.max())
+            if (mx >> self.shift) >= self.nb:
+                self._grow_span(mx)
+            # ceil-div without the scalar form's overflow (k + 2^s - 1
+            # wraps near the top of the uint64 range)
+            sh = np.uint64(self.shift)
+            frac = np.uint64((1 << self.shift) - 1)
+            b_lo = ((sk >> sh) + ((sk & frac) != 0)).astype(np.int64)
+            b_hi = np.where(oh >= np.uint64(C.KEY_POS_INF), self.nb,
+                            np.minimum((oh >> sh) + ((oh & frac) != 0),
+                                       self.nb)).astype(np.int64)
+            b_lo = np.minimum(b_lo, self.nb)
+            n = np.maximum(b_hi - b_lo, 0)
+            tgt = np.repeat(na.astype(np.int32), n)
+            idx = (np.repeat(b_lo, n)
+                   + (np.arange(tgt.size) - np.repeat(np.cumsum(n) - n, n)))
+            self.table_np[idx] = tgt
+            self.splits_noted += int(sk.size)
+
     # -- lookup --------------------------------------------------------------
 
     def host_start(self, khi: np.ndarray, klo: np.ndarray) -> np.ndarray:

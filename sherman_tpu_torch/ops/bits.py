@@ -108,12 +108,18 @@ def addr_page(addr):
     return torch.as_tensor(addr) & ADDR_PAGE_MASK
 
 
+def addr_is_null(addr) -> bool:
+    return int(addr) == 0
+
+
 # -- lock leases --------------------------------------------------------------
 
 LEASE_OWNER_BITS = 16
 LEASE_EPOCH_BITS = 15
 LEASE_OWNER_MASK = (1 << LEASE_OWNER_BITS) - 1
 LEASE_EPOCH_MASK = (1 << LEASE_EPOCH_BITS) - 1
+# both fields: the bits a lease revocation's masked CAS compares and swaps
+LEASE_MASK = (LEASE_EPOCH_MASK << LEASE_OWNER_BITS) | LEASE_OWNER_MASK
 
 
 def lease_word(owner_tag: int, epoch: int = 1) -> int:
@@ -122,6 +128,16 @@ def lease_word(owner_tag: int, epoch: int = 1) -> int:
         raise ValueError("owner tag out of range")
     return ((int(epoch) & LEASE_EPOCH_MASK) << LEASE_OWNER_BITS) \
         | (int(owner_tag) & LEASE_OWNER_MASK)
+
+
+def lease_owner(word: int) -> int:
+    """Owner tag of a held-lock word (0 = free)."""
+    return (int(word) & _U32_MASK) & LEASE_OWNER_MASK
+
+
+def lease_epoch(word: int) -> int:
+    """Lease epoch of a held-lock word."""
+    return ((int(word) & _U32_MASK) >> LEASE_OWNER_BITS) & LEASE_EPOCH_MASK
 
 
 # -- lock hash (32-bit Murmur3 finalizer) ------------------------------------

@@ -109,6 +109,16 @@ def ver_pack_np(x) -> np.int32:
     return np.int32(p - (1 << 32) if p >= (1 << 31) else p)
 
 
+def leaf_slots_view(page):
+    """-> dict of [..., LEAF_CAP] tensors: ver (packed pair), khi, klo,
+    vhi, vlo, plus the fver/rver halves."""
+    ver = _lf(page, C.L_VER_W)
+    fv, rv = ver_unpack(ver)
+    return {"ver": ver, "fver": fv, "rver": rv,
+            "khi": _lf(page, C.L_KHI_W), "klo": _lf(page, C.L_KLO_W),
+            "vhi": _lf(page, C.L_VHI_W), "vlo": _lf(page, C.L_VLO_W)}
+
+
 def leaf_slot_used(page):
     """A slot is live iff fver == rver != 0."""
     fv, rv = ver_unpack(_lf(page, C.L_VER_W))
@@ -126,6 +136,13 @@ def leaf_find_key(page, khi, klo):
     slots = torch.arange(C.LEAF_CAP, dtype=torch.int32, device=page.device)
     slot = _wsum(slots, hit)
     return found, vhi, vlo, torch.where(found, slot, -1)
+
+
+def leaf_find_free_slot(page):
+    """First free slot index, or -1 if the leaf is full."""
+    free = ~leaf_slot_used(page)
+    slot = torch.argmax(free.to(torch.uint8), dim=-1).to(torch.int32)
+    return torch.where(free.any(dim=-1), slot, -1)
 
 
 def in_fence(page, khi, klo):
@@ -177,6 +194,20 @@ def np_internal_set_entry(pg: np.ndarray, slot: int, key: int,
     pg[C.I_PTR_W + slot] = child
 
 
+def np_internal_rebuild(pg: np.ndarray, ents: list, level: int) -> np.ndarray:
+    """Rebuild an internal page around sorted ``ents`` [(key, child)],
+    keeping fences, sibling and leftmost and bumping the version (the
+    merge of the host parent insert and the engine's batched flush)."""
+    ver = ((int(pg[C.W_FRONT_VER]) + 1) & 0x7FFFFFFF) or 1
+    newpg = np_empty_page(
+        level, np_lowest(pg), np_highest(pg), sibling=int(pg[C.W_SIBLING]),
+        leftmost=int(pg[C.W_LEFTMOST]), version=ver)
+    for i, (k, c) in enumerate(ents):
+        np_internal_set_entry(newpg, i, k, c)
+    newpg[C.W_NKEYS] = len(ents)
+    return newpg
+
+
 def np_slot_live(pg: np.ndarray, slot: int) -> bool:
     fv, rv = ver_unpack(int(pg[C.L_VER_W + slot]) & 0xFFFFFFFF)
     return bool(fv == rv and fv != 0)
@@ -193,9 +224,46 @@ def np_leaf_entries(pg: np.ndarray) -> list[tuple[int, int, int]]:
     return out
 
 
+def np_internal_entries(pg: np.ndarray) -> list[tuple[int, int]]:
+    """-> list of (key, child) of an internal page's entries."""
+    out = []
+    for s in range(int(pg[C.W_NKEYS])):
+        k = bits.pair_to_key(pg[C.I_KHI_W + s], pg[C.I_KLO_W + s])
+        out.append((k, int(pg[C.I_PTR_W + s])))
+    return out
+
+
 def np_lowest(pg: np.ndarray) -> int:
     return bits.pair_to_key(pg[C.W_LOW_HI], pg[C.W_LOW_LO])
 
 
 def np_highest(pg: np.ndarray) -> int:
     return bits.pair_to_key(pg[C.W_HIGH_HI], pg[C.W_HIGH_LO])
+
+
+def np_pick_child(pg: np.ndarray, key: int) -> int:
+    """Host child pick: the child of the last entry with key <= ``key``,
+    else leftmost."""
+    child = int(pg[C.W_LEFTMOST])
+    for k, ptr in np_internal_entries(pg):
+        if k <= key:
+            child = ptr
+        else:
+            break
+    return child
+
+
+def np_leaf_find(pg: np.ndarray, key: int) -> tuple[int, int | None]:
+    """Host leaf scan: -> (slot, value) or (-1, None)."""
+    for k, v, s in np_leaf_entries(pg):
+        if k == key:
+            return s, v
+    return -1, None
+
+
+def np_leaf_free_slot(pg: np.ndarray) -> int:
+    """First free slot of a leaf, or -1 when it is full."""
+    for s in range(C.LEAF_CAP):
+        if not np_slot_live(pg, s):
+            return s
+    return -1

@@ -348,11 +348,83 @@ class _HostOps:
                           "arg0": expected, "arg1": desired, "space": space}])
         return int(r.old[0]), bool(r.ok[0])
 
+    def faa(self, addr: int, woff: int, delta: int,
+            space: int = SPACE_POOL) -> int:
+        r = self._batch([{"op": OP_FAA, "addr": addr, "woff": woff,
+                          "arg0": delta, "space": space}])
+        self._require_ok(r.ok[0], "faa (bad address?)")
+        return int(r.old[0])
+
     def read_word(self, addr: int, woff: int, space: int = SPACE_POOL) -> int:
         r = self._batch([{"op": OP_READ_WORD, "addr": addr, "woff": woff,
                           "space": space}])
         self._require_ok(r.ok[0], "read_word (bad address?)")
         return int(r.old[0])
+
+    def masked_cas(self, addr: int, woff: int, expected: int, desired: int,
+                   mask: int, space: int = SPACE_POOL) -> tuple[int, bool]:
+        """CAS only the ``mask`` bits: other bits are untouched and left out
+        of the comparison.  -> (old_word, won)."""
+        r = self._batch([{"op": OP_MASKED_CAS, "addr": addr, "woff": woff,
+                          "arg0": expected, "arg1": desired, "arg2": mask,
+                          "space": space}])
+        return int(r.old[0]), bool(r.ok[0])
+
+    def masked_faa(self, addr: int, woff: int, delta: int, mask: int,
+                   space: int = SPACE_POOL) -> tuple[int, bool]:
+        """Fetch-and-add inside the ``mask`` field (``delta`` pre-shifted
+        into it; carries never leave it).  One lands per word per step; a
+        lost race returns won=False.  -> (old_word, won)."""
+        r = self._batch([{"op": OP_MASKED_FAA, "addr": addr, "woff": woff,
+                          "arg0": delta, "arg2": mask, "space": space}])
+        return int(r.old[0]), bool(r.ok[0])
+
+    # -- coalesced dependent-op chains: one step, landing together ------------
+
+    def cas_read(self, cas_addr: int, woff: int, expected: int, desired: int,
+                 read_addr: int, cas_space: int = SPACE_LOCK
+                 ) -> tuple[int, bool, np.ndarray]:
+        """CAS a word and read a page in ONE step (lock acquire fused with
+        the page fetch).  The read is the pre-step snapshot, which holds
+        the previous holder's write: its write and unlock landed in one
+        earlier step.  -> (old_word, cas_won, page)."""
+        r = self._batch([
+            {"op": OP_CAS, "addr": cas_addr, "woff": woff,
+             "arg0": expected, "arg1": desired, "space": cas_space},
+            {"op": OP_READ, "addr": read_addr},
+        ])
+        self._require_ok(r.ok[1], "cas_read: bad page address")
+        return int(r.old[0]), bool(r.ok[0]), r.data[1]
+
+    def write_cas(self, waddr: int, woff: int, payload: np.ndarray,
+                  cas_addr: int, cas_woff: int, expected: int, desired: int,
+                  cas_space: int = SPACE_LOCK) -> bool:
+        """Write words and CAS a word in ONE step; the CAS linearizes on
+        the pre-step value.  -> cas_won."""
+        payload = np.asarray(payload, np.int32)
+        r = self._batch([
+            {"op": OP_WRITE, "addr": waddr, "woff": woff,
+             "nw": payload.shape[0], "payload": payload},
+            {"op": OP_CAS, "addr": cas_addr, "woff": cas_woff,
+             "arg0": expected, "arg1": desired, "space": cas_space},
+        ])
+        self._require_ok(r.ok[0], "write_cas: bad write address")
+        return bool(r.ok[1])
+
+    def write_faa(self, waddr: int, woff: int, payload: np.ndarray,
+                  faa_addr: int, faa_woff: int, delta: int,
+                  faa_space: int = SPACE_POOL) -> int:
+        """Write words and fetch-and-add a word in ONE step.  -> the FAA's
+        serial pre-value."""
+        payload = np.asarray(payload, np.int32)
+        r = self._batch([
+            {"op": OP_WRITE, "addr": waddr, "woff": woff,
+             "nw": payload.shape[0], "payload": payload},
+            {"op": OP_FAA, "addr": faa_addr, "woff": faa_woff,
+             "arg0": delta, "space": faa_space},
+        ])
+        self._require_ok(r.ok[0] and r.ok[1], "write_faa: bad address")
+        return int(r.old[1])
 
 
 class DSM(_HostOps):

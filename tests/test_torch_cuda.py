@@ -357,3 +357,46 @@ def test_staged_loops_on_the_card_match_the_plain_path(dev, machine_nr):
     assert la["gather_pages"] > 0 and la["writeback"] > 0
     assert la["descent_round" if N == 1 else "exchange"] > 0
     assert not any(lb.values())
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_insert_path_on_the_card_matches_the_plain_path(dev, machine_nr):
+    """A small split storm through ``BatchedEngine.insert`` (5,000 warm
+    keys at fill 0.9, 5,000 fresh, 64 grants a node a round, parents
+    flushed every round): the card and the CPU leave the same stats,
+    pool, locks and counters, the card through its kernels."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+
+    N = machine_nr
+    keys = bits.mix64_np(np.arange(10_000, dtype=np.uint64)
+                         ^ np.uint64(0x5E17AB1E5A17))
+    warm, fresh = np.sort(keys[:5000]), keys[5000:]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=1024,
+                               locks_per_node=1024, step_capacity=512,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=512, split_slots=64)
+        batched.bulk_load(tree, warm, warm, fill=0.9)
+        eng.attach_router()
+        PK.reset_launches()
+        TK.reset_launches()
+        st = eng.insert(fresh, fresh)
+        launched = {**PK.LAUNCHES, **TK.LAUNCHES}
+        v, f = eng.search_combined(keys)
+        assert f.all() and (v == keys).all()
+        runs[d] = (st, [t.cpu() for t in (cl.dsm.pool, cl.dsm.locks,
+                                           cl.dsm.counters)], launched)
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][0]["device_splits"] > 0
+    for x, y in zip(runs["cuda"][1], runs["cpu"][1]):
+        assert torch.equal(x, y)
+    launched = runs["cuda"][2]
+    assert launched["gather_pages"] > 0 and launched["writeback"] > 0
+    assert launched["descent_round" if N == 1 else "exchange"] > 0
+    assert not any(runs["cpu"][2].values())

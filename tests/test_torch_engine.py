@@ -27,8 +27,7 @@ from sherman_tpu.workload import zipf as JZ
 from sherman_tpu_torch import state
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import (ConfigError, KeyRangeError,
-                                      NotPortedError)
+from sherman_tpu_torch.errors import ConfigError, KeyRangeError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models import router as TR
 from sherman_tpu_torch.models.btree import Tree
@@ -232,15 +231,30 @@ def test_mixed_parity(routed):
 
 
 def test_mixed_refuses_writes_that_need_the_split_path():
-    """A leaf that cannot take a step's fresh inserts reports ST_FULL; the
-    port's mixed names the write slice instead of splitting."""
-    _, p, keys, rng = _pair(200, 6)
+    """Fresh keys below the first leaf's keys: that leaf cannot take them
+    all, so the fused step reports ST_FULL for some.  The port once
+    refused these writes; now ``mixed`` retries them through ``insert``
+    (device splits) as the reference does, with the same statuses, pool
+    and counters."""
+    j, p, keys, rng = _pair(200, 6)
+    j[2].attach_router()
     p[2].attach_router()
     leaf_lo = np.sort(keys)[0]
     fresh = np.arange(1, 40, dtype=np.uint64)   # all below the first leaf
     fresh = fresh[fresh < leaf_lo]
-    with pytest.raises(NotPortedError, match="write slice"):
-        p[2].mixed(fresh, fresh, np.zeros(fresh.size, bool))
+    q = np.concatenate([fresh, fresh[:3], keys[:5]])
+    is_read = np.zeros(q.size, bool)
+    is_read[-5:] = True
+    want = j[2].mixed(q, q ^ VXOR, is_read)
+    got = p[2].mixed(q, q ^ VXOR, is_read)
+    _same_out(got, want, "mixed through the split path")
+    _same_state(j, p, "mixed through the split path")
+    st = got[2]
+    np.testing.assert_array_equal(st[:fresh.size], TB.ST_APPLIED)
+    np.testing.assert_array_equal(st[fresh.size:fresh.size + 3],
+                                  TB.ST_SUPERSEDED)
+    vals, found = p[2].search(fresh)
+    assert found.all() and (vals == fresh ^ VXOR).all()
 
 
 # ---------------------------------------------------------------------------
