@@ -15,8 +15,9 @@ kernel of those paths against its plain PyTorch version:
    ``ptxas`` line: registers, shared memory, spills); check each kernel
    against its plain version on garbage inputs (exact equality): the page
    kernels K1-K3 on garbage pools (K3 also through a mask view that is
-   not 16-byte aligned), the exchange all-to-all K4 at several (N, C, W)
-   and through its packer;
+   not 16-byte aligned, and at one lane with rows sharing targets that
+   carry equal values, the delete's clear), the exchange all-to-all K4 at
+   several (N, C, W) and through its packer;
 2. one node at 20,000 keys on the card and on the CPU from one seed:
    pools and counters bit-identical;
 3. one node: bulk-load 100 M keys (``key = mix64(rank ^ salt)``, ``value
@@ -27,7 +28,8 @@ kernel of those paths against its plain PyTorch version:
    against the step rule (the pre-step value or this step's write), then
    every updated key searched for its last value;
 4. K1-K3 replayed at every input shape phase 3 launched them at, on the
-   inputs of that shape's first launch (exact equality), timed with CUDA
+   inputs of that shape's first launch (K3: its first with an applied
+   row; exact equality), timed with CUDA
    events beside their plain versions, a PyTorch library call where one
    computes the same function, and their device-memory bound; K1 and K3
    also in turns with their earlier designs (``ms_before``), with the
@@ -91,11 +93,39 @@ in ``tools/insert_bench.py``'s configuration:
 10. eight nodes: the same at 2,000,000 + 600,000 keys, 131,072 rows a
     node (``reduced`` in its line), K2-K4 replayed.
 
+The drifting-keyspace churn (``BatchedEngine.delete``,
+``reclaim_empty_leaves`` and write combining), after phase 10, in
+``tools/churn_bench.py``'s documented configuration:
+
+11. the churn reference check at 20,000 live keys of 16 streams, 6
+    iterations of 2,000 fresh and 2,000 deleted keys with a reclaim pass
+    each, on 1 and on 8 nodes (step capacity 32), card against the plain
+    path on the CPU: found masks, stats, free lists, reclaim state,
+    router tables, pools, locks and counters bit-identical, every live
+    key found and the live slots counted exactly; then the storm
+    reference check's inputs with write combining on, card and CPU,
+    beside the card with it off: stats and pools equal, the combine
+    counters of the card equal to the CPU's;
+12. one node: 10,000,000 live keys of 4,096 append streams (``key =
+    (i % 4096) << 44 | (i // 4096 + 1)``, values ``key ^ 0xBEEF``)
+    bulk-loaded at fill 0.5 with the router into a 613,012-page pool;
+    a warm-up outside the window (a 16,384-key insert, its delete, whose
+    rounds and host syncs are counted, a reclaim pass); then 6 timed
+    iterations: the next 524,288-key window inserted in 4 ascending
+    chunks of 131,072 (each shuffled, 24 rounds), the oldest window
+    deleted in 4 chunks, one reclaim pass; the ``churn`` line (the tool's
+    fields, the wall split into insert, delete, reclaim and its parent
+    removal); every live key searched with ``search_combined``, 10,000
+    keys of the last deleted window probed, and the live slots of
+    ``leaf_chain_info`` counted against the 10,000,000 live keys;
+13. K1-K3 replayed at every shape the churn window launched, as in
+    phase 4 (the 131,072-row delete snapshot, the one-lane clear).
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
-launch), around each staged window and around each storm's timed window
-(K1-K3 on one node; K2-K4 on eight); in every window the launches are
-also counted by input shape.
+launch), around each staged window, around each storm's timed window
+(K1-K3 on one node; K2-K4 on eight) and around the churn's timed window
+(K1-K3); in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
 while the host enqueues the call, so a one-element ``fill_`` shows the
@@ -110,6 +140,7 @@ prints no ``ok`` line, also when no CUDA device is present.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import gc
 import json
@@ -388,6 +419,17 @@ def garbage_parity(dev) -> None:
                 _eq(PK.writeback(pool.clone(), page, slot, app, ent, lanes),
                     want, f"writeback B={B} L={len(lanes)} "
                           f"applied at +{app.data_ptr() % 16} B")
+        # the delete's one-lane clear: rows share targets, each target's
+        # rows carrying one value (a hash of the target)
+        dup = torch.from_numpy(rng.integers(0, max(1, B // 4), B)).to(dev)
+        tgt = page[dup].long() * 64 + slot[dup].long()
+        ent = ((tgt * 0x9E3779B1) & 0xFFFFFFFF).to(torch.int32)[:, None]
+        lane = (C.L_VER_W,)
+        _eq(PK.writeback(pool.clone(), page[dup], slot[dup], applied, ent,
+                         lane),
+            PK.writeback_ref(pool.clone(), page[dup], slot[dup], applied,
+                             ent, lane),
+            f"writeback B={B} L=1 duplicate targets with equal values")
     torch.cuda.synchronize()
 
 
@@ -426,8 +468,10 @@ def exchange_parity(dev) -> None:
 
 
 def _unique_targets(page: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """Mask keeping the first row of every (page, slot) target: the
-    write-back contract (applied rows never share a word)."""
+    """Mask keeping the first row of every (page, slot) target.  The
+    write-back contract lets applied rows share a word only when they
+    carry equal values there (the delete's one-lane clear); garbage
+    entries differ, so these rows keep one row a target."""
     key = page.long() * 64 + slot.long()
     _, inv = torch.unique(key, return_inverse=True)
     first = torch.full((int(inv.max()) + 1,), key.numel(), device=key.device)
@@ -624,8 +668,9 @@ def _shape(kernel: str, args, kw) -> tuple:
 class ShapeLog:
     """While open, counts the launches a window makes through each kernel
     wrapper, by input shape, and keeps the arguments of each shape's first
-    launch for replay (K1-K3; K4's buffers, up to 8.6 GB each, are not
-    kept: its work does not depend on the data).  The spies only count
+    launch for replay (K1-K3; K3: of its first launch with an applied row,
+    since an empty mask does no work; K4's buffers, up to 8.6 GB each, are
+    not kept: its work does not depend on the data).  The spies only count
     on the host.  Opening resets the wrappers' launch counts;
     :meth:`check` holds the spies' counts to those, so a caller that
     reached a kernel around its module attribute fails the run instead
@@ -638,6 +683,7 @@ class ShapeLog:
         from sherman_tpu_torch.parallel import transport_kernel as TK
         self.counts: dict[str, dict[tuple, int]] = {}
         self.args: dict[str, dict[tuple, tuple]] = {}
+        self._idle: set = set()      # K3 shapes kept with an empty mask
         self._orig = [(m, a, getattr(m, a)) for m, a in (
             (PK, "descent_round"), (PK, "gather_pages"), (PK, "writeback"),
             (TK, "all_to_all"))]
@@ -654,9 +700,18 @@ class ShapeLog:
                 shape = _shape(kernel, args, kw)
                 by = self.counts.setdefault(kernel, {})
                 by[shape] = by.get(shape, 0) + 1
-                if kernel != "exchange":
-                    self.args.setdefault(kernel, {}).setdefault(
-                        shape, (args, kw))
+                kept = self.args.setdefault(kernel, {})
+                if kernel == "writeback" and shape in kept \
+                        and shape in self._idle:
+                    # replace a kept launch that applied no row (one host
+                    # sync a launch until a shape has one that does)
+                    if bool(args[3].any()):
+                        kept[shape] = (args, kw)
+                        self._idle.discard(shape)
+                elif kernel != "exchange" and shape not in kept:
+                    kept[shape] = (args, kw)
+                    if kernel == "writeback" and not bool(args[3].any()):
+                        self._idle.add(shape)
             return out
         return spy
 
@@ -846,7 +901,7 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 
 
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
-         "one_node_storm", "eight_nodes_storm")
+         "one_node_storm", "eight_nodes_storm", "one_node_churn")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1244,14 +1299,16 @@ def storm_build(n_warm: int, n_fresh: int, device: str, *,
                 machine_nr: int = 1, batch: int = 1 << 20,
                 split_slots: int = 16_384, fill: float = 0.9,
                 locks_per_node: int = 65_536, chunk_pages: int = 4096,
-                host_step_capacity: int = 8192, log=_log) -> dict:
+                host_step_capacity: int = 8192,
+                write_combine: bool = False, log=_log) -> dict:
     """The split storm's tree, sized as ``tools/insert_bench.py`` sizes it:
     keys ``mix64(rank ^ 0x5E17AB1E5A17)``, the ``n_warm`` lowest ranks
     bulk-loaded (values ``key ^ 0xBEEF``) at ``fill`` with the router
     attached, the next ``n_fresh`` ranks shuffled with numpy seed 13; a
     pool of ``1 << max(14, bits(1.35 x leaves of all keys + 8192))`` pages
     a node; ``batch`` rows a call (``batch / machine_nr`` a node, the step
-    capacity); ``parent_flush_threshold = split_slots``.
+    capacity); ``parent_flush_threshold = split_slots``; write combining
+    as ``write_combine`` says.
     -> {tree, eng, warm_ranks, fresh, keys}."""
     from sherman_tpu_torch import config as C
     from sherman_tpu_torch.cluster import Cluster
@@ -1269,7 +1326,8 @@ def storm_build(n_warm: int, n_fresh: int, device: str, *,
                     host_step_capacity=host_step_capacity, device=device)
     tree = Tree(Cluster(cfg))
     eng = batched.BatchedEngine(tree, batch_per_node=batch // N,
-                                split_slots=split_slots)
+                                split_slots=split_slots,
+                                write_combine=write_combine)
     eng.parent_flush_threshold = eng.split_slots
     keys = keys_of(np.arange(total, dtype=np.uint64), STORM_SALT)
     if keys.min() < C.KEY_MIN or keys.max() > C.KEY_MAX:
@@ -1289,15 +1347,15 @@ def storm_build(n_warm: int, n_fresh: int, device: str, *,
 
 def verify_all(eng, keys: np.ndarray) -> None:
     """``search_combined`` every key in batches of the engine's width: each
-    must be found with the value ``key ^ 0xBEEF``."""
+    must be found with the value ``key ^ 0xBEEF`` (the storm's and the
+    churn's values)."""
     bad = 0
     for i in range(0, keys.size, eng.total):
         k = keys[i:i + eng.total]
         v, f = eng.search_combined(k)
         bad += int((~f | (v != (k ^ STORM_XOR))).sum())
     if bad:
-        raise AssertionError(f"{bad} of {keys.size} keys missing or wrong "
-                             "after the storm")
+        raise AssertionError(f"{bad} of {keys.size} keys missing or wrong")
 
 
 class StormTimers:
@@ -1434,6 +1492,347 @@ def storm_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
          f"vs plain path on the CPU): stats {sa}, structure {ca}; pools, "
          f"locks and counters bit-identical")
 
+# ---------------------------------------------------------------------------
+# The drifting-keyspace churn (``tools/churn_bench.py``'s configuration):
+# delete, empty-leaf reclaim and write combining.
+# ---------------------------------------------------------------------------
+
+def stream_keys(i, streams: int) -> np.ndarray:
+    """The churn's multi-stream time-series keyspace: key ``i`` is number
+    ``i // streams + 1`` of stream ``i % streams``, ``stream << 44 | seq``."""
+    i = np.asarray(i, np.uint64)
+    return ((i % np.uint64(streams)) << np.uint64(44)) \
+        | ((i // np.uint64(streams)) + np.uint64(1))
+
+
+def churn_build(n_live: int, window: int, device: str, *,
+                machine_nr: int = 1, chunk: int = 131_072,
+                streams: int | None = None, fill: float = 0.5,
+                slack: float = 0.55, step_capacity: int | None = None,
+                locks_per_node: int = 1 << 20, chunk_pages: int = 1024,
+                host_step_capacity: int = 8192, log=_log) -> dict:
+    """The churn's tree, sized as ``tools/churn_bench.py`` sizes it: the
+    ``n_live`` lowest keys of ``streams`` streams (``window // 128``,
+    capped to 16..4096) bulk-loaded at ``fill`` (values ``key ^ 0xBEEF``)
+    with the router; a pool of the warm leaves x 1.06 + 2048 pages and
+    ``5 x (1 + slack)`` window footprints (``window / 24`` pages each) a
+    node; ``chunk`` rows a call (``chunk / machine_nr`` a node);
+    ``split_slots`` two window footprints, the parent flush at
+    ``split_slots``.  -> {tree, eng, key_of, ...}."""
+    from sherman_tpu_torch import config as C
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    N = machine_nr
+    S = streams or max(16, min(4096, window // 128))
+    per_leaf = max(1, int(C.LEAF_CAP * fill))
+    warm_pages = int(n_live / per_leaf * 1.06) + 2048
+    win_pages = int(window / (C.LEAF_CAP // 2))
+    pages = warm_pages + int(win_pages * 5 * (1.0 + slack))
+    cfg = DSMConfig(machine_nr=N, pages_per_node=pages,
+                    locks_per_node=locks_per_node,
+                    step_capacity=step_capacity or chunk // N,
+                    chunk_pages=chunk_pages,
+                    host_step_capacity=host_step_capacity, device=device)
+    tree = Tree(Cluster(cfg))
+    eng = batched.BatchedEngine(tree, batch_per_node=chunk // N,
+                                split_slots=min(131_072, win_pages * 2))
+    eng.parent_flush_threshold = eng.split_slots
+    key_of = lambda i: stream_keys(i, S)
+    t = time.perf_counter()
+    warm = np.sort(key_of(np.arange(n_live, dtype=np.uint64)))
+    stats = batched.bulk_load(tree, warm, warm ^ STORM_XOR, fill=fill)
+    del warm
+    router = eng.attach_router()
+    log(f"churn tree: nodes={N} live={n_live} window={window} streams={S} "
+        f"fill={fill} pages_per_node={pages} "
+        f"({pages * C.PAGE_BYTES / 2**20:.1f} MiB a node) chunk={chunk} "
+        f"split_slots={eng.split_slots} {stats} router_log2_buckets="
+        f"{router.lb} load_s={time.perf_counter() - t:.3f}")
+    return {"tree": tree, "eng": eng, "key_of": key_of, "streams": S,
+            "n_live": n_live, "window": window, "chunk": chunk,
+            "win_pages": win_pages, "pages": pages, "cfg": cfg,
+            "lo": 0, "hi": n_live}
+
+
+def pool_live(tree) -> tuple[int, int]:
+    """(pages allocated and not in a free pool, pages in the free pools)
+    over every node, the tool's occupancy."""
+    used = free = 0
+    for d in tree.cluster.directories:
+        used += d.allocator.pages_used
+        free += d.allocator.pages_free
+    return used - free, free
+
+
+def churn_iteration(ctx: dict, rng, walls: dict | None = None,
+                    max_rounds: int = 24) -> dict:
+    """One iteration of the tool's loop: the next window inserted in
+    ascending chunks, each shuffled; the oldest window deleted; one
+    reclaim pass.  Adds each part's wall to ``walls``.  -> {insert stats
+    summed, found masks, reclaim stats, pages taken from the free pools
+    by the inserts}."""
+    eng, key_of = ctx["eng"], ctx["key_of"]
+    W, chunk = ctx["window"], ctx["chunk"]
+    lo, hi = ctx["lo"], ctx["hi"]
+    walls = {} if walls is None else walls
+
+    def tick(k, t):
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        walls[k] = walls.get(k, 0.0) + time.perf_counter() - t
+
+    ins = {}
+    free0 = pool_live(eng.tree)[1]
+    fresh = key_of(np.arange(hi, hi + W, dtype=np.uint64))
+    for i in range(0, W, chunk):
+        ck = fresh[i:i + chunk].copy()
+        rng.shuffle(ck)
+        t = time.perf_counter()
+        st = eng.insert(ck, ck ^ STORM_XOR, max_rounds=max_rounds)
+        tick("insert", t)
+        for k, v in st.items():
+            if k != "lock_timeout_keys":
+                ins[k] = ins.get(k, 0) + v
+    reused = free0 - pool_live(eng.tree)[1]
+    dead = key_of(np.arange(lo, lo + W, dtype=np.uint64))
+    found = []
+    for i in range(0, W, chunk):
+        t = time.perf_counter()
+        found.append(eng.delete(dead[i:i + chunk]))
+        tick("delete", t)
+    t = time.perf_counter()
+    rec = eng.reclaim_empty_leaves()
+    tick("reclaim", t)
+    walls.setdefault("reclaim_passes", []).append(time.perf_counter() - t)
+    ctx["lo"], ctx["hi"] = lo + W, hi + W
+    return {"insert": ins, "found": np.concatenate(found), "reclaim": rec,
+            "pages_reused": reused}
+
+
+def churn_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                          iters: int = 6) -> None:
+    """The churn at 20,000 live keys of 16 streams, 6 iterations of 2,000
+    fresh and 2,000 deleted keys and a reclaim pass each, on the card and
+    on the plain path on the CPU (8 nodes: step capacity 32, chunk_pages
+    64): the insert stats, delete found masks, reclaim stats, free lists,
+    reclaim state and router tables after every iteration, and the pools,
+    locks and counters at the end, bit-identical; the live slots count
+    the live keys exactly and every live key is found."""
+    from sherman_tpu_torch.models import batched, validate
+    N = machine_nr
+    out = []
+    for d in devices:
+        ctx = churn_build(20_000, 2_000, d, machine_nr=N, chunk=2048,
+                          streams=16, locks_per_node=4096, chunk_pages=64,
+                          host_step_capacity=64,
+                          step_capacity=32 if N > 1 else None,
+                          log=lambda m: None)
+        eng, tree = ctx["eng"], ctx["tree"]
+        rng = np.random.default_rng(23)
+        trace = []
+        for _ in range(iters):
+            r = churn_iteration(ctx, rng)
+            trace.append((r["insert"], r["found"].tolist(), r["reclaim"],
+                          r["pages_reused"],
+                          [x.allocator.free_pages_list
+                           for x in tree.cluster.directories],
+                          copy.deepcopy(eng._reclaim_state),
+                          eng.router.table_np.tolist()))
+        live = ctx["key_of"](np.arange(ctx["lo"], ctx["hi"],
+                                       dtype=np.uint64))
+        # 8 nodes: searched 32 rows a node, which no bucket of 32 rows
+        # overflows (a wider batch retried from the root queues at its node)
+        veng = eng if N == 1 else batched.BatchedEngine(tree, 32)
+        v, f = (np.concatenate(x) for x in zip(*(
+            veng.search(live[i:i + veng.total])
+            for i in range(0, live.size, veng.total))))
+        if not (f.all() and (v == live ^ STORM_XOR).all()):
+            raise AssertionError(f"churn reference ({N} nodes, {d}): "
+                                 f"{int((~f).sum())} live keys lost")
+        n_live = int(validate.leaf_chain_info(tree)[4].sum())
+        if n_live != live.size:
+            raise AssertionError(f"churn reference ({N} nodes, {d}): "
+                                 f"{n_live} live slots for {live.size} keys")
+        out.append((trace, [t.cpu() for t in (
+            eng.dsm.pool, eng.dsm.locks, eng.dsm.counters)]))
+    (ta, xa), (tb, xb) = out
+    if ta != tb or not all(torch.equal(x, y) for x, y in zip(xa, xb)):
+        raise AssertionError(f"the churn ({N} nodes) on the card disagrees "
+                             "with the plain path")
+    freed = sum(t[2]["freed"] for t in ta)
+    if not freed or not any(t[3] for t in ta):
+        raise AssertionError(f"churn reference ({N} nodes): no page freed "
+                             f"or reused: {[t[2] for t in ta]}")
+    _log(f"churn reference check ({N} node(s), 20,000 live keys, 16 "
+         f"streams, {iters} x 2,000, card vs plain path on the CPU): "
+         f"reclaim {[t[2] for t in ta]}, pages reused "
+         f"{[t[3] for t in ta]}; found masks, stats, free lists, reclaim "
+         "state, router tables, pools, locks and counters bit-identical")
+
+
+def combine_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """The storm reference check's inputs with write combining on, on the
+    card and on the CPU, beside the card without it: the stats and pools
+    of all three equal, the counters of the card's two runs equal but for
+    the combine slots, and the combine counters of the card equal to the
+    CPU's."""
+    from sherman_tpu_torch.parallel import dsm as D
+    N = machine_nr
+    runs = []
+    for d, combine in ((devices[0], False), (devices[0], True),
+                       (devices[1], True)):
+        ctx = storm_build(20_000, 20_000, d, machine_nr=N,
+                          batch=2048, split_slots=256, locks_per_node=4096,
+                          chunk_pages=64, host_step_capacity=64,
+                          write_combine=combine, log=lambda m: None)
+        eng = ctx["eng"]
+        st = eng.insert(ctx["fresh"], ctx["fresh"] ^ STORM_XOR)
+        runs.append((st, eng.dsm.pool.cpu(), eng.dsm.counters_np().reshape(
+            -1, D.N_COUNTERS), eng._combine_steps, eng._combine_rows))
+    (s0, p0, c0, _, _), (s1, p1, c1, n1, r1), (s2, p2, c2, n2, r2) = runs
+    slots = [D.CNT_COMBINE_GROUPS, D.CNT_COMBINE_SAVED]
+    rest = [k for k in range(D.N_COUNTERS) if k not in slots]
+    if not (s0 == s1 == s2 and torch.equal(p0, p1) and torch.equal(p1, p2)
+            and np.array_equal(c0[:, rest], c1[:, rest])
+            and np.array_equal(c1, c2) and (n1, r1) == (n2, r2)
+            and not c0[:, slots].any() and c1[:, slots[0]].sum() > 0):
+        raise AssertionError(f"write combining ({N} nodes): {s0} {s1} {s2}, "
+                             f"combine counters {c1[:, slots].sum(0)} vs "
+                             f"{c2[:, slots].sum(0)}")
+    _log(f"write-combining reference check ({N} node(s), the storm "
+         f"reference inputs): stats and pools equal with combining off and "
+         f"on; combine groups/saved {c1[:, slots].sum(0).tolist()} on the "
+         "card and the CPU alike")
+
+
+class ChurnTimers:
+    """Wall time an engine spends in ``_remove_parent_entries`` (reclaim's
+    parent removal, its descent and host steps), installed on the
+    instance, removed by :meth:`close`."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.s = 0.0
+        fn = eng._remove_parent_entries
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t
+
+        eng._remove_parent_entries = timed
+
+    def close(self) -> None:
+        delattr(self.eng, "_remove_parent_entries")
+
+
+def churn(ctx: dict, path: str, iters: int, must_launch,
+          reduced: list) -> dict:
+    """The tool's warm-up outside the timed window (one 16,384-key insert,
+    its delete, whose rounds and host syncs are counted, and one reclaim
+    pass), then ``iters`` timed iterations inside a launch window; the
+    ``churn`` line; every live key searched, the last deleted window
+    probed, the live slots counted; every launched (kernel, shape)
+    replayed.  The inserts' wall is split as the storm's is (device rounds
+    each synced, ``_drain_split_log``, ``flush_parents``).
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch.models import validate
+    eng, key_of = ctx["eng"], ctx["key_of"]
+    n_live, W = ctx["n_live"], ctx["window"]
+    w = min(16_384, W)
+    wf = key_of(np.arange(n_live, n_live + w, dtype=np.uint64))
+    eng.insert(wf, wf ^ STORM_XOR)
+    get_delete, rounds = eng._get_delete, []
+    eng._get_delete = lambda *a: rounds.append(a) or get_delete(*a)
+    box = {}
+    del_once = lambda: box.update(f=eng.delete(wf))
+    try:
+        syncs = count_syncs(del_once) if eng.device.type == "cuda" else None
+        if syncs is None:
+            del_once()
+    finally:
+        del eng._get_delete
+    if not box["f"].all():
+        raise AssertionError("churn warm-up: a key of the warm-up insert "
+                             "was not found by its delete")
+    eng.reclaim_empty_leaves()
+    rng = np.random.default_rng(23)
+    occ = [pool_live(eng.tree)[0]]
+    walls: dict = {}
+    agg = {"unlinked": 0, "freed": 0}
+    ins = {}
+    reused = 0
+    timers, ins_timers = ChurnTimers(eng), StormTimers(eng)
+    try:
+        with ShapeLog() as log:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                r = churn_iteration(ctx, rng, walls)
+                if not r["found"].all():
+                    raise AssertionError(f"{path}: a live key of the "
+                                         "oldest window was not found by "
+                                         "its delete")
+                for k in agg:
+                    agg[k] += r["reclaim"][k]
+                for k, v in r["insert"].items():
+                    ins[k] = ins.get(k, 0) + v
+                reused += r["pages_reused"]
+                occ.append(pool_live(eng.tree)[0])
+            elapsed = time.perf_counter() - t0
+    finally:
+        timers.close()
+        ins_timers.close()
+    log.check(f"{path} churn", must_launch)
+    last = r["reclaim"]
+    if agg["freed"] <= 0 or reused <= 0 or ins["host_path"]:
+        raise AssertionError(f"{path}: freed {agg['freed']}, pages reused "
+                             f"{reused}, host path {ins['host_path']}")
+    t = time.perf_counter()
+    lo, hi = ctx["lo"], ctx["hi"]
+    live = key_of(np.arange(lo, hi, dtype=np.uint64))
+    verify_all(eng, live)
+    _, f_old = eng.search_combined(key_of(np.arange(lo - W, lo,
+                                                    dtype=np.uint64))[:10_000])
+    if f_old.any():
+        raise AssertionError(f"{path}: {int(f_old.sum())} deleted keys found")
+    tree_keys = int(validate.leaf_chain_info(eng.tree)[4].sum())
+    if tree_keys != hi - lo:
+        raise AssertionError(f"{path}: {tree_keys} live slots for "
+                             f"{hi - lo} live keys")
+    t_verify = time.perf_counter() - t
+    win_pages, cp = ctx["win_pages"], ctx["cfg"].chunk_pages
+    base = occ[max(1, min(len(occ) - 1, 4, (len(occ) - 1) // 2))]
+    n_ops = 2 * W * iters
+    wall = {"insert": walls["insert"],
+            **{"insert." + k: v for k, v in ins_timers.s.items()},
+            "delete": walls["delete"], "reclaim": walls["reclaim"],
+            "reclaim.parent_removal": timers.s}
+    wall["other"] = elapsed - walls["insert"] - walls["delete"] \
+        - walls["reclaim"]
+    _log("churn: " + json.dumps({
+        "path": path, "nodes": eng.cfg.machine_nr, "keys_live": n_live,
+        "window": W, "streams": ctx["streams"], "chunk": ctx["chunk"],
+        "pool_pages": ctx["pages"], "split_slots": eng.split_slots,
+        "iters": iters, "elapsed_s": elapsed, "churn_ops_s": n_ops / elapsed,
+        "wall_s": wall, "reclaim_s": walls["reclaim_passes"],
+        "unlinked": agg["unlinked"], "freed": agg["freed"],
+        "quarantined": last["quarantined"], "parked": last["parked"],
+        "pool_live": occ, "pool_flat": bool(
+            occ[-1] - base <= 5 * win_pages + 2 * cp),
+        "pages_reused": reused, "host_path": ins["host_path"],
+        "insert_rounds": ins["rounds"], "parent_flushes": ins_timers.flushes,
+        "device_splits": ins.get("device_splits", 0),
+        "st_locked": ins["st_locked"], "lock_timeouts": ins["lock_timeouts"],
+        "delete_rounds": len(rounds), "delete_chunk": int(w),
+        "host_syncs": syncs, "verified_keys": int(live.size),
+        "tree_keys": tree_keys, "verify_s": t_verify, "reduced": reduced}))
+    return replay(log, path)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1514,6 +1913,21 @@ def main() -> int:
         shapes.setdefault(k, []).extend(v)
     del ctx
     _log("storm parity at every launched shape (K1-K4): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    churn_reference_check(1)
+    churn_reference_check(8)
+    combine_reference_check(1)
+    combine_reference_check(8)
+    ctx = churn_build(10_000_000, 524_288, "cuda")
+    for k, v in churn(ctx, "one_node_churn", 6,
+                      ("descent_round", "gather_pages", "writeback"),
+                      ["iterations 55 (or 30 minutes) -> 6, for the "
+                       "smoke's time limit"]).items():
+        shapes.setdefault(k, []).extend(v)
+    del ctx
+    _log("churn parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     smi = subprocess.run(

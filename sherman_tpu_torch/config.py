@@ -145,6 +145,22 @@ class TreeConfig:
     lock_retry_rounds: int = 3
 
 
+def write_combine() -> bool:
+    """Write-combining knob (``SHERMAN_WRITE_COMBINE``): when on, the leaf
+    apply consults each page group's lock word once per group instead of
+    once per row, the counterpart of Sherman's HOCL local-lock hand-over
+    (many same-leaf writes ride one lock acquisition).  Statuses and pool
+    bits stay identical by construction (the rows of one page hash to one
+    lock word); only the lock-consult count and the ``combine_*``
+    counters change.  Off by default."""
+    v = os.environ.get("SHERMAN_WRITE_COMBINE", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return False
+    if v in ("1", "true", "on", "yes"):
+        return True
+    raise ConfigError(f"SHERMAN_WRITE_COMBINE={v!r}: want 0/1")
+
+
 # ---------------------------------------------------------------------------
 # Staged serving loop.
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ __all__ = [
     "ShermanError",
     "ConfigError",
     "KeyRangeError",
+    "DoubleFreeError",
     "ProtocolError",
+    "StateError",
     "KernelUnavailableError",
     "NotPortedError",
     "ExchangeLaneError",
@@ -29,9 +31,19 @@ class KeyRangeError(ShermanError, ValueError):
     """Request keys fall outside ``[KEY_MIN, KEY_MAX]``."""
 
 
+class DoubleFreeError(ShermanError, ValueError):
+    """A page was returned to the reclaim pool twice: granting it again
+    would alias two leaves onto one page."""
+
+
 class ProtocolError(ShermanError, RuntimeError):
     """A DSM/lock protocol invariant was breached at runtime (a host op
     refused a row)."""
+
+
+class StateError(ShermanError, RuntimeError):
+    """The object is in the wrong state for this call (a reclaim pass is
+    already running on the engine)."""
 
 
 class KernelUnavailableError(ShermanError, RuntimeError):

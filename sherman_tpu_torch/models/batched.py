@@ -27,7 +27,10 @@ in a step are linearized by request order (the lowest index wins).
 Inserts run in rounds (``BatchedEngine.insert``): a leaf that overflows
 splits on its owner into a page the host granted before the round, and
 the split log defers the parent entries to ``flush_parents``; rows the
-rounds cannot place fall back to the host ``Tree`` path.
+rounds cannot place fall back to the host ``Tree`` path.  Deletes clear
+the slot's version word on the owner (``BatchedEngine.delete``), and
+``BatchedEngine.reclaim_empty_leaves`` unlinks the leaves they empty and
+recycles their pages through the allocators' free pools.
 
 The reference's ``lax.while_loop`` with a data-dependent exit is a Python
 loop here that reads one pending count back per round (one host sync per
@@ -39,6 +42,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import threading
 import time
 
 import numpy as np
@@ -46,7 +50,8 @@ import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import ConfigError, KeyRangeError
+from sherman_tpu_torch.errors import ConfigError, KeyRangeError, StateError
+from sherman_tpu_torch.models import validate
 from sherman_tpu_torch.models.btree import META_ADDR
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
@@ -347,8 +352,27 @@ def _lex_order(*keys: torch.Tensor) -> torch.Tensor:
     return order
 
 
+def _leaf_snapshot(pool, inc, cfg: DSMConfig):
+    """The write applies' common start: each row's page (and clipped
+    page), the ``[M, PW]`` page snapshot (K2), the row's lock-word index
+    and whether the row is sane (active, a level-0 page in range whose
+    fences hold its key and whose versions agree).
+    -> (page_idx, safe_page, pg, lock_idx, sane)."""
+    P = pool.shape[0]
+    page_idx = bits.addr_page(inc["addr"])
+    safe_page = page_idx.clamp(0, P - 1)
+    pg = PK.gather_pages(pool, safe_page)
+    lock_idx = bits.lock_index(inc["addr"], cfg.locks_per_node)
+    sane = inc["active"] & (page_idx >= 0) & (page_idx < P) \
+        & (layout.h_level(pg) == 0) \
+        & layout.in_fence(pg, inc["khi"], inc["klo"]) \
+        & layout.page_consistent(pg)
+    return page_idx, safe_page, pg, lock_idx, sane
+
+
 def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
-                    cfg: DSMConfig, update_only: bool = False):
+                    cfg: DSMConfig, update_only: bool = False,
+                    combine: bool = False):
     """Apply routed upserts to their leaf pages (``leaf_page_store``):
     update an existing key in place, or insert into a free slot, writing
     only the touched 5-word entry.  Same-key requests are deduplicated
@@ -372,6 +396,14 @@ def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
     write-back carries the 3 words an update changes (version pair, vhi,
     vlo).
 
+    ``combine`` is write combining, the counterpart of Sherman's HOCL
+    local-lock hand-over: the lock word is consulted once per page group
+    of the sorted rows (at the group's head) and its verdict handed down
+    the group, instead of one lock-word gather a row.  The rows of a page
+    hash to one lock word, so the per-row verdicts of a group were always
+    equal: statuses and pool bits are those of the uncombined apply, and
+    only the ``CNT_COMBINE_GROUPS``/``CNT_COMBINE_SAVED`` counters differ.
+
     inc: dict of [M] tensors — active, addr (leaf), khi, klo, vhi, vlo.
     Updates ``pool``/``counters`` in place; returns status [M], and with
     ``fresh`` also the split log (dict of [F] tensors)."""
@@ -381,16 +413,12 @@ def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
     dev = pool.device
     act = inc["active"]
     khi, klo = inc["khi"], inc["klo"]
-    page_idx = bits.addr_page(inc["addr"])
-    safe_page = page_idx.clamp(0, P - 1)
-    pg = PK.gather_pages(pool, safe_page)                 # [M, PW] snapshot
-
-    lock_idx = bits.lock_index(inc["addr"], cfg.locks_per_node)
-    locked = locks[lock_idx.clamp(0, L - 1).long()] != 0
-    sane = act & (page_idx >= 0) & (page_idx < P) \
-        & (layout.h_level(pg) == 0) & layout.in_fence(pg, khi, klo) \
-        & layout.page_consistent(pg)
-    ok_req = sane & ~locked
+    page_idx, safe_page, pg, lock_idx, sane = _leaf_snapshot(pool, inc, cfg)
+    if not combine:
+        locked = locks[lock_idx.clamp(0, L - 1).long()] != 0
+    # combined: sane rows enter the sort, and their page group's head
+    # decides the lock verdict below
+    ok_req = sane if combine else sane & ~locked
 
     found, _, _, fslot = layout.leaf_find_key(pg, khi, klo)
     if update_only:
@@ -411,6 +439,23 @@ def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
     sp, skhi, sklo = pk[sidx], ukhi[sidx], uklo[sidx]
     sfound = found[sidx]
     sok = sp < P
+    if combine:
+        # one lock consult at each page group's head, handed down the
+        # group with a position-encoded running max; a locked group's
+        # rows leave ``sok`` as the per-row gather would have dropped them
+        group_head = sok.clone()
+        group_head[1:] &= sp[1:] != sp[:-1]
+        slidx = lock_idx[sidx].clamp(0, L - 1)
+        head_lw = locks[torch.where(group_head, slidx, 0).long()]
+        head_locked = group_head & (head_lw != 0)
+        enc_l = torch.cummax(torch.where(group_head,
+                                         idx0 * 2 + head_locked.long(), -1),
+                             0).values
+        locked_s = sok & ((enc_l & 1) == 1)
+        n_heads = group_head.sum()
+        D.count(counters, D.CNT_COMBINE_GROUPS, n_heads)
+        D.count(counters, D.CNT_COMBINE_SAVED, sok.sum() - n_heads)
+        sok = sok & ~locked_s
     same_prev = torch.zeros(M, dtype=torch.bool, device=dev)
     same_prev[1:] = ((sp[1:] == sp[:-1]) & (skhi[1:] == skhi[:-1])
                      & (sklo[1:] == sklo[:-1]) & sok[1:])
@@ -459,6 +504,10 @@ def leaf_apply_spmd(pool, locks, counters, inc, fresh=None, *,
         code_s = torch.where(granted_s, split_code + sf_idx, code_s)
     code = torch.empty_like(code_s)
     code[sidx] = code_s                                     # un-sort
+    if combine:
+        # the group verdict back in row space, for the status
+        locked = torch.empty_like(locked_s)
+        locked[sidx] = locked_s
     winner_upd = code == -1
     superseded = code == -2
     loser_retry = code == -4
@@ -681,16 +730,17 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, apply_fn, addr,
 
 def insert_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
                      active, start=None, fresh=None, *, cfg: DSMConfig,
-                     iters: int, update_only: bool = False, dirty=None):
+                     iters: int, update_only: bool = False,
+                     combine: bool = False, dirty=None):
     """One batched insert step: descend, route to the owners, leaf apply.
 
     With ``fresh`` (node-major pre-allocated pages, ``split_slots`` a
     node), full leaves split owner-side and the node-major split log is
-    returned too.  ``update_only``: the steady-state update apply (see
-    :func:`leaf_apply_spmd`).  ``dirty``: the dirty-page mask; target
-    leaves and every OFFERED grant are marked (an unconsumed grant is a
-    spare delta row, never a miss).  Updates the state in place; returns
-    status [B], or (status, log) with ``fresh``."""
+    returned too.  ``update_only``, ``combine``: the steady-state update
+    apply and write combining (see :func:`leaf_apply_spmd`).  ``dirty``:
+    the dirty-page mask; target leaves and every OFFERED grant are marked
+    (an unconsumed grant is a spare delta row, never a miss).  Updates the
+    state in place; returns status [B], or (status, log) with ``fresh``."""
     done, addr, _, _, _ = _resolve_leaves(
         pool, counters, khi, klo, root, active, start, cfg=cfg, iters=iters)
     if fresh is not None and dirty is not None:
@@ -700,7 +750,8 @@ def insert_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
                               f != 0)
     status, log = _route_and_apply(
         pool, locks, counters, dirty,
-        functools.partial(leaf_apply_spmd, update_only=update_only), addr,
+        functools.partial(leaf_apply_spmd, update_only=update_only,
+                          combine=combine), addr,
         done, {"khi": khi, "klo": klo, "vhi": vhi, "vlo": vlo}, cfg=cfg,
         fresh=fresh)
     status = torch.where(active, status, ST_INVALID)
@@ -709,10 +760,66 @@ def insert_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     return status
 
 
+# ---------------------------------------------------------------------------
+# Batched delete: descend, route to the owners, clear the slot.
+# ---------------------------------------------------------------------------
+
+def leaf_delete_apply_spmd(pool, locks, counters, inc, fresh=None, *,
+                           cfg: DSMConfig):
+    """Clear routed delete requests on this node's leaf pages (the leaf
+    step of ``Tree::del``): zero the slot's packed version word, which
+    frees the slot.  The sanity, lock and found checks are the upsert
+    apply's.  Clearing is idempotent, so same-key rows are not
+    deduplicated: they write the same zero to the same word, which the
+    write-back allows (applied rows may share a word only with equal
+    values).  ``fresh`` is unused (the ``apply_fn`` signature of
+    :func:`_route_and_apply`).  Updates ``pool``/``counters`` in place;
+    returns status [M]."""
+    M = inc["addr"].shape[0]
+    L = locks.shape[0]
+    act = inc["active"]
+    _, safe_page, pg, lock_idx, sane = _leaf_snapshot(pool, inc, cfg)
+    locked = locks[lock_idx.clamp(0, L - 1).long()] != 0
+    ok_req = sane & ~locked
+    found, _, _, slot = layout.leaf_find_key(pg, inc["khi"], inc["klo"])
+    del pg
+    applied = ok_req & found
+    # one lane: the slot's packed version word; page versions move only
+    # on structural rewrites, as in the reference's Tree::del
+    PK.writeback(pool, safe_page.contiguous(),
+                 slot.clamp(0, C.LEAF_CAP - 1).contiguous(),
+                 applied.contiguous(),
+                 torch.zeros((M, 1), dtype=torch.int32, device=pool.device),
+                 (C.L_VER_W,))
+
+    status = torch.full((M,), ST_INVALID, dtype=torch.int32,
+                        device=pool.device)
+    status = torch.where(act, ST_BAD, status)
+    status = torch.where(act & sane & locked, ST_LOCKED, status)
+    status = torch.where(ok_req & ~found, ST_NOT_FOUND, status)
+    status = torch.where(applied, ST_APPLIED, status)
+    n_app = applied.sum()
+    D.count(counters, D.CNT_WRITE_OPS, n_app)
+    D.count(counters, D.CNT_WRITE_WORDS, n_app)
+    return status
+
+
+def delete_step_spmd(pool, locks, counters, khi, klo, root, active,
+                     start=None, *, cfg: DSMConfig, iters: int, dirty=None):
+    """One batched delete step: descend, route to the owners, clear the
+    slot.  Updates the state in place; returns status [B]."""
+    done, addr, _, _, _ = _resolve_leaves(
+        pool, counters, khi, klo, root, active, start, cfg=cfg, iters=iters)
+    status, _ = _route_and_apply(
+        pool, locks, counters, dirty, leaf_delete_apply_spmd, addr, done,
+        {"khi": khi, "klo": klo}, cfg=cfg)
+    return torch.where(active, status, ST_INVALID)
+
+
 def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
                     active_r, active_w, start=None, *, cfg: DSMConfig,
                     iters: int, dirty=None, write_lo: int | None = None,
-                    update_only: bool = False):
+                    update_only: bool = False, combine: bool = False):
     """One fused step of searches (``active_r``) and upserts
     (``active_w``) through a single descent.  Reads that resolve see the
     pre-step pool and writes land at the step boundary, so the serial
@@ -722,8 +829,9 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     ``write_lo``: when every node's block is laid out ``[reads |
     writes]`` with its writes in rows ``[write_lo:]``, the apply runs on
     those rows of each node only (its snapshot gather, dedup sort and
-    write-back cost per row).  ``update_only``: the steady-state update
-    apply (see :func:`leaf_apply_spmd`).
+    write-back cost per row).  ``update_only``, ``combine``: the
+    steady-state update apply and write combining (see
+    :func:`leaf_apply_spmd`).
     -> (status [B], done_r [B], found [B], vhi [B], vlo [B])."""
     active = active_r | active_w
     done, addr, found, rvh, rvl = _resolve_leaves(
@@ -739,7 +847,8 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
         (lambda x: x.view(N, -1)[:, lo:].reshape(-1))
     st_w, _ = _route_and_apply(
         pool, locks, counters, dirty,
-        functools.partial(leaf_apply_spmd, update_only=update_only),
+        functools.partial(leaf_apply_spmd, update_only=update_only,
+                          combine=combine),
         w(addr), w(done & active_w),
         {"khi": w(khi), "klo": w(klo), "vhi": w(vhi), "vlo": w(vlo)},
         cfg=cfg)
@@ -755,32 +864,6 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
 # Host-facing engine.
 # ---------------------------------------------------------------------------
 
-def _leaf_directory(tree) -> tuple[np.ndarray, np.ndarray]:
-    """Every live leaf of any tree, on every node, sorted by lowest fence:
-    -> (addrs int64, lows uint64) — the shape of the bulk-load leaf
-    directory."""
-    pool = tree.dsm.pool
-    N, P = tree.cfg.machine_nr, tree.cfg.pages_per_node
-    nxt = torch.ones(N, dtype=torch.int64)
-    for d in tree.cluster.directories:
-        nxt[d.node_id] = d.allocator.pages_used
-    ridx = torch.arange(N * P, device=pool.device)
-    pg_i = ridx % P
-    allocated = (pg_i >= 1) & (pg_i < nxt.to(pool.device)[ridx // P])
-    hi_hi, hi_lo = pool[:, C.W_HIGH_HI], pool[:, C.W_HIGH_LO]
-    act = allocated & (pool[:, C.W_FRONT_VER] != 0) \
-        & ~((hi_hi == 0) & (hi_lo == 0))
-    leaf = act & (pool[:, C.W_LEVEL] == 0)
-    rows = torch.nonzero(leaf).squeeze(1)
-    lh = pool[rows, C.W_LOW_HI].cpu().numpy()
-    ll = pool[rows, C.W_LOW_LO].cpu().numpy()
-    rows = rows.cpu().numpy().astype(np.int64)
-    addrs = ((rows // P) << C.ADDR_PAGE_BITS) | (rows % P)
-    lows = bits.pairs_to_keys(lh, ll)
-    order = np.argsort(lows)
-    return addrs[order], lows[order]
-
-
 class BatchedEngine:
     """Batched ops over a :class:`~sherman_tpu_torch.models.btree.Tree`:
     every call pads its batch to ``machine_nr * batch_per_node`` rows
@@ -789,7 +872,8 @@ class BatchedEngine:
 
     def __init__(self, tree, batch_per_node: int = 1024,
                  tcfg: TreeConfig | None = None,
-                 split_slots: int | None = None):
+                 split_slots: int | None = None,
+                 write_combine: bool | None = None):
         self.tree = tree
         self.dsm = tree.dsm
         self.cfg = tree.cfg
@@ -797,9 +881,18 @@ class BatchedEngine:
         self.B = batch_per_node
         self.total = self.cfg.machine_nr * batch_per_node
         self.device = self.dsm.device
+        # write combining in the insert and mixed applies (see
+        # leaf_apply_spmd's ``combine``): None reads the
+        # SHERMAN_WRITE_COMBINE knob, True/False pins it (A/B runs)
+        self._write_combine = (C.write_combine() if write_combine is None
+                               else bool(write_combine))
+        # batches and rows that went through the combined apply; the
+        # group and saved-consult counts are the DSM counter slots
+        self._combine_steps = 0
+        self._combine_rows = 0
         # device-split grant slots per node per insert round; unconsumed
-        # grants stay in the host cache and are offered again (pages are
-        # never freed, so dropping them would leak pages every round).  A
+        # grants stay in the host cache and are offered again (free() is
+        # a no-op, so dropping them would leak pages every round).  A
         # split-storm benchmark raises it so one round splits many leaves.
         self.split_slots = (min(256, batch_per_node) if split_slots is None
                             else min(split_slots, batch_per_node))
@@ -810,12 +903,29 @@ class BatchedEngine:
         self.parent_flush_threshold = 1
         self._fresh_cache: dict[int, list[int]] = {}
         self._pending_parents: list[tuple[int, int, int]] = []
+        # empty-leaf reclaim bookkeeping (reclaim_empty_leaves): pages
+        # waiting out their grace rounds, retired pages still owed a
+        # parent-entry removal (page, old low fence, absorber), and
+        # retired pages parked for good because a parent holds them as
+        # its leftmost child (about 1/INTERNAL_CAP of the reclaimed)
+        self._reclaim_state: dict = {"round": 0, "quarantine": [],
+                                     "pending_parent": [], "parked": set()}
+        # a reclaim pass is a maintenance pass over many steps, not a
+        # concurrent op: an overlapping call is refused
+        self._reclaim_mutex = threading.Lock()
         self.router = None
         self._search_cache = {}
         self._insert_cache = {}
+        self._delete_cache = {}
         self._parent_descend_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
+
+    def _note_combine_step(self, rows: int) -> None:
+        """Count one batch of ``rows`` write rows through the combined
+        apply."""
+        self._combine_steps += 1
+        self._combine_rows += rows
 
     def _iters(self) -> int:
         # descent budget: max height + sibling-chase slack
@@ -830,7 +940,7 @@ class BatchedEngine:
                                                      default_log2_buckets)
         leaf_dir = getattr(self.tree, "_bulk_leaf_dir", None)
         if leaf_dir is None and scan:
-            leaf_dir = _leaf_directory(self.tree)
+            leaf_dir = validate.leaf_directory(self.tree)
         if log2_buckets is None:
             n_leaves = len(leaf_dir[0]) if leaf_dir else 1024
             log2_buckets = default_log2_buckets(n_leaves)
@@ -997,11 +1107,14 @@ class BatchedEngine:
         start = (self._dev(self.router.host_start(khi, klo))
                  if self.router is not None else None)
         t = [self._dev(x) for x in (khi, klo, vhi, vlo)]
+        if self._write_combine:
+            self._note_combine_step(int(np.count_nonzero(~is_read)))
         with self._step_mutex:
             status, done_r, found, rvh, rvl = mixed_step_spmd(
                 self.dsm.pool, self.dsm.locks, self.dsm.counters, *t,
                 self.tree._root_addr, ar, aw, start, cfg=self.cfg,
-                iters=self._iters(), dirty=self.dsm.dirty)
+                iters=self._iters(), dirty=self.dsm.dirty,
+                combine=self._write_combine)
         status, done_r, found, rvh, rvl = (
             x.cpu().numpy()[:n] for x in (status, done_r, found, rvh, rvl))
         status = status.copy()
@@ -1040,9 +1153,12 @@ class BatchedEngine:
         vhi, vlo, root, active[, start][, fresh]) -> status`` (``(status,
         log)`` with ``fresh``), one callable per variant.  ``with_fresh``
         enables the device splits; rounds that offer no grant run without
-        the split machinery.  ``update_only``: the 3-word update apply."""
+        the split machinery.  ``update_only``: the 3-word update apply.
+        The engine's ``_write_combine`` selects the combined apply; it is
+        part of the cache key."""
         assert not (update_only and with_fresh)
-        key = (iters, with_start, with_fresh, update_only)
+        combine = self._write_combine
+        key = (iters, with_start, with_fresh, update_only, combine)
         fn = self._insert_cache.get(key)
         if fn is None:
             cfg = self.cfg
@@ -1054,7 +1170,7 @@ class BatchedEngine:
                 return insert_step_spmd(
                     pool, locks, counters, khi, klo, vhi, vlo, root, active,
                     start, fresh, cfg=cfg, iters=iters,
-                    update_only=update_only, dirty=dirty)
+                    update_only=update_only, combine=combine, dirty=dirty)
 
             self._insert_cache[key] = fn
         return fn
@@ -1303,6 +1419,8 @@ class BatchedEngine:
             use_router = router_usable
             with_fresh = bool(fresh_np.any())
             fn = self._get_insert(self._iters(), use_router, with_fresh)
+            if self._write_combine:
+                self._note_combine_step(int(np.count_nonzero(active)))
             args = [self._dev(x) for x in (khi, klo, vhi, vlo)]
             args += [self.tree._root_addr, self._dev(active)]
             if use_router:
@@ -1395,6 +1513,347 @@ class BatchedEngine:
                     if int(w) != 0
                     and not tree._try_revoke_lease(la, int(w))}
         return np.array([int(la) in live_las for la in la_by_key])
+
+    # -- delete --------------------------------------------------------------
+
+    def _get_delete(self, iters: int, with_start: bool):
+        """The delete step ``fn(pool, locks, counters, dirty, khi, klo,
+        root, active[, start]) -> status``, one callable per variant."""
+        key = (iters, with_start)
+        fn = self._delete_cache.get(key)
+        if fn is None:
+            cfg = self.cfg
+
+            def fn(pool, locks, counters, dirty, khi, klo, root, active,
+                   *rest):
+                start = rest[0] if with_start else None
+                return delete_step_spmd(
+                    pool, locks, counters, khi, klo, root, active, start,
+                    cfg=cfg, iters=iters, dirty=dirty)
+
+            self._delete_cache[key] = fn
+        return fn
+
+    def delete(self, keys, max_rounds: int | None = None) -> np.ndarray:
+        """Batched delete (``Tree::del``).  -> found bool [n]: True where
+        the key existed and was removed."""
+        if max_rounds is None:
+            max_rounds = self.tcfg.insert_rounds
+        keys = np.asarray(keys, np.uint64)
+        self._check_range(keys)
+        n = keys.shape[0]
+        out = np.zeros(n, bool)
+        for i in range(0, n, self.total):
+            out[i:i + self.total] = self._delete_chunk(
+                keys[i:i + self.total], max_rounds)
+        return out
+
+    def _delete_chunk(self, keys, max_rounds) -> np.ndarray:
+        """Device rounds, the router seeding round 0 only: ST_APPLIED and
+        ST_NOT_FOUND rows are done, ST_LOCKED and ST_RETRY rows retry
+        from the root, ST_BAD rows and the rows left after the last round
+        go through the host ``Tree.delete``."""
+        n = keys.shape[0]
+        found_out = np.zeros(n, bool)
+        pending = np.ones(n, bool)
+        for round_i in range(max_rounds):
+            if not pending.any():
+                return found_out
+            idx = np.nonzero(pending)[0]
+            khi, klo = bits.keys_to_pairs(keys[idx])
+            khi, klo = self._pad(khi), self._pad(klo)
+            active = self._pad(np.ones(idx.shape[0], bool))
+            use_router = self.router is not None and round_i == 0
+            fn = self._get_delete(self._iters(), use_router)
+            args = [self._dev(khi), self._dev(klo), self.tree._root_addr,
+                    self._dev(active)]
+            if use_router:
+                args.append(self._dev(self.router.host_start(khi, klo)))
+            with self._step_mutex:
+                status = fn(self.dsm.pool, self.dsm.locks,
+                            self.dsm.counters, self.dsm.dirty, *args)
+            status = status.cpu().numpy()[:idx.shape[0]]
+            found_out[idx[status == ST_APPLIED]] = True
+            done = (status == ST_APPLIED) | (status == ST_NOT_FOUND)
+            pending[idx[done]] = False
+            bad = status == ST_BAD
+            for j in idx[bad]:
+                found_out[j] = self.tree.delete(int(keys[j]))
+                pending[j] = False
+            if bad.any():
+                self.tree._refresh_root()
+        for j in np.nonzero(pending)[0]:
+            found_out[j] = self.tree.delete(int(keys[j]))
+        return found_out
+
+    # -- empty-leaf reclaim --------------------------------------------------
+
+    def reclaim_empty_leaves(self, quarantine_rounds: int = 2) -> dict:
+        """Unlink empty leaves from the B-link chain and recycle their
+        pages (beyond the reference, whose ``free()`` is a no-op,
+        ``DSM.h:226``: a delete or churn workload leaks its pool dry
+        there).  Protocol, per (left, empty) adjacent leaf pair:
+
+        1. one scan of the pool (:func:`validate.leaf_chain_info`) finds
+           the candidates: an active leaf with no live slot whose chain
+           predecessor exists (the leftmost leaf is never reclaimed);
+        2. one host step CAS-locks every pair's lock word(s) and reads
+           both pages; under the locks each pair is verified again
+           (left.sibling == empty, still empty, the fences abut), then one
+           step rewrites the left page's header (``highest`` and
+           ``sibling`` bypass the empty leaf, versions bumped) and RETIRES
+           the empty leaf (``highest := 0`` refuses every fence check,
+           ``sibling := left`` sends a stale reader back to the absorber),
+           with every unlock;
+        3. the retired leaf's parent entry is removed (lock and rebuild,
+           as ``flush_parents`` merges); a retired page that is its
+           parent's leftmost child is PARKED (retired for good, never
+           freed); failures stay pending for the next call, and retired
+           strays the scan finds re-enter this step;
+        4. a cleaned page returns to its node's allocator free pool after
+           ``quarantine_rounds`` more calls, the grace period for host
+           clients holding pre-unlink addresses.
+
+        -> {"unlinked", "freed", "candidates", "quarantined", "parked"}."""
+        if not self._reclaim_mutex.acquire(blocking=False):
+            raise StateError(
+                "reclaim_empty_leaves is not reentrant: another reclaim "
+                "pass is already running on this engine")
+        try:
+            return self._reclaim_empty_leaves_locked(quarantine_rounds)
+        finally:
+            self._reclaim_mutex.release()
+
+    def _reclaim_empty_leaves_locked(self, quarantine_rounds: int) -> dict:
+        tree, dsm = self.tree, self.dsm
+        # drain the deferred parent entries first: a leaf still owed its
+        # parent entry looks unreferenced, and the flush would later point
+        # an entry at a freed (reused) page
+        if self._pending_parents:
+            self.flush_parents()
+        st = self._reclaim_state
+        st["round"] += 1
+        stats = {"unlinked": 0, "freed": 0, "candidates": 0,
+                 "quarantined": len(st["quarantine"]),
+                 "parked": len(st["parked"])}
+
+        # pages already released (free pools, cached grants), taken BEFORE
+        # the scan: a released page still looks retired until it is
+        # rewritten, and sweeping it would free it twice
+        released = set()
+        for nd, d in tree.ctx.alloc._by_node.items():
+            for pg in d.allocator.free_pages_list:
+                released.add((nd << C.ADDR_PAGE_BITS) | pg)
+        for lst in self._fresh_cache.values():
+            for a in lst:
+                released.add(int(a) & _U32)
+        with self._step_mutex:
+            (addrs, lows, highs, sibs, n_live,
+             retired_addrs, retired_lows) = validate.leaf_chain_info(tree)
+        tree._refresh_root()
+        quarantined = {a for _, a in st["quarantine"]}
+        # retired strays (unlinked by an earlier incarnation whose
+        # in-flight state is gone) re-enter the parent cleanup
+        known = (quarantined | st["parked"] | released
+                 | {e for e, _, _ in st["pending_parent"]})
+        for ra, rl in zip(retired_addrs.tolist(), retired_lows.tolist()):
+            if ra not in known:
+                st["pending_parent"].append((int(ra), int(rl), 0))
+        # adjacent pairs with chain continuity, greedy-alternate so that a
+        # pair's left member is not itself unlinked this round; pages owed
+        # a deferred parent entry and the root are excluded
+        pend_children = {int(t[1]) & _U32 for t in self._pending_parents}
+        pairs = []
+        taken = set()
+        for i in range(1, addrs.size):
+            L, E = int(addrs[i - 1]), int(addrs[i])
+            if (n_live[i] == 0 and sibs[i - 1] == E and E not in taken
+                    and L not in taken and E not in quarantined
+                    and (E & _U32) not in pend_children
+                    and E != tree._root_addr):
+                pairs.append((L, E, int(lows[i]), int(highs[i])))
+                taken.add(E)
+                taken.add(L)
+        stats["candidates"] = len(pairs)
+
+        # two host steps for all pairs: lock + read, then every verified
+        # unlink with every unlock; a pair sharing a lock word with an
+        # earlier pair waits for the next call
+        seen_words: set = set()
+        plan = []
+        for L, E, e_low, e_high in pairs:
+            la, ea = tree._lock_word_addr(L), tree._lock_word_addr(E)
+            words = (la,) if la == ea else (la, ea)
+            if any(w in seen_words for w in words):
+                continue
+            seen_words.update(words)
+            plan.append((L, E, e_low, e_high, words))
+        rows = []
+        base = {}
+        for L, E, e_low, e_high, words in plan:
+            base[E] = len(rows)
+            for w in words:
+                rows.append({"op": D.OP_CAS, "addr": w, "woff": 0,
+                             "arg0": 0, "arg1": tree.ctx.lease,
+                             "space": D.SPACE_LOCK})
+            rows.append({"op": D.OP_READ, "addr": L})
+            rows.append({"op": D.OP_READ, "addr": E})
+        rep = dsm._batch(rows) if rows else None
+        w1 = lambda a, w, v: {"op": D.OP_WRITE, "addr": a, "woff": w,
+                              "nw": 1, "payload": np.array([v], np.int32)}
+        out_rows = []
+        mapping: dict[int, int] = {}
+        for L, E, e_low, e_high, words in plan:
+            i0 = base[E]
+            got = [bool(rep.ok[i0 + j]) for j in range(len(words))]
+            held = [w for w, g in zip(words, got) if g]
+            if not all(got):
+                out_rows += [tree._unlock_row(w) for w in held]
+                continue
+            lpg = np.array(rep.data[i0 + len(words)])
+            epg = np.array(rep.data[i0 + len(words) + 1])
+            ok = (int(lpg[C.W_SIBLING]) & _U32) == (E & _U32) \
+                and layout.np_highest(lpg) == e_low \
+                and layout.np_lowest(epg) == e_low \
+                and layout.np_highest(epg) == e_high \
+                and not layout.np_leaf_entries(epg)
+            if not ok:
+                out_rows += [tree._unlock_row(w) for w in held]
+                continue
+            ver = ((int(lpg[C.W_FRONT_VER]) + 1) & 0x7FFFFFFF) or 1
+            hh, hl = bits.key_to_pair(e_high)
+            out_rows += [
+                # the left page absorbs the range: highest and sibling
+                # bypass E
+                w1(L, C.W_HIGH_HI, hh), w1(L, C.W_HIGH_LO, hl),
+                w1(L, C.W_SIBLING, int(epg[C.W_SIBLING])),
+                w1(L, C.W_FRONT_VER, ver), w1(L, C.W_REAR_VER, ver),
+                # E retires: highest 0 refuses every fence check, and the
+                # sibling (L's uint32 value as an int32 word) points back
+                w1(E, C.W_HIGH_HI, 0), w1(E, C.W_HIGH_LO, 0),
+                w1(E, C.W_SIBLING, np.int32(np.uint32(L & _U32)
+                                            .view(np.int32))),
+            ] + [tree._unlock_row(w) for w in held]
+            st["pending_parent"].append((E, e_low, L))
+            mapping[E] = L
+            stats["unlinked"] += 1
+        if out_rows:
+            dsm._batch(out_rows)
+        if mapping and self.router is not None:
+            self.router.remap_addrs(mapping)
+
+        # parent-entry removal; only cleaned pages go into quarantine
+        if st["pending_parent"]:
+            st["pending_parent"] = self._remove_parent_entries(
+                st["pending_parent"], st)
+
+        # release the pages past their grace rounds
+        ready = [(r, a) for r, a in st["quarantine"]
+                 if st["round"] - r >= quarantine_rounds]
+        st["quarantine"] = [(r, a) for r, a in st["quarantine"]
+                            if st["round"] - r < quarantine_rounds]
+        by_node: dict[int, list[int]] = {}
+        for _, a in ready:
+            by_node.setdefault(bits.addr_node(a), []).append(
+                bits.addr_page(a))
+        for nd, pgs in by_node.items():
+            d = tree.ctx.alloc._by_node.get(nd)
+            if d is None:
+                # no local directory for the node: keep them quarantined
+                st["quarantine"].extend((st["round"], bits.make_addr(nd, p))
+                                        for p in pgs)
+                continue
+            d.allocator.reclaim(pgs)
+            stats["freed"] += len(pgs)
+        stats["quarantined"] = len(st["quarantine"])
+        stats["parked"] = len(st["parked"])
+        return stats
+
+    def _remove_parent_entries(self, pend, st) -> list:
+        """Remove retired pages' parent entries: a descent to level 1 by
+        each page's old low fence, one host step that locks and reads
+        every parent, and one that writes every rebuilt parent with the
+        unlocks.  Cleaned pages enter quarantine, a parent's leftmost
+        child is parked; -> the items that stay pending."""
+        tree, dsm = self.tree, self.dsm
+        tree._refresh_root()
+        if tree._root_level < 1:
+            # the root is a leaf: no parent exists
+            for e, _k, _l in pend:
+                st["quarantine"].append((st["round"], e))
+            return []
+        keysu = np.array([k for _, k, _ in pend], np.uint64)
+        paddrs, done = self._descend_to_level(keysu, 1)
+        group: dict[int, list[tuple[int, int, int]]] = {}
+        nxt: list = []
+        for (e, k, ab), a, d_ok in zip(pend, paddrs, done):
+            if d_ok:
+                group.setdefault(int(a), []).append((e, k, ab))
+            else:
+                nxt.append((e, k, ab))
+        # a parent sharing a lock word with an earlier one waits
+        seen_words: set = set()
+        plan = []
+        for pa, items in group.items():
+            la = tree._lock_word_addr(pa)
+            if la in seen_words:
+                nxt.extend(items)
+                continue
+            seen_words.add(la)
+            plan.append((pa, la, items))
+        rows = []
+        for pa, la, _items in plan:
+            rows.append({"op": D.OP_CAS, "addr": la, "woff": 0, "arg0": 0,
+                         "arg1": tree.ctx.lease, "space": D.SPACE_LOCK})
+            rows.append({"op": D.OP_READ, "addr": pa})
+        rep = dsm._batch(rows) if rows else None
+        out_rows = []
+        decisions = []
+        for i, (pa, la, items) in enumerate(plan):
+            if not bool(rep.ok[2 * i]):
+                nxt.extend(items)
+                continue
+            pg = np.array(rep.data[2 * i + 1])
+            if int(pg[C.W_LEVEL]) != 1:
+                out_rows.append(tree._unlock_row(la))
+                nxt.extend(items)
+                continue
+            # fence re-check under the lock: a split of this parent since
+            # the descent moved the entries at or past its split key to
+            # the right sibling, so this page cannot say they are gone
+            lo, hi = layout.np_lowest(pg), layout.np_highest(pg)
+            covered = [t for t in items if lo <= t[1] < hi]
+            nxt.extend(t for t in items if not (lo <= t[1] < hi))
+            if not covered:
+                out_rows.append(tree._unlock_row(la))
+                continue
+            items = covered
+            drop = {e & _U32 for e, _, _ in items}
+            ents = [(k, c) for k, c in layout.np_internal_entries(pg)
+                    if (c & _U32) not in drop]
+            kept = {c & _U32 for _, c in ents}
+            newpg = layout.np_internal_rebuild(pg, ents, 1)
+            lm = int(pg[C.W_LEFTMOST]) & _U32
+            out_rows.append({"op": D.OP_WRITE, "addr": pa, "woff": 0,
+                             "nw": C.PAGE_WORDS, "payload": newpg})
+            out_rows.append(tree._unlock_row(la))
+            decisions.append((items, kept, lm))
+        # decide only after the write step landed: a failed step leaves
+        # every item pending, never a page whose entry survived quarantined
+        if out_rows:
+            dsm._batch(out_rows)
+        for items, kept, lm in decisions:
+            for e, k, ab in items:
+                eu = e & _U32
+                if eu == lm:
+                    # the leftmost pointer cannot be dropped, and pointing
+                    # it at the absorber would dangle once that is reused
+                    st["parked"].add(e)
+                elif eu in kept:            # the entry is elsewhere: retry
+                    nxt.append((e, k, ab))
+                else:
+                    st["quarantine"].append((st["round"], e))
+        return nxt
 
 
 # ---------------------------------------------------------------------------

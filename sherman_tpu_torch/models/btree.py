@@ -197,6 +197,29 @@ class Tree:
             if self._leaf_store(addr, key, value, path):
                 return
 
+    def delete(self, key: int) -> bool:
+        """Remove ``key``; -> True where it existed.  Under the page lock:
+        a key outside the locked leaf's fences (a concurrent split or a
+        reclaim moved it) re-descends; a present key's slot gets its
+        packed version word cleared, which frees the slot."""
+        assert C.KEY_MIN <= key <= C.KEY_MAX
+        while True:
+            addr, _, _ = self._descend(key, 0)
+            la, pg = self._lock_and_read(addr)
+            if not (layout.np_lowest(pg) <= key < layout.np_highest(pg)):
+                self._unlock(la)
+                continue
+            slot, _ = layout.np_leaf_find(pg, key)
+            if slot < 0:
+                self._unlock(la)
+                return False
+            wv = layout.leaf_slot_words(slot)[0]
+            self._write_and_unlock([
+                {"op": D.OP_WRITE, "addr": addr, "woff": wv, "nw": 1,
+                 "payload": np.zeros(1, np.int32)},
+            ], la)
+            return True
+
     # -- write path ----------------------------------------------------------
 
     def _leaf_store(self, addr: int, key: int, value: int,

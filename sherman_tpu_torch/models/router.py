@@ -115,6 +115,28 @@ class LeafRouter:
             self.table_np[idx] = tgt
             self.splits_noted += int(sk.size)
 
+    def remap_addrs(self, old_to_new: dict[int, int]) -> None:
+        """Repoint every bucket seeded at a reclaimed page to its absorber
+        (``BatchedEngine.reclaim_empty_leaves``).  The absorber's
+        ``lowest`` fence is <= every key of the remapped buckets (it
+        absorbed exactly that range), so the router invariant holds.  One
+        vectorized ``searchsorted`` pass over the table, whatever the
+        number of entries."""
+        if not old_to_new:
+            return
+        to_i32 = lambda v: v.astype(np.uint32).view(np.int32)
+        olds = np.array([int(o) & 0xFFFFFFFF for o in old_to_new], np.uint64)
+        news = np.array([int(n) & 0xFFFFFFFF for n in old_to_new.values()],
+                        np.uint64)
+        o32, n32 = to_i32(olds), to_i32(news)
+        order = np.argsort(o32)
+        o32, n32 = o32[order], n32[order]
+        with self._mu:
+            pos = np.searchsorted(o32, self.table_np)
+            pos_c = np.minimum(pos, o32.size - 1)
+            hit = o32[pos_c] == self.table_np
+            self.table_np[hit] = n32[pos_c[hit]]
+
     # -- lookup --------------------------------------------------------------
 
     def host_start(self, khi: np.ndarray, klo: np.ndarray) -> np.ndarray:

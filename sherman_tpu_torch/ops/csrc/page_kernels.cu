@@ -49,7 +49,10 @@
 //   rows listed in shared memory (a dense run falls on a few warps that
 //   make several dependent passes each), and 4 rows a thread each with
 //   its own rows (a cheaper pass over the mask, but a dense run crowds
-//   fewer SMs).
+//   fewer SMs).  Contract: two applied rows may target the same word only
+//   with equal values (the delete clears a key's version word once for
+//   each of its rows); their stores then race harmlessly, so no row is
+//   deduplicated here.
 //
 // This file holds no PyTorch header: it compiles in seconds with nvcc.
 // The launchers below are called by page_kernels.cpp, which checks every

@@ -250,7 +250,10 @@ def writeback(pool, page, slot, applied, ent, field_w):
     """For each row with ``applied``, write ``ent[r, l]`` to
     ``pool[page[r], field_w[l] + slot[r]]`` in place, every lane in one
     pass; returns ``pool``.  Contract (as the reference's): ``page`` is
-    clipped to the pool and applied rows carry in-page word targets."""
+    clipped to the pool and applied rows carry in-page word targets; two
+    applied rows may share a target word only if they carry equal values
+    there (the delete's same-key rows all write 0 to one version word), so
+    the order of their stores does not matter."""
     if not _on_cuda("writeback", pool, page, slot, applied, ent):
         return writeback_ref(pool, page, slot, applied, ent, field_w)
     M = page.shape[0]

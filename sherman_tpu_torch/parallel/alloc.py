@@ -13,8 +13,10 @@ Three cooperating pieces, mirroring the reference:
 - :class:`LocalAllocator` — per client thread: bump-allocates pages inside
   leased chunks, round-robining target nodes per allocation the way
   ``DSM::alloc`` round-robins its chunk leases (``DSM.h:200-221``,
-  ``LocalAllocator.h:21-43``).  Pages are never freed, as in the
-  reference (``DSM.h:226``).
+  ``LocalAllocator.h:21-43``).  ``free`` is a no-op, as in the reference
+  (``DSM.h:226``); the engine's empty-leaf reclaim returns pages through
+  :meth:`GlobalAllocator.reclaim` instead, and page-grain allocations take
+  them back first.
 
 Page 0 of every node is reserved (page 0 of node 0 carries the root-pointer
 meta words; addr 0 doubles as NULL).
@@ -27,6 +29,7 @@ import threading
 import numpy as np
 
 from sherman_tpu_torch.config import ADDR_PAGE_BITS, DSMConfig
+from sherman_tpu_torch.errors import DoubleFreeError
 from sherman_tpu_torch.ops import bits
 
 RESERVED_PAGES = 1
@@ -41,6 +44,10 @@ class GlobalAllocator:
         self.chunk_pages = chunk_pages
         self._next = reserved
         self._limit = pages_per_node
+        # Reclaimed single pages, fed by the engine's quarantined
+        # empty-leaf reclaim (BatchedEngine.reclaim_empty_leaves) and
+        # served LIFO before fresh bump space for page-grain allocations.
+        self._free: list[int] = []
         # Concurrent host clients (the reference's 26-thread axis) lease
         # chunks from shared directories; the bump must be atomic or two
         # clients get the same chunk (silent page aliasing).
@@ -61,6 +68,38 @@ class GlobalAllocator:
             start = self._next
             self._next += size
             return start, size
+
+    def reclaim(self, pages) -> None:
+        """Return page indices to this node's free pool.  The caller owns
+        the safety argument (quarantine): a returned page is unreachable
+        from the tree and past any stale reader's grace period.  Raises
+        :class:`DoubleFreeError` on a page pooled twice, which would be
+        granted twice."""
+        with self._mu:
+            incoming = [int(p) for p in pages]
+            dup = set(incoming) & set(self._free)
+            if dup or len(set(incoming)) != len(incoming):
+                raise DoubleFreeError(
+                    f"node {self.node_id}: double-free into the reclaim "
+                    f"pool (duplicates: {sorted(dup)[:4]})")
+            self._free.extend(incoming)
+
+    def pop_free_page(self) -> int:
+        """-> one reclaimed page index (the last returned), or -1 when the
+        free pool is empty."""
+        with self._mu:
+            return self._free.pop() if self._free else -1
+
+    @property
+    def pages_free(self) -> int:
+        with self._mu:
+            return len(self._free)
+
+    @property
+    def free_pages_list(self) -> list[int]:
+        """Snapshot of the reclaimed-page pool."""
+        with self._mu:
+            return list(self._free)
 
     @property
     def pages_used(self) -> int:
@@ -125,9 +164,15 @@ class LocalAllocator:
         """Allocate npages *contiguous* pages; -> packed addr of the first.
 
         Target node round-robins per call unless pinned (DSM.h:200-203).
+        Page-grain allocations are served from the node's reclaimed-page
+        pool first (empty when reclamation is unused).
         """
         d = self._pick(node)
         nid = d.node_id
+        if npages == 1:
+            pg = d.allocator.pop_free_page()
+            if pg >= 0:
+                return bits.make_addr(nid, pg)
         nxt, end = self._cur.get(nid, (0, 0))
         if nxt + npages > end:
             base_addr, chunk_pages = d.malloc_chunk()
@@ -167,3 +212,8 @@ class LocalAllocator:
             if nxt + take < end:
                 self._cur[nid] = (nxt + take, end)
         return out
+
+    def free(self, addr: int, npages: int = 1) -> None:
+        """No-op, like the reference (``DSM.h:226``,
+        ``LocalAllocator.h:45-47``); reclaim goes through
+        :meth:`GlobalAllocator.reclaim`."""

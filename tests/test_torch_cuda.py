@@ -400,3 +400,82 @@ def test_insert_path_on_the_card_matches_the_plain_path(dev, machine_nr):
     assert launched["gather_pages"] > 0 and launched["writeback"] > 0
     assert launched["descent_round" if N == 1 else "exchange"] > 0
     assert not any(runs["cpu"][2].values())
+
+
+@pytest.mark.parametrize("M,P", [(64, 8), (100_003, 2048)])
+def test_writeback_one_lane_duplicate_targets_on_the_card(dev, M, P):
+    """The delete's one-lane clear: applied rows sharing a target word
+    with equal values (every same-key row writes 0 to its version word)
+    against the plain version."""
+    rng = np.random.default_rng(M)
+    pool = _words(rng, (P, C.PAGE_WORDS))
+    n_t = max(2, M // 4)
+    tgt = torch.from_numpy(rng.integers(0, P * C.LEAF_CAP, n_t)[
+        rng.integers(0, n_t, M)])
+    page = (tgt // C.LEAF_CAP).to(torch.int32)
+    slot = (tgt % C.LEAF_CAP).to(torch.int32)
+    applied = torch.from_numpy(rng.random(M) < 0.7)
+    ent = torch.zeros((M, 1), dtype=torch.int32)
+    lanes = (C.L_VER_W,)
+    PK.reset_launches()
+    got = PK.writeback(pool.to(dev), page.to(dev), slot.to(dev),
+                       applied.to(dev), ent.to(dev), lanes)
+    want = PK.writeback_ref(pool.clone(), page, slot, applied, ent, lanes)
+    torch.cuda.synchronize()
+    assert PK.LAUNCHES["writeback"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_delete_and_reclaim_on_the_card_match_the_plain_path(dev,
+                                                             machine_nr):
+    """Deletes of two key bands (duplicates and absent keys among them),
+    three reclaim passes and inserts whose splits take the freed pages:
+    the card and the CPU leave the same found masks, stats, pool, locks,
+    counters, free lists and reclaim state, the card through its
+    kernels."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    N = machine_nr
+    keys = np.arange(1, 10_001, dtype=np.uint64) * np.uint64(7)
+    i = np.arange(keys.size)
+    dead = keys[((i > 100) & (i < 3500)) | ((i > 7000) & (i < 8000))]
+    q = np.concatenate([dead, dead[:300], keys[-200:] + np.uint64(1)])
+    fresh = np.concatenate([keys[-400:] + np.uint64(2),
+                            keys[-400:] + np.uint64(4)])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=512,
+                               locks_per_node=1024, step_capacity=512,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=512, split_slots=16)
+        batched.bulk_load(tree, keys, keys, fill=0.9)
+        eng.attach_router()
+        PK.reset_launches()
+        TK.reset_launches()
+        found = eng.delete(q)
+        stats = [eng.reclaim_empty_leaves() for _ in range(3)]
+        stats.append(eng.insert(fresh, fresh))
+        launched = {**PK.LAUNCHES, **TK.LAUNCHES}
+        live = np.concatenate([np.setdiff1d(keys, dead), fresh])
+        v, f = eng.search_combined(live)
+        assert f.all() and (v == live).all()
+        assert not eng.search(dead)[1].any()
+        runs[d] = (found, stats, [t.cpu() for t in (
+            cl.dsm.pool, cl.dsm.locks, cl.dsm.counters)],
+            [x.allocator.free_pages_list for x in cl.directories],
+            eng._reclaim_state, launched)
+    a, b = runs["cuda"], runs["cpu"]
+    assert (a[0] == b[0]).all() and a[0][:dead.size].all()
+    assert a[1] == b[1] and sum(s["freed"] for s in a[1][:3]) > 0
+    for x, y in zip(a[2], b[2]):
+        assert torch.equal(x, y)
+    assert a[3] == b[3] and a[4] == b[4]
+    launched = a[5]
+    assert launched["gather_pages"] > 0 and launched["writeback"] > 0
+    assert launched["descent_round" if N == 1 else "exchange"] > 0
+    assert not any(b[5].values())

@@ -313,6 +313,36 @@ def test_writeback_ref_mask_classes(M, kind):
     assert applied.any() == (not np.array_equal(got, pool))
 
 
+@pytest.mark.parametrize("seed,M,P", [(5, 64, 8), (6, 3000, 64)])
+def test_writeback_ref_duplicate_targets_with_equal_values(seed, M, P):
+    """The delete's one-lane clear: applied rows may share a target word
+    when they carry the same value there (every same-key row writes 0 to
+    the key's version word).  Rows are drawn from few targets, so most
+    applied targets are hit several times."""
+    rng = np.random.default_rng(seed)
+    pool = _words(rng, (P, C.PAGE_WORDS))
+    tgt = rng.integers(0, P * C.LEAF_CAP, max(2, M // 4))[
+        rng.integers(0, max(2, M // 4), M)]
+    page = (tgt // C.LEAF_CAP).astype(np.int32)
+    slot = (tgt % C.LEAF_CAP).astype(np.int32)
+    applied = rng.random(M) < 0.7
+    ent = np.zeros((M, 1), np.int32)
+    _, counts = np.unique(tgt[applied], return_counts=True)
+    assert (counts > 1).any()
+    lanes = (C.L_VER_W,)
+    got = PK.writeback(_t(pool.copy()), _t(page), _t(slot), _t(applied),
+                       _t(ent), lanes).numpy()
+    args = (pool, page, slot, applied, ent)
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(
+        lambda *a: PP.writeback_xla(*a, field_w=lanes))(*args)))
+    if M <= 64:
+        np.testing.assert_array_equal(got, np.asarray(PP.writeback(
+            *map(jnp.asarray, args), field_w=lanes, interpret=True)))
+    words = page[applied].astype(np.int64) * C.PAGE_WORDS + C.L_VER_W \
+        + slot[applied]
+    assert not got.reshape(-1)[words].any()
+
+
 # ---------------------------------------------------------------------------
 # Build and launch failures are typed and name their cause.
 # ---------------------------------------------------------------------------
