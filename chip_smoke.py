@@ -121,11 +121,40 @@ The drifting-keyspace churn (``BatchedEngine.delete``,
 13. K1-K3 replayed at every shape the churn window launched, as in
     phase 4 (the 131,072-row delete snapshot, the one-lane clear).
 
+The YCSB A-F matrix (``sherman_tpu_torch.ycsb_bench``, the port's copy of
+``tools/ycsb_bench.py``: A/B through ``mixed``, C and D's reads through
+``search_combined``, D/E inserts and F's writes through ``insert``, E's
+scans through ``range_query_many``), after phase 13:
+
+14. the YCSB reference check at 20,000 keys on 1 and on 8 nodes (step
+    capacity 32 on 8), card against the plain path on the CPU:
+    ``ycsb_bench.build``, then A-F in order, 2,048 ops a step, 4 batches
+    each from one batch stream: the counts, every scan's (keys, values),
+    the pools, locks and counters bit-identical, and every scan equal to
+    a host mirror of the live set (bulk keys, D/E inserts, the values
+    A/B/F wrote);
+15. one node at the tool's configuration at 100,000,000 keys
+    (``build`` and ``main``'s defaults): keys ``mix64(rank ^
+    0x5E17AB1E5A17)``, values ``key ^ 0xD00D``, a 4,194,304-page pool
+    (sized for the D/E inserts), step capacity 8,192, 8,192 rows a
+    node, sibling chase budget 2, the router; A-F in order on one tree,
+    8,192 ops a step, theta 0.99, one warm-up batch and 8 timed steps
+    each; the ``ycsb_matrix`` line (the tool's rows, E's timed wall
+    split into the router candidates, the K2 prefetch with its copy to
+    the host, and the per-range walk, with the chain-gap reads and
+    re-descents counted); every scan of E's timed steps checked against
+    the host mirror outside the timed wall; K1-K3 replayed at every shape
+    the window launched, as in phase 4, each scan prefetch as a K2 shape
+    of its own (``site`` ``scan_prefetch``);
+16. eight nodes: the same at 10,000,000 keys (1,024 rows a node;
+    ``reduced`` in its line), K2-K4 replayed.
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch), around each staged window, around each storm's timed window
-(K1-K3 on one node; K2-K4 on eight) and around the churn's timed window
-(K1-K3); in every window the launches are also counted by input shape.
+(K1-K3 on one node; K2-K4 on eight), around the churn's timed window
+(K1-K3) and around each YCSB matrix (K1-K3 on one node; K2-K4 on eight);
+in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
 while the host enqueues the call, so a one-element ``fill_`` shows the
@@ -670,13 +699,16 @@ class ShapeLog:
     wrapper, by input shape, and keeps the arguments of each shape's first
     launch for replay (K1-K3; K3: of its first launch with an applied row,
     since an empty mask does no work; K4's buffers, up to 8.6 GB each, are
-    not kept: its work does not depend on the data).  The spies only count
-    on the host.  Opening resets the wrappers' launch counts;
+    not kept: its work does not depend on the data).  While ``site`` is
+    set, K2's launches are told apart under it too (the scan prefetch).
+    The spies only count on the host.  Opening resets the wrappers' launch
+    counts;
     :meth:`check` holds the spies' counts to those, so a caller that
     reached a kernel around its module attribute fails the run instead
     of going uncounted."""
 
     device_type = "cuda"
+    site: str | None = None
 
     def __enter__(self):
         from sherman_tpu_torch.ops import page_kernels as PK
@@ -698,6 +730,8 @@ class ShapeLog:
             out = fn(*args, **kw)
             if args[0].device.type == self.device_type:
                 shape = _shape(kernel, args, kw)
+                if kernel == "gather_pages" and self.site:
+                    shape += (self.site,)
                 by = self.counts.setdefault(kernel, {})
                 by[shape] = by.get(shape, 0) + 1
                 kept = self.args.setdefault(kernel, {})
@@ -890,6 +924,8 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
             else:
                 args, kw = log.args[kernel][shape]
                 r = REPLAY[kernel](*args, **kw)
+                if len(shape) > 3 and kernel == "gather_pages":
+                    r["site"] = shape[3]
             out.setdefault(kernel, []).append(
                 {"path": path, "launches": n, **r})
     if real:
@@ -901,7 +937,8 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 
 
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
-         "one_node_storm", "eight_nodes_storm", "one_node_churn")
+         "one_node_storm", "eight_nodes_storm", "one_node_churn",
+         "one_node_ycsb", "eight_nodes_ycsb")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1834,6 +1871,303 @@ def churn(ctx: dict, path: str, iters: int, must_launch,
     return replay(log, path)
 
 
+# ---------------------------------------------------------------------------
+# The YCSB A-F matrix (``tools/ycsb_bench.py``'s configuration): range scans
+# beside the point paths.
+# ---------------------------------------------------------------------------
+
+YCSB_OPS = 8192
+YCSB_STEPS = 8
+
+
+class YcsbReplay:
+    """A generator that hands out batches drawn beforehand, so the card
+    and the CPU play one stream."""
+
+    def __init__(self, batches, gen):
+        self.batches = list(batches)
+        self.gen = gen
+
+    def batch(self, n):
+        return self.batches.pop(0)
+
+    def expectations(self):
+        return self.gen.expectations()
+
+
+class YcsbMirror:
+    """The live set of the matrix on the host: the bulk keys (sorted) with
+    their values ``key ^ 0xD00D``, A/B's updates (``key ^ 0xBEEF``), the
+    D/E inserts (``key ^ 0xD00D``) and F's read-modify-writes (the value
+    xor 1, once a key a batch), played batch by batch in order."""
+
+    def __init__(self, keys: np.ndarray):
+        self.keys = keys
+        self.vals = keys ^ np.uint64(0xD00D)
+        self.fresh: dict[int, int] = {}     # inserted keys outside the bulk
+
+    def _split(self, ks):
+        ks = np.unique(ks)
+        pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
+        bulk = self.keys[pos] == ks
+        return pos[bulk], ks[~bulk]
+
+    def play(self, b: dict) -> None:
+        if "update" in b:
+            pos, new = self._split(b["update"])
+            if new.size:
+                raise AssertionError("YCSB: an update of an absent key")
+            self.vals[pos] = self.keys[pos] ^ np.uint64(0xBEEF)
+        if "insert" in b:
+            pos, new = self._split(b["insert"])
+            self.vals[pos] = self.keys[pos] ^ np.uint64(0xD00D)
+            self.fresh.update((int(k), int(k) ^ 0xD00D) for k in new)
+        if "rmw" in b:
+            pos, new = self._split(b["rmw"])
+            self.vals[pos] ^= np.uint64(1)
+            for k in new.tolist():
+                self.fresh[k] ^= 1
+
+    def check(self, ranges, res) -> int:
+        """Every range's (keys, values) against the live set; -> rows."""
+        fk = np.array(sorted(self.fresh), np.uint64)
+        fv = np.array([self.fresh[k] for k in fk.tolist()], np.uint64)
+        lo = np.array([r[0] for r in ranges], np.uint64)
+        hi = np.array([r[1] for r in ranges], np.uint64)
+        a0, a1 = (np.searchsorted(self.keys, x) for x in (lo, hi))
+        b0, b1 = (np.searchsorted(fk, x) for x in (lo, hi))
+        rows = 0
+        for i, (k, v) in enumerate(res):
+            wk = np.concatenate([self.keys[a0[i]:a1[i]], fk[b0[i]:b1[i]]])
+            wv = np.concatenate([self.vals[a0[i]:a1[i]], fv[b0[i]:b1[i]]])
+            order = np.argsort(wk, kind="stable")
+            if not (np.array_equal(k, wk[order])
+                    and np.array_equal(v, wv[order])):
+                raise AssertionError(f"YCSB-E: scan {ranges[i]} returned "
+                                     f"{k.size} rows, the live set holds "
+                                     f"{wk.size} (or their values differ)")
+            rows += k.size
+        return rows
+
+
+def ycsb_batches(n_keys: int, ops: int, steps: int) -> dict:
+    """One stream of ``steps`` batches a workload, A-F, from the tool's
+    generators (seed 17, the tool's salt)."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+    out = {}
+    for w in "ABCDEF":
+        gen = YcsbGen(w, n_keys, theta=0.99, seed=17, salt=YB.SALT)
+        out[w] = ([gen.batch(ops) for _ in range(steps)], gen)
+    return out
+
+
+def record_scans(eng) -> list:
+    """Every ``range_query_many`` of ``eng`` and its result, in order,
+    until the attribute is deleted."""
+    seen = []
+    scan = eng.range_query_many
+
+    def rec(ranges):
+        res = scan(ranges)
+        seen.append((ranges, res))
+        return res
+
+    eng.range_query_many = rec
+    return seen
+
+
+def ycsb_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                         step_capacity: int | None = None) -> None:
+    """``ycsb_bench.build`` at 20,000 keys, then A-F in order, 2,048 ops
+    a step, 3 steps each, from one batch stream, on the card and on the
+    plain path on the CPU: the rows' counts, every scan's (keys, values),
+    the pools, locks and counters bit-identical; every scan equal to the
+    host mirror of the live set."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    N, n_keys, ops, steps = machine_nr, 20_000, 2048, 3
+    stream = ycsb_batches(n_keys, ops, steps + 1)
+    out = []
+    for d in devices:
+        _, tree, eng, keys = YB.build(n_keys, ops, N, d,
+                                      step_capacity=step_capacity,
+                                      log=lambda m: None)
+        scans = record_scans(eng)
+        counts = {w: YB.run_workload(eng, YcsbReplay(b, g), ops=ops,
+                                     steps=steps)["counts"]
+                  for w, (b, g) in stream.items()}
+        del eng.range_query_many
+        out.append((counts, scans, keys, [t.cpu() for t in (
+            tree.dsm.pool, tree.dsm.locks, tree.dsm.counters)]))
+    (ca, sa, keys, xa), (cb, sb, _, xb) = out
+    same = ca == cb and len(sa) == len(sb) and all(
+        ra == rb and all(np.array_equal(x, y) for p, q in zip(pa, pb)
+                         for x, y in zip(p, q))
+        for (ra, pa), (rb, pb) in zip(sa, sb))
+    if not same or not all(torch.equal(x, y) for x, y in zip(xa, xb)):
+        raise AssertionError(f"the YCSB matrix ({N} nodes) on the card "
+                             f"disagrees with the plain path: {ca} vs {cb}")
+    mirror, it, rows = YcsbMirror(keys), iter(sa), 0
+    for w, (batches, _) in stream.items():
+        for b in batches:
+            mirror.play(b)
+            if "scan" in b:
+                ranges, res = next(it)
+                rows += mirror.check(ranges, res)
+    _log(f"YCSB reference check ({N} node(s), 20,000 keys, A-F x "
+         f"{steps + 1} batches of {ops}, card vs plain path on the CPU): "
+         f"counts {ca}; {sum(len(r) for r, _ in sa)} scans ({rows} rows) "
+         "equal and equal to the host mirror; pools, locks and counters "
+         "bit-identical")
+
+
+class ScanTimers:
+    """Wall time of the scans (``range_query_many``) split into the router
+    candidates (slices and ``np.unique``), the prefetch (the K2 gather and
+    its copy to the host) and the rest, the per-range walk; with the
+    prefetch's pages, the chain-gap page reads and the host re-descents
+    the walks made.  K2's prefetch launches are told apart in ``log``
+    (``site``).  Installed on the module and the tree; :meth:`close`
+    removes them; :meth:`reset` zeroes the sums."""
+
+    KEYS = ("scan", "candidates", "prefetch")
+
+    def __init__(self, tree, log: ShapeLog):
+        from sherman_tpu_torch.models import batched
+        self.mod, self.tree = batched, tree
+        self.orig = {a: getattr(batched, a) for a in (
+            "range_query_many", "_scan_candidates", "_scan_prefetch")}
+        self.reset()
+        depth = [0]             # inside a scan: 1; inside its descent: 2
+
+        def timed(key, fn, site=None, nest=0):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                log.site = site
+                depth[0] += nest
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    depth[0] -= nest
+                    log.site = None
+                    self.s[key] += time.perf_counter() - t
+            return call
+
+        def prefetch(eng, cand):
+            self.n["prefetch_pages"] += int(cand.size)
+            self.n["prefetches"] += 1
+            return pf(eng, cand)
+
+        pf = timed("prefetch", self.orig["_scan_prefetch"], "scan_prefetch")
+        batched.range_query_many = timed("scan",
+                                         self.orig["range_query_many"],
+                                         nest=1)
+        batched._scan_candidates = timed("candidates",
+                                         self.orig["_scan_candidates"])
+        batched._scan_prefetch = prefetch
+        read, descend = tree.dsm.read_page, tree._descend
+
+        def counted_descend(*a, **kw):
+            self.n["re_descents"] += depth[0] == 1
+            depth[0] += 1
+            try:
+                return descend(*a, **kw)
+            finally:
+                depth[0] -= 1
+
+        def counted_read(*a, **kw):
+            self.n["chain_gap_reads"] += depth[0] == 1
+            return read(*a, **kw)
+
+        tree._descend, tree.dsm.read_page = counted_descend, counted_read
+
+    def reset(self) -> None:
+        self.s = {k: 0.0 for k in self.KEYS}
+        self.n = {"prefetches": 0, "prefetch_pages": 0,
+                  "chain_gap_reads": 0, "re_descents": 0}
+
+    def close(self) -> None:
+        for a, fn in self.orig.items():
+            setattr(self.mod, a, fn)
+        del self.tree._descend, self.tree.dsm.read_page
+
+    def split(self) -> dict:
+        s = dict(self.s)
+        s["walk"] = s["scan"] - s["candidates"] - s["prefetch"]
+        return s
+
+
+def ycsb_matrix(n_keys: int, nodes: int, path: str, must_launch,
+                reduced: list, device: str = "cuda") -> dict:
+    """``tools/ycsb_bench.py``'s configuration (``build``, ``main``'s
+    defaults: 8,192 ops a step, theta 0.99, seed 17, one warm-up batch and
+    8 timed steps a workload) at ``n_keys`` keys on ``nodes`` nodes: A-F
+    in order on one tree inside a launch window; the ``ycsb_matrix``
+    line, with E's wall split; every scan of E's timed steps checked
+    against the host mirror outside the timed wall; every launched
+    (kernel, shape) replayed.  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+    t = time.perf_counter()
+    _, tree, eng, keys = YB.build(n_keys, YCSB_OPS, nodes, device, log=_log)
+    t_build = time.perf_counter() - t
+    mirror = YcsbMirror(keys)
+    rows, split, e_rows = {}, {}, 0
+    scans = record_scans(eng)
+    try:
+        with ShapeLog() as log:
+            for w in "ABCDEF":
+                gen = YcsbGen(w, n_keys, theta=0.99, seed=17, salt=YB.SALT)
+                drawn, draw = [], gen.batch
+
+                def batch(n, drawn=drawn, draw=draw):
+                    if len(drawn) == 1 and timers is not None:
+                        timers.reset()      # the warm-up batch has played
+                    drawn.append(draw(n))
+                    return drawn[-1]
+
+                gen.batch = batch
+                timers = ScanTimers(tree, log) if w == "E" else None
+                try:
+                    rows[w] = YB.run_workload(eng, gen, ops=YCSB_OPS,
+                                              steps=YCSB_STEPS)
+                finally:
+                    if timers is not None:
+                        timers.close()
+                if timers is not None:
+                    split = {"wall_s": YCSB_OPS * YCSB_STEPS
+                             / rows[w]["ops_s"], **timers.split(),
+                             **timers.n}
+                if eng.device.type == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()     # outside the timed wall
+                for i, b in enumerate(drawn):
+                    mirror.play(b)
+                    if "scan" in b:
+                        ranges, res = scans.pop(0)
+                        if i:               # the timed steps
+                            e_rows += mirror.check(ranges, res)
+                rows[w]["mirror_check_s"] = time.perf_counter() - t
+                _log(f"YCSB-{w} ({path}): {rows[w]['ops_s']:,.0f} ops/s, "
+                     f"p50 {rows[w]['step_p50_ms']:.3f} / p99 "
+                     f"{rows[w]['step_p99_ms']:.3f} ms a step")
+    finally:
+        del eng.range_query_many
+    log.check(f"{path} ycsb", must_launch)
+    if scans or not e_rows:
+        raise AssertionError(f"{path}: {len(scans)} scan calls unchecked, "
+                             f"{e_rows} rows checked")
+    _log("ycsb_matrix: " + json.dumps({
+        "metric": "ycsb_matrix", "path": path, "keys": n_keys,
+        "batch": YCSB_OPS, "steps": YCSB_STEPS, "nodes": nodes,
+        "batch_per_node": eng.B, "step_capacity": eng.cfg.step_capacity,
+        "pages_per_node": eng.cfg.pages_per_node,
+        "router_log2_buckets": eng.router.lb, "theta": 0.99,
+        "build_s": t_build, "workloads": rows, "e_split_s": split,
+        "e_rows_checked": e_rows, "reduced": reduced}))
+    return replay(log, path)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -1928,6 +2262,24 @@ def main() -> int:
         shapes.setdefault(k, []).extend(v)
     del ctx
     _log("churn parity at every launched shape (K1-K3): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ycsb_reference_check(1)
+    ycsb_reference_check(8, step_capacity=32)
+    for k, v in ycsb_matrix(100_000_000, 1, "one_node_ycsb",
+                            ("descent_round", "gather_pages", "writeback"),
+                            []).items():
+        shapes.setdefault(k, []).extend(v)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in ycsb_matrix(10_000_000, 8, "eight_nodes_ycsb",
+                            ("gather_pages", "writeback", "exchange"),
+                            ["keys 100,000,000 -> 10,000,000, for the "
+                             "smoke's time limit"]).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("YCSB parity at every launched shape (K1-K4, the scan prefetch "
+         "on K2): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     smi = subprocess.run(

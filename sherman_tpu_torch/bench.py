@@ -2,11 +2,14 @@
 lookups, zipf 0.99, 100 M keys, with the client side staged on the card.
 
     python -m sherman_tpu_torch.bench
+    python -m sherman_tpu_torch.bench --ycsb [ycsb_bench's arguments]
 
-The configuration is the north star of the repo's ``bench.py``: keys
-``mix64(rank ^ 0x5E17AB1E5A17)``, values ``key ^ 0xDEADBEEF``, leaf fill
-0.75 and the same pool sizing, the default router, zipf 0.99, batches of
-4,194,304 client ops, the ``analytic`` rank sampler.  Phases:
+With ``--ycsb`` it runs the YCSB A-F matrix instead
+(:mod:`sherman_tpu_torch.ycsb_bench`).  The configuration is the north
+star of the repo's ``bench.py``: keys ``mix64(rank ^ 0x5E17AB1E5A17)``,
+values ``key ^ 0xDEADBEEF``, leaf fill 0.75 and the same pool sizing,
+the default router, zipf 0.99, batches of 4,194,304 client ops, the
+``analytic`` rank sampler.  Phases:
 
 1. bulk load and router;
 2. size the unique-row cap ``dev_b`` from one staged step at ``dev_b =
@@ -324,7 +327,13 @@ def _throughput_window(eng, step, tables, batch, n_batches: int = 4,
             "window_ms_per_step": elapsed / win_steps * 1e3}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--ycsb" in argv:
+        # the YCSB A-F matrix, with its own arguments and JSON line
+        argv.remove("--ycsb")
+        from sherman_tpu_torch import ycsb_bench
+        return ycsb_bench.main(argv)
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.bench: no CUDA device; the port's benchmark "
               "runs on the GPU", file=sys.stderr)

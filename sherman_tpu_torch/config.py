@@ -161,6 +161,27 @@ def write_combine() -> bool:
     raise ConfigError(f"SHERMAN_WRITE_COMBINE={v!r}: want 0/1")
 
 
+def value_heap_pages() -> int:
+    """Out-of-line value heap knob (``SHERMAN_VALUE_HEAP``): heap pages a
+    node of the region that stores variable-length payloads, 0 (the
+    default) for inline 64-bit values; ``1`` asks for the default region
+    of 4,096 pages.  The port has no value heap yet (ROADMAP item 6):
+    callers refuse a nonzero value."""
+    v = os.environ.get("SHERMAN_VALUE_HEAP", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return 0
+    if v in ("1", "true", "on", "yes"):
+        return 4096
+    try:
+        n = int(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_VALUE_HEAP={v!r}: want 0/1 or a "
+                          "pages-per-node count") from None
+    if n < 0:
+        raise ConfigError(f"SHERMAN_VALUE_HEAP={n}: want >= 0")
+    return n
+
+
 # ---------------------------------------------------------------------------
 # Staged serving loop.
 # ---------------------------------------------------------------------------

@@ -1586,6 +1586,21 @@ class BatchedEngine:
             found_out[j] = self.tree.delete(int(keys[j]))
         return found_out
 
+    # -- range scans ---------------------------------------------------------
+
+    def range_query(self, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray]:
+        """All (k, v) with lo <= k < hi, sorted by key.  See
+        :meth:`range_query_many`."""
+        return self.range_query_many([(lo, hi)])[0]
+
+    def range_query_many(self, ranges) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Batched scans (``Tree.cpp:461-522``): one page gather prefetches
+        the router's candidate leaves of every range, then each range
+        walks its B-link chain over the shared prefetch.  ranges: iterable
+        of (lo, hi); -> [(keys uint64, vals uint64)] per range, each
+        sorted by key."""
+        return range_query_many(self, ranges)
+
     # -- empty-leaf reclaim --------------------------------------------------
 
     def reclaim_empty_leaves(self, quarantine_rounds: int = 2) -> dict:
@@ -1857,14 +1872,133 @@ class BatchedEngine:
 
 
 # ---------------------------------------------------------------------------
-# Bulk load: bottom-up tree construction.
+# Range scans: a router-seeded batched leaf prefetch (Tree.cpp:461-522).
 # ---------------------------------------------------------------------------
 
 def _addr_rows(addrs: np.ndarray, pages_per_node: int) -> np.ndarray:
-    """Packed addrs -> pool row indices (host)."""
+    """Packed addrs -> global rows of the node-major pool (host).  The
+    int32 addr goes through uint32 first, so nodes whose addrs carry the
+    sign bit still map to non-negative rows."""
     a = np.asarray(addrs).astype(np.uint32).astype(np.uint64)
     return ((a >> C.ADDR_PAGE_BITS) * np.uint64(pages_per_node)
             + (a & np.uint64(C.ADDR_PAGE_MASK))).astype(np.int64)
+
+
+def _scan_candidates(router, ranges) -> np.ndarray:
+    """The router entries of every bucket each range overlaps, unioned
+    (sorted int32 addrs).  Both bucket ends are clamped into the table:
+    a range past the keyspace the router was seeded on starts from the
+    last bucket's entry instead of skipping the prefetch."""
+    parts = []
+    with router._read_locked():
+        for lo, hi in ranges:
+            b_lo = min(router.nb - 1, lo >> router.shift)
+            b_hi = min(router.nb - 1, max(0, (hi - 1) >> router.shift))
+            parts.append(router.table_np[b_lo:b_hi + 1])
+    return np.unique(np.concatenate(parts))
+
+
+def _scan_prefetch(eng, cand: np.ndarray) -> np.ndarray:
+    """One ``gather_pages`` launch of the candidate pages, copied to the
+    host at once.  -> [len(cand), PAGE_WORDS] int32."""
+    rows = eng._dev(_addr_rows(cand, eng.cfg.pages_per_node)
+                    .astype(np.int32))
+    with eng._step_mutex:
+        got = PK.gather_pages(eng.dsm.pool, rows)
+    return got.cpu().numpy()
+
+
+def range_query_many(eng: "BatchedEngine", ranges
+                     ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """All (k, v) with lo <= k < hi per range, each sorted by key.
+
+    The router yields every range's candidate leaves; one device gather
+    fetches their union; each range then finds its start leaf by binary
+    search over the prefetch's ``lowest`` fences and walks the sibling
+    chain, reading a page through the DSM only where the prefetch misses
+    it (a stale router entry or a split since).  A start not in the
+    prefetch comes from the pages earlier walks read, else from a host
+    descent.  Stale entries may name internal pages (kept out by their
+    level) or retired ones (``highest == 0``, which no start test
+    picks)."""
+    tree = eng.tree
+    cfg = eng.cfg
+    ranges = [(int(lo), int(hi)) for lo, hi in ranges]
+    for lo, hi in ranges:
+        if not (C.KEY_MIN <= lo and hi <= C.KEY_POS_INF and lo < hi):
+            raise AssertionError(f"malformed range [{lo}, {hi}): want "
+                                 f"KEY_MIN <= lo < hi <= KEY_POS_INF")
+
+    # pages by addr & 0xFFFFFFFF: the prefetch's leaves, then every page
+    # the walks read
+    fetched: dict[int, np.ndarray] = {}
+    f_addrs = np.zeros(0, np.int64)
+    f_lows = f_highs = np.zeros(0, np.uint64)
+    if eng.router is not None and ranges:
+        cand = _scan_candidates(eng.router, ranges)
+        if cand.size:
+            pages = _scan_prefetch(eng, cand)
+            leaf = pages[:, C.W_LEVEL] == 0
+            pages = pages[leaf]
+            f_addrs = cand[leaf].astype(np.uint32).astype(np.int64)
+            fetched = dict(zip(f_addrs.tolist(), pages))
+            f_lows = bits.pairs_to_keys(pages[:, C.W_LOW_HI],
+                                        pages[:, C.W_LOW_LO])
+            f_highs = bits.pairs_to_keys(pages[:, C.W_HIGH_HI],
+                                         pages[:, C.W_HIGH_LO])
+            order = np.argsort(f_lows)
+            f_addrs, f_lows, f_highs = (f_addrs[order], f_lows[order],
+                                        f_highs[order])
+    # pages the walks read (prefetch misses), in the order they were read:
+    # a later range that starts inside one skips the host descent
+    extras: dict[int, np.ndarray] = {}
+
+    def get_page(addr: int) -> np.ndarray:
+        p = fetched.get(addr & _U32)
+        if p is None:
+            p = tree.dsm.read_page(addr)
+            fetched[addr & _U32] = p
+            extras[addr & _U32] = p
+        return p
+
+    out: list[tuple[np.ndarray, np.ndarray]] = []
+    for lo, hi in ranges:
+        start = None
+        i = int(np.searchsorted(f_lows, np.uint64(lo), side="right")) - 1
+        if i >= 0 and lo < int(f_highs[i]):
+            start = int(f_addrs[i])
+        if start is None:
+            for a, p in extras.items():
+                if layout.np_lowest(p) <= lo < layout.np_highest(p):
+                    start = a
+                    break
+        if start is None:
+            start, _, _ = tree._descend(lo, 0)
+
+        addr, chain, hops = start, [], 0
+        while True:
+            pg = get_page(addr)
+            chain.append(pg)
+            if layout.np_highest(pg) >= hi:
+                break
+            sib = int(pg[C.W_SIBLING])
+            if bits.addr_is_null(sib):
+                break
+            addr = sib
+            hops += 1
+            if hops >= cfg.machine_nr * cfg.pages_per_node:
+                raise AssertionError("chain runaway")
+        keys, vals, live = layout.np_leaf_entries_batch(np.stack(chain))
+        m = live & (keys >= np.uint64(lo)) & (keys < np.uint64(hi))
+        out_k, out_v = keys[m], vals[m]
+        order = np.argsort(out_k)
+        out.append((out_k[order], out_v[order]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bulk load: bottom-up tree construction.
+# ---------------------------------------------------------------------------
 
 
 def _install_pages(pool, rows, pages) -> None:

@@ -220,6 +220,23 @@ class Tree:
             ], la)
             return True
 
+    def range_query(self, lo: int, hi: int) -> dict[int, int]:
+        """All (k, v) with lo <= k < hi: descend to the leaf of ``lo``,
+        then walk the sibling chain until a ``highest`` fence reaches
+        ``hi`` (one host page read a leaf)."""
+        out: dict[int, int] = {}
+        _, pg, _ = self._descend(lo, 0)
+        while True:
+            for k, v, _ in layout.np_leaf_entries(pg):
+                if lo <= k < hi:
+                    out[k] = v
+            if layout.np_highest(pg) >= hi:
+                return out
+            sib = int(pg[C.W_SIBLING])
+            if bits.addr_is_null(sib):
+                return out
+            pg = self.dsm.read_page(sib)
+
     # -- write path ----------------------------------------------------------
 
     def _leaf_store(self, addr: int, key: int, value: int,

@@ -186,6 +186,18 @@ def mix64_np(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def mix64_host(x: int) -> int:
+    """Scalar twin of :func:`mix64_np` on a Python int (the YCSB payload
+    seed)."""
+    x = int(x) & ((1 << 64) - 1)
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    x ^= x >> 31
+    return x
+
+
 # -- 64-bit pair arithmetic on uint32 words ------------------------------------
 # The device-resident workload generator composes a few uint64 operations
 # (the splitmix64 finalizer, the router's bucket shift) from (hi, lo) uint32

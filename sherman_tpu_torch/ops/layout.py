@@ -224,6 +224,20 @@ def np_leaf_entries(pg: np.ndarray) -> list[tuple[int, int, int]]:
     return out
 
 
+def np_leaf_entries_batch(pages: np.ndarray):
+    """Live entries of ``[W, PAGE_WORDS]`` leaf pages at once (the scan's
+    extraction; host twin of :func:`leaf_slot_used`).  -> (keys uint64
+    [W, LEAF_CAP], vals uint64 [W, LEAF_CAP], live bool [W, LEAF_CAP])."""
+    fv, rv = ver_unpack(
+        pages[:, C.L_VER_W:C.L_VER_W + C.LEAF_CAP].view(np.uint32))
+    live = (fv == rv) & (fv != 0)
+    keys = bits.pairs_to_keys(pages[:, C.L_KHI_W:C.L_KHI_W + C.LEAF_CAP],
+                              pages[:, C.L_KLO_W:C.L_KLO_W + C.LEAF_CAP])
+    vals = bits.pairs_to_keys(pages[:, C.L_VHI_W:C.L_VHI_W + C.LEAF_CAP],
+                              pages[:, C.L_VLO_W:C.L_VLO_W + C.LEAF_CAP])
+    return keys, vals, live
+
+
 def np_internal_entries(pg: np.ndarray) -> list[tuple[int, int]]:
     """-> list of (key, child) of an internal page's entries."""
     out = []

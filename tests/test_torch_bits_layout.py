@@ -63,7 +63,8 @@ def test_layout_constants_match():
                  "INTERNAL_CAP", "LEAF_CAP", "I_KHI_W", "I_KLO_W",
                  "I_PTR_W", "L_VER_W", "L_KHI_W", "L_KLO_W", "L_VHI_W",
                  "L_VLO_W", "ENTRY_VER_MASK", "KEY_MIN", "KEY_MAX",
-                 "KEY_POS_INF", "LEAF_ENTRY_WORDS"):
+                 "KEY_POS_INF", "LEAF_ENTRY_WORDS", "KEY_NEG_INF",
+                 "PAGE_BYTES", "ADDR_NODE_BITS"):
         assert getattr(C, name) == getattr(JC, name), name
 
 
@@ -130,6 +131,30 @@ def test_mix64(seed):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 2**64, 1000, dtype=np.uint64)
     _eq(TB.mix64_np(x), JB.mix64_np(x))
+    for v in [0, 1, 2**64 - 1, 2**63, *x[:50].tolist()]:
+        assert TB.mix64_host(v) == JB.mix64_host(v) == int(TB.mix64_np(v))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_leaf_entries_batch_on_garbage_pages(seed):
+    """The scan's vectorized extraction: keys, values and liveness of every
+    slot, garbage version words included (fver == rver != 0 is live)."""
+    rng = np.random.default_rng(seed)
+    n = 200
+    khi, klo = _words(rng, n), _words(rng, n)
+    pg = _garbage_pages(rng, n, khi, klo)
+    got, want = TL.np_leaf_entries_batch(pg), JL.np_leaf_entries_batch(pg)
+    for x, y, name in zip(got, want, ("keys", "vals", "live")):
+        assert x.dtype == y.dtype, name
+        _eq(x, y, name)
+    live = got[2]
+    assert 0 < int(live.sum()) < live.size
+    # the per-page host scan agrees slot by slot
+    for i in range(0, n, 17):
+        ents = TL.np_leaf_entries(pg[i])
+        assert [s for _, _, s in ents] == np.nonzero(live[i])[0].tolist()
+        assert [(k, v) for k, v, _ in ents] == \
+            list(zip(got[0][i][live[i]].tolist(), got[1][i][live[i]].tolist()))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -11,7 +11,8 @@ multiples; descent rounds with no, every, or a leading run of rows
 active; write-back masks of every class at sizes on either side of 16
 rows, also through views that are not 16-byte aligned; the exchange
 all-to-all at vector-copy and word-copy widths and through its packer;
-the multi-node serving path.  Every comparison is exact equality.
+the multi-node serving path; the scan prefetch and the YCSB A-F matrix.
+Every comparison is exact equality.
 """
 
 import numpy as np
@@ -479,3 +480,107 @@ def test_delete_and_reclaim_on_the_card_match_the_plain_path(dev,
     assert launched["gather_pages"] > 0 and launched["writeback"] > 0
     assert launched["descent_round" if N == 1 else "exchange"] > 0
     assert not any(b[5].values())
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_scan_prefetch_on_the_card_matches_the_plain_path(dev, machine_nr):
+    """``range_query_many`` on a tree that has split, with the router and
+    with its bulk-load table put back (stale): the prefetch is one K2
+    launch a call on the card, its pages equal the plain gather's, and
+    the scans equal the CPU's."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+
+    N = machine_nr
+    keys = np.unique(bits.mix64_np(np.arange(8000, dtype=np.uint64)))
+    keys = keys[keys > 0]
+    rng = np.random.default_rng(2)
+    lo = np.sort(rng.choice(keys, 300))
+    ranges = [(int(a), min(int(a) + int(w), 2**64 - 1)) for a, w in zip(
+        lo, rng.integers(1, 2**56, lo.size))] + [(1, 2**64 - 1)]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=2048,
+                               locks_per_node=1024, step_capacity=512,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=512)
+        batched.bulk_load(tree, keys, keys ^ np.uint64(5))
+        eng.attach_router()
+        stale = eng.router.table_np.copy()
+        eng.insert(keys[::2] + np.uint64(1), keys[::2])
+        cand = batched._scan_candidates(eng.router, ranges)
+        pages = batched._scan_prefetch(eng, cand)
+        PK.reset_launches()
+        out = [eng.range_query_many(ranges)]
+        launched = PK.LAUNCHES["gather_pages"]
+        eng.router.table_np = stale
+        out.append(eng.range_query_many(ranges))
+        runs[d] = (pages, out, launched, [t.cpu() for t in (
+            cl.dsm.pool, cl.dsm.counters)])
+    a, b = runs["cuda"], runs["cpu"]
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[0].shape[0] > 8 * N
+    for xs, ys in zip(a[1], b[1]):
+        for (k1, v1), (k2, v2) in zip(xs, ys):
+            np.testing.assert_array_equal(k1, k2)
+            np.testing.assert_array_equal(v1, v2)
+    assert a[2] == 1 and b[2] == 0
+    assert sum(k.size for k, _ in a[1][0]) > keys.size
+    for x, y in zip(a[3], b[3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_ycsb_matrix_on_the_card_matches_the_plain_path(dev, machine_nr):
+    """``ycsb_bench.build`` at 5,000 keys and A-F, 512 ops a step, 2
+    steps each, one batch stream played on the card and on the CPU: the
+    same counts, scans, pool, locks and counters; the card launched K2
+    and K3 (and K1 on one node, K4 on eight)."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+
+    class Replay:
+        def __init__(self, batches, gen):
+            self.batches, self.gen = list(batches), gen
+
+        def batch(self, n):
+            return self.batches.pop(0)
+
+        def expectations(self):
+            return self.gen.expectations()
+
+    n_keys, ops, steps = 5000, 512, 2
+    stream = {}
+    for w in "ABCDEF":
+        gen = YcsbGen(w, n_keys, seed=17, salt=YB.SALT)
+        stream[w] = ([gen.batch(ops) for _ in range(steps + 1)], gen)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl, _, eng, _ = YB.build(n_keys, ops, machine_nr, d,
+                                 log=lambda m: None)
+        scans, scan = [], eng.range_query_many
+        eng.range_query_many = lambda r: scans.append(scan(r)) or scans[-1]
+        PK.reset_launches()
+        TK.reset_launches()
+        counts = {w: YB.run_workload(eng, Replay(*s), ops=ops,
+                                     steps=steps)["counts"]
+                  for w, s in stream.items()}
+        runs[d] = (counts, scans, [t.cpu() for t in (
+            cl.dsm.pool, cl.dsm.locks, cl.dsm.counters)],
+            {**PK.LAUNCHES, **TK.LAUNCHES})
+    a, b = runs["cuda"], runs["cpu"]
+    assert a[0] == b[0] and a[0]["E"]["scan"] > 0
+    assert len(a[1]) == len(b[1]) == steps + 1
+    for xs, ys in zip(a[1], b[1]):
+        for (k1, v1), (k2, v2) in zip(xs, ys):
+            np.testing.assert_array_equal(k1, k2)
+            np.testing.assert_array_equal(v1, v2)
+    for x, y in zip(a[2], b[2]):
+        assert torch.equal(x, y)
+    assert a[3]["gather_pages"] > 0 and a[3]["writeback"] > 0
+    assert a[3]["descent_round" if machine_nr == 1 else "exchange"] > 0
+    assert not any(b[3].values())
