@@ -149,11 +149,49 @@ scans through ``range_query_many``), after phase 13:
 16. eight nodes: the same at 10,000,000 keys (1,024 rows a node;
     ``reduced`` in its line), K2-K4 replayed.
 
+The integrity plane (``models/validate.py``'s ``check_structure_device``
+and ``scrub_pass``, ``models/scrub.py``'s ``Scrubber``, ``chaos.py``'s
+``FaultPlan``, degraded mode), after phase 16 (phase 18 rides the storm
+and churn trees of phases 9, 10 and 12, after their timed windows):
+
+17. the integrity reference check at 20,000 keys (numpy seed 42) on 1
+    and on 8 nodes (step capacity 32 on 8), card against the plain path
+    on the CPU: a bulk load of three keys in four, the fourth inserted,
+    every sixth key and a band of 3,000 deleted, three reclaim passes
+    (retired, parked and freed pages); the validator and the scrub pass;
+    each of the five fault kinds through ``install_chaos`` (replies,
+    plans, pools, locks, counters, dirty rows); a ``Scrubber`` over an
+    entry-level fault (quarantine, the typed lock timeout) and a
+    structural one (degraded mode, the typed refusal), the flagged pages'
+    keys searched, the repair; eight iterations of
+    ``tests/test_fuzz.py``'s chaos fuzz, reads checked against a model —
+    every result and state bit-identical;
+18. ``check_structure_device`` on the one-node storm tree (13,000,000
+    keys), the eight-node one (2,600,000) and the churn tree after its
+    last reclaim pass (10,000,000 live, the free-pool mask in play), each
+    timed outside its window's wall;
+19. on phase 15's 100 M-key tree after A-F (4,194,304 pages): the
+    validator and a clean scrub, each timed (CUDA-event span, wall, peak
+    device memory, bound); ``flip_entry_ver`` on a leaf, flagged and
+    quarantined without degrading, an 8,192-key insert landing but for
+    the fenced pages, the victim key's typed lock timeout; ``torn_page``
+    on a second leaf, the engine degraded, ``insert``, ``delete``, a
+    writing ``mixed`` and ``reclaim_empty_leaves`` refused, a zipf 0.99
+    batch (less the flagged pages' keys) read by ``search_combined`` and
+    an all-read ``mixed`` as the live mirror says; the repair (undo, a
+    green validation, a clean scrub, the quarantine released, degraded
+    mode left); a dead lease wedged on a leaf of the next 8,192-key
+    batch, the batch landing through the engine's lease revocation and
+    read back; the ``integrity`` JSON line (every pass of phases 18-19,
+    the violation classes, the card); K1-K3 replayed at every shape the
+    window launched (path ``one_node_integrity``).
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch), around each staged window, around each storm's timed window
 (K1-K3 on one node; K2-K4 on eight), around the churn's timed window
-(K1-K3) and around each YCSB matrix (K1-K3 on one node; K2-K4 on eight);
+(K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight)
+and around phase 19's serving steps (K1-K3);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -161,7 +199,8 @@ while the host enqueues the call, so a one-element ``fill_`` shows the
 floor of the method (``launch_floor_ms``). A kernel's ``ms``,
 ``ms_before``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are means
 per launch over its shapes, each listed under ``shapes``. The lines
-before the last are the K1 and K3 ablations, the ``kernels`` JSON record
+before the last are the ``integrity`` JSON record (printed after phase
+19), the K1 and K3 ablations, the ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
 prints no ``ok`` line, also when no CUDA device is present.
@@ -938,7 +977,7 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
-         "one_node_ycsb", "eight_nodes_ycsb")
+         "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1928,6 +1967,31 @@ class YcsbMirror:
             for k in new.tolist():
                 self.fresh[k] ^= 1
 
+    @property
+    def live(self) -> int:
+        """Keys in the live set."""
+        return int(self.keys.size + len(self.fresh))
+
+    def lookup(self, ks) -> tuple[np.ndarray, np.ndarray]:
+        """-> (values uint64, found bool) of ``ks`` in the live set."""
+        ks = np.asarray(ks, np.uint64)
+        pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
+        found = self.keys[pos] == ks
+        vals = np.where(found, self.vals[pos], np.uint64(0))
+        for i in np.nonzero(~found)[0]:
+            v = self.fresh.get(int(ks[i]))
+            if v is not None:
+                vals[i], found[i] = v, True
+        return vals, found
+
+    def add(self, ks, vs) -> None:
+        """Writes of (key, value) pairs, bulk keys or fresh ones."""
+        ks, vs = np.asarray(ks, np.uint64), np.asarray(vs, np.uint64)
+        pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
+        bulk = self.keys[pos] == ks
+        self.vals[pos[bulk]] = vs[bulk]
+        self.fresh.update(zip(ks[~bulk].tolist(), vs[~bulk].tolist()))
+
     def check(self, ranges, res) -> int:
         """Every range's (keys, values) against the live set; -> rows."""
         fk = np.array(sorted(self.fresh), np.uint64)
@@ -2098,14 +2162,15 @@ class ScanTimers:
 
 
 def ycsb_matrix(n_keys: int, nodes: int, path: str, must_launch,
-                reduced: list, device: str = "cuda") -> dict:
+                reduced: list, device: str = "cuda") -> tuple[dict, dict]:
     """``tools/ycsb_bench.py``'s configuration (``build``, ``main``'s
     defaults: 8,192 ops a step, theta 0.99, seed 17, one warm-up batch and
     8 timed steps a workload) at ``n_keys`` keys on ``nodes`` nodes: A-F
     in order on one tree inside a launch window; the ``ycsb_matrix``
     line, with E's wall split; every scan of E's timed steps checked
     against the host mirror outside the timed wall; every launched
-    (kernel, shape) replayed.  -> {kernel: [shapes]}."""
+    (kernel, shape) replayed.  -> ({kernel: [shapes]}, {tree, eng,
+    mirror, n_keys}: the tree after A-F and its live set)."""
     from sherman_tpu_torch import ycsb_bench as YB
     from sherman_tpu_torch.workload.ycsb import YcsbGen
     t = time.perf_counter()
@@ -2165,6 +2230,553 @@ def ycsb_matrix(n_keys: int, nodes: int, path: str, must_launch,
         "router_log2_buckets": eng.router.lb, "theta": 0.99,
         "build_s": t_build, "workloads": rows, "e_split_s": split,
         "e_rows_checked": e_rows, "reduced": reduced}))
+    return replay(log, path), {"tree": tree, "eng": eng, "mirror": mirror,
+                               "n_keys": n_keys}
+
+
+# ---------------------------------------------------------------------------
+# Integrity: the structure validator, the online scrubber with quarantine,
+# chaos injection and degraded mode.
+# ---------------------------------------------------------------------------
+
+INTEG_OPS = 8192                # the matrix's step: one insert batch
+
+
+def _same_obj(a, b) -> bool:
+    """Exact equality of nested results: tensors, arrays, containers."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_obj(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_obj(a[k], b[k]) for k in a))
+    return a == b
+
+
+def _diff(a, b, depth: int = 0) -> str:
+    """A short account of where two results differ."""
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) \
+            and len(a) == len(b) and depth < 3:
+        return "; ".join(f"[{i}] {_diff(x, y, depth + 1)}"
+                         for i, (x, y) in enumerate(zip(a, b))
+                         if not _same_obj(x, y))
+    if isinstance(a, (torch.Tensor, np.ndarray)) and \
+            isinstance(b, (torch.Tensor, np.ndarray)):
+        x, y = np.asarray(a), np.asarray(b)
+        if x.shape != y.shape:
+            return f"shapes {x.shape} vs {y.shape}: " \
+                   f"{np.setdiff1d(x, y)[:8]} / {np.setdiff1d(y, x)[:8]}"
+        idx = np.argwhere(x != y)
+        return f"{len(idx)} elements differ, first at {idx[:4].tolist()}: " \
+               f"{x[tuple(idx[0])]} vs {y[tuple(idx[0])]}"
+    return f"{str(a)[:300]} vs {str(b)[:300]}"
+
+
+def _outcome(fn):
+    """-> ("ok", result), or ("raised", error class, message) for a typed
+    refusal of the port (DegradedError, KeyRangeError, TreeCorruptError);
+    any other error propagates."""
+    from sherman_tpu_torch.errors import ShermanError
+    try:
+        return ("ok", fn())
+    except ShermanError as e:
+        return ("raised", type(e).__name__, str(e))
+
+
+def _page_keys(dsm, addr: int) -> np.ndarray:
+    from sherman_tpu_torch.ops import layout
+    return np.array([k for k, _, _ in layout.np_leaf_entries(
+        dsm.read_page(addr))], np.uint64)
+
+
+def integrity_build(machine_nr: int, device: str,
+                    step_capacity: int | None = None) -> dict:
+    """20,000 keys (numpy seed 42, below 2^56, values ``3 * key``): three
+    in four bulk-loaded at fill 0.9 with the router, the fourth inserted
+    (shuffled), every sixth key and the 3,000 keys of ranks 6,000-8,999
+    deleted, three reclaim passes, so retired, parked and freed pages
+    exist.  One node: 4,096 pages, 512 rows; eight: 1,024 pages a node
+    and ``step_capacity`` (32) rows a node.  -> {tree, eng, keys, model}."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    N = machine_nr
+    B = step_capacity or 512
+    rng = np.random.default_rng(42)
+    keys = np.unique(rng.integers(1, 1 << 56, 21_000, dtype=np.uint64))
+    keys = keys[:20_000]
+    i = np.arange(keys.size)
+    ins = keys[i % 4 == 3].copy()
+    rng.shuffle(ins)
+    dead = np.union1d(keys[::6], keys[6000:9000])
+    tree = Tree(Cluster(DSMConfig(
+        machine_nr=N, pages_per_node=4096 if N == 1 else 1024,
+        locks_per_node=1024, step_capacity=B, chunk_pages=64,
+        device=device)))
+    eng = batched.BatchedEngine(tree, batch_per_node=B,
+                                tcfg=TreeConfig(lock_retry_rounds=2))
+    bulk = keys[i % 4 != 3]
+    batched.bulk_load(tree, bulk, bulk * np.uint64(3), fill=0.9)
+    eng.attach_router()
+    eng.insert(ins, ins * np.uint64(3))
+    eng.delete(dead)
+    for _ in range(3):
+        eng.reclaim_empty_leaves()
+    live = np.setdiff1d(keys, dead)
+    if not (eng._reclaim_state["parked"]
+            and any(d.allocator.free_pages_list
+                    for d in tree.cluster.directories)):
+        raise AssertionError("integrity tree: no parked or no freed page")
+    return {"tree": tree, "eng": eng, "keys": keys,
+            "model": dict(zip(live.tolist(), (live * 3).tolist()))}
+
+
+def _integrity_run(machine_nr: int, device: str, step_capacity) -> list:
+    """The reference check's sequence on one device -> [(label, result)]:
+    every result comparable across devices (tensors on the CPU)."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch.models import validate as V
+    from sherman_tpu_torch.models.scrub import Scrubber
+    from sherman_tpu_torch.parallel import dsm as D
+
+    ctx = integrity_build(machine_nr, device, step_capacity)
+    tree, eng, keys, model = ctx["tree"], ctx["eng"], ctx["keys"], \
+        ctx["model"]
+    dsm = tree.dsm
+    out = []
+
+    def state(label):
+        # copies: on the CPU, .cpu() would alias the live state
+        out.append((label, [t.to("cpu", copy=True) for t in (
+            dsm.pool, dsm.locks, dsm.counters)] + [dsm.dirty_rows()]))
+
+    state("built")
+    out.append(("validate", V.check_structure_device(tree)))
+    out.append(("scrub", V.scrub_pass(tree)))
+    live = np.array(sorted(model), np.uint64)
+    victim = int(tree._descend(int(live[live.size // 2]))[0])
+    victim2 = int(tree._descend(int(live[live.size // 5]))[0])
+    la = tree._lock_word_addr(victim)
+    w200 = int(dsm.read_page(victim)[200])
+
+    def stale_ops():
+        dsm.read_word(0, 0)                     # step 0 arms the snapshot
+        dsm.write_words(victim, 200, np.array([1234], np.int32))
+        return dsm.read_page(victim)
+
+    cases = (
+        ("torn_page", [{"kind": "torn_page", "step": 0}],
+         lambda: dsm.read_word(0, 0)),
+        ("flip_entry_ver", [{"kind": "flip_entry_ver", "step": 0,
+                             "slot": 7}], lambda: dsm.read_word(0, 0)),
+        ("wedge_lock", [{"kind": "wedge_lock", "step": 0}],
+         lambda: dsm.read_word(0, 0)),
+        ("drop_cas", [{"kind": "drop_cas", "step": 0}],
+         lambda: dsm.cas(la, 0, 0, tree.ctx.lease, space=D.SPACE_LOCK)),
+        ("stale_read", [{"kind": "stale_read", "step": 2}], stale_ops))
+    for kind, faults, ops in cases:
+        plan = CH.FaultPlan(faults, seed=5)
+        dsm.install_chaos(plan)
+        rep = ops()
+        dsm.install_chaos(None)
+        if not plan.exhausted:
+            raise AssertionError(f"integrity: {kind} did not fire")
+        out.append((kind, (rep, plan.describe(), list(plan._undo))))
+        state(kind)
+        plan.undo(dsm)
+    dsm.write_words(victim, 200, np.array([w200], np.int32))
+    state("faults undone")
+
+    # the scrubber: an entry-level fault quarantined, a structural one
+    # degrading the engine, reads of the flagged pages, the repair
+    scr = Scrubber(eng, interval=1)
+    out.append(("scrub clean", scr.scrub()))
+    pk, pk2 = _page_keys(dsm, victim), _page_keys(dsm, victim2)
+    plans = []
+    for label, fault in (("entry", {"kind": "flip_entry_ver",
+                                    "addr": victim}),
+                         ("structural", {"kind": "torn_page",
+                                         "addr": victim2})):
+        plans.append(_fire(dsm, CH.FaultPlan([fault])))
+        res = scr.scrub()
+        out.append((label + " scrub", res))
+        out.append((label + " lease words", [
+            dsm.read_word(w, 0, space=D.SPACE_LOCK)
+            for w in sorted(scr._held_words)]))
+        out.append((label + " degraded", eng.degraded_reason))
+        out.append((label + " insert", _outcome(
+            lambda: eng.insert(pk[:4], pk[:4] ^ np.uint64(1)))))
+        out.append((label + " mixed", _outcome(
+            lambda: eng.mixed(pk[:2], pk[:2], np.zeros(2, bool)))))
+        for name, ks in (("flagged", pk), ("flagged2", pk2)):
+            out.append((f"{label} search {name}", _outcome(
+                lambda: eng.search(ks))))
+            out.append((f"{label} search_combined {name}", _outcome(
+                lambda: eng.search_combined(ks))))
+        state(label)
+    if not eng.degraded:
+        raise AssertionError("integrity: the torn page did not degrade")
+    out.append(("repair", (plans[1].undo(dsm), plans[0].undo(dsm),
+                           _outcome(lambda: V.check_structure_device(tree)),
+                           scr.scrub()["violations"],
+                           scr.release_quarantine())))
+    eng.exit_degraded()
+    state("repaired")
+
+    # tests/test_fuzz.py's chaos fuzz over this tree
+    rng = np.random.default_rng(42)
+    scr = Scrubber(eng, interval=1, quarantine=False)
+    for it in range(8):
+        plan = _fire(dsm, CH.FaultPlan.random(1000 + it, n_faults=2,
+                                              step_hi=1))
+        res = scr.scrub()
+        if any(f.kind in ("torn_page", "flip_entry_ver")
+               for f in plan.faults) and not res["violations"]:
+            raise AssertionError(f"fuzz {it}: {plan.describe()} undetected")
+        ks = rng.choice(keys, size=100, replace=True)
+        vs = ks ^ np.uint64(it * 31 + 7)
+        st = _outcome(lambda: eng.insert(ks, vs))
+        if st[0] == "ok":
+            done = st[1]
+            if (done["applied"] + done["superseded"] + done["host_path"]
+                    + done["lock_timeouts"]) != ks.size:
+                raise AssertionError(f"fuzz {it}: {done}")
+            timed_out = set(done["lock_timeout_keys"])
+            for j in sorted(np.unique(ks, return_index=True)[1]):
+                if int(ks[j]) not in timed_out:
+                    model[int(ks[j])] = int(vs[j])
+        elif st[1] != "DegradedError":
+            raise AssertionError(f"fuzz {it}: {st}")
+        n_undo = plan.undo(dsm)
+        scr.flagged.clear()
+        eng.exit_degraded()
+        probe = rng.choice(keys, size=200, replace=False)
+        v, f = eng.search(probe)
+        want_f = np.array([int(k) in model for k in probe])
+        want_v = np.array([model.get(int(k), 0) for k in probe], np.uint64)
+        if not (np.array_equal(f, want_f)
+                and np.array_equal(v[f], want_v[want_f])):
+            raise AssertionError(f"fuzz {it}: reads disagree with the model")
+        out.append((f"fuzz {it}", (plan.describe(), res, st, n_undo, v, f)))
+        state(f"fuzz {it}")
+    stats = V.check_structure_device(tree)
+    if stats["keys"] != len(model):
+        raise AssertionError(f"fuzz: {stats} for {len(model)} live keys")
+    out.append(("fuzz end", stats))
+    return out
+
+
+def integrity_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                              step_capacity: int | None = None) -> None:
+    """Phase 17 on ``machine_nr`` nodes: :func:`_integrity_run` on the
+    card and on the plain path on the CPU, every result and state
+    bit-identical."""
+    t = time.perf_counter()
+    a, b = [_integrity_run(machine_nr, d, step_capacity) for d in devices]
+    if [x for x, _ in a] != [x for x, _ in b]:
+        raise AssertionError("integrity reference: the runs differ in shape")
+    for (label, x), (_, y) in zip(a, b):
+        if not _same_obj(x, y):
+            raise AssertionError(f"integrity reference ({machine_nr} "
+                                 f"node(s)): {label} differs between "
+                                 f"{devices[0]} and {devices[1]}: "
+                                 f"{_diff(x, y)}")
+    _log(f"integrity reference check ({machine_nr} node(s), 20,000 keys, "
+         f"{devices[0]} vs {devices[1]}): validator, scrub pass, the five "
+         "fault kinds, quarantine, degraded mode, reads of flagged pages, "
+         "repair, 8 fuzz iterations bit-identical "
+         f"({len(a)} results; {time.perf_counter() - t:.1f} s)")
+
+
+def timed_pass(what: str, fn, tree) -> tuple:
+    """One integrity pass ``fn()``: its CUDA-event span and wall (the pass
+    syncs to read its counts back, so the span holds the host's share
+    too) and, on the card, its peak device memory
+    (``max_memory_allocated`` after a reset) and what it added to the
+    memory in use.  -> (result, record)."""
+    on_card = tree.dsm.pool.device.type == "cuda"
+    rec = {"what": what, "pages": tree.dsm.pool.shape[0],
+           "device_ms": None, "peak_bytes": None, "added_bytes": None}
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+    t = time.perf_counter()
+    out = fn()
+    if on_card:
+        b.record()
+        b.synchronize()
+        rec["device_ms"] = a.elapsed_time(b)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["added_bytes"] = rec["peak_bytes"] - base
+    rec["wall_ms"] = (time.perf_counter() - t) * 1e3
+    return out, rec
+
+
+def with_bound(rec: dict, stats: dict, entry: bool) -> dict:
+    """The pass's bound: the bytes it must read, each word once, over the
+    HBM rate.  The header words and the rear version of every row, the
+    version and key words of every leaf slot (``stats``' leaves), the key
+    words of every internal entry and, with ``entry`` (the validator),
+    their child pointers."""
+    from sherman_tpu_torch import config as C
+    words = (rec["pages"] * (C.W_ENTRIES + 1)
+             + stats["leaves"] * 3 * C.LEAF_CAP
+             + stats["internal_pages"] * (3 if entry else 2)
+             * C.INTERNAL_CAP)
+    rec["bytes"] = 4 * words
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    return rec
+
+
+def timed_validate(tree, what: str, want_keys: int, passes: list) -> dict:
+    """``check_structure_device`` timed by :func:`timed_pass`; its key
+    count must be ``want_keys``.  The record goes to ``passes``."""
+    from sherman_tpu_torch.models import validate as V
+    stats, rec = timed_pass(what, lambda: V.check_structure_device(tree),
+                            tree)
+    if stats["keys"] != want_keys:
+        raise AssertionError(f"{what}: {stats['keys']} keys in the tree, "
+                             f"{want_keys} expected")
+    passes.append({**with_bound(rec, stats, True), "stats": stats})
+    _log(f"{what}: structure valid ({stats}) in {rec['wall_ms']:.1f} ms")
+    return stats
+
+
+def timed_scrub(scr, what: str, stats: dict, passes: list) -> dict:
+    """``scr.scrub()`` timed by :func:`timed_pass`, its bound from the
+    last validation's ``stats``.  The record goes to ``passes``."""
+    res, rec = timed_pass(what, scr.scrub, scr.tree)
+    passes.append({**with_bound(rec, stats, False),
+                   "violations": res["violations"],
+                   "classes": {k: v for k, v in res["classes"].items() if v}})
+    return res
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _fire(dsm, plan):
+    """Install a chaos plan, run one host step so its step-0 faults land,
+    uninstall.  -> the plan."""
+    dsm.install_chaos(plan)
+    dsm.read_word(0, 0)
+    dsm.install_chaos(None)
+    if not plan.exhausted:
+        raise AssertionError(f"faults {plan.describe()} did not fire")
+    return plan
+
+
+def _fence(dsm, addr: int) -> tuple[int, int]:
+    from sherman_tpu_torch.ops import layout
+    pg = dsm.read_page(addr)
+    return layout.np_lowest(pg), layout.np_highest(pg)
+
+
+def _outside(keys: np.ndarray, fences) -> np.ndarray:
+    keep = np.ones(keys.size, bool)
+    for lo, hi in fences:
+        keep &= ~((keys >= np.uint64(lo)) & (keys < np.uint64(hi)))
+    return keep
+
+
+def fresh_keys(rng, mirror, n: int, fences=()) -> np.ndarray:
+    """``n`` distinct keys absent from the live set and outside the
+    ``fences``, in random order."""
+    from sherman_tpu_torch import config as C
+    cand = np.unique(rng.integers(C.KEY_MIN, C.KEY_MAX, 4 * n,
+                                  dtype=np.uint64))
+    cand = cand[~mirror.lookup(cand)[1] & _outside(cand, fences)]
+    rng.shuffle(cand)
+    if cand.size < n:
+        raise AssertionError("fresh_keys: too few candidates")
+    return cand[:n]
+
+
+def integrity_full_width(ctx: dict, passes: list, smi: str) -> dict:
+    """Phase 19 on the YCSB matrix's 100 M-key tree (``ctx`` from
+    :func:`ycsb_matrix`): (a) the validator, keys equal to the live
+    mirror; (b) a clean scrub; (c) ``flip_entry_ver`` on a leaf:
+    flagged ``torn_slot``, quarantined, no degrade, an insert batch lands
+    everywhere but the fenced pages, the victim's key timed out with the
+    typed status; (d) ``torn_page`` on a second leaf: ``bad_version``,
+    degraded, every write entry point refused, a zipf 0.99 batch (less the
+    flagged pages' keys) answered as the mirror says by
+    ``search_combined`` and an all-read ``mixed``; (e) undo, a green
+    validation and a clean scrub, the quarantine released, degraded mode
+    left; a dead lease wedged on a leaf the next batch writes, the batch
+    landing through the engine's lease revocation, every key searched
+    back; (f) the ``integrity`` line.  Every serving step runs in one
+    launch window (K1-K3 must launch, K1 and K2 in (d)'s reads, all three
+    in (e)'s batch), replayed as the ``one_node_integrity`` path.
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.scrub import Scrubber
+    from sherman_tpu_torch.models.validate import SCRUB_BITS
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.parallel import dsm as D
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+    tree, eng, mirror = ctx["tree"], ctx["eng"], ctx["mirror"]
+    dsm, path = tree.dsm, "one_node_integrity"
+    rng = np.random.default_rng(19)
+    rec: dict = {"metric": "integrity", "path": path,
+                 "pages": dsm.pool.shape[0]}
+    # a, b
+    stats = timed_validate(tree, "19a validate", mirror.live, passes)
+    scr = Scrubber(eng, interval=1)
+    res = timed_scrub(scr, "19b scrub", stats, passes)
+    if res["violations"] or res["degraded"]:
+        raise AssertionError(f"19b: {res}")
+    # c: an entry-level fault
+    k1 = mirror.keys[mirror.keys.size // 3]
+    v1 = int(tree._descend(int(k1))[0])
+    plan_c = _fire(dsm, CH.FaultPlan([{"kind": "flip_entry_ver", "addr": v1,
+                                       "slot": 0}]))
+    res = timed_scrub(scr, "19c scrub", stats, passes)
+    if (res["bad"] != [(v1, SCRUB_BITS["torn_slot"])] or res["degraded"]
+            or not res["quarantined"]):
+        raise AssertionError(f"19c: {res}")
+    rec["c"] = {k: res[k] for k in ("classes", "quarantined", "degraded")}
+    fence1 = _fence(dsm, v1)
+    held = set(scr._held_words)
+    with ShapeLog() as log:
+        # the launches so far, as the window's spies count them
+        launches = lambda: {k: sum(log.counts.get(k, {}).values())
+                            for k in ("descent_round", "gather_pages",
+                                      "writeback")}
+        ins = np.append(fresh_keys(rng, mirror, INTEG_OPS - 1, [fence1]),
+                        k1)
+        vals = ins ^ np.uint64(0x1D1D)
+        t = time.perf_counter()
+        st = eng.insert(ins, vals)
+        insert_ms = (time.perf_counter() - t) * 1e3
+        to = np.asarray(st["lock_timeout_keys"], np.uint64)
+        if int(k1) not in set(to.tolist()) or (
+                st["applied"] + st["superseded"] + st["host_path"]
+                + st["lock_timeouts"]) != ins.size:
+            raise AssertionError(f"19c insert: {st}")
+        fenced = {tree._lock_word_addr(int(tree._descend(int(k))[0]))
+                  for k in to}
+        if not fenced <= held:
+            raise AssertionError("19c: a key outside the quarantined "
+                                 "pages timed out")
+        status = eng.mixed(ins[-1:], vals[-1:], np.zeros(1, bool))[2]
+        if status[0] != batched.ST_LOCK_TIMEOUT:
+            raise AssertionError(f"19c: mixed status {status}")
+        landed = ~np.isin(ins, to)
+        mirror.add(ins[landed], vals[landed])
+        v, f = eng.search_combined(ins)
+        want_v, want_f = mirror.lookup(ins)
+        if not (np.array_equal(f, want_f) and np.array_equal(v, want_v)):
+            raise AssertionError("19c: the insert batch reads back wrong")
+        rec["c"].update(insert_keys=int(ins.size), landed=int(landed.sum()),
+                        lock_timeouts=int(st["lock_timeouts"]),
+                        victim_status=int(status[0]), insert_ms=insert_ms)
+        # d: a structural fault
+        k2 = mirror.keys[2 * mirror.keys.size // 3]
+        v2 = int(tree._descend(int(k2))[0])
+        plan_d = _fire(dsm, CH.FaultPlan([{"kind": "torn_page", "addr": v2}]))
+        res = timed_scrub(scr, "19d scrub", stats, passes)
+        if ((v2, SCRUB_BITS["bad_version"]) not in res["bad"]
+                or res["new_violations"] != 1 or not res["degraded"]):
+            raise AssertionError(f"19d: {res}")
+        rec["d"] = {k: res[k] for k in ("classes", "quarantined",
+                                        "degraded")}
+        refused = []
+        two = mirror.keys[:2]
+        for name, fn in (
+                ("insert", lambda: eng.insert(two, two)),
+                ("delete", lambda: eng.delete(two)),
+                ("mixed", lambda: eng.mixed(two, two,
+                                            np.array([True, False]))),
+                ("reclaim_empty_leaves", eng.reclaim_empty_leaves)):
+            try:
+                fn()
+            except batched.DegradedError:
+                refused.append(name)
+            else:
+                raise AssertionError(f"19d: {name} accepted while degraded")
+        gen = YcsbGen("C", ctx["n_keys"], theta=0.99, seed=29, salt=YB.SALT)
+        q = gen.batch(INTEG_OPS)["read"]
+        q = q[_outside(q, [fence1, _fence(dsm, v2)])]
+        before = launches()
+        t = time.perf_counter()
+        v, f = eng.search_combined(q)
+        t1 = time.perf_counter()
+        ov, fnd, _ = eng.mixed(q, q, np.ones(q.size, bool))
+        t2 = time.perf_counter()
+        after = launches()
+        want_v, want_f = mirror.lookup(q)
+        if not (want_f.all() and np.array_equal(f, want_f)
+                and np.array_equal(v, want_v) and np.array_equal(fnd, want_f)
+                and np.array_equal(ov, want_v)):
+            raise AssertionError("19d: degraded reads disagree with the "
+                                 "mirror")
+        if not all(after[k] > before[k]
+                   for k in ("descent_round", "gather_pages")):
+            raise AssertionError(f"19d reads: launches {before} -> {after}")
+        rec["d"].update(refused=refused, reads_checked=int(q.size),
+                        search_combined_ms=(t1 - t) * 1e3,
+                        read_mixed_ms=(t2 - t1) * 1e3)
+        # e: repair, then a wedged lock under the next batch
+        undone = plan_d.undo(dsm) + plan_c.undo(dsm)
+        stats = timed_validate(tree, "19e validate", mirror.live, passes)
+        res = timed_scrub(scr, "19e scrub", stats, passes)
+        if res["violations"] or undone != 2:
+            raise AssertionError(f"19e: {undone} words undone, {res}")
+        released = scr.release_quarantine()
+        eng.exit_degraded()
+        batch = fresh_keys(rng, mirror, INTEG_OPS)
+        la = tree._lock_word_addr(int(tree._descend(int(batch[0]))[0]))
+        _fire(dsm, CH.FaultPlan([{"kind": "wedge_lock", "addr": la}]))
+        dead = dsm.read_word(la, 0, space=D.SPACE_LOCK)
+        if bits.lease_owner(dead) != 0xDEAD:
+            raise AssertionError(f"19e: lock word {dead:#x} not wedged")
+        recover, calls = eng._recover_wedged_locks, []
+        eng._recover_wedged_locks = lambda k: calls.append(k.size) \
+            or recover(k)
+        before = launches()
+        t = time.perf_counter()
+        try:
+            st = eng.insert(batch, batch ^ np.uint64(0x2E2E))
+        finally:
+            del eng._recover_wedged_locks
+        insert_ms = (time.perf_counter() - t) * 1e3
+        after = launches()
+        if st["lock_timeouts"] or (st["applied"] + st["superseded"]
+                                   + st["host_path"]) != batch.size \
+                or not calls \
+                or dsm.read_word(la, 0, space=D.SPACE_LOCK) != 0:
+            raise AssertionError(f"19e insert: {st}, recoveries {calls}")
+        if not all(after[k] > before[k] for k in after):
+            raise AssertionError(f"19e insert: launches {before} -> {after}")
+        mirror.add(batch, batch ^ np.uint64(0x2E2E))
+        v, f = eng.search_combined(batch)
+        if not (f.all() and np.array_equal(v, batch ^ np.uint64(0x2E2E))):
+            raise AssertionError("19e: the batch reads back wrong")
+        rec["e"] = {"words_undone": undone, "quarantine_released": released,
+                    "wedged_lock": la, "recoveries": len(calls),
+                    "batch_landed": int(batch.size), "insert_ms": insert_ms}
+        timed_validate(tree, "19e final validate", mirror.live, passes)
+    log.check(path, ("descent_round", "gather_pages", "writeback"))
+    rec.update(keys=mirror.live, passes=passes, card=smi)
+    print(json.dumps(rec), flush=True)
     return replay(log, path)
 
 
@@ -2227,11 +2839,14 @@ def main() -> int:
 
     storm_reference_check(1)
     storm_reference_check(8)
+    passes: list = []           # the integrity passes' records (18, 19)
     ctx = storm_build(10_000_000, 3_000_000, "cuda")
     for k, v in storm(ctx, "one_node_storm", 1 << 20,
                       ("descent_round", "gather_pages", "writeback"),
                       []).items():
         shapes.setdefault(k, []).extend(v)
+    timed_validate(ctx["tree"], "18 one_node_storm validate", 13_000_000,
+                   passes)
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -2245,6 +2860,8 @@ def main() -> int:
                        "(step_capacity 131,072), not 1,048,576 a node"]
                       ).items():
         shapes.setdefault(k, []).extend(v)
+    timed_validate(ctx["tree"], "18 eight_nodes_storm validate", 2_600_000,
+                   passes)
     del ctx
     _log("storm parity at every launched shape (K1-K4): exact")
     gc.collect()
@@ -2260,6 +2877,8 @@ def main() -> int:
                       ["iterations 55 (or 30 minutes) -> 6, for the "
                        "smoke's time limit"]).items():
         shapes.setdefault(k, []).extend(v)
+    timed_validate(ctx["tree"], "18 one_node_churn validate",
+                   ctx["hi"] - ctx["lo"], passes)
     del ctx
     _log("churn parity at every launched shape (K1-K3): exact")
     gc.collect()
@@ -2267,25 +2886,33 @@ def main() -> int:
 
     ycsb_reference_check(1)
     ycsb_reference_check(8, step_capacity=32)
-    for k, v in ycsb_matrix(100_000_000, 1, "one_node_ycsb",
-                            ("descent_round", "gather_pages", "writeback"),
-                            []).items():
+    by_shape, ycsb = ycsb_matrix(100_000_000, 1, "one_node_ycsb",
+                                 ("descent_round", "gather_pages",
+                                  "writeback"), [])
+    for k, v in by_shape.items():
         shapes.setdefault(k, []).extend(v)
     gc.collect()
     torch.cuda.empty_cache()
-    for k, v in ycsb_matrix(10_000_000, 8, "eight_nodes_ycsb",
-                            ("gather_pages", "writeback", "exchange"),
-                            ["keys 100,000,000 -> 10,000,000, for the "
-                             "smoke's time limit"]).items():
+    by_shape, _ = ycsb_matrix(10_000_000, 8, "eight_nodes_ycsb",
+                              ("gather_pages", "writeback", "exchange"),
+                              ["keys 100,000,000 -> 10,000,000, for the "
+                               "smoke's time limit"])
+    for k, v in by_shape.items():
         shapes.setdefault(k, []).extend(v)
     _log("YCSB parity at every launched shape (K1-K4, the scan prefetch "
          "on K2): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smi = card()
+    integrity_reference_check(1)
+    integrity_reference_check(8, step_capacity=32)
+    for k, v in integrity_full_width(ycsb, passes, smi).items():
+        shapes.setdefault(k, []).extend(v)
+    del ycsb
+    _log("integrity path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"k1_ablations": [
         {k: e[k] for k in ("path", "rows", "active_rows", "launches", "ms",
                            "ms_before", "host_ms", "ablation_inactive_ms",

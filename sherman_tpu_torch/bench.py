@@ -37,7 +37,9 @@ The tree builder and the loops' runners (:func:`build`,
 :func:`size_dev_b`, :func:`staged_read`, :func:`staged_mixed`) are the
 ones ``chip_smoke.py`` drives.  Environment: ``SHERMAN_BENCH_KEYS``,
 ``SHERMAN_BENCH_BATCH``, ``SHERMAN_BENCH_THETA``,
-``SHERMAN_BENCH_SAMPLER``, ``SHERMAN_BENCH_LB`` (router log2 buckets).
+``SHERMAN_BENCH_SAMPLER``, ``SHERMAN_BENCH_LB`` (router log2 buckets);
+``SHERMAN_BENCH_VALIDATE`` set runs ``check_structure_device`` on the tree
+after the bulk load and asserts its key count.
 """
 
 from __future__ import annotations
@@ -352,6 +354,16 @@ def main(argv=None) -> int:
     b = build(n_keys, batch, batch, "cuda", lb=lb)
     salt = b["salt"]
     del b["vals"]
+    if os.environ.get("SHERMAN_BENCH_VALIDATE"):
+        # the whole-tree structure check on the card (every invariant,
+        # every page); raises on any violation
+        from sherman_tpu_torch.models.validate import check_structure_device
+        t1 = time.perf_counter()
+        info = check_structure_device(b["tree"])
+        _say(f"structure valid in {time.perf_counter() - t1:.3f} s: {info}")
+        if info["keys"] != n_keys:
+            raise AssertionError(f"{info['keys']} keys in the tree, "
+                                 f"{n_keys} loaded")
     eng = b["eng_c"]
     dev_b, staged = size_dev_b(eng, n_keys, theta, salt, batch, sampler)
     read, step, _ = staged_read(eng, n_keys, theta, salt, batch, dev_b, staged,

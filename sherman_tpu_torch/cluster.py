@@ -60,9 +60,11 @@ class Cluster:
         self.lease_epochs: dict[int, int] = {}
         self.keeper.barrier("DSM-init")
 
-    def register_client(self) -> ClientContext:
+    def register_client(self, replicated: bool | None = None
+                        ) -> ClientContext:
         """Per-client context (``DSM::registerThread``); records its lease
-        epoch."""
+        epoch.  ``replicated`` is the reference's multihost acknowledgment;
+        one process drives every node here, so it changes nothing."""
         cid = self._next_client
         self._next_client += 1
         ctx = ClientContext(client_id=cid,

@@ -12,6 +12,8 @@ __all__ = [
     "DoubleFreeError",
     "ProtocolError",
     "StateError",
+    "MultiprocessUnsupportedError",
+    "TreeCorruptError",
     "KernelUnavailableError",
     "NotPortedError",
     "ExchangeLaneError",
@@ -44,6 +46,18 @@ class ProtocolError(ShermanError, RuntimeError):
 class StateError(ShermanError, RuntimeError):
     """The object is in the wrong state for this call (a reclaim pass is
     already running on the engine)."""
+
+
+class MultiprocessUnsupportedError(ShermanError, RuntimeError):
+    """A single-process-only feature was invoked on a multihost mesh.  The
+    port drives every node from one process, so no path of it raises this
+    yet; it keeps the reference's taxonomy whole."""
+
+
+class TreeCorruptError(ShermanError, RuntimeError):
+    """Structural validation failed: the pool holds pages that violate
+    the B+-tree invariants (``models/validate.py`` names each violated
+    class)."""
 
 
 class KernelUnavailableError(ShermanError, RuntimeError):

@@ -32,6 +32,11 @@ the slot's version word on the owner (``BatchedEngine.delete``), and
 ``BatchedEngine.reclaim_empty_leaves`` unlinks the leaves they empty and
 recycles their pages through the allocators' free pools.
 
+After damage the online scrubber (``models/scrub.py``) cannot contain,
+the engine serves read-only (:meth:`BatchedEngine.enter_degraded`): every
+mutating entry point raises :class:`DegradedError` while searches and
+all-read ``mixed`` batches keep serving.
+
 The reference's ``lax.while_loop`` with a data-dependent exit is a Python
 loop here that reads one pending count back per round (one host sync per
 descent round; ROADMAP.md lists removing it).
@@ -50,7 +55,8 @@ import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import ConfigError, KeyRangeError, StateError
+from sherman_tpu_torch.errors import (ConfigError, KeyRangeError,
+                                      ShermanError, StateError)
 from sherman_tpu_torch.models import validate
 from sherman_tpu_torch.models.btree import META_ADDR
 from sherman_tpu_torch.ops import bits, layout
@@ -72,6 +78,22 @@ ST_LOCK_TIMEOUT = 8  # host-side terminal: the key's page lock was still held
 
 _PW = C.PAGE_WORDS
 _U32 = 0xFFFFFFFF
+
+
+class DegradedError(ShermanError, RuntimeError):
+    """Typed write rejection: the engine is in read-only degraded mode.
+
+    Raised by every mutating engine entry point after data-plane damage
+    that quarantine could not contain (a structural violation the
+    scrubber found, or a quarantine that could not take its lock).
+    Searches keep being served; the exit is a repair of the flagged pages,
+    a green validation, then :meth:`BatchedEngine.exit_degraded`."""
+
+    def __init__(self, reason: str):
+        super().__init__(
+            "engine degraded (read-only): write rejected — " + reason
+            + "; repair the flagged pages, re-validate, then exit_degraded")
+        self.reason = reason
 
 
 # ---------------------------------------------------------------------------
@@ -920,6 +942,37 @@ class BatchedEngine:
         self._parent_descend_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
+        # read-only degraded mode: once set, every mutating entry point
+        # raises DegradedError while searches keep serving
+        self._degraded_reason: str | None = None
+
+    # -- degraded mode (read-only serving after unrecoverable damage) --------
+
+    @property
+    def degraded(self) -> bool:
+        return self._degraded_reason is not None
+
+    @property
+    def degraded_reason(self) -> str | None:
+        return self._degraded_reason
+
+    def enter_degraded(self, reason: str) -> None:
+        """Flip to read-only degraded serving: searches continue, writes
+        raise :class:`DegradedError`.  Idempotent: the first reason, the
+        root cause, stays.  (The reference also flushes its leaf cache
+        here, ROADMAP.md item 6, and records a gauge and a flight event,
+        item 7.)"""
+        if self._degraded_reason is None:
+            self._degraded_reason = reason
+
+    def exit_degraded(self) -> None:
+        """Clear degraded mode, only once the damage is gone (repaired and
+        validated again)."""
+        self._degraded_reason = None
+
+    def _require_writable(self) -> None:
+        if self._degraded_reason is not None:
+            raise DegradedError(self._degraded_reason)
 
     def _note_combine_step(self, rows: int) -> None:
         """Count one batch of ``rows`` write rows through the combined
@@ -1098,6 +1151,8 @@ class BatchedEngine:
         self._check_range(keys)
         values = np.asarray(values, np.uint64)
         is_read = np.asarray(is_read, bool)
+        if not is_read.all():
+            self._require_writable()    # degraded mode: reads-only batches
         n = keys.shape[0]
         khi, klo = bits.keys_to_pairs(keys)
         vhi, vlo = bits.keys_to_pairs(values)
@@ -1183,6 +1238,7 @@ class BatchedEngine:
         path, or, when a live lease held its page lock past the bounded
         retry budget, REJECTED with ST_LOCK_TIMEOUT (counted in
         lock_timeouts, keys in lock_timeout_keys)."""
+        self._require_writable()
         if max_rounds is None:
             max_rounds = self.tcfg.insert_rounds
         keys = np.asarray(keys, np.uint64)
@@ -1537,6 +1593,7 @@ class BatchedEngine:
     def delete(self, keys, max_rounds: int | None = None) -> np.ndarray:
         """Batched delete (``Tree::del``).  -> found bool [n]: True where
         the key existed and was removed."""
+        self._require_writable()
         if max_rounds is None:
             max_rounds = self.tcfg.insert_rounds
         keys = np.asarray(keys, np.uint64)
@@ -1630,6 +1687,7 @@ class BatchedEngine:
            clients holding pre-unlink addresses.
 
         -> {"unlinked", "freed", "candidates", "quarantined", "parked"}."""
+        self._require_writable()    # reclaim rewrites pages
         if not self._reclaim_mutex.acquire(blocking=False):
             raise StateError(
                 "reclaim_empty_leaves is not reentrant: another reclaim "

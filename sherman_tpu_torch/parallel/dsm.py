@@ -22,6 +22,7 @@ pool tensors in place (the step mutex serializes host steps).
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from dataclasses import dataclass
 
@@ -337,6 +338,18 @@ class _HostOps:
                           "nw": PAGE_WORDS, "payload": words}])
         self._require_ok(r.ok[0], "write_page (bad address?)")
 
+    def write_words(self, addr: int, woff: int, words: np.ndarray):
+        words = np.asarray(words, np.int32)
+        r = self._batch([{"op": OP_WRITE, "addr": addr, "woff": woff,
+                          "nw": words.shape[0], "payload": words}])
+        self._require_ok(r.ok[0], "write_words (bad address/range?)")
+
+    def write_word(self, addr: int, woff: int, value: int,
+                   space: int = SPACE_POOL):
+        r = self._batch([{"op": OP_WRITE_WORD, "addr": addr, "woff": woff,
+                          "arg1": value, "space": space}])
+        self._require_ok(r.ok[0], "write_word (bad address?)")
+
     def write_rows(self, rows: list[dict]):
         """Batched writes in ONE step: all land at the step boundary."""
         r = self._batch(rows)
@@ -449,6 +462,12 @@ class DSM(_HostOps):
         self._host_cfg = dataclasses.replace(
             cfg, step_capacity=self.host_capacity)
         self._step_mutex = threading.Lock()
+        # the chaos hook (sherman_tpu_torch/chaos.py): a FaultPlan fired at
+        # the host-step boundary; SHERMAN_CHAOS installs one here
+        self.chaos = None
+        if os.environ.get("SHERMAN_CHAOS"):
+            from sherman_tpu_torch.chaos import FaultPlan
+            self.chaos = FaultPlan.from_env()
 
     # -- raw step ------------------------------------------------------------
 
@@ -456,8 +475,21 @@ class DSM(_HostOps):
         """Run one DSM step over global request arrays [N*R] (node ``n``
         sends rows ``n*R:(n+1)*R``); thread-safe.  Active requests past a
         bucket's capacity, or addressed to no node of the cluster, are
-        refused with ok=False (the reference's bucket overflow)."""
+        refused with ok=False (the reference's bucket overflow).  An
+        installed chaos plan fires its due faults under the step mutex
+        before the step (they may rewrite its requests) and may rewrite
+        its replies after it; the caller's requests mark the dirty
+        pages."""
         self._mark_dirty_from_reqs(reqs)
+        with self._step_mutex:
+            if self.chaos is None:
+                return self._step_locked(reqs)
+            reqs0 = reqs
+            reqs, post = self.chaos.on_step(self, reqs)
+            rep = self._step_locked(reqs)
+            return self.chaos.on_replies(self, reqs0, rep) if post else rep
+
+    def _step_locked(self, reqs: dict[str, np.ndarray]) -> Replies:
         dev = self.device
         t = {k: torch.as_tensor(np.asarray(v, np.int32), device=dev)
              for k, v in reqs.items()}
@@ -467,22 +499,26 @@ class DSM(_HostOps):
                 raise ConfigError(
                     f"DSM.step: {t['op'].shape[0]} request rows do not "
                     f"split into {N} equal node blocks")
-            with self._step_mutex:
-                rep = dsm_step_spmd(self.pool, self.locks, self.counters,
-                                    t, cfg=self._host_cfg)
+            rep = dsm_step_spmd(self.pool, self.locks, self.counters, t,
+                                cfg=self._host_cfg)
             return Replies(**{k: v.cpu().numpy() for k, v in rep.items()})
         active = t["op"] != OP_NOP
         to_me = active & (bits.addr_node(t["addr"]) == 0)
         rank = torch.cumsum(to_me.long(), 0) - 1
         routed = to_me & (rank < self.host_capacity)
         t["op"] = torch.where(routed, t["op"], OP_NOP)
-        with self._step_mutex:
-            data, old, ok = _apply(self.pool, self.locks, self.counters, t)
+        data, old, ok = _apply(self.pool, self.locks, self.counters, t)
         served = active & routed
         return Replies(
             data=torch.where(served[:, None], data, 0).cpu().numpy(),
             old=torch.where(served, old, 0).cpu().numpy(),
             ok=torch.where(active, routed & ok, True).cpu().numpy())
+
+    def install_chaos(self, plan) -> None:
+        """Install (or clear, with ``None``) a chaos
+        :class:`~sherman_tpu_torch.chaos.FaultPlan`; its step indices
+        count host steps from the moment of installation."""
+        self.chaos = plan
 
     # -- dirty-page tracking ---------------------------------------------------
 

@@ -11,8 +11,9 @@ multiples; descent rounds with no, every, or a leading run of rows
 active; write-back masks of every class at sizes on either side of 16
 rows, also through views that are not 16-byte aligned; the exchange
 all-to-all at vector-copy and word-copy widths and through its packer;
-the multi-node serving path; the scan prefetch and the YCSB A-F matrix.
-Every comparison is exact equality.
+the multi-node serving path; the scan prefetch and the YCSB A-F matrix;
+the structure validator, the scrub pass and the chaos pokes on a pool on
+the card.  Every comparison is exact equality.
 """
 
 import numpy as np
@@ -584,3 +585,108 @@ def test_ycsb_matrix_on_the_card_matches_the_plain_path(dev, machine_nr):
     assert a[3]["gather_pages"] > 0 and a[3]["writeback"] > 0
     assert a[3]["descent_round" if machine_nr == 1 else "exchange"] > 0
     assert not any(b[3].values())
+
+
+def _integrity_tree(device, N):
+    """A bulk-loaded tree with inserts, deletes of every sixth key and of
+    a band, and three reclaim passes: retired, parked and freed pages."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+
+    keys = np.arange(1, 8001, dtype=np.uint64) * np.uint64(7)
+    cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=1024,
+                           locks_per_node=512, step_capacity=256,
+                           chunk_pages=16, device=device))
+    tree = Tree(cl)
+    eng = batched.BatchedEngine(tree, batch_per_node=256)
+    batched.bulk_load(tree, keys[::2], keys[::2], fill=0.9)
+    eng.attach_router()
+    eng.insert(keys[1::2], keys[1::2])
+    eng.delete(np.concatenate([keys[::6], keys[1000:3000]]))
+    for _ in range(3):
+        eng.reclaim_empty_leaves()
+    return tree, eng
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_validator_and_scrub_on_the_card_match_the_cpu(dev, machine_nr):
+    """check_structure_device and scrub_pass on a grown, reclaimed tree,
+    then the raw counts and masks on a garbage image of its pool: the
+    card's equal the CPU's."""
+    from sherman_tpu_torch.models import validate as V
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        tree, _ = _integrity_tree(d, machine_nr)
+        runs[d] = (V.check_structure_device(tree), V.scrub_pass(tree),
+                   tree.dsm.pool.cpu(),
+                   [x.allocator.pages_used for x in tree.cluster.directories])
+    a, b = runs["cuda"], runs["cpu"]
+    assert a[0] == b[0] and a[1] == b[1] and torch.equal(a[2], b[2])
+    assert a[1]["violations"] == 0 and a[0]["retired"] > 1
+    rng = np.random.default_rng(7)
+    pool = a[2].clone()
+    rows = torch.from_numpy(rng.choice(pool.shape[0], pool.shape[0] // 3,
+                                       replace=False))
+    for w in (C.W_SIBLING, C.W_LEFTMOST, C.W_FRONT_VER, C.W_LEVEL):
+        pool[rows, w] = _words(rng, rows.numel())
+    pool[rows, C.I_PTR_W:C.I_PTR_W + C.INTERNAL_CAP] = _words(
+        rng, (rows.numel(), C.INTERNAL_CAP))
+    N, P = machine_nr, pool.shape[0] // machine_nr
+    nxt = torch.tensor(a[3], dtype=torch.int64)
+    freed = torch.from_numpy(rng.random(N * P) < 0.1)
+    out = {}
+    for d in ("cuda", "cpu"):
+        args = (pool.to(d), nxt.to(d))
+        out[d] = (V._validate_kernel(*args, freed.to(d), P, N),
+                  *(x.cpu() for x in V._scrub_kernel(*args, P, N)))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert int(out["cuda"][2]) == int(out["cpu"][2])
+    assert out["cpu"][1].any()
+
+
+def test_fault_kinds_on_a_cuda_pool(dev):
+    """Every fault kind fired through install_chaos on a pool on the card
+    and on the CPU: the replies, pools, locks and dirty rows equal, and
+    undo restores both."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.parallel import dsm as D
+
+    faults = [{"kind": "torn_page", "step": 0},
+              {"kind": "flip_entry_ver", "step": 0, "slot": 5},
+              {"kind": "wedge_lock", "step": 1},
+              {"kind": "drop_cas", "step": 2},
+              {"kind": "stale_read", "step": 4}]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        tree, _ = _integrity_tree(d, 1)
+        dsm = tree.dsm
+        before = dsm.pool.cpu().clone()
+        plan = CH.FaultPlan([dict(f) for f in faults], seed=3)
+        dsm.install_chaos(plan)
+        addr = tree._root_addr
+        rep = [dsm.read_word(0, 0), dsm.read_word(0, 0),
+               dsm.cas(bits.make_addr(0, 5), 0, 0, tree.ctx.lease,
+                       space=D.SPACE_LOCK),
+               dsm.write_words(addr, 200, np.array([77], np.int32)),
+               dsm.read_page(addr)]
+        dsm.install_chaos(None)
+        state = [dsm.pool.cpu().clone(), dsm.locks.cpu().clone(),
+                 dsm.dirty_rows(), plan.describe(), list(plan._undo)]
+        plan.undo(dsm)
+        state.append(dsm.pool.cpu().clone())
+        runs[d] = (rep, state, before)
+    (ra, sa, ba), (rb, sb, bb) = runs["cuda"], runs["cpu"]
+    assert ra[:3] == rb[:3]
+    assert np.array_equal(ra[4], rb[4])
+    assert all(torch.equal(x, y) for x, y in zip(sa[:2], sb[:2]))
+    assert np.array_equal(sa[2], sb[2]) and sa[3:5] == sb[3:5]
+    assert all(f["fired"] for f in sa[3])
+    # the write of step 3 is not undone, the corruptions are
+    restored = sa[5].clone()
+    restored[:, 200] = ba[:, 200]
+    assert torch.equal(sa[5], sb[5]) and torch.equal(restored, ba)
