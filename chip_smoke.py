@@ -110,7 +110,7 @@ The drifting-keyspace churn (``BatchedEngine.delete``,
     (i % 4096) << 44 | (i // 4096 + 1)``, values ``key ^ 0xBEEF``)
     bulk-loaded at fill 0.5 with the router into a 613,012-page pool;
     a warm-up outside the window (a 16,384-key insert, its delete, whose
-    rounds and host syncs are counted, a reclaim pass); then 6 timed
+    rounds and host syncs are counted, a reclaim pass); then 4 timed
     iterations: the next 524,288-key window inserted in 4 ascending
     chunks of 131,072 (each shuffled, 24 rounds), the oldest window
     deleted in 4 chunks, one reclaim pass; the ``churn`` line (the tool's
@@ -186,12 +186,49 @@ and churn trees of phases 9, 10 and 12, after their timed windows):
     the violation classes, the card); K1-K3 replayed at every shape the
     window launched (path ``one_node_integrity``).
 
+The durability plane (``utils/journal.py``'s op journal,
+``utils/checkpoint.py``'s full and delta checkpoints in the JAX package's
+npz format, ``recovery.py``'s ``RecoveryPlane``), after phase 19:
+
+20. the durability reference check at 20,000 keys (numpy seed 42, phase
+    17's tree with retired, parked and freed pages) on 1 and on 8 nodes
+    (step capacity 32 on 8), card against the plain path on the CPU: a
+    ``RecoveryPlane`` (group commit 2 ms) and its base; acknowledged
+    ``insert``, ``mixed`` and ``delete`` batches; ``reclaim_empty_leaves``;
+    a delta; more batches; a torn half-record; ``recover``; ``torn_page``
+    and ``flip_entry_ver`` on two leaves, a ``Scrubber`` pass and
+    ``targeted_repair`` — the journal segment byte-identical, the delta's
+    rows and pages, the recovered and repaired pools, locks, counters and
+    directories bit-identical, RPO 0 over every acknowledged key on both;
+21. on phase 15's 100 M-key tree after phase 19,
+    ``tools/recovery_drill.py``'s sequence at ``tools/ckpt_bench.py``'s
+    sizes, in a temporary directory (free disk checked first): the base
+    save, its wall split into the device-to-host copy, the CRCs,
+    ``savez_compressed`` with the write and the fsyncs; 8 batches of
+    8,192 fresh inserts, 8 all-write ``mixed`` batches of 8,192 zipf 0.99
+    updates and one ``delete`` of a zipf batch, every ack in the host
+    ledger; the journal's appends, rows, fsyncs and bytes and the ack
+    time it adds (one batch with it attached and detached, in turns);
+    1,000,000 clustered upserts (the first keys in key order) and the
+    delta beside the full save; more batches, a torn half-record, the
+    crash (engine, tree and cluster dropped, device memory freed) and
+    ``RecoveryPlane.recover`` (restore, replay, re-base: the RTO); RPO 0
+    over the ledger, the torn keys absent and the tail cut once, a probe
+    of 200,000 bulk keys, ``check_structure_device``; new traffic,
+    ``torn_page`` and ``flip_entry_ver`` on live leaves, the scrubber's
+    quarantine and degrade, ``targeted_repair`` with no full restore,
+    the ledger and the victim pages' keys read again; the journal
+    group-commit A/B of ``ckpt_bench`` (4 writers x 24 records); the
+    ``durability`` JSON line; K1-K3 replayed at every shape of its three
+    launch windows (path ``one_node_durability``).
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch), around each staged window, around each storm's timed window
 (K1-K3 on one node; K2-K4 on eight), around the churn's timed window
-(K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight)
-and around phase 19's serving steps (K1-K3);
+(K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight),
+around phase 19's serving steps (K1-K3) and around phase 21's traffic
+and delta, its recovery and its repair (K1-K3 in each);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -199,8 +236,9 @@ while the host enqueues the call, so a one-element ``fill_`` shows the
 floor of the method (``launch_floor_ms``). A kernel's ``ms``,
 ``ms_before``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are means
 per launch over its shapes, each listed under ``shapes``. The lines
-before the last are the ``integrity`` JSON record (printed after phase
-19), the K1 and K3 ablations, the ``kernels`` JSON record
+before the last are the ``integrity`` and ``durability`` JSON records
+(printed after phases 19 and 21), the K1 and K3 ablations, the
+``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
 prints no ``ok`` line, also when no CUDA device is present.
@@ -214,9 +252,12 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -977,7 +1018,8 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
-         "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity")
+         "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
+         "one_node_durability")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1943,6 +1985,7 @@ class YcsbMirror:
     def __init__(self, keys: np.ndarray):
         self.keys = keys
         self.vals = keys ^ np.uint64(0xD00D)
+        self.dead = np.zeros(keys.size, bool)   # deleted bulk keys
         self.fresh: dict[int, int] = {}     # inserted keys outside the bulk
 
     def _split(self, ks):
@@ -1970,15 +2013,16 @@ class YcsbMirror:
     @property
     def live(self) -> int:
         """Keys in the live set."""
-        return int(self.keys.size + len(self.fresh))
+        return int(self.keys.size - self.dead.sum() + len(self.fresh))
 
     def lookup(self, ks) -> tuple[np.ndarray, np.ndarray]:
         """-> (values uint64, found bool) of ``ks`` in the live set."""
         ks = np.asarray(ks, np.uint64)
         pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
-        found = self.keys[pos] == ks
+        bulk = self.keys[pos] == ks
+        found = bulk & ~self.dead[pos]
         vals = np.where(found, self.vals[pos], np.uint64(0))
-        for i in np.nonzero(~found)[0]:
+        for i in np.nonzero(~bulk)[0]:
             v = self.fresh.get(int(ks[i]))
             if v is not None:
                 vals[i], found[i] = v, True
@@ -1990,7 +2034,17 @@ class YcsbMirror:
         pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
         bulk = self.keys[pos] == ks
         self.vals[pos[bulk]] = vs[bulk]
+        self.dead[pos[bulk]] = False
         self.fresh.update(zip(ks[~bulk].tolist(), vs[~bulk].tolist()))
+
+    def remove(self, ks) -> None:
+        """Deletes of keys of the live set."""
+        ks = np.asarray(ks, np.uint64)
+        pos = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
+        bulk = self.keys[pos] == ks
+        self.dead[pos[bulk]] = True
+        for k in ks[~bulk].tolist():
+            self.fresh.pop(k, None)
 
     def check(self, ranges, res) -> int:
         """Every range's (keys, values) against the live set; -> rows."""
@@ -2002,8 +2056,11 @@ class YcsbMirror:
         b0, b1 = (np.searchsorted(fk, x) for x in (lo, hi))
         rows = 0
         for i, (k, v) in enumerate(res):
-            wk = np.concatenate([self.keys[a0[i]:a1[i]], fk[b0[i]:b1[i]]])
-            wv = np.concatenate([self.vals[a0[i]:a1[i]], fv[b0[i]:b1[i]]])
+            alive = ~self.dead[a0[i]:a1[i]]
+            wk = np.concatenate([self.keys[a0[i]:a1[i]][alive],
+                                 fk[b0[i]:b1[i]]])
+            wv = np.concatenate([self.vals[a0[i]:a1[i]][alive],
+                                 fv[b0[i]:b1[i]]])
             order = np.argsort(wk, kind="stable")
             if not (np.array_equal(k, wk[order])
                     and np.array_equal(v, wv[order])):
@@ -2780,6 +2837,476 @@ def integrity_full_width(ctx: dict, passes: list, smi: str) -> dict:
     return replay(log, path)
 
 
+# ---------------------------------------------------------------------------
+# Durability: the op journal, checkpoint chains in the JAX package's npz
+# format, crash recovery and targeted repair.
+# ---------------------------------------------------------------------------
+
+DUR_OPS = 8192                  # the matrix's step: one acknowledged batch
+DUR_DELTA_OPS = 1_000_000       # tools/ckpt_bench.py: keys/100 capped at 1 M
+
+
+class Spans:
+    """While open, wraps ``mod.attr`` for each given attribute and sums the
+    calls and the wall seconds spent in each (the smoke's own account of a
+    library call's parts; nothing is added to the library)."""
+
+    def __init__(self, mod, *attrs):
+        self.mod, self.attrs = mod, attrs
+        self.calls = {a: 0 for a in attrs}
+        self.s = {a: 0.0 for a in attrs}
+
+    def __enter__(self):
+        self._orig = {a: getattr(self.mod, a) for a in self.attrs}
+        for a, fn in self._orig.items():
+            def spy(*args, _a=a, _fn=fn, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.calls[_a] += 1
+                    self.s[_a] += time.perf_counter() - t
+            setattr(self.mod, a, spy)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for a, fn in self._orig.items():
+            setattr(self.mod, a, fn)
+        return False
+
+
+def _rpo(eng, keys, want_v, want_f) -> int:
+    """Acknowledged ops whose effect is missing: a key absent or holding
+    another value, or a deleted (or never acknowledged) key present."""
+    v, f = eng.search(keys)
+    return int((f != want_f).sum() + (f & want_f & (v != want_v)).sum())
+
+
+def _durability_run(machine_nr: int, device: str, step_capacity,
+                    rdir: str) -> list:
+    """The durability reference check's sequence on one device ->
+    [(label, result)], every result comparable across devices."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch.config import TreeConfig
+    from sherman_tpu_torch.models.scrub import Scrubber
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.utils import journal as J
+    from sherman_tpu_torch.utils import sorted_unique
+
+    ctx = integrity_build(machine_nr, device, step_capacity)
+    tree, eng, model = ctx["tree"], ctx["eng"], ctx["model"]
+    B = eng.B
+    out = []
+
+    def state(label, tree):
+        d = tree.dsm
+        out.append((label, [t.to("cpu", copy=True) for t in (
+            d.pool, d.locks, d.counters)] + [d.dirty_rows(), [
+                (x.allocator._next, x.root_ptr, x.root_level,
+                 x.allocator.free_pages_list)
+                for x in tree.cluster.directories]]))
+
+    def rpo(eng, absent):
+        ks = np.array(sorted(set(model) | absent), np.uint64)
+        want_f = np.array([int(k) in model for k in ks])
+        want_v = np.array([model.get(int(k), 0) for k in ks], np.uint64)
+        return _rpo(eng, ks, want_v, want_f)
+
+    rng = np.random.default_rng(42)
+    absent: set = set()
+
+    def fresh(n):
+        ks = sorted_unique(rng.integers(1, 1 << 56, 2 * n, dtype=np.uint64))
+        ks = ks[~np.isin(ks, np.fromiter(model, np.uint64, len(model)))]
+        rng.shuffle(ks)
+        return ks[:n]
+
+    def ack_insert(ks, vs):
+        st = eng.insert(ks, vs)
+        if st["lock_timeouts"]:
+            raise AssertionError(f"durability: {st}")
+        model.update(zip(ks.tolist(), vs.tolist()))
+        return st
+
+    def ack_delete(ks):
+        found = eng.delete(ks)
+        for k in ks[found].tolist():
+            model.pop(k, None)
+            absent.add(k)
+        return found
+
+    plane = RecoveryPlane(tree.cluster, tree, eng, rdir, group_commit_ms=2.0)
+    plane.checkpoint_base()
+    state("base", tree)
+    live = np.array(sorted(model), np.uint64)
+    out.append(("insert", ack_insert(*(lambda k: (k, k * np.uint64(5)))(
+        fresh(600)))))
+    mk = np.concatenate([rng.choice(live, 200), fresh(50)])
+    rd = rng.random(mk.size) < 0.3
+    res = eng.mixed(mk, mk ^ np.uint64(0x33), rd)
+    w = ~rd
+    model.update(zip(mk[w].tolist(), (mk[w] ^ np.uint64(0x33)).tolist()))
+    out.append(("mixed", res))
+    out.append(("delete", ack_delete(rng.choice(live, 300, replace=False))))
+    out.append(("reclaim", eng.reclaim_empty_leaves()))
+    info = plane.checkpoint_delta()
+    with np.load(info["path"]) as z:
+        out.append(("delta", (info["pages"], z["delta_rows"],
+                              z["delta_pages"])))
+    state("delta", tree)
+    out.append(("insert 2", ack_insert(*(lambda k: (k, k ^ np.uint64(9)))(
+        fresh(200)))))
+    out.append(("delete 2", ack_delete(np.append(
+        rng.choice(live, 50, replace=False), np.uint64(3)))))
+    seg = eng.journal.path
+    with open(seg, "rb") as f:
+        out.append(("journal bytes", f.read()))
+    plane.close()
+    torn = np.uint64(1 << 57)
+    absent.add(int(torn))
+    rec = J.encode_record(J.J_UPSERT, np.asarray([torn]), np.asarray([torn]))
+    with open(seg, "ab") as f:
+        f.write(rec[: len(rec) // 2])
+    del plane, tree, eng, ctx
+    tcfg = TreeConfig(lock_retry_rounds=2)
+    plane, cl, tree, eng, receipt = RecoveryPlane.recover(
+        rdir, device=device, batch_per_node=B, tcfg=tcfg,
+        group_commit_ms=2.0)
+    out.append(("recover", (receipt["chain"]["deltas"], receipt["replay"])))
+    state("recovered", tree)
+    rpo_recovered = rpo(eng, absent)
+    out.append(("rpo recovered", rpo_recovered))
+    # chaos on two live leaves, the scrubber, the targeted repair
+    live = np.array(sorted(model), np.uint64)
+    v1 = int(tree._descend(int(live[live.size // 3]))[0])
+    v2 = int(tree._descend(int(live[2 * live.size // 3]))[0])
+    _fire(tree.dsm, CH.FaultPlan([{"kind": "torn_page", "addr": v1},
+                                  {"kind": "flip_entry_ver", "addr": v2,
+                                   "slot": 1}]))
+    scr = Scrubber(eng, interval=1)
+    res = scr.scrub()
+    if not res["degraded"] or res["violations"] != 2:
+        raise AssertionError(f"durability scrub: {res}")
+    out.append(("scrub", res))
+    rep = plane.targeted_repair(scr)
+    out.append(("repair", {k: v for k, v in rep.items()
+                           if k != "repair_ms"}))
+    state("repaired", tree)
+    rpo_repaired = rpo(eng, absent)
+    out.append(("rpo repaired", rpo_repaired))
+    plane.close()
+    if rpo_recovered or rpo_repaired:
+        raise AssertionError(f"durability ({device}): RPO {rpo_recovered} "
+                             f"after recover, {rpo_repaired} after repair")
+    return out
+
+
+def durability_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                               step_capacity: int | None = None) -> None:
+    """Phase 20 on ``machine_nr`` nodes: :func:`_durability_run` on the
+    card and on the plain path on the CPU, every result, journal byte and
+    state bit-identical."""
+    t = time.perf_counter()
+    runs = []
+    for d in devices:
+        rdir = tempfile.mkdtemp(prefix="sherman_dur_ref_")
+        try:
+            runs.append(_durability_run(machine_nr, d, step_capacity, rdir))
+        finally:
+            shutil.rmtree(rdir, ignore_errors=True)
+    a, b = runs
+    if [x for x, _ in a] != [x for x, _ in b]:
+        raise AssertionError("durability reference: the runs differ in "
+                             "shape")
+    for (label, x), (_, y) in zip(a, b):
+        if not _same_obj(x, y):
+            raise AssertionError(f"durability reference ({machine_nr} "
+                                 f"node(s)): {label} differs between "
+                                 f"{devices[0]} and {devices[1]}: "
+                                 f"{_diff(x, y)}")
+    _log(f"durability reference check ({machine_nr} node(s), 20,000 keys, "
+         f"{devices[0]} vs {devices[1]}): journal bytes, the delta's rows "
+         "and pages, the recovered and repaired pools, locks, counters and "
+         f"directories bit-identical, RPO 0 ({len(a)} results; "
+         f"{time.perf_counter() - t:.1f} s)")
+
+
+def _full_save_split(spans: Spans) -> dict:
+    """A full save's wall split from the spans of ``utils/checkpoint``:
+    the device-to-host copy, the content CRCs, ``savez_compressed`` with
+    the write, and the fsyncs (file and directory)."""
+    return {"d2h_s": spans.s["_state_arrays"],
+            "crc_s": spans.s["_integrity"],
+            "savez_write_s": spans.s["_savez_atomic"] - spans.s["_fsync"],
+            "fsync_s": spans.s["_fsync"], "fsyncs": spans.calls["_fsync"]}
+
+
+def durability_full_width(ctx: dict, smi: str) -> dict:
+    """Phase 21 on the YCSB matrix's 100 M-key tree (``ctx`` from
+    :func:`ycsb_matrix`, after phase 19), ``tools/recovery_drill.py``'s
+    sequence at ``tools/ckpt_bench.py``'s sizes: (a) a ``RecoveryPlane``
+    (group commit 2 ms) and its base, the save's wall split; (b) 8
+    batches of 8,192 fresh inserts, 8 all-write ``mixed`` batches of 8,192
+    zipf 0.99 updates and one ``delete`` of a zipf batch, every ack in the
+    host ledger (the mirror), the journal's counts and the ack time it
+    adds (one batch with it attached and detached, in turns); (c) 1 M
+    clustered upserts and the delta beside the full save; (d) more
+    batches, a torn half-record, the crash (engine, tree and cluster
+    dropped, their device memory freed) and ``recover``; (e) RPO 0 over
+    the ledger, the torn record absent and cut once, a 200,000-key probe,
+    the validator; (f) new traffic, ``torn_page`` and ``flip_entry_ver``
+    on live leaves, the scrubber's quarantine and degrade, the targeted
+    repair (no full restore), the keys again; (g) K1-K3 replayed at every
+    shape of the three windows (b-c, d-e, f); (h) the ``durability``
+    line.  The directory is a temporary one, removed at the end.
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.ckpt_bench import journal_group_commit_ab
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.scrub import Scrubber
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.utils import checkpoint as CK
+    from sherman_tpu_torch.utils import journal as J
+    from sherman_tpu_torch.utils import sorted_unique
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+
+    tree, eng, mirror = ctx.pop("tree"), ctx.pop("eng"), ctx["mirror"]
+    path, kern = "one_node_durability", ("descent_round", "gather_pages",
+                                         "writeback")
+    B, tcfg = eng.B, eng.tcfg
+    dev = tree.dsm.pool.device.type         # "cpu" only in a rehearsal
+    on_card = dev == "cuda"
+    pool_bytes = tree.dsm.pool.numel() * 4
+    rdir = tempfile.mkdtemp(prefix="sherman_durability_")
+    # the base, the re-base's tmp file beside it and the deltas: at most
+    # two full artifacts (each at most the raw pool) at once
+    free = shutil.disk_usage(rdir).free
+    if free < 2 * pool_bytes + (1 << 30):
+        shutil.rmtree(rdir, ignore_errors=True)
+        raise AssertionError(f"durability: {free / 1e9:.1f} GB free under "
+                             f"{rdir}, {(2 * pool_bytes + (1 << 30)) / 1e9:.1f}"
+                             " GB needed for the checkpoints")
+    rng = np.random.default_rng(21)
+    gen = YcsbGen("C", ctx["n_keys"], theta=0.99, seed=21, salt=YB.SALT)
+    acked: list = []
+    rec: dict = {"metric": "durability", "path": path,
+                 "pages": tree.dsm.pool.shape[0], "pool_bytes": pool_bytes,
+                 "group_commit_ms": 2.0, "card": smi}
+    shapes: dict = {}
+    passes: list = []
+    save_spans = ("_state_arrays", "_integrity", "_savez_atomic", "_fsync")
+
+    def ack_insert(eng, ks, vs):
+        st = eng.insert(ks, vs)
+        if st["lock_timeouts"]:
+            raise AssertionError(f"durability insert: {st}")
+        mirror.add(ks, vs)
+        acked.append(ks)
+
+    def ack_update(eng, ks, x):
+        _, _, st = eng.mixed(ks, ks ^ np.uint64(x), np.zeros(ks.size, bool))
+        if not np.isin(st, (batched.ST_APPLIED, batched.ST_SUPERSEDED)).all():
+            raise AssertionError("durability: an update was not applied")
+        mirror.add(ks, ks ^ np.uint64(x))
+        acked.append(ks)
+
+    def ledger_rpo(eng) -> int:
+        ks = sorted_unique(np.concatenate(acked))
+        want_v, want_f = mirror.lookup(ks)
+        return _rpo(eng, ks, want_v, want_f)
+
+    try:
+        # a: the plane and its base
+        plane = RecoveryPlane(tree.cluster, tree, eng, rdir,
+                              group_commit_ms=2.0)
+        with Spans(CK, *save_spans) as sp:
+            t = time.perf_counter()
+            base = plane.checkpoint_base()
+            rec["base"] = {"s": time.perf_counter() - t,
+                           "bytes": base["bytes"], **_full_save_split(sp)}
+        _log(f"21a base: {rec['base']}")
+        with ShapeLog() as log:
+            # b: acknowledged traffic
+            t = time.perf_counter()
+            for i in range(8):
+                ks = fresh_keys(rng, mirror, DUR_OPS)
+                ack_insert(eng, ks, ks ^ np.uint64(0x21))
+            t1 = time.perf_counter()
+            for i in range(8):
+                ack_update(eng, gen.batch(DUR_OPS)["read"], 0x22)
+            t2 = time.perf_counter()
+            dk = sorted_unique(gen.batch(DUR_OPS)["read"])
+            found = eng.delete(dk)
+            t3 = time.perf_counter()
+            if not found.all():
+                raise AssertionError("durability: a live key not deleted")
+            mirror.remove(dk)
+            acked.append(dk)
+            j = eng.journal
+            rec["b"] = {"insert_batches_s": t1 - t, "mixed_batches_s": t2 - t1,
+                        "delete_keys": int(dk.size), "delete_s": t3 - t2,
+                        "journal": {**j.stats(),
+                                    "bytes": os.path.getsize(j.path)}}
+            # the journal's share of one ack: the same update batch with
+            # the journal attached and detached, in turns
+            q = gen.batch(DUR_OPS)["read"]
+            ack_update(eng, q, 0x23)
+            walls = {"attached": [], "detached": []}
+            for mode in ("attached", "detached", "detached", "attached"):
+                if mode == "detached":
+                    eng.attach_journal(None)
+                t = time.perf_counter()
+                eng.mixed(q, q ^ np.uint64(0x23), np.zeros(q.size, bool))
+                walls[mode].append((time.perf_counter() - t) * 1e3)
+                eng.attach_journal(j)
+            rec["b"]["ack_ms"] = {k: float(np.mean(v))
+                                  for k, v in walls.items()}
+            rec["b"]["journal_ack_ms"] = (rec["b"]["ack_ms"]["attached"]
+                                          - rec["b"]["ack_ms"]["detached"])
+            # c: the delta A/B, 1 M clustered upserts
+            dkeys = mirror.keys[:DUR_DELTA_OPS]
+            t = time.perf_counter()
+            ack_insert(eng, dkeys, dkeys ^ np.uint64(0x5EED))
+            t1 = time.perf_counter()
+            delta = plane.checkpoint_delta()
+            rec["c"] = {"ops": int(dkeys.size), "traffic_s": t1 - t,
+                        "s": time.perf_counter() - t1,
+                        "pages": delta["pages"], "bytes": delta["bytes"],
+                        "full_s": rec["base"]["s"],
+                        "full_bytes": rec["base"]["bytes"]}
+            _log(f"21b-c: {rec['b']} {rec['c']}")
+        log.check(f"{path} b-c", kern)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log
+        # d: more acknowledged batches, a torn tail, the crash
+        for i in range(2):
+            ks = fresh_keys(rng, mirror, DUR_OPS)
+            ack_insert(eng, ks, ks ^ np.uint64(0x24))
+        ack_update(eng, gen.batch(DUR_OPS)["read"], 0x25)
+        seg = eng.journal.path
+        plane.close()
+        torn = fresh_keys(rng, mirror, 4)
+        tr = J.encode_record(J.J_UPSERT, torn, torn)
+        with open(seg, "ab") as f:
+            f.write(tr[: len(tr) // 2])
+        mem = {"before_crash": torch.cuda.memory_allocated()
+               if on_card else None}
+        pool = weakref.ref(tree.dsm.pool)
+        del plane, tree, eng
+        gc.collect()
+        if pool() is not None:
+            raise AssertionError("durability: the crash left the pool "
+                                 "referenced")
+        if on_card:
+            torch.cuda.empty_cache()
+            mem["after_crash"] = torch.cuda.memory_allocated()
+        with ShapeLog() as log, Spans(J, "_truncate") as cut, \
+                Spans(CK, *save_spans) as sp:
+            t = time.perf_counter()
+            plane, cluster, tree, eng, receipt = RecoveryPlane.recover(
+                rdir, device=dev, batch_per_node=B, tcfg=tcfg,
+                group_commit_ms=2.0)
+            rto_s = time.perf_counter() - t
+            if on_card:
+                mem["recovered"] = torch.cuda.memory_allocated()
+            # e: verification
+            t = time.perf_counter()
+            rpo = ledger_rpo(eng)
+            _, tf = eng.search(torn)
+            probe = mirror.keys[np.linspace(0, mirror.keys.size - 1,
+                                            200_000).astype(np.int64)]
+            pv, pf = eng.search_combined(probe)
+            wv, wf = mirror.lookup(probe)
+            probe_bad = int((pf != wf).sum() + (pf & (pv != wv)).sum())
+            verify_s = time.perf_counter() - t
+        if rpo or tf.any() or probe_bad or cut.calls["_truncate"] != 1:
+            raise AssertionError(
+                f"durability recover: RPO {rpo}, torn keys found "
+                f"{int(tf.sum())}, probe mismatches {probe_bad}, torn tails "
+                f"cut {cut.calls['_truncate']}")
+        rec["d"] = {"restore_ms": receipt["restore_ms"],
+                    "replay_ms": receipt["replay_ms"],
+                    "rebase_ms": receipt["rebase_ms"],
+                    "rto_ms": receipt["restore_ms"] + receipt["replay_ms"]
+                    + receipt["rebase_ms"], "wall_s": rto_s,
+                    "replay": receipt["replay"],
+                    "deltas": receipt["chain"]["deltas"],
+                    "rebase": _full_save_split(sp), "device_bytes": mem}
+        rec["e"] = {"rpo_ops": rpo, "acked_keys": int(sum(
+                        a.size for a in acked)), "torn_keys_found": 0,
+                    "truncated_tails": cut.calls["_truncate"],
+                    "probe_keys": int(probe.size), "verify_s": verify_s}
+        _log(f"21d-e: {rec['d']} {rec['e']}")
+        log.check(f"{path} d-e", kern)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log
+        timed_validate(tree, "21e validate", mirror.live, passes)
+        # f: targeted repair
+        with ShapeLog() as log:
+            ks = fresh_keys(rng, mirror, DUR_OPS)
+            ack_insert(eng, ks, ks ^ np.uint64(0x26))
+            ack_update(eng, gen.batch(DUR_OPS)["read"], 0x27)
+            k1 = mirror.keys[mirror.keys.size // 4]
+            k2 = mirror.keys[3 * mirror.keys.size // 4]
+            v1 = int(tree._descend(int(k1))[0])
+            v2 = int(tree._descend(int(k2))[0])
+            victims = np.concatenate([_page_keys(tree.dsm, v1),
+                                      _page_keys(tree.dsm, v2)])
+            _fire(tree.dsm, CH.FaultPlan([
+                {"kind": "torn_page", "addr": v1},
+                {"kind": "flip_entry_ver", "addr": v2, "slot": 0}]))
+            scr = Scrubber(eng, interval=1)
+            res = scr.scrub()
+            if not (res["degraded"] and res["quarantined"]
+                    and res["violations"] == 2):
+                raise AssertionError(f"21f scrub: {res}")
+            with Spans(CK, "restore", "restore_chain", "read_chain_rows") \
+                    as sp:
+                t = time.perf_counter()
+                repair = plane.targeted_repair(scr)
+                repair_s = time.perf_counter() - t
+            if eng.degraded or sp.calls["restore"] \
+                    or sp.calls["restore_chain"] \
+                    or sp.calls["read_chain_rows"] != 1:
+                raise AssertionError(f"21f repair: degraded {eng.degraded}, "
+                                     f"calls {sp.calls}")
+            rpo_f = ledger_rpo(eng)
+            vv, vf = eng.search(victims)
+            wv, wf = mirror.lookup(victims)
+            if rpo_f or not (wf.all() and vf.all()
+                             and np.array_equal(vv, wv)):
+                raise AssertionError(f"21f: RPO {rpo_f} after the repair, "
+                                     "or a victim page's key lost")
+            rec["f"] = {"pages": repair["pages"],
+                        "stale_pages": repair["stale_pages"],
+                        "resurrected": repair["resurrected"],
+                        "replay": repair["replay"],
+                        "repair_ms": repair["repair_ms"],
+                        "wall_s": repair_s,
+                        "read_chain_rows_s": sp.s["read_chain_rows"],
+                        "classes": {k: v for k, v in res["classes"].items()
+                                    if v},
+                        "full_restores": 0, "rpo_ops": rpo_f,
+                        "victim_keys": int(victims.size)}
+        log.check(f"{path} f", kern)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log
+        rec["journal_group_commit"] = journal_group_commit_ab(
+            directory=rdir)
+        rec.update(rpo_ops=max(rec["e"]["rpo_ops"], rpo_f),
+                   rto_ms=rec["d"]["rto_ms"], keys=mirror.live,
+                   passes=passes)
+        plane.close()
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    print(json.dumps(rec), flush=True)
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -2872,9 +3399,9 @@ def main() -> int:
     combine_reference_check(1)
     combine_reference_check(8)
     ctx = churn_build(10_000_000, 524_288, "cuda")
-    for k, v in churn(ctx, "one_node_churn", 6,
+    for k, v in churn(ctx, "one_node_churn", 4,
                       ("descent_round", "gather_pages", "writeback"),
-                      ["iterations 55 (or 30 minutes) -> 6, for the "
+                      ["iterations 55 (or 30 minutes) -> 4, for the "
                        "smoke's time limit"]).items():
         shapes.setdefault(k, []).extend(v)
     timed_validate(ctx["tree"], "18 one_node_churn validate",
@@ -2909,8 +3436,14 @@ def main() -> int:
     integrity_reference_check(8, step_capacity=32)
     for k, v in integrity_full_width(ycsb, passes, smi).items():
         shapes.setdefault(k, []).extend(v)
-    del ycsb
     _log("integrity path parity at every launched shape (K1-K3): exact")
+
+    durability_reference_check(1)
+    durability_reference_check(8, step_capacity=32)
+    for k, v in durability_full_width(ycsb, smi).items():
+        shapes.setdefault(k, []).extend(v)
+    del ycsb
+    _log("durability path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

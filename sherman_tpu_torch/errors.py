@@ -14,6 +14,7 @@ __all__ = [
     "StateError",
     "MultiprocessUnsupportedError",
     "TreeCorruptError",
+    "CheckpointFormatError",
     "KernelUnavailableError",
     "NotPortedError",
     "ExchangeLaneError",
@@ -44,20 +45,28 @@ class ProtocolError(ShermanError, RuntimeError):
 
 
 class StateError(ShermanError, RuntimeError):
-    """The object is in the wrong state for this call (a reclaim pass is
-    already running on the engine)."""
+    """The object is in the wrong state for this call (journal closed,
+    reclaim already running, no checkpoint chain started)."""
 
 
 class MultiprocessUnsupportedError(ShermanError, RuntimeError):
-    """A single-process-only feature was invoked on a multihost mesh.  The
-    port drives every node from one process, so no path of it raises this
-    yet; it keeps the reference's taxonomy whole."""
+    """A single-process-only feature was invoked on a multihost mesh, or a
+    multihost artifact reached a single-process entry point (a collective
+    checkpoint handed to ``utils.checkpoint.restore``).  The port drives
+    every node from one process."""
 
 
 class TreeCorruptError(ShermanError, RuntimeError):
     """Structural validation failed: the pool holds pages that violate
     the B+-tree invariants (``models/validate.py`` names each violated
     class)."""
+
+
+class CheckpointFormatError(ShermanError, RuntimeError):
+    """A checkpoint artifact is structurally unusable: wrong build, wrong
+    config, missing arrays, incompatible layout.  Distinct from
+    :class:`~sherman_tpu_torch.utils.checkpoint.CheckpointCorruptError`
+    (a content CRC mismatch on an artifact with the right shape)."""
 
 
 class KernelUnavailableError(ShermanError, RuntimeError):

@@ -32,6 +32,10 @@ the slot's version word on the owner (``BatchedEngine.delete``), and
 ``BatchedEngine.reclaim_empty_leaves`` unlinks the leaves they empty and
 recycles their pages through the allocators' free pools.
 
+With a write-ahead journal attached (:meth:`BatchedEngine.attach_journal`,
+done by the recovery plane), every write entry point appends one record
+of the rows it applied before it returns (``utils/journal.py``).
+
 After damage the online scrubber (``models/scrub.py``) cannot contain,
 the engine serves read-only (:meth:`BatchedEngine.enter_degraded`): every
 mutating entry point raises :class:`DegradedError` while searches and
@@ -63,6 +67,7 @@ from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
 from sherman_tpu_torch.parallel import dsm as D
 from sherman_tpu_torch.parallel import transport as T
+from sherman_tpu_torch.utils import journal as J
 
 # Per-key write status codes (reply of one write step).
 ST_INVALID = 0      # inactive slot (padding)
@@ -942,6 +947,13 @@ class BatchedEngine:
         self._parent_descend_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
+        # the write-ahead op journal (utils/journal.py, attached by the
+        # recovery plane): every write op appends ONE record of its
+        # APPLIED rows before returning, durable before the caller sees
+        # the ack, so restore chain + replay journal loses no acknowledged
+        # op (RPO 0).  Record order must match apply order, so a journaled
+        # engine is driven from one thread.
+        self.journal = None
         # read-only degraded mode: once set, every mutating entry point
         # raises DegradedError while searches keep serving
         self._degraded_reason: str | None = None
@@ -973,6 +985,16 @@ class BatchedEngine:
     def _require_writable(self) -> None:
         if self._degraded_reason is not None:
             raise DegradedError(self._degraded_reason)
+
+    def attach_journal(self, journal) -> None:
+        """Attach (or detach, with ``None``) the write-ahead op journal;
+        see the ``journal`` attribute's contract in ``__init__``."""
+        self.journal = journal
+
+    def _journal_applied(self, kind: int, keys, values=None) -> None:
+        if self.journal is None or keys.size == 0:
+            return
+        self.journal.append(kind, keys, values)
 
     def _note_combine_step(self, rows: int) -> None:
         """Count one batch of ``rows`` write rows through the combined
@@ -1175,6 +1197,11 @@ class BatchedEngine:
         status = status.copy()
         found = found.copy()
         out_vals = bits.pairs_to_keys(rvh, rvl)
+        # journal the fast path's applied writes BEFORE the retry through
+        # insert() (which journals its own record): record order then
+        # equals apply order, same-key duplicates across the two included
+        fast_app = ~is_read & (status == ST_APPLIED)
+        self._journal_applied(J.J_UPSERT, keys[fast_app], values[fast_app])
         miss_r = is_read & ~done_r
         if miss_r.any():
             out_vals[miss_r], found[miss_r] = self.search(keys[miss_r])
@@ -1247,10 +1274,17 @@ class BatchedEngine:
         n = keys.shape[0]
         stats = {"applied": 0, "superseded": 0, "host_path": 0, "rounds": 0,
                  "st_locked": 0, "lock_timeouts": 0, "lock_timeout_keys": []}
+        applied_rows = np.zeros(n, bool)
         for i in range(0, n, self.total):
-            self._insert_chunk(keys[i:i + self.total],
-                               values[i:i + self.total], max_rounds, stats)
+            applied_rows[i:i + self.total] = self._insert_chunk(
+                keys[i:i + self.total], values[i:i + self.total],
+                max_rounds, stats)
         self.flush_parents()
+        # ONE journal record of the rows that landed (superseded
+        # duplicates carry the winner's value and lock-timeout rejections
+        # never applied: both excluded), durable before the stats return
+        self._journal_applied(J.J_UPSERT, keys[applied_rows],
+                              values[applied_rows])
         return stats
 
     def _get_parent_descend(self, iters: int, stop_level: int = 1):
@@ -1444,8 +1478,12 @@ class BatchedEngine:
         self._pending_parents += [(int(k), int(a), 1)
                                   for k, a in zip(sk, new_addr)]
 
-    def _insert_chunk(self, keys, values, max_rounds, stats) -> None:
+    def _insert_chunk(self, keys, values, max_rounds, stats) -> np.ndarray:
+        """-> applied [n] bool: rows whose OWN value landed in the pool
+        (device round or host path), the journal's record set.
+        Superseded duplicates and lock-timeout rejections stay False."""
         n = keys.shape[0]
+        applied_rows = np.zeros(n, bool)
         pending = np.ones(n, bool)
         # consecutive rounds each row spent blocked on a held page lock
         locked_rounds = np.zeros(n, np.int32)
@@ -1459,7 +1497,7 @@ class BatchedEngine:
                                        and round_i < max_rounds * 16):
             round_i += 1
             if not pending.any():
-                return
+                return applied_rows
             n_before = int(pending.sum())
             stats["rounds"] += 1
             idx = np.nonzero(pending)[0]
@@ -1497,6 +1535,7 @@ class BatchedEngine:
 
             stats["applied"] += int((status == ST_APPLIED).sum())
             stats["superseded"] += int((status == ST_SUPERSEDED).sum())
+            applied_rows[idx[status == ST_APPLIED]] = True
             done = (status == ST_APPLIED) | (status == ST_SUPERSEDED)
             pending[idx[done]] = False
 
@@ -1524,6 +1563,7 @@ class BatchedEngine:
             for j in idx[bad]:
                 self.tree.insert(int(keys[j]), int(values[j]))
                 stats["host_path"] += 1
+                applied_rows[j] = True
                 pending[j] = False
             if bad.any():
                 self.tree._refresh_root()
@@ -1546,6 +1586,8 @@ class BatchedEngine:
         for j in np.nonzero(pending)[0]:
             self.tree.insert(int(keys[j]), int(values[j]))
             stats["host_path"] += 1
+            applied_rows[j] = True
+        return applied_rows
 
     def _recover_wedged_locks(self, keys: np.ndarray) -> np.ndarray:
         """For keys blocked on held page locks: find each key's leaf with
@@ -1603,6 +1645,9 @@ class BatchedEngine:
         for i in range(0, n, self.total):
             out[i:i + self.total] = self._delete_chunk(
                 keys[i:i + self.total], max_rounds)
+        # journal the deletes that cleared a slot (not-found rows are
+        # no-ops, left out so the record set is the applied set)
+        self._journal_applied(J.J_DELETE, keys[out])
         return out
 
     def _delete_chunk(self, keys, max_rounds) -> np.ndarray:

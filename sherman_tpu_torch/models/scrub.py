@@ -19,15 +19,16 @@ device, and acts on what it finds:
 
 Entry-level violations (a torn slot, an out-of-fence slot) stay
 contained: the page is fenced off from writers and the engine keeps
-serving.  The exit from degraded mode is a repair of the flagged pages
-(:meth:`Scrubber.damaged_addrs`), a green
-:func:`~sherman_tpu_torch.models.validate.check_structure_device`,
-:meth:`Scrubber.release_quarantine` and
-:meth:`BatchedEngine.exit_degraded`.
+serving.  The documented exit from degraded mode is TARGETED REPAIR
+(:meth:`~sherman_tpu_torch.recovery.RecoveryPlane.targeted_repair`:
+restore only the flagged pages from the checkpoint chain, re-certify
+with a scrub pass, release the quarantine, leave degraded mode, replay
+the op journal), with a full chain restore
+(:meth:`~sherman_tpu_torch.recovery.RecoveryPlane.recover`) as the
+fallback when the repair cannot re-certify.
 
-Not here yet: the reference's checkpoint-restore and targeted-repair
-exits (ROADMAP.md item 5), the leaf-cache invalidation of flagged pages
-(item 6) and the ``scrub.*`` counters, spans and flight events (item 7).
+Not here yet: the leaf-cache invalidation of flagged pages (ROADMAP.md
+item 6) and the ``scrub.*`` counters, spans and flight events (item 7).
 """
 
 from __future__ import annotations

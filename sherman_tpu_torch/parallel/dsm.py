@@ -35,6 +35,7 @@ from sherman_tpu_torch.errors import ConfigError, ProtocolError
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.ops import page_kernels as PK
 from sherman_tpu_torch.parallel import transport as T
+from sherman_tpu_torch.utils import sorted_unique
 
 # Request opcodes.
 OP_NOP = 0
@@ -545,11 +546,22 @@ class DSM(_HostOps):
         self._dirty_host.update(int(r) for r in np.asarray(rows).ravel())
 
     def dirty_rows(self) -> np.ndarray:
-        """Sorted global pool rows written since construction: the device
+        """Sorted global pool rows written since the last clear: the device
         mask united with the host set."""
         dev = torch.nonzero(self.dirty).squeeze(1).cpu().numpy()
+        if not self._dirty_host:
+            return dev.astype(np.int64)
         host = np.fromiter(self._dirty_host, np.int64, len(self._dirty_host))
-        return np.union1d(dev.astype(np.int64), host)
+        # not np.union1d: the host set holds every installed page after a
+        # bulk load (millions of rows)
+        return sorted_unique(np.concatenate([dev.astype(np.int64), host]))
+
+    def clear_dirty(self) -> None:
+        """Reset both dirty tiers (a checkpoint artifact captured them).
+        (The reference also hands the rows to its registered dirty sinks
+        first, the online migrator's feed: ROADMAP.md item 7.)"""
+        self.dirty.zero_()
+        self._dirty_host.clear()
 
     # -- host convenience ops --------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Carry a tree's state into the port: the counterpart of loading weights.
 
 A tree built by the JAX package (or saved from it) is plain arrays: the
-pool, the lock table, the op counters, the root and the allocator's
-high-water mark.  :func:`from_jax_arrays` takes them as numpy arrays —
+pool, the lock table, the op counters, the root, the allocators'
+high-water marks and their reclaimed-page pools.  :func:`from_jax_arrays` takes them as numpy arrays —
 ``np.asarray(cluster.dsm.pool)`` and friends — and returns a port
 cluster, tree and engine serving the same tree on ``device``.
 """
@@ -19,21 +19,29 @@ from sherman_tpu_torch.models.batched import BatchedEngine
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.models.router import LeafRouter
 from sherman_tpu_torch.parallel.dsm import N_COUNTERS
+from sherman_tpu_torch.utils.checkpoint import set_free_pools
 
 
 def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
                     leaf_dir=None, *, device, batch_per_node: int = 1024,
                     tcfg: TreeConfig | None = None, router_table=None,
-                    router_shift: int | None = None, **cfg_kw):
-    """-> (cluster, tree, engine) whose pool, locks, counters, root and
-    allocator high-water marks equal the given arrays'.
+                    router_shift: int | None = None, free_pages=(),
+                    **cfg_kw):
+    """-> (cluster, tree, engine) whose pool, locks, counters, root,
+    allocator high-water marks and free pools equal the given arrays'.
 
     The arrays are the reference's global, node-major ones for ``N``
     nodes: ``pool`` ``[N*P, 256]`` int32, ``locks`` ``[N*L]`` int32,
     ``counters`` ``[N*N_COUNTERS]`` uint32; ``alloc_next`` holds each
     node's ``GlobalAllocator.pages_used`` (one int for one node), and its
     length is ``N``.  ``leaf_dir`` optionally the bulk-load leaf
-    directory ``(addrs, lows)`` that seeds the router.  ``router_table``
+    directory ``(addrs, lows)`` that seeds the router.  ``free_pages``
+    the allocators' reclaimed-page pools as packed page addresses, each
+    node's in its ``GlobalAllocator.free_pages_list`` order (the last is
+    popped first), e.g. the concatenation of every directory's list
+    through ``bits.make_addr``; a tree that ran ``reclaim_empty_leaves``
+    must carry them, or its next page-grain allocation takes fresh bump
+    space where the reference pops the pool.  ``router_table``
     optionally the reference router's ``table_np`` (a power-of-two number
     of int32 start addresses) with its ``router_shift``: the engine gets
     a router holding exactly that table, so a staged loop carried across
@@ -67,6 +75,7 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
     dsm.locks.copy_(torch.from_numpy(locks))
     for d in cluster.directories:
         d.allocator._next = int(alloc_next[d.node_id])
+    set_free_pools(cluster, free_pages)
     # the root is installed, so the tree adopts it instead of building one
     tree = Tree(cluster)
     if (tree._root_addr, tree._root_level) != (int(root_addr),

@@ -58,6 +58,15 @@ def pages_for_keys(n_keys: int, fill: float = 0.75) -> int:
     return 1 << max(12, (est - 1).bit_length())
 
 
+def synthetic_keys(n_keys: int, salt: int = SALT) -> np.ndarray:
+    """The keys ``mix64(rank ^ salt)`` of the ranks below ``n_keys``,
+    sorted and distinct."""
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.utils import sorted_unique
+    return sorted_unique(bits.mix64_np(np.arange(n_keys, dtype=np.uint64)
+                                       ^ np.uint64(salt)))
+
+
 def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
           step_capacity: int | None = None, log=_say):
     """The tool's tree: keys ``mix64(rank ^ SALT)`` for ranks below
@@ -72,7 +81,6 @@ def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
     from sherman_tpu_torch.errors import NotPortedError
     from sherman_tpu_torch.models import batched
     from sherman_tpu_torch.models.btree import Tree
-    from sherman_tpu_torch.ops import bits
 
     if value_heap_pages():
         raise NotPortedError(
@@ -80,12 +88,7 @@ def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
             "does not have yet (models/value_heap.py, ROADMAP item 6); "
             "unset it to run the matrix with inline values")
     t0 = time.perf_counter()
-    ranks = np.arange(n_keys, dtype=np.uint64)
-    keys = np.sort(bits.mix64_np(ranks ^ np.uint64(SALT)))
-    del ranks
-    # np.unique as a sort and a neighbour compare: numpy's hash-based
-    # unique is far slower than the sort at the north-star key count
-    keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+    keys = synthetic_keys(n_keys)
     vals = keys ^ np.uint64(0xD00D)
     # D/E grow the frontier ~5% of the op budget: size the pool for it
     grow = max(1024, ops * 64 // 8)

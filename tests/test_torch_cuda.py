@@ -690,3 +690,66 @@ def test_fault_kinds_on_a_cuda_pool(dev):
     restored = sa[5].clone()
     restored[:, 200] = ba[:, 200]
     assert torch.equal(sa[5], sb[5]) and torch.equal(restored, ba)
+
+
+def test_delta_gather_on_the_card_matches_the_plain_twin(dev):
+    """The delta checkpoint's dirty-page gather: one ``gather_pages``
+    launch on the card, equal to the plain version and to ``pool[rows]``
+    on the CPU."""
+    from sherman_tpu_torch.utils import checkpoint as CK
+
+    tree, _ = _integrity_tree("cuda", 1)
+    pool = tree.dsm.pool
+    rows = tree.dsm.dirty_rows()
+    assert rows.size > 0
+    PK.reset_launches()
+    got = CK._gather_rows(pool, rows)
+    assert PK.LAUNCHES["gather_pages"] == 1
+    host = pool.cpu()
+    want = PK.gather_pages_ref(host, torch.from_numpy(rows.astype(np.int32)))
+    assert np.array_equal(got, want.numpy())
+    assert np.array_equal(got, host.numpy()[rows])
+    assert CK._gather_rows(pool, np.zeros(0, np.int64)).shape == \
+        (0, C.PAGE_WORDS)
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_recovery_plane_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                     machine_nr):
+    """One journaled op sequence, a delta, a torn tail and ``recover`` on
+    the card and on the CPU: byte-identical journal segments, equal delta
+    rows and pages, equal recovered pools, locks, counters and free
+    pools."""
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.utils import journal as J
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        tree, eng = _integrity_tree(d, machine_nr)
+        rdir = str(tmp_path / d)
+        plane = RecoveryPlane(tree.cluster, tree, eng, rdir)
+        plane.checkpoint_base()
+        fresh = np.arange(1, 201, dtype=np.uint64) * np.uint64(1 << 40)
+        eng.insert(fresh, fresh)
+        eng.delete(np.arange(7, 700, 7, dtype=np.uint64) * np.uint64(7))
+        eng.mixed(fresh[:50], fresh[:50] ^ np.uint64(3),
+                  np.arange(50) % 2 == 0)
+        with np.load(plane.checkpoint_delta()["path"]) as z:
+            delta = (z["delta_rows"], z["delta_pages"])
+        eng.insert(fresh[100:], fresh[100:] ^ np.uint64(5))
+        seg = eng.journal.path
+        plane.close()
+        blob = open(seg, "rb").read()
+        rec = J.encode_record(J.J_DELETE, fresh[:4])
+        with open(seg, "ab") as f:
+            f.write(rec[:-2])
+        _, c2, _, _, receipt = RecoveryPlane.recover(
+            rdir, device=d, batch_per_node=256)
+        runs[d] = (blob, delta, receipt["replay"],
+                   [t.cpu().clone() for t in (c2.dsm.pool, c2.dsm.locks,
+                                              c2.dsm.counters)],
+                   [x.allocator.free_pages_list for x in c2.directories])
+    a, b = runs["cuda"], runs["cpu"]
+    assert a[0] == b[0] and a[2] == b[2] and a[4] == b[4]
+    assert all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    assert all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
