@@ -222,22 +222,59 @@ npz format, ``recovery.py``'s ``RecoveryPlane``), after phase 19:
     ``durability`` JSON line; K1-K3 replayed at every shape of its three
     launch windows (path ``one_node_durability``).
 
+The observability plane (``sherman_tpu_torch/obs``: the registry and its
+pull collectors, spans, SLO telemetry, the flight recorder, the
+exporters and the program ledger), after phase 21; its hooks run inside
+every earlier phase, and the black box's bundles go to a temporary
+``SHERMAN_BLACKBOX_DIR`` for the whole run:
+
+22. (e, taken first) the recorder dumped and read back: phases 19-21 left
+    ``chaos.inject``, ``scrub.violation``, ``scrub.quarantine``,
+    ``engine.degraded_enter``, ``recovery.targeted_repair_begin``,
+    ``engine.degraded_exit`` and ``recovery.targeted_repair`` in that
+    order (the reference's drill order), phase 21 its ``recovery.*`` and
+    ``checkpoint.*`` events, and a degraded entry an auto-dump bundle;
+    (a) the obs reference check at 20,000 keys (numpy seed 42) on 1 and
+    on 8 nodes (step capacity 32 on 8), card against the plain path on
+    the CPU, through :func:`obs_run` — registry deltas, flight events,
+    span names and counts, SLO counts and ledger programs equal, and on
+    the card ``kernels.*_launches`` equal to ``LAUNCHES``; then on phase
+    21's recovered 100 M-key tree (4,194,304 pages): (b-a) staged YCSB-C
+    ``aligned`` (4,194,304 clients) and YCSB-A ``chained`` (1,048,576),
+    obs on (``SHERMAN_SLO``, ``SHERMAN_DEVICE_OBS``) and off interleaved,
+    3 windows of 8 steps a side, the ledger sealed around each window
+    (``device.retraces`` 0), the host syncs of a step equal on both
+    sides; (b-b) the matrix's YCSB-A ``mixed`` steps of 8,192 ops the
+    same way (9 windows a side), with the cost of one span and of one SLO
+    observation; (c)
+    one snapshot against the smoke's own counts (``dsm.*`` against
+    ``counter_snapshot``, ``slo.*`` ops, ``kernels.*`` against
+    ``LAUNCHES``, the pool's 4,294,967,296 bytes beside
+    ``torch.cuda.memory_allocated``), its Prometheus text and a JSONL
+    snapshot written and parsed back; (d) the tracer's Chrome trace of
+    one YCSB-A step reloaded, and ``obs.device_trace`` of one staged step
+    naming K1-K3; (f) the ``obs`` JSON line, and K1-K3 replayed at every
+    shape the phase launched (path ``one_node_obs``).
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch), around each staged window, around each storm's timed window
 (K1-K3 on one node; K2-K4 on eight), around the churn's timed window
 (K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight),
-around phase 19's serving steps (K1-K3) and around phase 21's traffic
-and delta, its recovery and its repair (K1-K3 in each);
+around phase 19's serving steps (K1-K3), around phase 21's traffic
+and delta, its recovery and its repair (K1-K3 in each) and around phase
+22b (K1-K3);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
 while the host enqueues the call, so a one-element ``fill_`` shows the
 floor of the method (``launch_floor_ms``). A kernel's ``ms``,
 ``ms_before``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are means
-per launch over its shapes, each listed under ``shapes``. The lines
-before the last are the ``integrity`` and ``durability`` JSON records
-(printed after phases 19 and 21), the K1 and K3 ablations, the
+per launch over its shapes, each listed under ``shapes`` (and
+``library_shapes`` the means over the shapes where the library call
+computes the same function). The lines before the last are the
+``integrity``, ``durability`` and ``obs`` JSON records (printed after
+phases 19, 21 and 22), the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -271,8 +308,12 @@ STAGED_STEPS_8 = 4             # timed steps of each staged loop on 8 nodes
 VAL_XOR = np.uint64(0xDEADBEEF)
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, stamped with the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
 
 
 def keys_of(ranks: np.ndarray, salt: int) -> np.ndarray:
@@ -1019,16 +1060,20 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
          "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
-         "one_node_durability")
+         "one_node_durability", "one_node_obs")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
     """One kernel's line: its launches over both paths; ``ms``,
     ``plain_ms``, ``library_ms`` and ``bound_ms`` are means per launch
     over the shapes it was launched at (so ``launches * (ms - bound_ms)``
-    sums over the shapes), and ``shapes`` has each one."""
+    sums over the shapes), and ``shapes`` has each one.  Where the library
+    call computes the kernel's function at only some shapes,
+    ``library_shapes`` gives both means per launch over those shapes."""
     n = sum(s["launches"] for s in shapes)
     mean = lambda k: sum(s["launches"] * s[k] for s in shapes) / n
+    lib = [s for s in shapes if s["library_ms"] is not None]
+    n_lib = sum(s["launches"] for s in lib)
     by_path = {p: sum(s["launches"] for s in shapes if s["path"] == p)
                for p in PATHS}
     rep, src = KERNELS[name]
@@ -1041,6 +1086,12 @@ def kernel_record(name: str, shapes: list[dict]) -> dict:
                 s["library_ms"] is not None for s in shapes) else None),
             "ms_before": (mean("ms_before") if all(
                 "ms_before" in s for s in shapes) else None),
+            "library_shapes": {
+                "shapes": len(lib), "of": len(shapes), "launches": n_lib,
+                "ms": (sum(s["launches"] * s["ms"] for s in lib) / n_lib
+                       if n_lib else None),
+                "library_ms": (sum(s["launches"] * s["library_ms"]
+                                   for s in lib) / n_lib if n_lib else None)},
             "bytes": round(mean("bytes")), "launches_by_path": by_path,
             "shapes": shapes}
 
@@ -3061,6 +3112,7 @@ def durability_full_width(ctx: dict, smi: str) -> dict:
     line.  The directory is a temporary one, removed at the end.
     -> {kernel: [shapes]}."""
     from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch import obs
     from sherman_tpu_torch import ycsb_bench as YB
     from sherman_tpu_torch.ckpt_bench import journal_group_commit_ab
     from sherman_tpu_torch.models import batched
@@ -3301,8 +3353,651 @@ def durability_full_width(ctx: dict, smi: str) -> dict:
                    rto_ms=rec["d"]["rto_ms"], keys=mirror.live,
                    passes=passes)
         plane.close()
+        # the drill's receipts on the plane's gauges
+        obs.gauge("recovery.rpo_ops").set(rec["rpo_ops"])
+        obs.gauge("recovery.rto_ms").set(rec["rto_ms"])
+        ctx["tree"], ctx["eng"] = tree, eng     # phase 22 serves it
     finally:
         shutil.rmtree(rdir, ignore_errors=True)
+    print(json.dumps(rec), flush=True)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the observability plane.
+# ---------------------------------------------------------------------------
+
+OBS_SALT = 0x5E17AB1E5A17
+OBS_XOR = 0xDEADBEEF
+# registry families that differ by design between the packages (ROADMAP.md
+# section 3): the kernels' launch counts and the transport's per-execution
+# bytes against the reference's build counts, and the device ledger's
+# first-call entries against its jit compiles
+OBS_EXCLUDED = ("kernels.", "transport.", "device.")
+# wall-time values: excluded from equality (their counts are not)
+OBS_WALL_KEYS = ("recovery.rto_ms",)
+OBS_WALL_FIELDS = ("dur_ms", "total_ms", "repair_ms", "compile_ms")
+# artifact sizes: a chain's random nonce rides in every artifact and moves
+# its deflated size by a few bytes, so only their presence is compared
+OBS_NONCE_KEYS = ("ckpt.delta_bytes",)
+OBS_NONCE_FIELDS = ("bytes",)
+# the programs both packages put through their ledgers
+OBS_BOTH_LABELS = ("engine.search", "engine.search_fanout", "engine.insert",
+                   "engine.delete", "engine.mixed", "engine.parent_descend",
+                   "staged.prep", "staged.verify", "staged_mixed.prep")
+
+
+def port_obs_mods(device: str):
+    """The port's module handles for :func:`obs_run` on ``device``."""
+    import types
+
+    from sherman_tpu_torch import chaos, obs, recovery
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.models.scrub import Scrubber
+    from sherman_tpu_torch.obs import device as DEV
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.workload import device_prep
+    return types.SimpleNamespace(
+        Cluster=Cluster, cfg=lambda **kw: DSMConfig(device=device, **kw),
+        TreeConfig=TreeConfig, Tree=Tree, batched=batched, obs=obs, DEV=DEV,
+        chaos=chaos, recovery=recovery, Scrubber=Scrubber, prep=device_prep,
+        mix64=bits.mix64_np, DegradedError=batched.DegradedError)
+
+
+def obs_reset(m) -> None:
+    """Zero one package's registry, tracer, recorder, SLO tracker and
+    ledger in place."""
+    m.obs.get_registry().reset()
+    m.obs.get_tracer().reset()
+    m.obs.get_recorder().clear()
+    m.obs.get_slo().reset()
+    m.DEV.get_ledger().reset()
+
+
+def obs_delta(m, s0: dict, s1: dict) -> dict:
+    """The registry delta under the stated exclusions: the differing
+    families and wall-time values out, histograms and SLO classes by
+    their counts, artifact sizes by their presence, zero entries
+    dropped."""
+    out = {}
+    for k, v in m.obs.delta(s0, s1).items():
+        if k.startswith(OBS_EXCLUDED) or k in OBS_WALL_KEYS:
+            continue
+        if k.startswith("slo.") and not k.endswith(("ops_total",
+                                                      "batches_total")):
+            continue
+        if isinstance(v, dict):
+            v = v["count"]
+        if v:
+            out[k] = v > 0 if k in OBS_NONCE_KEYS else v
+    return out
+
+
+def obs_events(m, rdir: str) -> list:
+    """The flight events in order as (kind, fields): timestamps, sequence
+    numbers, wall times and chain nonces dropped, artifact sizes reduced
+    to their presence, ``rdir`` made relative."""
+    out = []
+    for e in m.obs.get_recorder().events():
+        f = {}
+        for k, v in (e.get("fields") or {}).items():
+            if k in OBS_WALL_FIELDS or k == "cid":
+                continue
+            if k in OBS_NONCE_FIELDS:
+                v = v > 0
+            if isinstance(v, str) and v.startswith(rdir):
+                v = "<dir>" + v[len(rdir):]
+            f[k] = v
+        out.append((e["kind"], f))
+    return out
+
+
+def obs_run(m, machine_nr: int, step_capacity: int | None,
+            rdir: str) -> dict:
+    """Phase 22a's op sequence on one package (``m``: module handles, see
+    :func:`port_obs_mods`) -> {delta, events, spans, ledger, slo, ...}.
+
+    20,000 keys ``mix64(rank ^ salt)`` (values ``key ^ 0xDEADBEEF``)
+    bulk-loaded at fill 0.9 with the router; the plane reset; then
+    staged YCSB-C (aligned) and YCSB-A (chained) windows of 3 steps with
+    ``record_slo``, ``search_combined``, ``mixed`` (fresh keys retried
+    through ``insert``), ``insert`` with splits, ``delete``, three
+    ``reclaim_empty_leaves`` passes, ``range_query_many``, a
+    ``RecoveryPlane`` base, writes and a delta, ``torn_page`` and
+    ``flip_entry_ver`` on two leaves, a ``Scrubber`` pass (quarantine,
+    degrade), a refused insert, ``targeted_repair``, a dead lease wedged
+    on a leaf and revoked by the next insert.  Numpy seed 42."""
+    N = machine_nr
+    B = step_capacity or 512
+    n_keys = 20_000
+    U64 = np.uint64
+    rng = np.random.default_rng(42)
+    keys = np.sort(m.mix64(np.arange(n_keys, dtype=U64) ^ U64(OBS_SALT)))
+    tree = m.Tree(m.Cluster(m.cfg(
+        machine_nr=N, pages_per_node=4096 if N == 1 else 1024,
+        locks_per_node=1024, step_capacity=B, chunk_pages=64)))
+    eng = m.batched.BatchedEngine(tree, batch_per_node=B, write_combine=False,
+                                  tcfg=m.TreeConfig(lock_retry_rounds=2))
+    m.batched.bulk_load(tree, keys, keys ^ U64(OBS_XOR), fill=0.9)
+    eng.attach_router()
+    dsm = tree.dsm
+    known = set(keys.tolist())
+
+    def fresh(n):
+        ks = np.unique(rng.integers(1, 1 << 56, 2 * n, dtype=U64))
+        ks = ks[~np.isin(ks, np.fromiter(known, U64, len(known)))]
+        rng.shuffle(ks)
+        known.update(ks[:n].tolist())
+        return ks[:n]
+
+    obs_reset(m)
+    reg = m.obs.get_registry()
+    s0 = reg.snapshot()
+    out = {}
+    step, (new_carry, tb, rt, rk) = m.prep.make_staged_step(
+        eng, n_keys=n_keys, theta=0.99, salt=OBS_SALT, batch=B, dev_b=B,
+        log2_bins=16, fusion="aligned", sampler="table")
+    carry, counters = new_carry(), dsm.counters
+    t = time.perf_counter()
+    for _ in range(3):
+        counters, carry = step(dsm.pool, counters, tb, rt, rk, carry)
+    carry = step.drain(carry)
+    dsm.counters = counters
+    step.record_slo(3, time.perf_counter() - t)
+    out["staged_c"] = _ints(carry)
+    step, (new_carry, tb, rt, rk) = m.prep.make_staged_mixed_step(
+        eng, n_keys=n_keys, theta=0.99, salt=OBS_SALT, batch=B,
+        read_ratio=0.5, dev_rb=B // 2, dev_wb=B // 2, log2_bins=16,
+        fusion="chained")
+    carry, pool, counters = new_carry(), dsm.pool, dsm.counters
+    t = time.perf_counter()
+    for _ in range(3):
+        pool, counters, carry = step(pool, dsm.locks, counters, tb, rt, rk,
+                                     carry)
+    carry = step.drain(carry)
+    dsm.pool, dsm.counters = pool, counters
+    step.record_slo(3, time.perf_counter() - t)
+    out["staged_a"] = _ints(carry)
+    out["search_combined"] = eng.search_combined(
+        rng.choice(keys[:4 * B], B * N // 2))
+    mk = np.concatenate([rng.choice(keys, B * N // 2), fresh(B * N // 4)])
+    out["mixed"] = eng.mixed(mk, mk ^ U64(0x33), rng.random(mk.size) < 0.5)
+    ins = fresh(1500)
+    out["insert"] = eng.insert(ins, ins * U64(5))
+    dead = np.union1d(rng.choice(keys, 400, replace=False),
+                      keys[5000:7000])
+    out["delete"] = eng.delete(dead)
+    out["reclaim"] = [eng.reclaim_empty_leaves() for _ in range(3)]
+    out["scan"] = eng.range_query_many(
+        [(int(keys[i]), int(keys[i + 60])) for i in (100, 4990, 9000)])
+    plane = m.recovery.RecoveryPlane(tree.cluster, tree, eng, rdir)
+    out["base"] = plane.checkpoint_base()["bytes"]
+    ins = fresh(200)
+    out["insert 2"] = eng.insert(ins, ins ^ U64(9))
+    out["delta"] = plane.checkpoint_delta()["pages"]
+    live = np.setdiff1d(keys, dead)
+    v1 = int(tree._descend(int(live[live.size // 3]))[0])
+    v2 = int(tree._descend(int(live[2 * live.size // 3]))[0])
+    _fire(dsm, m.chaos.FaultPlan([{"kind": "torn_page", "addr": v1},
+                                  {"kind": "flip_entry_ver", "addr": v2,
+                                   "slot": 1}]))
+    scr = m.Scrubber(eng, interval=1)
+    out["scrub"] = scr.scrub()
+    try:
+        eng.insert(ins[:4], ins[:4])
+        out["refused"] = False
+    except m.DegradedError:
+        out["refused"] = True
+    rep = plane.targeted_repair(scr)
+    out["repair"] = {k: v for k, v in rep.items() if k != "repair_ms"}
+    v3 = int(tree._descend(int(live[live.size // 2]))[0])
+    _fire(dsm, m.chaos.FaultPlan([{"kind": "wedge_lock",
+                                   "addr": tree._lock_word_addr(v3)}]))
+    k3 = live[live.size // 2: live.size // 2 + 2]
+    out["revoked insert"] = eng.insert(k3, k3 ^ U64(0x77))
+    plane.close()
+    s1 = reg.snapshot()
+    tracer = m.obs.get_tracer()
+    out.update(
+        delta=obs_delta(m, s0, s1), events=obs_events(m, rdir),
+        spans={k: v["n"] for k, v in tracer.summary().items()},
+        ledger={e["label"]: len(e["signatures"])
+                for e in m.DEV.get_ledger().entries()},
+        slo={c: (s["ops_total"], s["batches_total"])
+             for c, s in m.obs.slo_window().items()},
+        snapshot=s1, chrome=tracer.chrome_trace())
+    return out
+
+
+def obs_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                        step_capacity: int | None = None) -> None:
+    """Phase 22a on ``machine_nr`` nodes: :func:`obs_run` on the card and
+    on the plain path on the CPU — registry deltas (under the stated
+    exclusions), flight events, span names and counts, SLO counts and
+    the ledger's programs equal, and on the card the ``kernels.*``
+    launch counts equal to the wrappers' ``LAUNCHES``."""
+    from sherman_tpu_torch.ops import page_kernels as PK
+    from sherman_tpu_torch.parallel import transport_kernel as TK
+
+    t = time.perf_counter()
+    res = {}
+    for d in devices:
+        rdir = tempfile.mkdtemp(prefix="sherman_obs_")
+        try:
+            PK.reset_launches()
+            TK.reset_launches()
+            r = obs_run(port_obs_mods(d), machine_nr, step_capacity, rdir)
+        finally:
+            shutil.rmtree(rdir, ignore_errors=True)
+        launches = {**PK.LAUNCHES, **TK.LAUNCHES}
+        got = {k: r["snapshot"][f"kernels.{k}_launches"] for k in launches}
+        if got != launches:
+            raise AssertionError(f"obs ({d}): kernels collector {got} != "
+                                 f"LAUNCHES {launches}")
+        r["launches"] = launches
+        res[d] = r
+    a, b = (res[d] for d in devices)
+    for k in ("delta", "events", "spans", "slo", "ledger", "staged_c",
+              "staged_a", "insert", "insert 2", "refused", "repair",
+              "revoked insert"):
+        if a[k] != b[k]:
+            raise AssertionError(f"obs reference check ({machine_nr} "
+                                 f"nodes): {k} differs: {_diff(a[k], b[k])}")
+    for k in ("search_combined", "mixed", "delete", "scan"):
+        if not _same_obj(a[k], b[k]):
+            raise AssertionError(f"obs reference check ({machine_nr} "
+                                 f"nodes): {k} differs")
+    if devices[0] == "cuda" and not sum(a["launches"].values()):
+        raise AssertionError("obs reference check: no kernel launched on "
+                             "the card")
+    _log(f"obs reference check ({machine_nr} nodes, 20,000 keys, card vs "
+         f"plain path on the CPU): {len(a['delta'])} registry deltas, "
+         f"{len(a['events'])} flight events, {sum(a['spans'].values())} "
+         f"spans, SLO {a['slo']}, ledger {a['ledger']} equal; card "
+         f"launches {a['launches']}; {time.perf_counter() - t:.1f} s")
+
+
+# the reference's drill order across phases 19-21 (tests/test_slo.py:292):
+# the engine leaves degraded mode inside targeted_repair, before its
+# closing event
+FLIGHT_ORDER = ("chaos.inject", "scrub.violation", "scrub.quarantine",
+                "engine.degraded_enter", "recovery.targeted_repair_begin",
+                "engine.degraded_exit", "recovery.targeted_repair")
+FLIGHT_PRESENT = ("checkpoint.save", "checkpoint.restore",
+                     "recovery.checkpoint_base", "recovery.checkpoint_delta",
+                     "recovery.recover", "lease.revoked")
+
+
+def flight_record(bb: str) -> dict:
+    """Phase 22b(e), taken before 22a resets the plane: dump the
+    recorder, reload the bundle and check that phases 19-21 left the
+    drill's events in order and phase 21 its recovery and checkpoint
+    events; an auto-dump bundle of a degraded entry must exist in
+    ``bb``."""
+    from sherman_tpu_torch import obs
+    rec = obs.get_recorder()
+    path = rec.dump("phases_19_21", bb)
+    with open(path) as f:
+        od = json.load(f)["otherData"]
+    kinds = [e["kind"] for e in od["flight_events"]]
+    at, pos = -1, {}
+    for k in FLIGHT_ORDER:
+        if k not in kinds[at + 1:]:
+            raise AssertionError(f"flight record: no {k} after position "
+                                 f"{at} ({len(kinds)} events)")
+        at = kinds.index(k, at + 1)
+        pos[k] = at
+    missing = [k for k in FLIGHT_PRESENT if k not in kinds]
+    bundles = sorted(f for f in os.listdir(bb)
+                     if "degraded_entry" in f and f.endswith(".json"))
+    if missing or not bundles:
+        raise AssertionError(f"flight record: missing {missing}, degraded "
+                             f"bundles {bundles}")
+    return {"events": len(kinds), "dropped": od["flight_dropped"],
+            "order": pos, "faults": sorted({
+                e["fields"]["fault"] for e in od["flight_events"]
+                if e["kind"] == "chaos.inject"}),
+            "counts": {k: kinds.count(k) for k in FLIGHT_ORDER
+                       + FLIGHT_PRESENT},
+            "degraded_bundles": len(bundles)}
+
+
+FLIGHT_EVENTS = 1 << 18     # the flight ring's capacity for the whole run
+OBS_AB_REPEATS = 3      # staged windows a side, interleaved
+OBS_AB_STEPS = 8        # steps a window
+# host-path windows a side: the walls of a small step's windows spread by
+# up to ~10% on the card's shared host (H100 80GB HBM3 runs of this
+# phase), so more of them resolve a share near 1%; 18 windows of 8 small
+# steps cost under a second
+OBS_HOST_REPEATS = 9
+
+
+def _obs_env(on: bool) -> None:
+    for k in ("SHERMAN_SLO", "SHERMAN_DEVICE_OBS"):
+        os.environ[k] = "1" if on else "0"
+
+
+def _ab_order(n: int) -> list:
+    """on, off, off, on, on, off, ...: each side leads as often."""
+    return [bool((i + i // 2) % 2 == 0) for i in range(2 * n)]
+
+
+def obs_full_width(ctx: dict, flight: dict, smi: str,
+                   batch_c: int = 1 << 22, batch_a: int = 1 << 20) -> dict:
+    """Phase 22b on the 100 M-key tree phase 21 recovered: (a) staged
+    YCSB-C aligned (4,194,304 clients) and YCSB-A chained (1,048,576),
+    obs on and off interleaved, the ledger sealed around every window,
+    the host syncs of a step on both sides; (b) the matrix's YCSB-A
+    ``mixed`` steps of 8,192 ops the same way, and the cost of a span
+    and of an SLO observation; (c) one registry snapshot against the
+    smoke's own counts, its Prometheus text and JSONL written and read
+    back; (d) the tracer's Chrome trace of one YCSB-A step and a
+    ``device_trace`` of one staged step naming K1-K3; (e) the flight
+    record of phases 19-21 (``flight``); (f) the ``obs`` line, and K1-K3
+    replayed at every shape the phase launched (path ``one_node_obs``).
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import obs
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.config import TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.obs import device as DEV
+    from sherman_tpu_torch.obs import slo as SLO
+    from sherman_tpu_torch.ops import page_kernels as PK
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+
+    tree, eng = ctx["tree"], ctx["eng"]
+    n_keys, dev = ctx["n_keys"], tree.dsm.pool.device
+    salt, xor = YB.SALT, 0xD00D
+    path = "one_node_obs"
+    t_phase = time.perf_counter()
+    # 22a's trees were built after this one: point the ``dsm`` collector
+    # and the accountant's sources back at it
+    tree.dsm.register_obs()
+    led = DEV.get_ledger()
+    reg = obs.get_registry()
+    rec: dict = {"metric": "obs", "path": path, "card": smi,
+                 "pages": tree.dsm.pool.shape[0],
+                 "windows_a_side": OBS_AB_REPEATS,
+                 "steps_a_window": OBS_AB_STEPS, "reduced": []}
+    obs.get_slo().reset()
+    obs.get_tracer().reset()
+    tcfg = TreeConfig(sibling_chase_budget=1)
+    eng_c = batched.BatchedEngine(tree, batch_per_node=batch_c, tcfg=tcfg)
+    eng_a = batched.BatchedEngine(tree, batch_per_node=batch_a, tcfg=tcfg)
+    eng_c.router = eng_a.router = eng.router
+    pool, locks, counters = tree.dsm.pool, tree.dsm.locks, tree.dsm.counters
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    _obs_env(True)
+    with ShapeLog() as log:
+        # (a) staged: the read loop's cap from one sizing step (as the
+        # bench sizes it), the mixed loop's at the class sizes
+        step, (new_c, tb, rt, rk) = DP.make_staged_step(
+            eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=batch_c,
+            dev_b=batch_c, sampler="analytic", fusion="aligned",
+            check_xor=xor)
+        c = _ints(step(pool, counters, tb, rt, rk, new_c())[1])
+        dev_b = min(batch_c, -(-int(c[4] * 1.02) // 8192) * 8192 + 16384)
+        staged_t = (tb, rt, rk)
+        cstep, (new_c, *_) = DP.make_staged_step(
+            eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=batch_c,
+            dev_b=dev_b, sampler="analytic", fusion="aligned",
+            check_xor=xor, staged=staged_t)
+        R = batch_a // 2
+        mstep, (new_m, *tabs_m) = DP.make_staged_mixed_step(
+            eng_a, n_keys=n_keys, theta=0.99, salt=salt, batch=batch_a,
+            read_ratio=0.5, dev_rb=R, dev_wb=batch_a - R,
+            sampler="analytic", fusion="chained", check_xor=xor,
+            staged=staged_t)
+
+        def c_window():
+            carry = new_c()
+            for _ in range(OBS_AB_STEPS):
+                carry = cstep(pool, counters, *staged_t, carry)[1]
+            return cstep.drain(carry)
+
+        def a_window():
+            carry = new_m()
+            for _ in range(OBS_AB_STEPS):
+                carry = mstep(pool, locks, counters, *staged_t, carry)[2]
+            return mstep.drain(carry)
+
+        staged_ab = {}
+        slo_read = 0
+        for name, window, stp, batch in (("ycsb_c_aligned", c_window,
+                                          cstep, batch_c),
+                                         ("ycsb_a_chained", a_window,
+                                          mstep, batch_a)):
+            window()                                   # warm-up
+            walls = {True: [], False: []}
+            outs = set()
+            for on in _ab_order(OBS_AB_REPEATS):
+                _obs_env(on)
+                r0 = led.retraces
+                with led.sealed_scope():
+                    sync()
+                    t = time.perf_counter()
+                    carry = window()
+                    sync()
+                    dt = time.perf_counter() - t
+                stp.record_slo(OBS_AB_STEPS, dt)
+                if led.retraces != r0:
+                    raise AssertionError(f"22b(a) {name}: "
+                                         f"{led.retraces - r0} retraces in "
+                                         "a sealed window")
+                walls[on].append(dt)
+                c = _ints(carry)
+                if c[1] != 1:
+                    raise AssertionError(f"22b(a) {name}: a cap overflowed "
+                                         f"({c})")
+                # fresh carries: every window serves the same steps
+                outs.add(tuple(c[:3] if name.startswith("ycsb_c")
+                               else (c[0], c[1], c[3])))
+            if len(outs) != 1:
+                raise AssertionError(f"22b(a) {name}: windows disagree "
+                                     f"with obs on and off: {outs}")
+            syncs = {}
+            for on in (True, False):
+                _obs_env(on)
+                box = {"c": new_c() if stp is cstep else new_m()}
+                if stp is cstep:
+                    one = lambda: box.__setitem__("c", cstep(
+                        pool, counters, *staged_t, box["c"])[1])
+                else:
+                    one = lambda: box.__setitem__("c", mstep(
+                        pool, locks, counters, *staged_t, box["c"])[2])
+                syncs[on] = count_syncs(one)
+                stp.drain(box["c"])
+            _obs_env(True)
+            if syncs[True] != syncs[False]:
+                raise AssertionError(f"22b(a) {name}: host syncs a step "
+                                     f"{syncs[True]} with obs, "
+                                     f"{syncs[False]} without")
+            on_ms = min(walls[True]) / OBS_AB_STEPS * 1e3
+            off_ms = min(walls[False]) / OBS_AB_STEPS * 1e3
+            staged_ab[name] = {
+                "batch": batch, "ms_per_step_on": on_ms,
+                "ms_per_step_off": off_ms,
+                "obs_share": (on_ms - off_ms) / off_ms,
+                "walls_s_on": walls[True], "walls_s_off": walls[False],
+                "host_syncs_per_step_on": syncs[True],
+                "host_syncs_per_step_off": syncs[False],
+                "retraces": 0, "receipts": list(outs.pop())}
+            if name.startswith("ycsb_c"):
+                staged_ab[name]["dev_b"] = dev_b
+                slo_read = OBS_AB_REPEATS * OBS_AB_STEPS * batch_c
+        rec["staged"] = staged_ab
+        snap_a = reg.snapshot()
+        if snap_a["slo.read.ops_total"] != slo_read \
+                or snap_a["slo.mixed.ops_total"] \
+                != OBS_AB_REPEATS * OBS_AB_STEPS * batch_a:
+            raise AssertionError(
+                f"22b(c): slo.read {snap_a['slo.read.ops_total']}, "
+                f"slo.mixed {snap_a['slo.mixed.ops_total']} after (a)")
+
+        # (b) the host path: the matrix's YCSB-A mixed steps of 8,192 ops
+        gen = YcsbGen("A", n_keys, theta=0.99, seed=22, salt=salt)
+        batches = []
+        for _ in range(OBS_AB_STEPS):
+            b = gen.batch(YCSB_OPS)
+            ks = np.concatenate([b["read"], b["update"]])
+            isr = np.zeros(ks.size, bool)
+            isr[:b["read"].size] = True
+            batches.append((ks, ks ^ np.uint64(0xBEEF), isr))
+
+        def host_window():
+            for ks, vs, isr in batches:
+                eng.mixed(ks, vs, isr)
+
+        host_window()                                  # warm-up
+        walls = {True: [], False: []}
+        c0 = tree.dsm.counter_snapshot()
+        s0 = reg.snapshot()
+        mixed0 = s0["slo.mixed.ops_total"]
+        sp0 = obs.get_tracer().summary()
+        for on in _ab_order(OBS_HOST_REPEATS):
+            _obs_env(on)
+            r0 = led.retraces
+            with led.sealed_scope():
+                t = time.perf_counter()
+                host_window()
+                dt = time.perf_counter() - t
+            if led.retraces != r0:
+                raise AssertionError("22b(b): a retrace in a sealed window")
+            walls[on].append(dt)
+        _obs_env(True)
+        s1 = reg.snapshot()
+        c1 = tree.dsm.counter_snapshot()
+        sp1 = obs.get_tracer().summary()
+        spans_step = (sum(v["n"] for v in sp1.values())
+                      - sum(v["n"] for v in sp0.values())) / (
+            2 * OBS_HOST_REPEATS * OBS_AB_STEPS)
+        on_ms = min(walls[True]) / OBS_AB_STEPS * 1e3
+        off_ms = min(walls[False]) / OBS_AB_STEPS * 1e3
+        med = {on: float(np.median(w)) / OBS_AB_STEPS * 1e3
+               for on, w in walls.items()}
+        tracer = obs.SpanTracer()
+        n_probe = 20_000
+        t = time.perf_counter()
+        for _ in range(n_probe):
+            with tracer.span("probe", n=1):
+                pass
+        span_us = (time.perf_counter() - t) / n_probe * 1e6
+        probe = SLO.SloTracker()
+        t = time.perf_counter()
+        for _ in range(n_probe):
+            probe.observe("mixed", YCSB_OPS, 1e-3)
+        slo_us = (time.perf_counter() - t) / n_probe * 1e6
+        rec["host_path"] = {
+            "ops_a_step": YCSB_OPS, "windows_a_side": OBS_HOST_REPEATS,
+            "ms_per_step_on": on_ms, "ms_per_step_off": off_ms,
+            "obs_share": (on_ms - off_ms) / off_ms,
+            "median_ms_per_step_on": med[True],
+            "median_ms_per_step_off": med[False],
+            "median_obs_share": (med[True] - med[False]) / med[False],
+            "walls_s_on": walls[True], "walls_s_off": walls[False],
+            "spans_a_step": spans_step, "span_us": span_us,
+            "slo_observe_us": slo_us,
+            "spans_and_slo_us_a_step": spans_step * span_us + slo_us}
+
+        # (c) the plane's readings against the smoke's own counts
+        dd = obs.delta(s0, s1)
+        want = {k: c1[k] - c0[k] for k in c1}
+        got = {k: dd.get(f"dsm.{k}", 0) for k in c1}
+        if got != want:
+            raise AssertionError(f"22b(c): dsm.* deltas {got} != "
+                                 f"counter_snapshot deltas {want}")
+        if s1["slo.mixed.ops_total"] - mixed0 \
+                != OBS_HOST_REPEATS * OBS_AB_STEPS * YCSB_OPS:
+            raise AssertionError(f"22b(c): slo.mixed "
+                                 f"{s1['slo.mixed.ops_total']} after (b)")
+        snap = reg.snapshot()
+        launches = {k: snap[f"kernels.{k}_launches"] for k in PK.LAUNCHES}
+        if launches != PK.LAUNCHES:
+            raise AssertionError(f"22b(c): kernels collector {launches} "
+                                 f"!= LAUNCHES {PK.LAUNCHES}")
+        if snap["device.hbm_pool_bytes"] != pool.numel() * 4:
+            raise AssertionError(f"22b(c): pool bytes "
+                                 f"{snap['device.hbm_pool_bytes']}")
+        odir = tempfile.mkdtemp(prefix="sherman_obs_")
+        try:
+            prom = os.path.join(odir, "metrics.prom")
+            obs.write_prometheus(prom, reg)
+            parsed = {}
+            for ln in open(prom):
+                if not ln.startswith("#"):
+                    name, val = ln.rsplit(" ", 1)
+                    parsed[name] = float(val)
+            jl = os.path.join(odir, "snap.jsonl")
+            obs.write_snapshot_jsonl(jl, reg)
+            with open(jl) as f:
+                line = json.loads(f.readline())["metrics"]
+            if parsed["sherman_device_hbm_pool_bytes"] \
+                    != snap["device.hbm_pool_bytes"] \
+                    or line["device.hbm_pool_bytes"] \
+                    != snap["device.hbm_pool_bytes"] \
+                    or line["slo.mixed.ops_total"] \
+                    != snap["slo.mixed.ops_total"]:
+                raise AssertionError("22b(c): the exposition and the JSONL "
+                                     "snapshot disagree with the registry")
+            rec["readings"] = {
+                "dsm_delta": got, "slo_read_ops": snap["slo.read.ops_total"],
+                "slo_mixed_ops": snap["slo.mixed.ops_total"],
+                "kernels_launches": launches,
+                "hbm_pool_bytes": snap["device.hbm_pool_bytes"],
+                "hbm_total_bytes": snap["device.hbm_total_bytes"],
+                "cuda_allocated_bytes": snap.get("device.cuda_allocated_bytes"),
+                "cuda_max_allocated_bytes": snap.get(
+                    "device.cuda_max_allocated_bytes"),
+                "cuda_reserved_bytes": snap.get("device.cuda_reserved_bytes"),
+                "prometheus_samples": len(parsed),
+                "jsonl_keys": len(line),
+                "retraces": snap["device.retraces"],
+                "ledger_programs": snap["device.programs"],
+                "slo": {k: v for k, v in snap.items()
+                        if k.startswith("slo.")}}
+
+            # (d) traces: the tracer's Chrome trace of one YCSB-A step,
+            # and the torch profiler's of one staged YCSB-A step
+            tr = obs.get_tracer()
+            tr.reset()
+            eng.mixed(*batches[0])
+            cpath = tr.export_chrome(os.path.join(odir, "ycsb_a_step.json"))
+            with open(cpath) as f:
+                names = [e["name"] for e in json.load(f)["traceEvents"]]
+            if "engine.mixed.descend_lock_apply" not in names:
+                raise AssertionError(f"22b(d): the step's trace holds {names}")
+            pdir = os.path.join(odir, "profile")
+            with obs.device_trace(pdir):
+                carry = mstep(pool, locks, counters, *staged_t, new_m())[2]
+                mstep.drain(carry)
+            (pname,) = os.listdir(pdir)
+            with open(os.path.join(pdir, pname)) as f:
+                kern = " ".join(e.get("name", "") for e in
+                                json.load(f)["traceEvents"])
+            named = [k for k in ("descent_round_kernel",
+                                 "gather_pages_kernel", "writeback_kernel")
+                     if k in kern]
+            if dev.type == "cuda" and len(named) != 3:
+                raise AssertionError(f"22b(d): the profiler's trace names "
+                                     f"only {named}")
+            rec["traces"] = {"chrome_events": len(names),
+                             "chrome_spans": sorted(set(names)),
+                             "profiler_kernels": named,
+                             "profiler_trace_bytes": os.path.getsize(
+                                 os.path.join(pdir, pname))}
+        finally:
+            shutil.rmtree(odir, ignore_errors=True)
+    log.check(path, ("descent_round", "gather_pages", "writeback"))
+    rec["flight"] = flight
+    rec["ledger"] = {k: v for k, v in led.summary().items()
+                     if k != "entries"}
+    rec["launches"] = dict(log.launches)
+    shapes = replay(log, path)
+    rec["wall_s"] = time.perf_counter() - t_phase
     print(json.dumps(rec), flush=True)
     return shapes
 
@@ -3312,7 +4007,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
               file=sys.stderr)
         return 2
+    # the black box: auto-dump bundles land here, and the flight ring
+    # holds the whole run (phase 22 reads phases 19-21 back from it)
+    bb = tempfile.mkdtemp(prefix="sherman_blackbox_")
+    try:
+        os.environ["SHERMAN_BLACKBOX_DIR"] = bb
+        os.environ["SHERMAN_BLACKBOX_EVENTS"] = str(FLIGHT_EVENTS)
+        return _main(bb)
+    finally:
+        shutil.rmtree(bb, ignore_errors=True)
+
+
+def _main(bb: str) -> int:
     from sherman_tpu_torch.ops import page_kernels as PK
+    t_smoke = time.perf_counter()
 
     n_keys, batch_c, batch_a, steps = 100_000_000, 1 << 22, 1 << 20, 8
     dev = torch.device("cuda")
@@ -3442,8 +4150,17 @@ def main() -> int:
     durability_reference_check(8, step_capacity=32)
     for k, v in durability_full_width(ycsb, smi).items():
         shapes.setdefault(k, []).extend(v)
-    del ycsb
     _log("durability path parity at every launched shape (K1-K3): exact")
+
+    t = time.perf_counter()
+    flight = flight_record(bb)          # before 22a resets the plane
+    obs_reference_check(1)
+    obs_reference_check(8, step_capacity=32)
+    _log(f"phase 22a with the flight record: {time.perf_counter() - t:.1f} s")
+    for k, v in obs_full_width(ycsb, flight, smi).items():
+        shapes.setdefault(k, []).extend(v)
+    del ycsb
+    _log("obs path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [
@@ -3459,6 +4176,8 @@ def main() -> int:
         for e in shapes["writeback"]],
         "launch_floor_ms": time_ms(lambda: one.fill_(1))}), flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
+    _log(f"smoke wall before the last lines: "
+         f"{time.perf_counter() - t_smoke:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

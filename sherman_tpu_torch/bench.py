@@ -29,8 +29,12 @@ the default router, zipf 0.99, batches of 4,194,304 client ops, the
 
 Every receipt is asserted: ``ok == 1``, every client answer correct, and
 for the mixed loop every read linearization-checked and every write
-applied.  Prints one JSON line (``bench.py``'s field names where it
-measures the same thing) with the card's name and power limit.  Without a
+applied.  The program ledger (``obs/device.py``) is sealed around every
+timed window, so a new program shape there counts as a retrace (the line's
+``retraces``, which must be 0), and each timed window is attributed to
+its SLO class at once (``slo``).  Prints one JSON line (``bench.py``'s
+field names where it measures the same thing, its ``obs`` section among
+them) with the card's name and power limit.  Without a
 CUDA device it exits with code 2; it never runs on the CPU.
 
 The tree builder and the loops' runners (:func:`build`,
@@ -52,6 +56,9 @@ import time
 
 import numpy as np
 import torch
+
+from sherman_tpu_torch import obs
+from sherman_tpu_torch.obs import device as DEV
 
 NORTH_STAR = 10_000_000          # ops/s on one device (BASELINE.json)
 SALT = 0x5E17AB1E5A17
@@ -181,8 +188,9 @@ def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
     """Staged YCSB-C on ``eng``: two warm-up steps, ``steps`` timed steps
     with one sync at the window's end, then ``lat_steps`` steps synced
     one by one (their walls); each run from a fresh carry, every receipt
-    asserted.  ``batch`` clients a node.  -> (record, step,
-    new_carry)."""
+    asserted.  ``batch`` clients a node.  The ledger is sealed around
+    both measured runs and the timed window goes to the SLO plane.
+    -> (record, step, new_carry)."""
     from sherman_tpu_torch.workload import device_prep as DP
     N = eng.cfg.machine_nr
     want = batch * N
@@ -190,6 +198,8 @@ def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
         eng, n_keys=n_keys, theta=theta, salt=salt, batch=batch,
         dev_b=dev_b, sampler=sampler, fusion=fusion, staged=staged)
     pool, counters = eng.dsm.pool, eng.dsm.counters
+
+    ledger = DEV.get_ledger()
 
     def run(k: int, sync_each: bool = False):
         carry, walls = new_carry(), []
@@ -213,14 +223,18 @@ def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
         return c, dt, walls
 
     run(2)                                   # warm-up
-    c, dt, _ = run(steps)
-    _, _, walls = run(lat_steps, sync_each=True)
+    r0 = ledger.retraces
+    with ledger.sealed_scope():
+        c, dt, _ = run(steps)
+        _, _, walls = run(lat_steps, sync_each=True)
+    step.record_slo(steps, dt)
     return {"loop": "ycsb_c", "fusion": step.fusion,
             "sampler": step.sampler, "nodes": N, "batch_per_node": batch,
             "dev_b": dev_b, "steps": steps,
             "ops_per_s": steps * want / dt, "ms_per_step": dt / steps * 1e3,
             "synced_step_ms": walls, "combine": steps * want / max(1, c[3]),
-            "max_nuniq": c[4], "receipts": c}, step, new_carry
+            "max_nuniq": c[4], "receipts": c, "sealed": True,
+            "retraces": ledger.retraces - r0}, step, new_carry
 
 
 def staged_mixed(eng, n_keys: int, theta: float, salt: int, batch: int, *,
@@ -232,8 +246,9 @@ def staged_mixed(eng, n_keys: int, theta: float, salt: int, batch: int, *,
     the stamps of earlier mixed steps.  ``caps`` None: one sizing step at
     caps ``min(class, dev_b + 16384)``, then the caps tightened by
     :func:`tighten_caps`.  Then one warm-up step and ``steps`` timed
-    steps with one sync at the window's end; the receipts of each run
-    are asserted on their deltas.  -> (record, step, carry, caps,
+    steps with one sync at the window's end (the ledger sealed around
+    it, the window attributed to the SLO plane); the receipts of each
+    run are asserted on their deltas.  -> (record, step, carry, caps,
     staged tables)."""
     from sherman_tpu_torch.workload import device_prep as DP
     N = eng.cfg.machine_nr
@@ -275,11 +290,15 @@ def staged_mixed(eng, n_keys: int, theta: float, salt: int, batch: int, *,
     carry = run(step, 1, carry)
     check(base, carry, 1, f"{step.fusion} warm-up")
     base = _ints(carry)
-    _sync(pool.device)
-    t0 = time.perf_counter()
-    carry = run(step, steps, carry)
-    _sync(pool.device)
-    dt = time.perf_counter() - t0
+    ledger = DEV.get_ledger()
+    r0 = ledger.retraces
+    with ledger.sealed_scope():
+        _sync(pool.device)
+        t0 = time.perf_counter()
+        carry = run(step, steps, carry)
+        _sync(pool.device)
+        dt = time.perf_counter() - t0
+    step.record_slo(steps, dt)
     c = check(base, carry, steps, step.fusion)
     return ({"loop": "ycsb_a", "fusion": step.fusion,
              "sampler": step.sampler, "nodes": N, "batch_per_node": batch,
@@ -287,7 +306,8 @@ def staged_mixed(eng, n_keys: int, theta: float, salt: int, batch: int, *,
              "ops_per_s": steps * batch * N / dt,
              "ms_per_step": dt / steps * 1e3,
              "combine": steps * batch * N / max(1, c[4] - base[4]),
-             "receipts": c}, step, carry, caps, staged)
+             "receipts": c, "sealed": True,
+             "retraces": ledger.retraces - r0}, step, carry, caps, staged)
 
 
 def _throughput_window(eng, step, tables, batch, n_batches: int = 4,
@@ -373,6 +393,8 @@ def main(argv=None) -> int:
          f"({read['ms_per_step']:.1f} ms/step, dev_b {dev_b})")
     pool, counters = eng.dsm.pool, eng.dsm.counters
     phase_ms = step.phase_profile(pool, counters, *staged, reps=4)[0]
+    from sherman_tpu_torch.workload.device_prep import record_phase_obs
+    record_phase_obs("staged", phase_ms)
     win = _throughput_window(eng, step, staged, batch)
     mixed = staged_mixed(b["eng_a"], n_keys, theta, salt, batch,
                          sampler=sampler, dev_b=dev_b)[0]
@@ -409,6 +431,11 @@ def main(argv=None) -> int:
         "sus_mixed_sampler": mixed["sampler"],
         "sus_mixed_caps": mixed["caps"],
         "sus_mixed_steps": mixed["steps"],
+        "retraces": read["retraces"] + mixed["retraces"],
+        "slo": {cls: rnd(s) for cls, s in obs.slo_window().items()},
+        "ledger": {k: v for k, v in DEV.get_ledger().summary().items()
+                   if k != "entries"},
+        "obs": obs.obs_section(),
         "device": device,
         "config": {"staged_fusion": fusion,
                    "pipeline_depth": 2 if fusion == "pipelined" else 1,

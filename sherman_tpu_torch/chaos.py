@@ -27,10 +27,14 @@ its seed; the step index counts ``DSM.step`` calls since installation.
 ``SHERMAN_CHAOS`` is a JSON list of fault dicts (``[{"kind":
 "wedge_lock", "step": 2, "addr": 5}]``) or ``random:SEED[:N]``.
 
+Every fired fault counts in ``chaos.faults_injected`` and
+``chaos.<kind>`` and is a ``chaos.inject`` flight event, so a drill's
+black box shows what was injected before what was detected.
+
 Not here yet: the replication (``repl_*``) and host (``host_*``) fault
-layers, which perturb planes the port does not have (ROADMAP.md item 7),
-and the ``chaos.*`` counters and flight events (item 7).  A plan naming
-one of those kinds raises :class:`NotPortedError`.
+layers, which perturb planes the port does not have (ROADMAP.md item
+7b), with their counters and events.  A plan naming one of those kinds
+raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import os
 import numpy as np
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import ConfigError, NotPortedError
 from sherman_tpu_torch.ops import bits
 
@@ -50,6 +55,9 @@ KINDS = ("torn_page", "flip_entry_ver", "wedge_lock", "drop_cas",
 # the kinds of the layers not ported yet
 _LATER_KINDS = ("repl_drop", "repl_delay", "repl_reorder", "repl_partition",
                 "repl_slow", "host_crash", "host_freeze", "host_zombie")
+
+_OBS = {k: obs.counter(f"chaos.{k}") for k in KINDS}
+_OBS_TOTAL = obs.counter("chaos.faults_injected")
 
 # a lease word no live client can own: an unregistered owner tag and an
 # epoch far from any real client's generation
@@ -61,7 +69,7 @@ def _refuse_later_kind(kind) -> None:
     if kind in _LATER_KINDS:
         raise NotPortedError(
             f"fault kind {kind!r} perturbs the replication or host plane, "
-            "which the port does not have yet (ROADMAP.md item 7)")
+            "which the port does not have yet (ROADMAP.md item 7b)")
 
 
 @dataclasses.dataclass
@@ -188,6 +196,10 @@ class FaultPlan:
                 continue  # nothing live to corrupt yet: defer the fault
             f.fired = True
             self.injected += 1
+            _OBS_TOTAL.inc()
+            _OBS[f.kind].inc()
+            obs.record_event("chaos.inject", fault=f.kind, step=step,
+                             addr=int(f.addr), slot=int(f.slot))
         return reqs, post
 
     def on_replies(self, dsm, reqs, rep):

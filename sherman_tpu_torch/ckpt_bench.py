@@ -12,7 +12,8 @@ against ``Journal(sync=True, group_commit_ms=...)`` under 4 writers x 24
 records of 256 rows (acks/s, ack latency, acks per fsync; at 2 ms the
 acks per fsync must reach 2).  Prints a side-by-side table on stderr and
 ONE JSON line (``metric: checkpoint_restore_at_scale``) with the card's
-name and power limit.  Run on the GPU::
+name and power limit and the ``obs`` section (the ``ckpt.*`` and
+``journal.*`` counters, the memory accountant's bytes).  Run on the GPU::
 
     python -m sherman_tpu_torch.ckpt_bench [--keys 100000000]
         [--sample 200000] [--delta-ops N] [--validate] [--dir DIR]
@@ -34,6 +35,8 @@ import time
 
 import numpy as np
 import torch
+
+from sherman_tpu_torch import obs
 
 SALT = 0x5E17_AB1E_5A17
 
@@ -259,7 +262,8 @@ def main(argv=None) -> int:
         "bulk_load_s": build_s, "checkpoint_s": ckpt_s,
         "restore_s": restore_s, "verify_sample": int(probe.shape[0]),
         "verify_s": verify_s, "validate_s": validate_s, "delta": delta,
-        "journal_group_commit": jab, "device": device,
+        "journal_group_commit": jab, "obs": obs.obs_section(),
+        "device": device,
     }), flush=True)
     return 0
 

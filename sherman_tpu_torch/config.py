@@ -165,7 +165,7 @@ def value_heap_pages() -> int:
     """Out-of-line value heap knob (``SHERMAN_VALUE_HEAP``): heap pages a
     node of the region that stores variable-length payloads, 0 (the
     default) for inline 64-bit values; ``1`` asks for the default region
-    of 4,096 pages.  The port has no value heap yet (ROADMAP item 6):
+    of 4,096 pages.  The port has no value heap yet (ROADMAP item 6b):
     callers refuse a nonzero value."""
     v = os.environ.get("SHERMAN_VALUE_HEAP", "0").strip().lower()
     if v in ("", "0", "false", "off", "no"):

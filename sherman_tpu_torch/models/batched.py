@@ -44,6 +44,19 @@ all-read ``mixed`` batches keep serving.
 The reference's ``lax.while_loop`` with a data-dependent exit is a Python
 loop here that reads one pending count back per round (one host sync per
 descent round; ROADMAP.md lists removing it).
+
+Observability (``sherman_tpu_torch.obs``), at the reference's sites and
+under its names: every entry point's device step runs inside a span
+(``engine.<op>.descend_lock_apply``, ``engine.search.descend``,
+``engine.search.combine``, ``engine.insert.split_drain``,
+``engine.insert.flush_parents``), every top-level batch wall is
+attributed to its SLO op class, the per-op device functions go through
+the program ledger (``engine.search``, ``engine.search_fanout``,
+``engine.insert``, ``engine.delete``, ``engine.mixed``,
+``engine.parent_descend``), degraded mode keeps the ``engine.degraded``
+gauge and its flight events, and write combining publishes the
+``combine.*`` collector.  Every span argument and SLO count is a host
+value: none reads a device tensor.
 """
 
 from __future__ import annotations
@@ -53,16 +66,21 @@ import dataclasses
 import functools
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
 from sherman_tpu_torch.errors import (ConfigError, KeyRangeError,
                                       ShermanError, StateError)
 from sherman_tpu_torch.models import validate
 from sherman_tpu_torch.models.btree import META_ADDR
+from sherman_tpu_torch.obs import device as DEV
+from sherman_tpu_torch.obs import recorder as FR
+from sherman_tpu_torch.obs import slo as SLO
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
 from sherman_tpu_torch.parallel import dsm as D
@@ -99,6 +117,19 @@ class DegradedError(ShermanError, RuntimeError):
             "engine degraded (read-only): write rejected — " + reason
             + "; repair the flagged pages, re-validate, then exit_degraded")
         self.reason = reason
+
+
+# degraded-mode gauge + lock-timeout counter (data-plane failure story)
+_OBS_DEGRADED = obs.gauge("engine.degraded")
+_OBS_LOCK_TIMEOUTS = obs.counter("engine.lock_timeouts")
+
+
+def _slo_observe(op_class: str, ops: int, t0: float | None) -> None:
+    """Attribute one host-path batch wall to its SLO op class (a client
+    op's completion latency is its batch's wall).  ``t0`` None = a retry
+    or chunk frame whose parent (or whose own chunks) account the ops."""
+    if t0 is not None and ops:
+        SLO.observe(op_class, int(ops), time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -944,6 +975,7 @@ class BatchedEngine:
         self._search_cache = {}
         self._insert_cache = {}
         self._delete_cache = {}
+        self._mixed_cache = {}
         self._parent_descend_cache = {}
         # engine steps and host DSM steps both mutate the pool in place
         self._step_mutex = self.dsm._step_mutex
@@ -955,8 +987,30 @@ class BatchedEngine:
         # engine is driven from one thread.
         self.journal = None
         # read-only degraded mode: once set, every mutating entry point
-        # raises DegradedError while searches keep serving
+        # raises DegradedError while searches keep serving.  A fresh
+        # engine is healthy, so the gauge resets here.
         self._degraded_reason: str | None = None
+        _OBS_DEGRADED.set(0)
+        # the combine.* pull collector names the DSM's combine counter
+        # slots and this engine's batch/row counts; registered only with
+        # combining on, bound by weakref like the dsm collector
+        if self._write_combine:
+            _dref = weakref.ref(self.dsm)
+            _eref = weakref.ref(self)
+
+            def _combine_collect():
+                d = _dref()
+                e = _eref()
+                if d is None or e is None:
+                    return {}
+                snap = d.counter_snapshot()
+                groups = snap["combine_groups"]
+                saved = snap["combine_locks_saved"]
+                return {"groups": groups, "locks_saved": saved,
+                        "ops_combined": saved,
+                        "steps": float(e._combine_steps),
+                        "rows": float(e._combine_rows)}
+            obs.register_collector("combine", _combine_collect)
 
     # -- degraded mode (read-only serving after unrecoverable damage) --------
 
@@ -971,19 +1025,29 @@ class BatchedEngine:
     def enter_degraded(self, reason: str) -> None:
         """Flip to read-only degraded serving: searches continue, writes
         raise :class:`DegradedError`.  Idempotent: the first reason, the
-        root cause, stays.  (The reference also flushes its leaf cache
-        here, ROADMAP.md item 6, and records a gauge and a flight event,
-        item 7.)"""
+        root cause, stays.  Sets the ``engine.degraded`` gauge, records
+        an ``engine.degraded_enter`` flight event and auto-dumps the black
+        box.  (The reference also flushes its leaf cache here, ROADMAP.md
+        item 6a.)"""
         if self._degraded_reason is None:
             self._degraded_reason = reason
+            _OBS_DEGRADED.set(1)
+            obs.counter("engine.degraded_entries").inc()
+            FR.record_event("engine.degraded_enter", reason=reason)
+            FR.auto_dump("degraded_entry")
 
     def exit_degraded(self) -> None:
         """Clear degraded mode, only once the damage is gone (repaired and
         validated again)."""
         self._degraded_reason = None
+        _OBS_DEGRADED.set(0)
+        FR.record_event("engine.degraded_exit")
 
     def _require_writable(self) -> None:
         if self._degraded_reason is not None:
+            FR.record_event("engine.typed_error", error="DegradedError",
+                            reason=self._degraded_reason)
+            FR.auto_dump("typed_error")
             raise DegradedError(self._degraded_reason)
 
     def attach_journal(self, journal) -> None:
@@ -1059,27 +1123,25 @@ class BatchedEngine:
                      for i in range(0, n, self.total)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
+        # SLO accounting: one batch wall per top-level call (chunks
+        # account their own; straggler retries fold into their parent's)
+        t_slo = time.perf_counter() if _depth == 0 else None
         khi, klo = bits.keys_to_pairs(keys)
         khi, klo = self._pad(khi), self._pad(klo)
         active = self._dev(self._pad(np.ones(n, bool)))
         # retries (depth > 0) bypass the index cache and descend from root
         use_router = self.router is not None and _depth == 0
-        start = (self._dev(self.router.host_start(khi, klo))
-                 if use_router else None)
-        kt, lt = self._dev(khi), self._dev(klo)
-        with self._step_mutex:
-            if use_router:
-                done, found, vhi, vlo = search_routed_spmd(
-                    self.dsm.pool, self.dsm.counters, kt, lt,
-                    self.tree._root_addr, active, start, cfg=self.cfg,
-                    iters=self._iters())
-            else:
-                done, found, vhi, vlo = search_spmd(
-                    self.dsm.pool, self.dsm.counters, kt, lt,
-                    self.tree._root_addr, active, cfg=self.cfg,
-                    iters=self._iters())
-        done, found, vhi, vlo = (t.cpu().numpy()
-                                 for t in (done, found, vhi, vlo))
+        fn = self._get_search(self._iters(), use_router)
+        args = [self._dev(khi), self._dev(klo), self.tree._root_addr, active]
+        if use_router:
+            args.append(self._dev(self.router.host_start(khi, klo)))
+        # the span covers the launch and the replies' copy to the host
+        with obs.span("engine.search.descend", n=int(n)):
+            with self._step_mutex:
+                done, found, vhi, vlo = fn(self.dsm.pool, self.dsm.counters,
+                                           *args)
+            done, found, vhi, vlo = (t.cpu().numpy()
+                                     for t in (done, found, vhi, vlo))
         done = done[:n]
         vals = bits.pairs_to_keys(vhi[:n], vlo[:n])
         fnd = found[:n].copy()
@@ -1091,7 +1153,21 @@ class BatchedEngine:
             self.tree._refresh_root()
             miss = ~done
             vals[miss], fnd[miss] = self.search(keys[miss], _depth=_depth + 1)
+        _slo_observe("read", n, t_slo)
         return vals, fnd
+
+    def _get_search(self, iters: int, with_start: bool):
+        """The search step ``fn(pool, counters, khi, klo, root, active[,
+        start]) -> (done, found, vhi, vlo)``, one ledgered callable per
+        variant."""
+        key = (iters, with_start)
+        fn = self._search_cache.get(key)
+        if fn is None:
+            kernel = search_routed_spmd if with_start else search_spmd
+            fn = DEV.wrap_program("engine.search", functools.partial(
+                kernel, cfg=self.cfg, iters=iters))
+            self._search_cache[key] = fn
+        return fn
 
     def _get_search_fanout(self, iters: int):
         """The combined-search serve: search over the unique-key rows,
@@ -1124,6 +1200,7 @@ class BatchedEngine:
                 out = ans[inv.clamp(0, ans.shape[0] - 1)]
                 return done, out[:, 0] != 0, out[:, 1], out[:, 2]
 
+            fn = DEV.wrap_program("engine.search_fanout", fn)
             self._search_cache[("fanout", iters)] = fn
         return fn
 
@@ -1133,11 +1210,15 @@ class BatchedEngine:
         (through :meth:`_get_search_fanout`).
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
-        uk, inv = np.unique(keys, return_inverse=True)
+        with obs.span("engine.search.combine", n=int(keys.size)):
+            uk, inv = np.unique(keys, return_inverse=True)
         if self.router is None or not 0 < uk.size <= self.total:
+            # host fan-out: search() attributes the unique-set batch
             vals, found = self.search(uk)
             return vals[inv], found[inv]
+        t_slo = time.perf_counter()
         self._check_range(keys)
+        n = keys.size
         khi, klo = bits.keys_to_pairs(uk)
         khi, klo = self._pad(khi), self._pad(klo)
         active = self._dev(self._pad(np.ones(uk.size, bool)))
@@ -1145,16 +1226,22 @@ class BatchedEngine:
         kt, lt = self._dev(khi), self._dev(klo)
         inv_t = self._dev(inv.astype(np.int64))
         fn = self._get_search_fanout(self._iters())
-        with self._step_mutex:
-            done, found, vhi, vlo = fn(
-                self.dsm.pool, self.dsm.counters, kt, lt,
-                self.tree._root_addr, active, start, inv_t)
-        if not bool(done[:uk.size].all()):
-            vals, fnd = self.search(uk)      # straggler rescue
+        with obs.span("engine.search.descend", n=int(uk.size),
+                      fanout=int(n)):
+            with self._step_mutex:
+                done, found, vhi, vlo = fn(
+                    self.dsm.pool, self.dsm.counters, kt, lt,
+                    self.tree._root_addr, active, start, inv_t)
+            all_done = bool(done[:uk.size].all())
+            if all_done:
+                # one device-to-host copy of the packed answers
+                ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
+                ans = ans.cpu().numpy()
+        if not all_done:
+            # straggler rescue: search() attributes the rescue batch
+            vals, fnd = self.search(uk)
             return vals[inv], fnd[inv]
-        # one device-to-host copy of the packed answers
-        ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
-        ans = ans.cpu().numpy()
+        _slo_observe("read", n, t_slo)
         return bits.pairs_to_keys(ans[:, 1], ans[:, 2]), ans[:, 0] != 0
 
     def mixed(self, keys, values, is_read):
@@ -1169,6 +1256,7 @@ class BatchedEngine:
         and their status is rewritten to its outcome: the first request of
         a key APPLIED, later duplicates SUPERSEDED, and ST_LOCK_TIMEOUT
         where a live lease held the key's lock past the round budget."""
+        t_slo = time.perf_counter()
         keys = np.asarray(keys, np.uint64)
         self._check_range(keys)
         values = np.asarray(values, np.uint64)
@@ -1184,16 +1272,17 @@ class BatchedEngine:
         start = (self._dev(self.router.host_start(khi, klo))
                  if self.router is not None else None)
         t = [self._dev(x) for x in (khi, klo, vhi, vlo)]
+        fn = self._get_mixed(self._iters())
         if self._write_combine:
             self._note_combine_step(int(np.count_nonzero(~is_read)))
-        with self._step_mutex:
-            status, done_r, found, rvh, rvl = mixed_step_spmd(
-                self.dsm.pool, self.dsm.locks, self.dsm.counters, *t,
-                self.tree._root_addr, ar, aw, start, cfg=self.cfg,
-                iters=self._iters(), dirty=self.dsm.dirty,
-                combine=self._write_combine)
-        status, done_r, found, rvh, rvl = (
-            x.cpu().numpy()[:n] for x in (status, done_r, found, rvh, rvl))
+        with obs.span("engine.mixed.descend_lock_apply", n=int(n)):
+            with self._step_mutex:
+                status, done_r, found, rvh, rvl = fn(
+                    self.dsm.pool, self.dsm.locks, self.dsm.counters,
+                    self.dsm.dirty, *t, self.tree._root_addr, ar, aw, start)
+            status, done_r, found, rvh, rvl = (
+                x.cpu().numpy()[:n]
+                for x in (status, done_r, found, rvh, rvl))
         status = status.copy()
         found = found.copy()
         out_vals = bits.pairs_to_keys(rvh, rvl)
@@ -1225,7 +1314,32 @@ class BatchedEngine:
                 to = np.isin(keys[idx_w],
                              np.asarray(st["lock_timeout_keys"], np.uint64))
                 status[idx_w[to]] = ST_LOCK_TIMEOUT
+        # the whole fused batch (retry sub-batches included, which also
+        # report under their own classes) is the mixed class's wall
+        _slo_observe("mixed", n, t_slo)
         return out_vals, found, status
+
+    def _get_mixed(self, iters: int):
+        """The fused read/upsert step ``fn(pool, locks, counters, dirty,
+        khi, klo, vhi, vlo, root, active_r, active_w, start) -> (status,
+        done_r, found, vhi, vlo)`` (``start`` None without a router), one
+        ledgered callable per descent budget and combine setting."""
+        combine = self._write_combine
+        key = (iters, combine)
+        fn = self._mixed_cache.get(key)
+        if fn is None:
+            cfg = self.cfg
+
+            def fn(pool, locks, counters, dirty, khi, klo, vhi, vlo, root,
+                   active_r, active_w, start):
+                return mixed_step_spmd(
+                    pool, locks, counters, khi, klo, vhi, vlo, root,
+                    active_r, active_w, start, cfg=cfg, iters=iters,
+                    dirty=dirty, combine=combine)
+
+            fn = DEV.wrap_program("engine.mixed", fn)
+            self._mixed_cache[key] = fn
+        return fn
 
     # -- insert with device splits ------------------------------------------
 
@@ -1254,6 +1368,7 @@ class BatchedEngine:
                     start, fresh, cfg=cfg, iters=iters,
                     update_only=update_only, combine=combine, dirty=dirty)
 
+            fn = DEV.wrap_program("engine.insert", fn)
             self._insert_cache[key] = fn
         return fn
 
@@ -1266,6 +1381,7 @@ class BatchedEngine:
         retry budget, REJECTED with ST_LOCK_TIMEOUT (counted in
         lock_timeouts, keys in lock_timeout_keys)."""
         self._require_writable()
+        t_slo = time.perf_counter()
         if max_rounds is None:
             max_rounds = self.tcfg.insert_rounds
         keys = np.asarray(keys, np.uint64)
@@ -1285,6 +1401,9 @@ class BatchedEngine:
         # never applied: both excluded), durable before the stats return
         self._journal_applied(J.J_UPSERT, keys[applied_rows],
                               values[applied_rows])
+        # the wall holds flush_parents and the durable journal append:
+        # insert's ack latency, which an SLO target governs
+        _slo_observe("insert", n, t_slo)
         return stats
 
     def _get_parent_descend(self, iters: int, stop_level: int = 1):
@@ -1293,8 +1412,9 @@ class BatchedEngine:
         key = (iters, stop_level)
         fn = self._parent_descend_cache.get(key)
         if fn is None:
-            fn = functools.partial(descend_spmd, cfg=self.cfg, iters=iters,
-                                   stop_level=stop_level)
+            fn = DEV.wrap_program("engine.parent_descend", functools.partial(
+                descend_spmd, cfg=self.cfg, iters=iters,
+                stop_level=stop_level))
             self._parent_descend_cache[key] = fn
         return fn
 
@@ -1330,7 +1450,8 @@ class BatchedEngine:
         raw, self._pending_parents = self._pending_parents, []
         if not raw:
             return 0
-        return self._flush_parents_drained(raw)
+        with obs.span("engine.insert.flush_parents", n=len(raw)):
+            return self._flush_parents_drained(raw)
 
     def _flush_parents_drained(self, raw) -> int:
         pend = list(raw)
@@ -1521,15 +1642,19 @@ class BatchedEngine:
                 args.append(self._dev(self.router.host_start(khi, klo)))
             if with_fresh:
                 args.append(self._dev(fresh_np))
-            with self._step_mutex:
-                out = fn(self.dsm.pool, self.dsm.locks, self.dsm.counters,
-                         self.dsm.dirty, *args)
-            status, log = out if with_fresh else (out, None)
-            # the round's one status read-back
-            status = status.cpu().numpy()[:idx.shape[0]]
+            # one device round (descend, lock, apply, splits); the span
+            # ends at the round's one status read-back
+            with obs.span("engine.insert.descend_lock_apply",
+                          n=int(idx.shape[0]), round=round_i):
+                with self._step_mutex:
+                    out = fn(self.dsm.pool, self.dsm.locks,
+                             self.dsm.counters, self.dsm.dirty, *args)
+                status, log = out if with_fresh else (out, None)
+                status = status.cpu().numpy()[:idx.shape[0]]
             stats["st_locked"] += int((status == ST_LOCKED).sum())
             if log is not None:
-                self._drain_split_log(log, stats)
+                with obs.span("engine.insert.split_drain"):
+                    self._drain_split_log(log, stats)
             if len(self._pending_parents) >= self.parent_flush_threshold:
                 self.flush_parents()
 
@@ -1583,6 +1708,7 @@ class BatchedEngine:
                 stats["lock_timeouts"] += int(to.size)
                 stats["lock_timeout_keys"] += [int(k) for k in keys[to]]
                 pending[to] = False
+                _OBS_LOCK_TIMEOUTS.inc(int(to.size))
         for j in np.nonzero(pending)[0]:
             self.tree.insert(int(keys[j]), int(values[j]))
             stats["host_path"] += 1
@@ -1629,6 +1755,7 @@ class BatchedEngine:
                     pool, locks, counters, khi, klo, root, active, start,
                     cfg=cfg, iters=iters, dirty=dirty)
 
+            fn = DEV.wrap_program("engine.delete", fn)
             self._delete_cache[key] = fn
         return fn
 
@@ -1636,6 +1763,7 @@ class BatchedEngine:
         """Batched delete (``Tree::del``).  -> found bool [n]: True where
         the key existed and was removed."""
         self._require_writable()
+        t_slo = time.perf_counter()
         if max_rounds is None:
             max_rounds = self.tcfg.insert_rounds
         keys = np.asarray(keys, np.uint64)
@@ -1648,6 +1776,7 @@ class BatchedEngine:
         # journal the deletes that cleared a slot (not-found rows are
         # no-ops, left out so the record set is the applied set)
         self._journal_applied(J.J_DELETE, keys[out])
+        _slo_observe("delete", n, t_slo)
         return out
 
     def _delete_chunk(self, keys, max_rounds) -> np.ndarray:
@@ -1671,10 +1800,12 @@ class BatchedEngine:
                     self._dev(active)]
             if use_router:
                 args.append(self._dev(self.router.host_start(khi, klo)))
-            with self._step_mutex:
-                status = fn(self.dsm.pool, self.dsm.locks,
-                            self.dsm.counters, self.dsm.dirty, *args)
-            status = status.cpu().numpy()[:idx.shape[0]]
+            with obs.span("engine.delete.descend_lock_apply",
+                          n=int(idx.shape[0])):
+                with self._step_mutex:
+                    status = fn(self.dsm.pool, self.dsm.locks,
+                                self.dsm.counters, self.dsm.dirty, *args)
+                status = status.cpu().numpy()[:idx.shape[0]]
             found_out[idx[status == ST_APPLIED]] = True
             done = (status == ST_APPLIED) | (status == ST_NOT_FOUND)
             pending[idx[done]] = False
@@ -1701,7 +1832,12 @@ class BatchedEngine:
         walks its B-link chain over the shared prefetch.  ranges: iterable
         of (lo, hi); -> [(keys uint64, vals uint64)] per range, each
         sorted by key."""
-        return range_query_many(self, ranges)
+        ranges = [(int(lo), int(hi)) for lo, hi in ranges]
+        t_slo = time.perf_counter()
+        out = range_query_many(self, ranges)
+        # one op per range: the SLO unit is the client request
+        _slo_observe("scan", len(ranges), t_slo)
+        return out
 
     # -- empty-leaf reclaim --------------------------------------------------
 

@@ -21,6 +21,12 @@ helpers and parent insert.
   unlock in one step, so it becomes visible atomically.
 - B-link: readers chase the sibling when a key is at or past a page's
   ``highest`` fence, so a stale root or parent only costs hops.
+
+Observability: ``btree.sibling_chases`` and ``btree.root_refreshes``
+count the descent's hops, ``lease.revoked`` / ``lease.revoke_lost`` /
+``lease.deadlock_reports`` the lease recovery (each revocation also a
+``lease.revoked`` flight event).  The reference's index-cache counters
+(``btree.cache_*``) come with the port's index cache (ROADMAP.md item 8).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import os
 import numpy as np
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.cluster import ClientContext, Cluster
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.parallel import dsm as D
@@ -38,6 +45,12 @@ META_ADDR = bits.make_addr(0, 0)
 LOCK_SPIN_LIMIT = 1_000_000  # deadlock reporter threshold
 # failed spins on a held lock before the spinner consults the lease table
 LEASE_PROBE_SPINS = 4
+
+_OBS_SIBLING_CHASES = obs.counter("btree.sibling_chases")
+_OBS_ROOT_REFRESHES = obs.counter("btree.root_refreshes")
+_OBS_LEASE_REVOKED = obs.counter("lease.revoked")
+_OBS_LEASE_REVOKE_LOST = obs.counter("lease.revoke_lost")
+_OBS_DEADLOCK_REPORTS = obs.counter("lease.deadlock_reports")
 
 
 class Tree:
@@ -98,11 +111,17 @@ class Tree:
             return True
         if self.cluster.lease_is_live(owner, bits.lease_epoch(observed)):
             return False
-        self.dsm.masked_cas(la, 0, observed, 0, bits.LEASE_MASK,
-                            space=D.SPACE_LOCK)
+        _, won = self.dsm.masked_cas(la, 0, observed, 0, bits.LEASE_MASK,
+                                     space=D.SPACE_LOCK)
+        (_OBS_LEASE_REVOKED if won else _OBS_LEASE_REVOKE_LOST).inc()
+        if won:
+            obs.record_event("lease.revoked", lock_word=int(la),
+                             owner=int(owner),
+                             epoch=int(bits.lease_epoch(observed)))
         return True
 
     def _deadlock_report(self, la: int, old: int) -> RuntimeError:
+        _OBS_DEADLOCK_REPORTS.inc()
         owner = bits.lease_owner(old)
         live = self.cluster.lease_is_live(owner, bits.lease_epoch(old))
         verdict = ("live lease; not revocable" if live
@@ -172,8 +191,10 @@ class Tree:
                     # stale root (a concurrent new root): refresh
                     self._refresh_root()
                     addr = self._root_addr
+                    _OBS_ROOT_REFRESHES.inc()
                 else:
                     addr = sib
+                    _OBS_SIBLING_CHASES.inc()
                 hops += 1
                 assert hops < 1000, "sibling chase runaway"
                 continue

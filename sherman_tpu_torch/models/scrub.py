@@ -27,12 +27,16 @@ the op journal), with a full chain restore
 (:meth:`~sherman_tpu_torch.recovery.RecoveryPlane.recover`) as the
 fallback when the repair cannot re-certify.
 
-Not here yet: the leaf-cache invalidation of flagged pages (ROADMAP.md
-item 6) and the ``scrub.*`` counters, spans and flight events (item 7).
+Each pass runs in a ``scrub.pass`` span and counts ``scrub.passes``,
+``scrub.pages_checked`` and ``scrub.violations``; ``scrub.quarantined``
+gauges the held words, ``scrub.pages_quarantined`` counts them, and each
+new violation and quarantine is a flight event.  Not here yet: the
+leaf-cache invalidation of flagged pages (ROADMAP.md item 6a).
 """
 
 from __future__ import annotations
 
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.models.validate import (SCRUB_BITS, SCRUB_STRUCTURAL,
                                                scrub_pass)
 from sherman_tpu_torch.parallel import dsm as D
@@ -41,6 +45,11 @@ from sherman_tpu_torch.parallel import dsm as D
 # counts as failed (a legitimately held lock drains within a step or two;
 # a word wedged by a live holder never does)
 _QUARANTINE_TRIES = 8
+
+_OBS_PASSES = obs.counter("scrub.passes")
+_OBS_CHECKED = obs.counter("scrub.pages_checked")
+_OBS_VIOLATIONS = obs.counter("scrub.violations")
+_OBS_QUARANTINED = obs.gauge("scrub.quarantined")
 
 
 class Scrubber:
@@ -80,16 +89,23 @@ class Scrubber:
         structural damage or a failed containment.  -> {pages_checked,
         violations, bad, classes, new_violations, quarantined,
         degraded}."""
-        res = scrub_pass(self.tree)
+        with obs.span("scrub.pass"):
+            res = scrub_pass(self.tree)
+        _OBS_PASSES.inc()
+        _OBS_CHECKED.inc(res["pages_checked"])
         # "new" = pages with violation bits not seen before, so a page
         # first flagged entry-level still escalates when a structural class
         # appears on it later
         new = [(a, mk) for a, mk in res["bad"]
                if mk & ~self.flagged.get(a, 0)]
+        _OBS_VIOLATIONS.inc(len(new))
         for addr, mask in new:
             self.flagged[addr] = self.flagged.get(addr, 0) | mask
+            obs.record_event("scrub.violation", addr=hex(addr),
+                             mask=self._mask_names(mask),
+                             structural=bool(mask & SCRUB_STRUCTURAL))
             # (the reference drops a flagged page's keys from its leaf
-            # cache here: ROADMAP.md item 6)
+            # cache here: ROADMAP.md item 6a)
             contained = self._quarantine_page(addr) if self.quarantine \
                 else False
             if mask & SCRUB_STRUCTURAL:
@@ -101,6 +117,7 @@ class Scrubber:
                     f"scrub: page {addr:#x} violated "
                     f"({self._mask_names(mask)}) and quarantine could "
                     "not take its lock")
+        _OBS_QUARANTINED.set(len(self._held_words))
         res["new_violations"] = len(new)
         res["quarantined"] = len(self._held_words)
         res["degraded"] = self.eng.degraded
@@ -120,6 +137,9 @@ class Scrubber:
                                          space=D.SPACE_LOCK)
             if won or old == self.ctx.lease:
                 self._held_words.add(la)
+                obs.counter("scrub.pages_quarantined").inc()
+                obs.record_event("scrub.quarantine", addr=hex(addr),
+                                 lock_word=int(la))
                 return True
             # a dead holder (e.g. the fault that corrupted the page also
             # wedged its lock) is revoked, then the word is taken again
@@ -140,6 +160,7 @@ class Scrubber:
             n += 1
         self._held_words.clear()
         self.flagged.clear()
+        _OBS_QUARANTINED.set(0)
         return n
 
     @staticmethod

@@ -14,7 +14,13 @@ Dispatch is by the tensors' device and nothing else: on a CUDA tensor a
 wrapper launches its kernel (or raises :class:`KernelUnavailableError`
 naming the cause — there is no fallback); on a CPU tensor it runs the
 plain version.  Each wrapper adds one to ``LAUNCHES[name]`` where it
-launches its kernel, so a run can show that its path went through it.
+launches its kernel, so a run can show that its path went through it, and
+its row count to ``ROWS[name]``.  The ``kernels`` pull collector publishes
+both (``kernels.<name>_launches``, ``kernels.<name>_rows``, and the
+exchange's launches) in every registry snapshot; the reference's
+``kernels.*_traced`` counters count program builds, which eager PyTorch
+does not have.  The build itself is a ``build.page_kernels`` entry of the
+program ledger (``obs/device.py``), with its wall.
 
 The extension is built at first use with ``torch.utils.cpp_extension.load``
 into ``ops/_build/`` (nvcc ``-gencode=arch=compute_90a,code=sm_90a``);
@@ -29,11 +35,14 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import time
 
 import torch
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import KernelUnavailableError
+from sherman_tpu_torch.obs import device as DEV
 from sherman_tpu_torch.ops import bits, layout
 
 _PW = C.PAGE_WORDS
@@ -45,13 +54,29 @@ SOURCES = (os.path.join(_HERE, "csrc", "page_kernels.cpp"),
 BUILD_DIR = os.path.join(_HERE, "_build")
 _EXT_NAME = "sherman_page_kernels"
 
-# Kernel launches since the last reset_launches(), by kernel name.
+# Kernel launches and the rows they covered since the last
+# reset_launches(), by kernel name.
 LAUNCHES = {"descent_round": 0, "gather_pages": 0, "writeback": 0}
+ROWS = {"descent_round": 0, "gather_pages": 0, "writeback": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        ROWS[k] = 0
+
+
+def _collect() -> dict:
+    """The ``kernels`` pull collector: launch and row counts of K1-K3 and
+    the launches of the exchange kernel K4."""
+    from sherman_tpu_torch.parallel import transport_kernel as TK
+    out = {f"{k}_launches": v for k, v in LAUNCHES.items()}
+    out.update({f"{k}_rows": v for k, v in ROWS.items()})
+    out.update({f"{k}_launches": v for k, v in TK.LAUNCHES.items()})
+    return out
+
+
+obs.register_collector("kernels", _collect)
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +119,9 @@ def load_library(kernel: str = "page_kernels") -> ctypes.CDLL:
     global _lib
     with _lib_mu:
         if _lib is None:
+            t0 = time.perf_counter()
             try:
-                _lib = _build()
+                lib = _build()
             except (OSError, RuntimeError, ImportError,
                     ctypes.ArgumentError) as e:
                 # RuntimeError carries the ninja/nvcc output; OSError a
@@ -103,12 +129,19 @@ def load_library(kernel: str = "page_kernels") -> ctypes.CDLL:
                 raise KernelUnavailableError(
                     kernel, f"build of {', '.join(SOURCES)} failed: {e}"
                 ) from e
+            root = os.path.dirname(os.path.dirname(_HERE))
+            DEV.get_ledger().record_build(
+                "build.page_kernels", (time.perf_counter() - t0) * 1e3,
+                [os.path.relpath(s, root) for s in SOURCES])
+            _lib = lib
         return _lib
 
 
-def _call(kernel: str, fn_name: str, *args, launches=None) -> None:
+def _call(kernel: str, fn_name: str, *args, launches=None,
+          rows: int | None = None) -> None:
     """Launch ``fn_name`` and count it in ``launches`` (this module's
-    ``LAUNCHES`` unless the caller keeps its own)."""
+    ``LAUNCHES`` unless the caller keeps its own), and ``rows`` in
+    ``ROWS``."""
     lib = load_library(kernel)
     err = ctypes.create_string_buffer(1024)
     rc = getattr(lib, fn_name)(*args, err, len(err))
@@ -116,6 +149,8 @@ def _call(kernel: str, fn_name: str, *args, launches=None) -> None:
         raise KernelUnavailableError(
             kernel, "launch failed: " + err.value.decode(errors="replace"))
     (LAUNCHES if launches is None else launches)[kernel] += 1
+    if rows is not None:
+        ROWS[kernel] += rows
 
 
 def _dev_index(dev: torch.device) -> int:
@@ -186,7 +221,7 @@ def descent_round(pool, addr, khi, klo, active, *, stop_level: int = 0):
           addr.data_ptr(), khi.data_ptr(), klo.data_ptr(), active.data_ptr(),
           B, int(stop_level), nxt.data_ptr(), is_leaf.data_ptr(),
           chase.data_ptr(), ok.data_ptr(), found.data_ptr(), vhi.data_ptr(),
-          vlo.data_ptr())
+          vlo.data_ptr(), rows=B)
     return nxt, is_leaf, chase, ok, found, vhi, vlo
 
 
@@ -219,7 +254,7 @@ def gather_pages(pool, rows, ok=None):
     out = torch.empty((M, _PW), dtype=torch.int32, device=pool.device)
     _call(k, "sherman_gather_pages", _dev_index(pool.device), pool.data_ptr(),
           P, rows.data_ptr(), None if ok is None else ok.data_ptr(), M,
-          out.data_ptr())
+          out.data_ptr(), rows=M)
     return out
 
 
@@ -270,5 +305,5 @@ def writeback(pool, page, slot, applied, ent, field_w):
     fw = (ctypes.c_int * 5)(*[int(w) for w in field_w])
     _call(k, "sherman_writeback", _dev_index(pool.device), pool.data_ptr(), P,
           page.data_ptr(), slot.data_ptr(), applied.data_ptr(),
-          ent.data_ptr(), M, L, ctypes.cast(fw, ctypes.c_void_p))
+          ent.data_ptr(), M, L, ctypes.cast(fw, ctypes.c_void_p), rows=M)
     return pool

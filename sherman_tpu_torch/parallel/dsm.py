@@ -24,12 +24,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sherman_tpu_torch import config as CFG
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig, PAGE_WORDS
 from sherman_tpu_torch.errors import ConfigError, ProtocolError
 from sherman_tpu_torch.ops import bits
@@ -65,6 +67,11 @@ CNT_WW_OPS = 6
 CNT_COMBINE_GROUPS = 7
 CNT_COMBINE_SAVED = 8
 N_COUNTERS = 10
+
+# Host-side step counter: the device op counts surface through the
+# registry's ``dsm`` pull collector; this one counts host-API step
+# launches, the control plane's round-trip rate.
+_OBS_HOST_STEPS = obs.counter("dsm.host_steps")
 
 _U32 = 0xFFFFFFFF
 
@@ -441,6 +448,10 @@ class _HostOps:
         return int(r.old[1])
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class DSM(_HostOps):
     """Host handle to the cluster: owns the node-major pool, lock table,
     counters and dirty mask on ``cfg.device``."""
@@ -469,6 +480,24 @@ class DSM(_HostOps):
         if os.environ.get("SHERMAN_CHAOS"):
             from sherman_tpu_torch.chaos import FaultPlan
             self.chaos = FaultPlan.from_env()
+        self.register_obs()
+
+    def register_obs(self) -> None:
+        """Make this DSM the one the registry's ``dsm`` pull collector
+        (its op counters: snapshots read them, no per-op host cost) and
+        the memory accountant's ``hbm`` sources (pool, locks, counters,
+        dirty mask) read.  A new DSM does this itself and supersedes an
+        earlier one; call it to point them back at a DSM built before
+        another.  Both are bound by weakref: a dropped DSM reads {} and
+        0 instead of keeping its pool alive."""
+        ref = weakref.ref(self)
+        obs.register_collector(
+            "dsm", lambda: (lambda d: d.counter_snapshot() if d is not None
+                            else {})(ref()))
+        acct = obs.get_accountant()
+        for _src in ("pool", "locks", "counters", "dirty"):
+            acct.register(_src, (lambda r=ref, n=_src: (
+                _nbytes(getattr(r(), n)) if r() is not None else 0)))
 
     # -- raw step ------------------------------------------------------------
 
@@ -481,6 +510,7 @@ class DSM(_HostOps):
         before the step (they may rewrite its requests) and may rewrite
         its replies after it; the caller's requests mark the dirty
         pages."""
+        _OBS_HOST_STEPS.inc()
         self._mark_dirty_from_reqs(reqs)
         with self._step_mutex:
             if self.chaos is None:
@@ -559,7 +589,7 @@ class DSM(_HostOps):
     def clear_dirty(self) -> None:
         """Reset both dirty tiers (a checkpoint artifact captured them).
         (The reference also hands the rows to its registered dirty sinks
-        first, the online migrator's feed: ROADMAP.md item 7.)"""
+        first, the online migrator's feed: ROADMAP.md item 7c.)"""
         self.dirty.zero_()
         self._dirty_host.clear()
 

@@ -5,7 +5,10 @@
 Each node scatters its requests into per-destination buckets of capacity
 ``C``; one all-to-all delivers every bucket to its owner; replies ride the
 reverse exchange.  Requests beyond a bucket's capacity are not routed and
-the caller retries them, as in the reference.
+the caller retries them, as in the reference.  Every exchange counts in
+``transport.exchanges`` and its packed payload in
+``transport.exchange_bytes``, per execution (the reference counts its
+collective builds, ``transport.*_traced``).
 
 Where the reference runs each helper inside ``shard_map`` on one node's
 shard, these take the node-major stack of every node's shard: a leading
@@ -16,8 +19,12 @@ from __future__ import annotations
 
 import torch
 
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import ExchangeLaneError
 from sherman_tpu_torch.parallel import transport_kernel as TK
+
+_OBS_XCH = obs.counter("transport.exchanges")
+_OBS_XCH_BYTES = obs.counter("transport.exchange_bytes")
 
 
 def bucketize(dest, active, n_nodes: int, capacity: int):
@@ -91,6 +98,8 @@ def exchange(tree):
             raise ExchangeLaneError(x.dtype)
         cols.append(c.reshape(N, NC, -1))
     packed = cols[0] if len(cols) == 1 else torch.cat(cols, dim=2)
+    _OBS_XCH.inc()
+    _OBS_XCH_BYTES.inc(packed.numel() * 4)
     out = TK.all_to_all(packed.contiguous())
     outs, off = {}, 0
     for (name, x), c in zip(fields.items(), cols):

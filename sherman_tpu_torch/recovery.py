@@ -45,11 +45,18 @@ The crash contract, window by window:
   overlaps the new link; in-order replay is convergent (upsert/delete
   idempotency), so replaying it is correct, just redundant.
 
+Observability: ``recovery.recovers``, ``recovery.targeted_repairs``
+(and ``_failures``), ``recovery.pages_repaired``,
+``recovery.stale_page_repairs`` and ``recovery.resurrected_keys`` count
+the plane's work; the ``recovery.rpo_ops`` and ``recovery.rto_ms`` gauges
+are the drills' to set (``chip_smoke.py`` phase 21).  Every base, delta,
+recover and repair step is a ``recovery.*`` flight event, and the chain's
+on-disk bytes are the memory accountant's ``host_checkpoints_bytes``.
+
 Not here: the reference's per-host chain ownership (``hosts > 1``, the
 ``-h<host>-`` namespaces and ``recover_union``: the multihost service
-plane, ROADMAP.md item 7, refused with :class:`NotPortedError`), the
-leaf-cache flush of ``targeted_repair`` (item 6), and the ``recovery.*``
-gauges, counters, flight events and the host-memory accountant (item 7).
+plane, ROADMAP.md item 7c, refused with :class:`NotPortedError`) and the
+leaf-cache flush of ``targeted_repair`` (item 6a).
 """
 
 from __future__ import annotations
@@ -57,15 +64,26 @@ from __future__ import annotations
 import glob
 import os
 import time
+import weakref
 
 import numpy as np
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import NotPortedError, ShermanError, StateError
 from sherman_tpu_torch.utils import checkpoint as CK
 from sherman_tpu_torch.utils import journal as J
 
 _BASE = "base.npz"
+
+_OBS_RPO = obs.gauge("recovery.rpo_ops")
+_OBS_RTO = obs.gauge("recovery.rto_ms")
+_OBS_RECOVERS = obs.counter("recovery.recovers")
+_OBS_REPAIRS = obs.counter("recovery.targeted_repairs")
+_OBS_REPAIR_FAILS = obs.counter("recovery.targeted_repair_failures")
+_OBS_PAGES_REPAIRED = obs.counter("recovery.pages_repaired")
+_OBS_STALE_REPAIRS = obs.counter("recovery.stale_page_repairs")
+_OBS_RESURRECTED = obs.counter("recovery.resurrected_keys")
 
 
 class TargetedRepairFailed(ShermanError, RuntimeError):
@@ -84,7 +102,7 @@ def _refuse_hosts(host_id: int, hosts: int) -> None:
         raise NotPortedError(
             f"hosts={hosts}: per-host chain ownership is the multihost "
             "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7)")
+            "item 7c)")
     if int(host_id) != 0:
         raise StateError(f"host_id={host_id} outside [0, hosts={hosts})")
 
@@ -130,6 +148,24 @@ class RecoveryPlane:
         #: journal's J_ACK records: {(tenant, rid): (op_kind, ok[,
         #: handles])}, in ack order
         self.dedup_window: dict = {}
+
+        # the memory accountant's host source: the chain's on-disk bytes
+        # (base + deltas + journals) as ``device.host_checkpoints_bytes``,
+        # weakref-bound so a dropped plane reads 0
+        def _chain_bytes(r=weakref.ref(self)) -> int:
+            p = r()
+            if p is None:
+                return 0
+            total = 0
+            for f in glob.glob(os.path.join(p.dir, "*")):
+                try:
+                    total += os.path.getsize(f)
+                except OSError:
+                    pass  # artifact swept mid-scan
+            return total
+
+        obs.get_accountant().register("checkpoints", _chain_bytes,
+                                      kind="host")
 
     # -- artifact naming ------------------------------------------------------
 
@@ -260,6 +296,8 @@ class RecoveryPlane:
         # the base save above is already durable: retired segments of
         # this chain (none on a fresh chain) can go now
         self._sweep_retired_segments()
+        obs.record_event("recovery.checkpoint_base", cid=self.cid,
+                         bytes=os.path.getsize(self.base_path))
         return {"path": self.base_path, "cid": self.cid,
                 "bytes": os.path.getsize(self.base_path)}
 
@@ -290,6 +328,8 @@ class RecoveryPlane:
         # durable: NOW the retired segment can go
         self._sweep_retired_segments()
         info["path"] = path
+        obs.record_event("recovery.checkpoint_delta", cid=self.cid,
+                         link=k, pages=int(info.get("pages", -1)))
         return info
 
     def close(self) -> None:
@@ -348,6 +388,12 @@ class RecoveryPlane:
             plane.dedup_window[(tenant, rid)] = (op, ok, *prov)
         plane.checkpoint_base()  # re-base: fresh chain, stale cid swept
         t_end = time.perf_counter()
+        _OBS_RECOVERS.inc()
+        obs.record_event(
+            "recovery.recover", cid=cid, deltas=len(deltas),
+            host=int(host_id), segments=replay_stats["segments"],
+            replayed_records=replay_stats["records"],
+            total_ms=round((t_end - t0) * 1e3, 1))
         receipt = {
             "chain": {"cid": cid, "deltas": len(deltas)},
             "restore_ms": round((t_restore - t0) * 1e3, 1),
@@ -365,7 +411,7 @@ class RecoveryPlane:
         raise NotPortedError(
             "recover_union recovers the per-host chains of the multihost "
             "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7)")
+            "item 7c)")
 
     # -- targeted repair (degraded mode's real exit) --------------------------
 
@@ -390,6 +436,9 @@ class RecoveryPlane:
                             else set()))
         if not damaged:
             return {"pages": 0, "ok": True, "repair_ms": 0.0}
+        obs.record_event("recovery.targeted_repair_begin",
+                         pages=len(damaged),
+                         addrs=[hex(a) for a in damaged[:16]])
         P = self.cluster.cfg.pages_per_node
         rows = [bits.addr_node(a) * P + bits.addr_page(a) for a in damaged]
         pages = CK.read_chain_rows(self.base_path, self.delta_paths, rows)
@@ -449,10 +498,17 @@ class RecoveryPlane:
         # delta at the host-step boundary
         if write_rows:
             self.tree.dsm.write_rows(write_rows)
+        _OBS_PAGES_REPAIRED.inc(len(damaged))
+        if stale_idx:
+            _OBS_STALE_REPAIRS.inc(len(stale_idx))
         # re-certify BEFORE exiting degraded: the whole pool must scrub
         # clean — a repair that only moved the damage fails typed here
         res = scrub_pass(self.tree)
         if res["violations"]:
+            _OBS_REPAIR_FAILS.inc()
+            obs.record_event("recovery.targeted_repair_failed",
+                             pages=len(damaged),
+                             violations=int(res["violations"]))
             raise TargetedRepairFailed(
                 f"scrub still reports {res['violations']} violating "
                 f"page(s) after repairing {len(damaged)} "
@@ -490,6 +546,7 @@ class RecoveryPlane:
                     # held by a live lease past the retry budget) is a
                     # LOST pre-tip key: re-enter degraded and fail typed
                     if st["lock_timeouts"]:
+                        _OBS_REPAIR_FAILS.inc()
                         self.eng.enter_degraded(
                             "targeted repair: resurrection upserts "
                             f"lock-timed-out on {st['lock_timeouts']} "
@@ -501,6 +558,7 @@ class RecoveryPlane:
                             "falling back to full recover() is the "
                             "documented exit")
                     resurrected = int(miss.size)
+                    _OBS_RESURRECTED.inc(resurrected)
             if os.path.exists(self._journal_path(self._segment)):
                 acks: list = []
                 replay_stats = J.replay(
@@ -527,6 +585,12 @@ class RecoveryPlane:
             from sherman_tpu_torch.models.validate import \
                 check_structure_device
             out["structure"] = check_structure_device(self.tree)
+        _OBS_REPAIRS.inc()
+        obs.record_event("recovery.targeted_repair", pages=len(damaged),
+                         stale_pages=len(stale_idx),
+                         repair_ms=out["repair_ms"],
+                         replayed_records=int(
+                             out["replay"].get("records", 0)))
         return out
 
     # -- stale-page (version-ahead) repair helpers ----------------------------

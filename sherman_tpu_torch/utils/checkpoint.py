@@ -19,7 +19,7 @@ the other:
   ``heap_pages_per_node`` 0); on load the two ``*_impl`` choices are
   accepted and ignored (the port always runs its own kernels) and a
   nonzero heap is refused until the value heap is ported (ROADMAP.md
-  item 6).  The device is never saved: the caller gives it on restore.
+  item 6b).  The device is never saved: the caller gives it on restore.
 
 Delta artifacts (:func:`checkpoint_delta`) hold only the pages written
 since the previous chain link; their page gather runs on the device
@@ -31,10 +31,15 @@ after restore and lease fresh chunks.  Locks are saved as-is, and
 ``restore(clear_locks=True)`` (default) zeroes the table: a restore is a
 cluster-wide restart, no client of the old incarnation survives.
 
+Every save counts in ``ckpt.full_saves`` or ``ckpt.delta_saves`` (with
+``ckpt.delta_pages`` and ``ckpt.delta_bytes``), swept tmp orphans in
+``ckpt.orphans_swept``; a full save is a ``checkpoint.save`` flight event
+and a restore a ``checkpoint.restore`` one.
+
 Not here: the reference's collective multihost save and restore (one
-shard file per host; ROADMAP.md item 7 — a multihost artifact is refused
-with :class:`MultiprocessUnsupportedError`), its value-heap arrays (item
-6) and its ``ckpt.*`` counters and flight events (item 7).
+shard file per host; ROADMAP.md item 7c — a multihost artifact is refused
+with :class:`MultiprocessUnsupportedError`) and its value-heap arrays
+(item 6b).
 """
 
 from __future__ import annotations
@@ -49,12 +54,19 @@ import numpy as np
 import torch
 
 from sherman_tpu_torch import config as _C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig
 from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
                                       MultiprocessUnsupportedError,
                                       NotPortedError, ShermanError)
 from sherman_tpu_torch.ops import bits as _bits
 from sherman_tpu_torch.ops import page_kernels as PK
+
+_OBS_FULL_SAVES = obs.counter("ckpt.full_saves")
+_OBS_DELTA_SAVES = obs.counter("ckpt.delta_saves")
+_OBS_DELTA_PAGES = obs.counter("ckpt.delta_pages")
+_OBS_DELTA_BYTES = obs.counter("ckpt.delta_bytes")
+_OBS_ORPHANS = obs.counter("ckpt.orphans_swept")
 
 _CFG_FIELDS = ("machine_nr", "pages_per_node", "locks_per_node",
                "step_capacity", "host_step_capacity", "chunk_pages",
@@ -118,7 +130,7 @@ def cfg_from_json(raw, device: str = "cuda") -> DSMConfig:
         raise NotPortedError(
             "checkpoint configures a value heap (heap_pages_per_node > 0), "
             "which the port does not have yet (models/value_heap.py, "
-            "ROADMAP.md item 6)")
+            "ROADMAP.md item 6b)")
     d.pop("exchange_impl", None)   # the port always runs its own kernels
     d.pop("gather_impl", None)
     return DSMConfig(**d, device=device)
@@ -145,6 +157,8 @@ def checkpoint(cluster, path: str):
     arrays = dict(**_state_arrays(dsm), epoch=epoch, **man)
     arrays["integrity"] = _integrity(arrays)
     _savez_atomic(path, 0, **arrays)
+    _OBS_FULL_SAVES.inc()
+    obs.record_event("checkpoint.save", path=path, seq=int(seq))
     # a full save captures everything: dirty tracking restarts here
     dsm.clear_dirty()
     return epoch
@@ -175,6 +189,8 @@ def _sweep_tmp_orphans(path: str) -> int:
             n += 1
         except OSError:
             pass  # raced with another sweeper: gone either way
+    if n:
+        _OBS_ORPHANS.inc(n)
     return n
 
 
@@ -309,7 +325,7 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
     if "multihost" in z and int(z["multihost"][0]) != 0:
         raise MultiprocessUnsupportedError(
             f"{path} is a multihost checkpoint (one shard file per host); "
-            "the port's collective restore comes with ROADMAP.md item 7")
+            "the port's collective restore comes with ROADMAP.md item 7c")
     cfg = cfg_from_json(z["cfg"], device)
     cluster = Cluster(cfg)
     dsm = cluster.dsm
@@ -318,6 +334,8 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
         dsm.locks.copy_(torch.from_numpy(z["locks"]))
     dsm.counters.copy_(torch.from_numpy(z["counters"].astype(np.int64)))
     _restore_directories(cluster, z)
+    # a restore is the recovery step every drill's black box must show
+    obs.record_event("checkpoint.restore", path=path)
     return cluster
 
 
@@ -384,7 +402,10 @@ def checkpoint_delta(cluster, path: str, parent_epoch) -> dict:
     arrays["integrity"] = _integrity(arrays)
     _savez_atomic(path, 0, **arrays)
     dsm.clear_dirty()
+    _OBS_DELTA_SAVES.inc()
+    _OBS_DELTA_PAGES.inc(int(rows.size))
     size = os.path.getsize(path)
+    _OBS_DELTA_BYTES.inc(size)
     return {"pages": int(rows.size), "bytes": int(size), "epoch": epoch}
 
 

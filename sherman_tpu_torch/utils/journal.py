@@ -28,7 +28,7 @@ Frame format (little-endian, after the 8-byte file magic)::
 Format v2 (magic ``SHJRNL02``): the second header byte is a
 FLAGS field; ``FLAG_RID`` marks a client request id (u64) riding the
 record — the exactly-once plane's join key (the serving front door's
-dedup window; ``serve.py`` comes to the port with ROADMAP.md item 6).  v1 segments (``SHJRNL01``) wrote that byte as zero
+dedup window; ``serve.py`` comes to the port with ROADMAP.md item 6c).  v1 segments (``SHJRNL01``) wrote that byte as zero
 pad, and readers decode them with flags forced to 0: old journals
 replay cleanly, just with no request ids — dedup is DISABLED for
 those segments (the client-contract back-compat rule).  Appends to a
@@ -61,9 +61,11 @@ leader/follower protocol and the measured ack-latency tradeoff.
 
 Accounting: each :class:`Journal` counts its own ``appends``, ``rows``
 and ``fsyncs`` (real fsyncs — under group commit ``appends / fsyncs`` is
-the coalescing ratio).  The reference's process-wide ``journal.*``
-counters, its flight events and the host-memory accountant's segment
-gauge belong to the observability plane (ROADMAP.md item 7).
+the coalescing ratio).  The process-wide ``journal.*`` counters total
+every segment (appends, rows, bytes, fsyncs, truncated tails, replayed
+records and rows); a failed fsync is a ``journal.poisoned`` flight event
+and a torn tail a ``journal.torn_tail`` one; the live segment's on-disk
+size is the memory accountant's ``host_journal_bytes`` source.
 """
 
 from __future__ import annotations
@@ -71,11 +73,21 @@ from __future__ import annotations
 import os
 import struct
 import threading
+import weakref
 import zlib
 
 import numpy as np
 
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import ConfigError, ShermanError, StateError
+
+_OBS_APPENDS = obs.counter("journal.appends")
+_OBS_ROWS = obs.counter("journal.rows")
+_OBS_BYTES = obs.counter("journal.bytes")
+_OBS_FSYNCS = obs.counter("journal.fsyncs")
+_OBS_TORN = obs.counter("journal.truncated_tails")
+_OBS_RP_RECORDS = obs.counter("journal.replayed_records")
+_OBS_RP_ROWS = obs.counter("journal.replayed_rows")
 
 MAGIC = b"SHJRNL02"      # format v2: flags byte + optional request id
 MAGIC_V1 = b"SHJRNL01"   # format v1: no flags (decoded with flags=0)
@@ -384,6 +396,15 @@ class Journal:
             if head == MAGIC_V1:
                 self.format = 1
         self._f = open(path, "ab")
+        # the memory accountant's host source: the live segment's on-disk
+        # bytes as ``device.host_journal_bytes`` (re-registering the one
+        # name is the rotation contract: a fresh segment supersedes)
+        _ref = weakref.ref(self)
+        obs.get_accountant().register(
+            "journal", (lambda r=_ref: (
+                os.path.getsize(r().path)
+                if r() is not None and os.path.exists(r().path) else 0)),
+            kind="host")
         if fresh:
             self._f.write(MAGIC)
             self._f.flush()
@@ -440,6 +461,7 @@ class Journal:
             self._f.flush()
             _fsync(self._f.fileno())
             self._synced_seq = self._written_seq
+            _OBS_FSYNCS.inc()
             self.fsyncs += 1
 
     def append_heap(self, kind: int, keys, handles, payloads) -> int:
@@ -478,14 +500,20 @@ class Journal:
                         _fsync(self._f.fileno())
                     except BaseException as e:
                         self._failed = e
+                        obs.record_event("journal.poisoned",
+                                         path=self.path, error=repr(e))
                         raise
                     self._synced_seq = seq
+                    _OBS_FSYNCS.inc()
                     self.fsyncs += 1
             if self.sync and self.group_commit_ms > 0:
                 self._commit(seq)
         finally:
             with self._entrants_lock:
                 self._entrants -= 1
+        _OBS_APPENDS.inc()
+        _OBS_ROWS.inc(nrows)
+        _OBS_BYTES.inc(len(rec))
         return len(rec)
 
     def _commit(self, seq: int) -> None:
@@ -528,7 +556,12 @@ class Journal:
                             # retry (silent RPO > 0 — the exact loss
                             # the per-op path cannot produce)
                             self._failed = e
+                            obs.record_event("journal.poisoned",
+                                             path=self.path,
+                                             error=repr(e),
+                                             group_commit=True)
                             raise
+                        _OBS_FSYNCS.inc()
                         self.fsyncs += 1
                     self._synced_seq = max(self._synced_seq, cover)
                 finally:
@@ -728,8 +761,12 @@ def iter_frames(blob: bytes):
 
 
 def _truncate(path: str, off: int, size: int, do_truncate: bool) -> None:
-    """The torn-tail cut: every torn tail a reader meets passes here once
-    (the reference counts them as ``journal.truncated_tails``)."""
+    """The torn-tail cut: every torn tail a reader meets passes here once,
+    counted in ``journal.truncated_tails`` and recorded as a
+    ``journal.torn_tail`` flight event."""
+    _OBS_TORN.inc()
+    obs.record_event("journal.torn_tail", path=path, at_byte=off,
+                     dropped_bytes=size - off, truncated=do_truncate)
     # a file torn inside the magic itself keeps nothing (a fresh
     # appender then rewrites the magic); otherwise cut at the last
     # clean frame boundary
@@ -774,12 +811,13 @@ def apply_records(records, eng, ack_sink=None, stats=None) -> dict:
                 ack_sink.extend(vals)
             stats["acks"] += len(vals)
             stats["records"] += 1
+            _OBS_RP_RECORDS.inc()
             continue
         if kind in (J_HEAP_PUT, J_HEAP_FREE):
             # value-heap records: slab rewrites at their RECORDED
             # addresses — the engine must carry an attached heap, or
             # replay cannot honor the record (the port's engines carry
-            # none until the value heap comes, ROADMAP.md item 6)
+            # none until the value heap comes, ROADMAP.md item 6b)
             heap = getattr(eng, "value_heap", None)
             if heap is None:
                 raise StateError(
@@ -801,6 +839,8 @@ def apply_records(records, eng, ack_sink=None, stats=None) -> dict:
             stats["deletes"] += 1
         stats["records"] += 1
         stats["rows"] += int(keys.size)
+        _OBS_RP_RECORDS.inc()
+        _OBS_RP_ROWS.inc(int(keys.size))
     return stats
 
 

@@ -35,6 +35,14 @@ host-staged ``search_combined`` calls.
 
 The serve's descent loop reads a pending count back once per round (one
 host sync a round), which bounds what the pipelined forms can overlap.
+
+Observability: the prep, serve and verify functions go through the
+program ledger (``staged.prep``, ``engine.search_fanout``,
+``staged.verify``; ``staged_mixed.prep``, ``staged_mixed.serve_fanout``,
+``staged_mixed.verify``), so a new shape inside a sealed window counts as
+a retrace.  A step touches no other obs object: the driver attributes a
+drained window to the SLO plane with ``step.record_slo``, and publishes
+``phase_profile``'s walls with :func:`record_phase_obs`.
 """
 
 from __future__ import annotations
@@ -45,9 +53,12 @@ import numpy as np
 import torch
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import ConfigError, NotPortedError
 from sherman_tpu_torch.models.batched import (ST_APPLIED, ST_SUPERSEDED,
                                               mixed_step_spmd)
+from sherman_tpu_torch.obs import device as DEV
+from sherman_tpu_torch.obs import slo as SLO
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.workload import threefry
 
@@ -381,11 +392,36 @@ def _client_keys(gen_ranks, tpair, rkey, step_idx, N: int, batch: int,
     return _keys_of_ranks(rank, *_words(salt))
 
 
+def record_phase_obs(prefix: str, phases: dict) -> None:
+    """Route one phase/overlap dict (``phase_profile``'s) into obs:
+    ``overlap_efficiency`` is a ratio and lands in a gauge; every wall
+    cost lands in a ``<prefix>.<name>_ms`` histogram (``wall_ms`` and
+    ``bubble_ms`` already carry the unit)."""
+    for name, v in phases.items():
+        if name == "overlap_efficiency":
+            obs.gauge(f"{prefix}.overlap_efficiency").set(v)
+        else:
+            h = name if name.endswith("_ms") else f"{name}_ms"
+            obs.histogram(f"{prefix}.{h}").record(v)
+
+
+def _slo_hook(step, op_class: str, batch: int) -> None:
+    """``step.slo_class`` and ``step.record_slo(n_steps, elapsed_s)``: the
+    driver attributes a whole drained window at once (the per-step
+    dispatch path carries no obs work), ``batch`` client ops a step."""
+    step.slo_class = op_class
+
+    def record_slo(n_steps: int, elapsed_s: float) -> None:
+        SLO.observe(op_class, n_steps * batch, elapsed_s, batches=n_steps)
+
+    step.record_slo = record_slo
+
+
 def _check_step_args(eng, leaf_cache):
     if leaf_cache is not None:
         raise NotPortedError(
-            "leaf_cache: the hot-key leaf cache comes with the device "
-            "tiers (ROADMAP.md section 1 item 9)")
+            "leaf_cache: the hot-key leaf cache comes with ROADMAP.md "
+            "item 6a")
     if eng.router is None:
         raise ConfigError("attach_router() first: the staged loop probes "
                           "the engine's router")
@@ -423,13 +459,15 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     ``aligned``'s.  The pending slot lives on the step: one pipelined
     step drives one carry stream (``new_carry()`` resets it).
     ``chained`` and ``fused`` raise :class:`ConfigError`; ``leaf_cache``
-    raises :class:`NotPortedError` (ROADMAP.md item 9), and the
-    reference's ``record_slo`` hook waits for the observability plane
-    (item 10).
+    raises :class:`NotPortedError` (ROADMAP.md item 6a).
 
     Attributes: ``fusion``, ``sampler`` (effective), ``pipeline_depth``,
-    ``drain``, ``programs`` (phase -> function), ``jprep``/``jserve``/
-    ``jverify`` and ``phase_profile(pool, counters, table_d, rtable_d,
+    ``drain``, ``programs`` (phase -> ledgered function),
+    ``phase_labels`` (phase -> ledger label), ``jprep``/``jserve``/
+    ``jverify``, ``slo_class`` (``read``) and ``record_slo(n_steps,
+    elapsed_s)``, which attributes a drained window of ``n_steps`` steps
+    to the SLO plane at once (the step itself does no obs work), and
+    ``phase_profile(pool, counters, table_d, rtable_d,
     rkey_d, reps=4) -> ({phase: ms}, counters)``: each phase's time per
     call — device-stream time between CUDA events on the card, the K/2K
     chained delta on the host clock on the CPU — plus, when pipelined,
@@ -472,6 +510,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                 bits.i32(ukhi).view(-1), bits.i32(uklo).view(-1),
                 start.view(-1), active.view(-1), inv.view(-1), n_uniq)
 
+    prep = DEV.wrap_program("staged.prep", prep)
+    # the serve is the engine's own ledgered fan-out program
     jserve = eng._get_search_fanout(iters)
 
     def verify(rcarry, skhi, sklo, found, vhi, vlo, n_uniq):
@@ -485,6 +525,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                 n_correct + corr.sum().to(torch.int32),
                 sum_nu + n_uniq.sum().to(torch.int32),
                 torch.maximum(max_nu, n_uniq.max()))
+
+    verify = DEV.wrap_program("staged.verify", verify)
 
     def serve(pool, counters, khi, klo, active, start, inv):
         return jserve(pool, counters, khi, klo, root, active, start, inv)
@@ -569,6 +611,9 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     step.pipeline_depth = 2 if fusion == "pipelined" else 1
     step.jprep, step.jserve, step.jverify = prep, jserve, verify
     step.programs = {"prep": prep, "serve_fanout": jserve, "verify": verify}
+    step.phase_labels = {name: prog.label
+                         for name, prog in step.programs.items()}
+    _slo_hook(step, "read", batch)
     step.phase_profile = phase_profile
     step.dev_b = dev_b
     table_d, rtable_d, rkey_d = staged or _stage_inputs(
@@ -608,7 +653,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
     ``SHERMAN_STAGED_FUSION=pipelined``) verifies each step in the call;
     ``pipelined`` folds the receipts one batch behind (the pool writes
     stay in serve order) until ``step.drain``, after which the carry
-    equals ``chained``'s."""
+    equals ``chained``'s.  ``slo_class`` (``mixed``), ``record_slo`` and
+    ``phase_labels`` as in :func:`make_staged_step`."""
     fusion = fusion or ("pipelined" if C.staged_fusion() == "pipelined"
                         else "chained")
     if fusion not in ("chained", "pipelined"):
@@ -659,6 +705,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
         return ((step_idx + 1) & _MASK, akhi, aklo, vhi, vlo, act_r,
                 act_w, start, rskhi, rsklo, rseg, r_nu, wseg, w_nu)
 
+    prep = DEV.wrap_program("staged_mixed.prep", prep)
+
     def serve(pool, locks, counters, akhi, aklo, vhi, vlo, act_r, act_w,
               start, rseg, wseg):
         """The fused descent/apply and the monotone per-client fan-out of
@@ -677,6 +725,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
         st_cli = stat_w[(wseg + nodes * dev_wb).clamp(
             0, stat_w.shape[0] - 1)]
         return pool, counters, out, st_cli
+
+    serve = DEV.wrap_program("staged_mixed.serve_fanout", serve)
 
     def verify(rcarry, rskhi, rsklo, out, st_cli, r_nu, w_nu):
         """The on-card linearization check (a read's value must decode
@@ -697,6 +747,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
                 torch.maximum(max_nu_r, r_nu.max()),
                 torch.maximum(max_nu_w, w_nu.max()),
                 (sidx + 1) & _MASK)
+
+    verify = DEV.wrap_program("staged_mixed.verify", verify)
 
     def served(pool, locks, counters, arrs):
         (akhi, aklo, vhi, vlo, act_r, act_w, start, rskhi, rsklo, rseg,
@@ -786,6 +838,9 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
     step.pipeline_depth = 2 if fusion == "pipelined" else 1
     step.jprep, step.jserve, step.jverify = prep, serve, verify
     step.programs = {"prep": prep, "serve_fanout": serve, "verify": verify}
+    step.phase_labels = {name: prog.label
+                         for name, prog in step.programs.items()}
+    _slo_hook(step, "mixed", batch)
     step.phase_profile = phase_profile
     table_d, rtable_d, rkey_d = staged or _stage_inputs(
         dsm, router, n_keys, theta, LB, seed, sampler)

@@ -24,11 +24,16 @@ numbers.  Run on the GPU::
 ycsb_matrix``) with the card's name and power limit; without a CUDA
 device it exits with code 2.  ``--nodes N`` emulates N nodes on the card.
 
+As in the reference, YCSB-C's timed steps run with the program ledger
+sealed (``sealed``; ``retraces`` counts new program shapes in the window
+and must be 0), and the line carries the ``obs`` section (the registry
+snapshot and the span summary: per-class ``slo.*`` latencies, ``dsm.*``
+op counts, ``kernels.*`` launches).
+
 Not here yet: the value heap's paths (``--value-bytes``,
 ``--value-dist``, ``--ab``, the heap phase attribution and audit) wait
-for ``models/value_heap.py`` (ROADMAP item 6), and a nonzero
-``SHERMAN_VALUE_HEAP`` is refused; the compile ledger's ``sealed`` and
-``retraces`` wait for the observability plane (item 7).
+for ``models/value_heap.py`` (ROADMAP item 6b), and a nonzero
+``SHERMAN_VALUE_HEAP`` is refused.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
     if value_heap_pages():
         raise NotPortedError(
             "SHERMAN_VALUE_HEAP asks for the value heap, which the port "
-            "does not have yet (models/value_heap.py, ROADMAP item 6); "
+            "does not have yet (models/value_heap.py, ROADMAP item 6b); "
             "unset it to run the matrix with inline values")
     t0 = time.perf_counter()
     keys = synthetic_keys(n_keys)
@@ -121,12 +126,16 @@ def _percentiles(walls_ms):
             float(w[int(np.ceil(0.99 * (w.size - 1)))]))
 
 
-def run_workload(eng, gen, *, ops: int, steps: int) -> dict:
+def run_workload(eng, gen, *, ops: int, steps: int,
+                 seal: bool = False) -> dict:
     """One warm-up batch, then ``steps`` closed-loop batches of ``ops``
     ops drawn from ``gen`` (a :class:`~sherman_tpu_torch.workload.ycsb.
-    YcsbGen`), each played to its end (every call returns host arrays).
+    YcsbGen`), each played to its end (every call returns host arrays),
+    with the program ledger sealed around them when ``seal``.
     -> the workload's row: ops/s over the timed steps, p50/p99 step
-    wall, the op counts and the analytic expectations."""
+    wall, the op counts, the analytic expectations, ``sealed`` and
+    ``retraces``."""
+    from sherman_tpu_torch.obs import device as DEV
     counts = {"read": 0, "update": 0, "insert": 0, "rmw": 0,
               "scan": 0, "scan_rows": 0, "scan_rows_expected": 0}
 
@@ -167,12 +176,20 @@ def run_workload(eng, gen, *, ops: int, steps: int) -> dict:
                 b.get("scan_expected_rows", 0))
 
     play(gen.batch(ops))     # warm-up: every class's first call
+    ledger = DEV.get_ledger()
+    r0 = ledger.retraces
+    if seal:
+        ledger.seal()
     walls = []
     t0 = time.perf_counter()
-    for _ in range(steps):
-        ts = time.perf_counter()
-        play(gen.batch(ops))
-        walls.append((time.perf_counter() - ts) * 1e3)
+    try:
+        for _ in range(steps):
+            ts = time.perf_counter()
+            play(gen.batch(ops))
+            walls.append((time.perf_counter() - ts) * 1e3)
+    finally:
+        if seal:
+            ledger.unseal()
     total_s = time.perf_counter() - t0
     p50, p99 = _percentiles(walls)
     out = {
@@ -182,6 +199,8 @@ def run_workload(eng, gen, *, ops: int, steps: int) -> dict:
         "step_p99_ms": p99,
         "counts": {k: int(v) for k, v in counts.items() if v},
         "analytic": gen.expectations(),
+        "sealed": bool(seal),
+        "retraces": int(ledger.retraces - r0),
     }
     if counts["scan"]:
         out["scan_rows_per_scan"] = counts["scan_rows"] / counts["scan"]
@@ -207,6 +226,7 @@ def main(argv=None) -> int:
         print("sherman_tpu_torch.ycsb_bench: no CUDA device; the port's "
               "benchmark runs on the GPU", file=sys.stderr)
         return 2
+    from sherman_tpu_torch import obs
     from sherman_tpu_torch.bench import _device_info
     from sherman_tpu_torch.workload.ycsb import YcsbGen
 
@@ -216,7 +236,8 @@ def main(argv=None) -> int:
     for w in [w.strip().upper() for w in a.workloads.split(",")
               if w.strip()]:
         gen = YcsbGen(w, a.keys, theta=a.theta, seed=17, salt=SALT)
-        rows[w] = run_workload(eng, gen, ops=a.ops, steps=a.steps)
+        rows[w] = run_workload(eng, gen, ops=a.ops, steps=a.steps,
+                               seal=(w == "C"))
         _say(f"YCSB-{w}: {rows[w]['ops_s']:,.0f} ops/s "
              f"(p99 {rows[w]['step_p99_ms']:.3f} ms/step)")
     print(json.dumps({
@@ -230,6 +251,7 @@ def main(argv=None) -> int:
         "config": {"value_bytes": 8, "value_dist": "fixed",
                    "value_heap": False, "torch": torch.__version__,
                    "cuda": torch.version.cuda},
+        "obs": obs.obs_section(),
         "device": device,
     }), flush=True)
     return 0

@@ -13,7 +13,10 @@ rows, also through views that are not 16-byte aligned; the exchange
 all-to-all at vector-copy and word-copy widths and through its packer;
 the multi-node serving path; the scan prefetch and the YCSB A-F matrix;
 the structure validator, the scrub pass and the chaos pokes on a pool on
-the card.  Every comparison is exact equality.
+the card; the observability plane's card readings (the memory
+accountant's CUDA allocator gauges, ``obs.device_trace`` naming the page
+kernels, the kernel build's ledger entry).  Every comparison is exact
+equality.
 """
 
 import numpy as np
@@ -753,3 +756,58 @@ def test_recovery_plane_on_the_card_matches_the_cpu(dev, tmp_path,
     assert a[0] == b[0] and a[2] == b[2] and a[4] == b[4]
     assert all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
     assert all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
+
+
+def test_accountant_reports_the_cuda_allocator_beside_the_pool(dev):
+    """The memory accountant's pool source and the CUDA allocator's own
+    figures, read without a sync."""
+    from sherman_tpu_torch import obs
+
+    tree, _ = _integrity_tree("cuda", 1)
+    snap = obs.snapshot()
+    pool_bytes = tree.dsm.pool.numel() * 4
+    assert snap["device.hbm_pool_bytes"] == pool_bytes
+    assert snap["device.cuda_allocated_bytes"] >= pool_bytes
+    assert snap["device.cuda_max_allocated_bytes"] \
+        >= snap["device.cuda_allocated_bytes"]
+    assert snap["device.cuda_reserved_bytes"] \
+        >= snap["device.cuda_allocated_bytes"]
+
+
+def test_device_trace_names_the_page_kernels(dev, tmp_path):
+    """``obs.device_trace`` over a CUDA search and a write step: the
+    torch profiler's Chrome trace names K1, K2 and K3."""
+    import json
+    import os
+
+    from sherman_tpu_torch.obs import spans
+
+    tree, eng = _integrity_tree("cuda", 1)
+    keys = np.arange(1, 8001, 2, dtype=np.uint64) * np.uint64(7)
+    eng.search_combined(keys[:256])
+    with spans.device_trace(str(tmp_path / "prof")):
+        eng.search_combined(keys[:256])
+        eng.mixed(keys[:64], keys[:64] ^ np.uint64(1),
+                  np.arange(64) % 2 == 0)
+    (name,) = os.listdir(tmp_path / "prof")
+    with open(tmp_path / "prof" / name) as f:
+        names = " ".join(e.get("name", "")
+                         for e in json.load(f)["traceEvents"])
+    for k in ("descent_round_kernel", "gather_pages_kernel",
+              "writeback_kernel"):
+        assert k in names, k
+
+
+def test_kernel_build_is_a_ledger_entry(dev):
+    """The build of ``ops/csrc`` and ``parallel/csrc`` is the port's one
+    real compile: a ``build.page_kernels`` ledger entry with its wall and
+    its sources."""
+    from sherman_tpu_torch.obs import device as DEV
+
+    PK.load_library()
+    e = DEV.get_ledger().entry("build.page_kernels")
+    assert e is not None and e.compiles >= 1 and e.compile_ms > 0
+    (sig,) = e.signatures
+    for src in ("sherman_tpu_torch/ops/csrc/page_kernels.cu",
+                "sherman_tpu_torch/parallel/csrc/exchange.cu"):
+        assert src in sig

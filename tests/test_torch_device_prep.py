@@ -402,7 +402,7 @@ def test_staged_knobs_and_refusals(monkeypatch):
     with pytest.raises(ConfigError):
         C.staged_fusion()
     monkeypatch.delenv("SHERMAN_STAGED_FUSION")
-    with pytest.raises(NotPortedError, match="item 9"):
+    with pytest.raises(NotPortedError, match="item 6a"):
         TP.make_staged_step(pe, leaf_cache=object(), **kw)
     with pytest.raises(ConfigError):
         TP.make_staged_step(pe, fusion="fused", **kw)

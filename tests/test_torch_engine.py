@@ -362,6 +362,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "sherman_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 17
+    obs_dir = os.path.join(REPO, "sherman_tpu_torch", "obs")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == obs_dir} >= {
+        "__init__.py", "registry.py", "spans.py", "slo.py", "recorder.py",
+        "export.py", "device.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
