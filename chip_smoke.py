@@ -256,14 +256,48 @@ every earlier phase, and the black box's bundles go to a temporary
     naming K1-K3; (f) the ``obs`` JSON line, and K1-K3 replayed at every
     shape the phase launched (path ``one_node_obs``).
 
+The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
+``models/value_heap.py``), after phase 22:
+
+23. (a) the cache reference check on 1 and on 8 nodes, card against the
+    plain path on the CPU (:func:`_cache_run`: cached search equal to the
+    uncached, the combined search, ``mixed``, ``insert``, ``delete``,
+    reclaim's unlink map, auto-admission, a scrub quarantine, the
+    sidecar, the degraded flush — answers, mirrors, stats, device tables,
+    pools and counters bit-identical); (b) on phase 15's 100 M-key tree
+    a 65,536-slot cache filled with the hottest ranks, the staged YCSB-C
+    ``aligned`` step at 4,194,304 clients with the cache (residual cap
+    from two warm-up steps) and without, 3 windows of 8 steps a side
+    interleaved and sealed: receipts equal, the measured hit ratio beside
+    ``expected_hit_ratio``, ms a step, the phase profile with
+    ``cache_probe``, host syncs a step; one host-path ``search_combined``
+    of 4,194,304 zipf keys equal with and without the cache; the
+    ``cache`` JSON line, K1 and K2 replayed at every shape (path
+    ``one_node_cache``);
+24. (a) the heap reference check on 1 and on 8 nodes, card against the
+    CPU (:func:`_heap_run`: puts, gets with and without the cache, scans,
+    overwrites, removes, a double free, scrub, rebuild, a checkpoint
+    chain, a torn tail, a crash and ``recover`` — payloads, heap regions,
+    allocators, journal bytes and the recovered state bit-identical, RPO
+    0); (b) ``tools/ycsb_bench.py --value-bytes 64 --value-dist fixed``
+    on phase 15's configuration at 10,000,000 keys with 1,500,000 heap
+    pages: the migration of every record out of line, A-F through the
+    heap (C sealed), every get and scan answer checked against the
+    records' bytes, ``heap_phase_ms``, ``audit_ok``; the ``--ab`` YCSB-C
+    arms on fresh trees of 1,000,000 keys; a heap tree of 1,000,000 keys
+    through a base, acked puts and removes, a delta, a crash and
+    ``recover`` (RPO 0, every get equal); the ``ycsb_matrix_heap`` JSON
+    line, K1-K3 replayed at every shape (path ``one_node_heap``).
+
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
 launch), around each staged window, around each storm's timed window
 (K1-K3 on one node; K2-K4 on eight), around the churn's timed window
 (K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight),
 around phase 19's serving steps (K1-K3), around phase 21's traffic
-and delta, its recovery and its repair (K1-K3 in each) and around phase
-22b (K1-K3);
+and delta, its recovery and its repair (K1-K3 in each), around phase
+22b (K1-K3), around 23b (K1, K2) and around 24b's migration and matrix
+(K1-K3);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -273,8 +307,9 @@ floor of the method (``launch_floor_ms``). A kernel's ``ms``,
 per launch over its shapes, each listed under ``shapes`` (and
 ``library_shapes`` the means over the shapes where the library call
 computes the same function). The lines before the last are the
-``integrity``, ``durability`` and ``obs`` JSON records (printed after
-phases 19, 21 and 22), the K1 and K3 ablations, the
+``integrity``, ``durability``, ``obs``, ``cache`` and
+``ycsb_matrix_heap`` JSON records (printed after phases 19, 21, 22, 23
+and 24), the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -1060,7 +1095,8 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
 PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
          "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
-         "one_node_durability", "one_node_obs")
+         "one_node_durability", "one_node_obs", "one_node_cache",
+         "one_node_heap")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -4002,6 +4038,636 @@ def obs_full_width(ctx: dict, flight: dict, smi: str,
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-24: the hot-key leaf cache and the value heap.
+# ---------------------------------------------------------------------------
+
+TIER_KEYS = 3000                # the reference checks' tree (keys 100 + 3i)
+CACHE_SLOTS = 65536             # SHERMAN_LEAF_CACHE=1
+CACHE_AB_REPEATS = 3            # cached staged windows a side, interleaved
+CACHE_AB_STEPS = 8
+HEAP_KEYS = 10_000_000          # 24b's tree (phase 15's configuration)
+HEAP_PAGES = 1_500_000          # heap pages a node (1.54 GB)
+HEAP_VALUE_BYTES = 64
+HEAP_AB_KEYS = 1_000_000        # the --ab arms' fresh trees
+HEAP_DUR_PUTS = 8               # acked heap put batches after the base
+
+
+def tiers_build(machine_nr: int, device: str, heap_pages: int = 0):
+    """The reference checks' tree: keys ``100 + 3i`` for i below 3,000,
+    values ``7 * key``, with the router; one node 2,048 pages and 256 rows,
+    eight 1,024 pages and 128 rows a node (step capacity 256).
+    -> (tree, eng, keys)."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    N = machine_nr
+    tree = Tree(Cluster(DSMConfig(
+        machine_nr=N, pages_per_node=2048 if N == 1 else 1024,
+        locks_per_node=512, step_capacity=512 if N == 1 else 256,
+        chunk_pages=32, heap_pages_per_node=heap_pages, device=device)))
+    eng = batched.BatchedEngine(tree, batch_per_node=256 if N == 1 else 128)
+    keys = np.arange(100, 100 + 3 * TIER_KEYS, 3, dtype=np.uint64)
+    batched.bulk_load(tree, keys, keys * np.uint64(7))
+    eng.attach_router()
+    return tree, eng, keys
+
+
+def _pool_state(tree) -> list:
+    d = tree.dsm
+    return [t.to("cpu", copy=True) for t in (d.pool, d.locks, d.counters)]
+
+
+def _cache_state(c) -> list:
+    return ([a.copy() for a in c._table_host()] + [c._keys.copy()]
+            + [c.stats(), dict(c._sidecar), dict(c._freq)]
+            + ([t.to("cpu", copy=True) for t in c._dev]
+               if c._dev is not None and not c._dirty else []))
+
+
+def _cache_run(machine_nr: int, device: str) -> list:
+    """Phase 23a's sequence on one device -> [(label, result)]: a 1,024-slot
+    cache over the reference checks' tree; cached ``search`` against the
+    same search uncached, ``search_combined`` of a duplicate-heavy batch,
+    ``mixed`` (reads probe, writes invalidate), ``insert``, ``delete``,
+    ``reclaim_empty_leaves`` (the unlink map's invalidation),
+    auto-admission, a scrub quarantine and ``enter_degraded``'s flush,
+    the sidecar; after each call the answers, the cache's mirror, stats
+    and device tables, and the pool, locks and counters."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch.models.scrub import Scrubber
+    tree, eng, keys = tiers_build(machine_nr, device)
+    vals = keys * np.uint64(7)
+    cache = eng.attach_leaf_cache(slots=1024)
+    out = []
+
+    def rec(label, res):
+        out.append((label, [res, _cache_state(cache), _pool_state(tree)]))
+
+    rec("fill", cache.fill(keys[:300]))
+    rec("search", eng.search(keys[:600]))
+    eng.leaf_cache = None
+    uncached = eng.search(keys[:600])
+    eng.leaf_cache = cache
+    if not _same_obj(uncached, out[-1][1][0]):
+        raise AssertionError(f"cache ({device}): cached search differs "
+                             "from the uncached one")
+    dup = np.concatenate([keys[:64], keys[700:760]] * 6)
+    rec("search_combined", eng.search_combined(dup))
+    mk = np.concatenate([keys[:100], keys[200:260]])
+    mv = np.concatenate([np.zeros(100, np.uint64),
+                         keys[200:260] ^ np.uint64(13)])
+    isr = np.arange(160) < 100
+    rec("mixed", eng.mixed(mk, mv, isr))
+    rec("insert", eng.insert(keys[:10], keys[:10] * np.uint64(99)))
+    rec("delete", eng.delete(keys[1000:1800]))
+    rec("refill", cache.fill(keys[::5][:480]))
+    rec("reclaim", eng.reclaim_empty_leaves())
+    rec("search 2", eng.search(keys[::3]))
+    eng.detach_leaf_cache()
+    cache = eng.attach_leaf_cache(slots=512, admit_every=2)
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        rec(f"observe {i}", eng.search(keys[rng.integers(0, 300, 400)]))
+    j = int(np.nonzero(cache._keys != 0)[0][0])
+    victim = int(cache._addr[j])
+    plan = CH.FaultPlan([{"kind": "flip_entry_ver", "step": 0,
+                          "addr": victim, "slot": 2}])
+    tree.dsm.install_chaos(plan)
+    tree.dsm.read_word(0, 0)
+    tree.dsm.install_chaos(None)
+    scr = Scrubber(eng, interval=1)
+    res = scr.scrub()
+    rec("quarantine", (res["new_violations"], res["quarantined"],
+                       res["degraded"]))
+    rec("search 3", eng.search(keys[:300]))
+    plan.undo(tree.dsm)
+    scr.release_quarantine()
+    if eng.degraded:        # the quarantine could not take the lock word
+        eng.exit_degraded()
+    cache.pin_payloads([int(k) for k in keys[:4]], [1, 2, 3, 4],
+                       [b"a", b"b", None, b"d"])
+    rec("sidecar", cache.payload_hits([int(k) for k in keys[:4]],
+                                      [1, 2, 9, 4]))
+    eng.enter_degraded("phase 23a: the flush")
+    if cache.stats()["cached_keys"] or cache.stats()["sidecar_keys"]:
+        raise AssertionError("cache: degraded entry left entries")
+    rec("degraded", eng.search(keys[:50]))
+    eng.exit_degraded()
+    rec("stats", cache.stats())
+    return out
+
+
+def _heap_run(machine_nr: int, device: str, rdir: str) -> list:
+    """Phase 24a's sequence on one device -> [(label, result)]: a value
+    heap (256 pages a node; 48 on eight nodes) over the reference checks'
+    tree with a 1,024-slot cache attached for the first gets; ``put`` of
+    800 variable-length records, ``get`` with and without the cache,
+    ``scan``, an overwrite, a class change, ``remove``, a double free,
+    ``scrub`` with a leak and orphans, ``rebuild``; then a recovery plane:
+    base, journaled puts and removes, a delta, a torn tail, the crash and
+    ``recover``; after each call the answers, the heap region, the
+    allocator and the pool, locks and counters."""
+    from sherman_tpu_torch.errors import DoubleFreeError
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.utils import journal as J
+    tree, eng, keys = tiers_build(machine_nr, device,
+                                  heap_pages=256 if machine_nr == 1 else 48)
+    vh = eng.attach_value_heap()
+    rng = np.random.default_rng(7)
+    pay = [bytes(rng.integers(0, 256, int(n), dtype=np.uint8))
+           for n in rng.integers(1, 250, 800)]
+    out = []
+
+    def heap_state(v):
+        return [v.dsm.heap.to("cpu", copy=True), v._page_cls.copy(),
+                v._ver.copy(), v._next_page.copy(), list(v._spare_pages),
+                [(k, list(s)) for k, s in v._free.items()], v.stats(),
+                v.dsm.heap_dirty_rows()]
+
+    def rec(label, res, v=None, t=None):
+        out.append((label, [res, heap_state(v or vh),
+                            _pool_state(t or tree)]))
+
+    rec("put", vh.put(keys[:800], pay))
+    cache = eng.attach_leaf_cache(slots=1024)
+    cache.fill(keys[:200])
+    rec("get cached", vh.get(keys[:300]))
+    eng.detach_leaf_cache()
+    rec("get", vh.get(keys[:800]))
+    if out[-1][1][0][0][:300] != out[-2][1][0][0]:
+        raise AssertionError(f"heap ({device}): cached gets differ")
+    rec("scan", vh.scan([(int(keys[100]), int(keys[160]))]))
+    rec("overwrite", vh.put(keys[:50], [b"Z" * 40] * 50))
+    rec("class change", vh.put(keys[50:80], [b"B" * 200] * 30))
+    hv, _ = eng.search(keys[80:90])
+    rec("remove", vh.remove(keys[80:90]))
+    try:
+        vh.free_handles(keys[80:90], hv)
+        raise AssertionError("heap: a double free went through")
+    except DoubleFreeError:
+        pass
+    row, slab = vh._alloc(0, 0, 1)[0]
+    vh.dsm.heap_write_cells([row], [slab * 8], [(3 << 16) | 8])
+    vh._ver[row, slab] = 3
+    hv, _ = eng.search(keys[90:93])
+    vh.free_handles(keys[90:93], hv)
+    rec("scrub", vh.scrub(repair=True))
+    rec("rebuild", vh.rebuild())
+    plane = RecoveryPlane(tree.cluster, tree, eng, rdir)
+    plane.checkpoint_base()
+    rec("put journaled", vh.put(keys[100:160], [b"post-base"] * 60))
+    rec("remove journaled", vh.remove(keys[160:170]))
+    with np.load(plane.checkpoint_delta()["path"]) as z:
+        rec("delta", [z["heap_rows"], z["heap_pages"]])
+    rec("put after delta", vh.put(keys[170:200], [b"tail!"] * 30))
+    # every key but the three orphans (freed behind the tree's back)
+    rd = np.concatenate([keys[:90], keys[93:800]])
+    want = vh.get(rd)
+    seg = eng.journal.path
+    plane.close()
+    blob = open(seg, "rb").read()
+    r = J.encode_record(J.J_DELETE, keys[:4])
+    with open(seg, "ab") as f:
+        f.write(r[:-2])
+    del plane, vh, eng, tree, cache
+    _, c2, t2, e2, receipt = RecoveryPlane.recover(
+        rdir, device=device, batch_per_node=256 if machine_nr == 1 else 128)
+    got = e2.value_heap.get(rd)
+    if not _same_obj(got, want):
+        raise AssertionError(f"heap ({device}): recovered gets differ "
+                             "from the acked state (RPO > 0)")
+    out.append(("journal", blob))
+    out.append(("replay", receipt["replay"]))
+    rec("recovered", got, e2.value_heap, t2)
+    return out
+
+
+def _tier_compare(what: str, machine_nr: int, devices, runs) -> int:
+    a, b = runs
+    if [x for x, _ in a] != [x for x, _ in b]:
+        raise AssertionError(f"{what} reference: the runs differ in shape")
+    for (label, x), (_, y) in zip(a, b):
+        if not _same_obj(x, y):
+            raise AssertionError(f"{what} reference ({machine_nr} "
+                                 f"node(s)): {label} differs between "
+                                 f"{devices[0]} and {devices[1]}: "
+                                 f"{_diff(x, y)}")
+    return len(a)
+
+
+def cache_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """Phase 23a on ``machine_nr`` nodes: :func:`_cache_run` on the card
+    and on the plain path on the CPU, every result bit-identical."""
+    t = time.perf_counter()
+    runs = [_cache_run(machine_nr, d) for d in devices]
+    n = _tier_compare("cache", machine_nr, devices, runs)
+    _log(f"23a cache reference check ({machine_nr} node(s), {TIER_KEYS:,} "
+         f"keys, {devices[0]} vs {devices[1]}): answers, cache mirrors, "
+         f"stats, device tables, pools and counters bit-identical ({n} "
+         f"results; {time.perf_counter() - t:.1f} s)")
+
+
+def heap_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """Phase 24a on ``machine_nr`` nodes: :func:`_heap_run` on the card
+    and on the plain path on the CPU, every result, heap region and
+    journal byte bit-identical, RPO 0 on both."""
+    t = time.perf_counter()
+    runs = []
+    for d in devices:
+        rdir = tempfile.mkdtemp(prefix="sherman_heap_ref_")
+        try:
+            runs.append(_heap_run(machine_nr, d, rdir))
+        finally:
+            shutil.rmtree(rdir, ignore_errors=True)
+    n = _tier_compare("heap", machine_nr, devices, runs)
+    _log(f"24a heap reference check ({machine_nr} node(s), {devices[0]} vs "
+         f"{devices[1]}): payloads, handles, heap regions, allocators, "
+         f"journal bytes, deltas and the recovered state bit-identical, "
+         f"RPO 0 ({n} results; {time.perf_counter() - t:.1f} s)")
+
+
+def cache_full_width(ctx: dict, smi: str, batch_c: int = 1 << 22) -> dict:
+    """Phase 23b on phase 15's 100 M-key tree (``ctx``, after phase 22): a
+    65,536-slot cache filled with the hottest ranks; the staged YCSB-C
+    ``aligned`` step at ``batch_c`` clients with the cache on (residual
+    cap ``dev_b_resid`` from two warm-up steps) and off, 3 windows of 8
+    steps a side interleaved, the ledger sealed around each; receipts
+    equal on both sides, the measured hit ratio beside
+    ``expected_hit_ratio``, ms a step, the phase profile (with
+    ``cache_probe``), host syncs a step; one host-path ``search_combined``
+    of ``batch_c`` zipf keys with the cache equal to the same call
+    without; the ``cache`` line; K1 and K2 replayed at every shape
+    (path ``one_node_cache``).  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.config import TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.obs import device as DEV
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload.zipf import ZipfGen, expected_hit_ratio
+
+    tree, eng = ctx["tree"], ctx["eng"]
+    n_keys, dev = ctx["n_keys"], tree.dsm.pool.device
+    salt, xor = YB.SALT, 0xD00D
+    path = "one_node_cache"
+    t_phase = time.perf_counter()
+    led = DEV.get_ledger()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    eng_c = batched.BatchedEngine(tree, batch_per_node=batch_c,
+                                  tcfg=TreeConfig(sibling_chase_budget=1))
+    eng_c.router = eng.router
+    pool, counters = tree.dsm.pool, tree.dsm.counters
+    rec: dict = {"metric": "cache", "path": path, "card": smi,
+                 "keys": n_keys, "batch": batch_c,
+                 "windows_a_side": CACHE_AB_REPEATS,
+                 "steps_a_window": CACHE_AB_STEPS, "reduced": []}
+    with ShapeLog() as log:
+        t = time.perf_counter()
+        cache = eng_c.attach_leaf_cache(slots=CACHE_SLOTS)
+        hot = bits.mix64_np(np.arange(cache.capacity, dtype=np.uint64)
+                            ^ np.uint64(salt))
+        fill = cache.fill(hot)
+        rec["fill"] = {**fill, "s": time.perf_counter() - t,
+                       "slots": cache.slots, "capacity": cache.capacity}
+        mk = lambda **kw: DP.make_staged_step(
+            eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=batch_c,
+            sampler="analytic", fusion="aligned", check_xor=xor, **kw)
+        step, (new_c, tb, rt, rk) = mk(dev_b=batch_c)
+        c = _ints(step(pool, counters, tb, rt, rk, new_c())[1])
+        dev_b = min(batch_c, -(-int(c[4] * 1.02) // 8192) * 8192 + 16384)
+        staged_t = (tb, rt, rk)
+        off, (new_off, *_) = mk(dev_b=dev_b, staged=staged_t)
+        probe, (new_p, *_) = mk(dev_b=dev_b, staged=staged_t,
+                                leaf_cache=cache)
+        cp = new_p()
+        for _ in range(2):
+            cp = probe(pool, counters, *staged_t, cp)[1]
+        cp = _ints(cp)
+        resid = max(1, (cp[3] - cp[6] + 1) // 2)
+        cap_r = min(dev_b, -(-int(resid * 1.05) // 8192) * 8192)
+        on, (new_on, *_) = mk(dev_b=dev_b, staged=staged_t,
+                              leaf_cache=cache, dev_b_resid=cap_r)
+        rec.update(dev_b=dev_b, dev_b_resid=cap_r,
+                   resid_rows_a_step=resid)
+
+        def window(stp, new):
+            carry = new()
+            for _ in range(CACHE_AB_STEPS):
+                carry = stp(pool, counters, *staged_t, carry)[1]
+            return stp.drain(carry)
+
+        window(on, new_on)                           # warm-up
+        window(off, new_off)
+        walls = {True: [], False: []}
+        outs = {True: set(), False: set()}
+        hits = hits_u = 0
+        for side in _ab_order(CACHE_AB_REPEATS):
+            stp, new = (on, new_on) if side else (off, new_off)
+            r0 = led.retraces
+            with led.sealed_scope():
+                sync()
+                t = time.perf_counter()
+                carry = window(stp, new)
+                sync()
+                walls[side].append(time.perf_counter() - t)
+            if led.retraces != r0:
+                raise AssertionError(f"23b: {led.retraces - r0} retraces "
+                                     "in a sealed window")
+            c = _ints(carry)
+            if c[1] != 1:
+                raise AssertionError(f"23b: a cap overflowed ({c}, cache "
+                                     f"{side})")
+            outs[side].add(tuple(c[:5]))
+            if side:
+                hits += c[5]
+                hits_u += c[6]
+        if len(outs[True]) != 1 or outs[True] != outs[False]:
+            raise AssertionError(f"23b: receipts differ with the cache on "
+                                 f"and off: {outs}")
+        # twice a side, in turns, the second kept: the first count of a
+        # process can catch one sync inside torch itself
+        syncs = {}
+        for side, stp, new in ((True, on, new_on), (False, off, new_off),
+                               (True, on, new_on), (False, off, new_off)):
+            box = {"c": new()}
+            syncs[side] = count_syncs(lambda: box.__setitem__("c", stp(
+                pool, counters, *staged_t, box["c"])[1]))
+        prof = {"on": on.phase_profile(pool, counters, *staged_t, reps=4)[0],
+                "off": off.phase_profile(pool, counters, *staged_t,
+                                         reps=4)[0]}
+        ops = CACHE_AB_REPEATS * CACHE_AB_STEPS * batch_c
+        on_ms = min(walls[True]) / CACHE_AB_STEPS * 1e3
+        off_ms = min(walls[False]) / CACHE_AB_STEPS * 1e3
+        rec["staged"] = {
+            "receipts": list(outs[True].pop()), "sum_hits": hits,
+            "sum_hits_uniq": hits_u, "client_ops": ops,
+            "hit_ratio": hits / ops,
+            "hit_ratio_pred": expected_hit_ratio(n_keys, 0.99,
+                                                 fill["placed"]),
+            "hit_ratio_pred_capacity": expected_hit_ratio(
+                n_keys, 0.99, cache.capacity),
+            "uniq_hits_a_step": hits_u / (CACHE_AB_REPEATS
+                                          * CACHE_AB_STEPS),
+            "ms_per_step_on": on_ms, "ms_per_step_off": off_ms,
+            "cache_share": (on_ms - off_ms) / off_ms,
+            "walls_s_on": walls[True], "walls_s_off": walls[False],
+            "phase_ms": prof, "host_syncs_per_step_on": syncs[True],
+            "host_syncs_per_step_off": syncs[False], "retraces": 0}
+        # the host path: one search_combined with the cache and without
+        q = bits.mix64_np(ZipfGen(n_keys, 0.99, seed=23).sample(batch_c)
+                          .astype(np.uint64) ^ np.uint64(salt))
+        h0 = cache.hits
+        t = time.perf_counter()
+        with_c = eng_c.search_combined(q)
+        t_on = time.perf_counter() - t
+        eng_c.leaf_cache = None
+        t = time.perf_counter()
+        without = eng_c.search_combined(q)
+        t_off = time.perf_counter() - t
+        eng_c.leaf_cache = cache
+        if not _same_obj(list(with_c), list(without)):
+            raise AssertionError("23b: search_combined with the cache "
+                                 "differs from the same call without")
+        rec["host_path"] = {"keys": batch_c, "found": int(with_c[1].sum()),
+                            "unique_hits": cache.hits - h0,
+                            "wall_s_on": t_on, "wall_s_off": t_off}
+        rec["stats"] = cache.stats()
+    log.check(path, ("descent_round", "gather_pages"))
+    rec["launches"] = dict(log.launches)
+    shapes = replay(log, path)
+    eng_c.detach_leaf_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps(rec), flush=True)
+    _log(f"23b cache at full width: {rec['wall_s']:.1f} s")
+    return shapes
+
+
+class HeapReads:
+    """Records every ``get``, ``scan`` and ``put`` of a value heap in call
+    order, so the answers are checked after the timed steps (outside
+    their wall): replaying the log, each read must return the bytes the
+    puts before it left (the migration's record where none did)."""
+
+    def __init__(self, vh, value_bytes: int):
+        self.vh, self.vb = vh, value_bytes
+        self.over: dict = {}
+        self.log: list = []
+        get, put, scan = vh.get, vh.put, vh.scan
+
+        def get_(keys, **kw):
+            res = get(keys, **kw)
+            self.log.append(("get", np.array(keys, np.uint64), res))
+            return res
+
+        def put_(keys, payloads, **kw):
+            self.log.append(("put", np.array(keys, np.uint64), payloads))
+            return put(keys, payloads, **kw)
+
+        def scan_(ranges):
+            res = scan(ranges)
+            self.log.append(("scan", None, res))
+            return res
+
+        vh.get, vh.put, vh.scan = get_, put_, scan_
+
+    def close(self) -> None:
+        del self.vh.get, self.vh.put, self.vh.scan
+
+    def check(self) -> int:
+        """-> answers checked; raises on the first wrong one."""
+        from sherman_tpu_torch.workload.ycsb import payloads_of
+        n = 0
+
+        def want(keys):
+            base = payloads_of(keys, self.vb)
+            return [self.over.get(int(k), b) for k, b in zip(keys, base)]
+
+        for kind, keys, res in self.log:
+            if kind == "put":
+                self.over.update(zip(keys.tolist(), res))
+            elif kind == "get":
+                got, found = res
+                if not np.asarray(found).all() or got != want(keys):
+                    raise AssertionError("24b: a heap get returned a "
+                                         "wrong or missing payload")
+                n += keys.size
+            else:
+                for ks, ps in res:
+                    if ps != want(ks):
+                        raise AssertionError("24b: a heap scan returned a "
+                                             "wrong payload")
+                    n += len(ps)
+        self.log.clear()
+        return n
+
+
+def heap_durability(box: dict, device: str) -> dict:
+    """The heap's checkpoint and recovery on a served heap tree: a base
+    (the pool and the whole heap region), ``HEAP_DUR_PUTS`` acked put
+    batches of 8,192 records (sizes changing batch to batch, so slabs
+    change class) with a delta after half of them, a remove of 256 keys,
+    the crash (everything dropped, device memory freed) and ``recover``;
+    RPO 0 over every acked record and every get of a probe equal before
+    and after.  ``box`` holds the tree's only references (``cluster``,
+    ``tree``, ``eng``, ``keys``), so the crash frees it.  -> the record."""
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.workload.ycsb import payloads_of
+    t = time.perf_counter()
+    cluster, tree, eng, keys = (box.pop(k) for k in ("cluster", "tree",
+                                                      "eng", "keys"))
+    vh = eng.value_heap
+    rdir = tempfile.mkdtemp(prefix="sherman_heap_dur_")
+    try:
+        plane = RecoveryPlane(cluster, tree, eng, rdir)
+        t1 = time.perf_counter()
+        plane.checkpoint_base()
+        dur = {"keys": int(keys.size),
+               "heap_pages_per_node": cluster.cfg.heap_pages_per_node,
+               "base_s": time.perf_counter() - t1,
+               "base_bytes": sum(os.path.getsize(os.path.join(rdir, f))
+                                 for f in os.listdir(rdir))}
+        rng = np.random.default_rng(24)
+        acked = {}
+        t1 = time.perf_counter()
+        for i in range(HEAP_DUR_PUTS):
+            ks = keys[rng.integers(0, keys.size, YCSB_OPS)]
+            ps = payloads_of(ks ^ np.uint64(i + 2), 1 + i * 31 % 250)
+            vh.put(ks, ps)
+            acked.update(zip(ks.tolist(), ps))
+            if i == HEAP_DUR_PUTS // 2:
+                t2 = time.perf_counter()
+                d = plane.checkpoint_delta()
+                dur["delta"] = {"pages": d["pages"], "bytes": d["bytes"],
+                                "s": time.perf_counter() - t2}
+        gone = keys[rng.integers(0, keys.size, 256)]
+        vh.remove(gone)
+        for k in np.unique(gone).tolist():
+            acked[k] = None
+        dur["acked_puts_s"] = time.perf_counter() - t1
+        probe = np.concatenate([np.fromiter(acked, np.uint64),
+                                keys[rng.integers(0, keys.size, 65536)]])
+        before = vh.get(probe)
+        plane.close()
+        del plane, vh, eng, tree, cluster
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _, c2, t2, e2, receipt = RecoveryPlane.recover(
+            rdir, device=device, batch_per_node=YCSB_OPS)
+        dur["recover_s"] = time.perf_counter() - t1
+        dur["recover_receipt_ms"] = {k: receipt[k] for k in (
+            "restore_ms", "replay_ms", "rebase_ms", "total_ms")}
+        dur["replay"] = receipt["replay"]
+        after = e2.value_heap.get(probe)
+        want = list(acked.values())
+        got = [p if f else None for p, f in zip(after[0][:len(want)],
+                                                after[1][:len(want)])]
+        lost = sum(g != w for g, w in zip(got, want))
+        if lost or not _same_obj(list(before), list(after)):
+            raise AssertionError(f"24b: RPO {lost} over {len(acked):,} "
+                                 "acked heap records, or gets differ "
+                                 "after the recovery")
+        dur.update(acked_keys=len(acked), rpo=lost,
+                   probe_keys=int(probe.size))
+        del c2, t2, e2
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    dur["s"] = time.perf_counter() - t
+    _log(f"24b heap checkpoint and recovery: {dur['s']:.1f} s, RPO "
+         f"{dur['rpo']}")
+    return dur
+
+
+def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
+                    heap_pages: int = HEAP_PAGES,
+                    device: str = "cuda") -> dict:
+    """Phase 24b: ``tools/ycsb_bench.py --value-bytes 64 --value-dist
+    fixed`` on phase 15's configuration at ``n_keys`` keys with
+    ``heap_pages`` heap pages: the build, the migration of every record
+    out of line (its wall and rate), the A-F matrix through the heap
+    (8,192 ops a step, 8 timed steps, C sealed), every get and scan
+    answer checked, ``heap_phase_ms``, ``audit_ok``; the ``--ab`` YCSB-C
+    arms (inline, heap 28 B and 252 B) on fresh trees of
+    ``HEAP_AB_KEYS``; before them, on the same heap tree,
+    :func:`heap_durability`; the ``ycsb_matrix_heap`` line; K1-K3
+    replayed at every shape of the migration and the matrix (path
+    ``one_node_heap``).  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import ycsb_bench as YB
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.workload.ycsb import YcsbGen, payloads_of
+    path = "one_node_heap"
+    t_phase = time.perf_counter()
+    rec: dict = {"metric": "ycsb_matrix_heap", "path": path, "card": smi,
+                 "keys": n_keys, "batch": YCSB_OPS, "steps": YCSB_STEPS,
+                 "value_bytes": HEAP_VALUE_BYTES, "value_dist": "fixed",
+                 "heap_pages_per_node": heap_pages, "reduced": [
+                     f"keys 100,000,000 -> {n_keys:,}, for the smoke's "
+                     "time limit",
+                     f"--ab arms at {HEAP_AB_KEYS:,} keys (fresh trees), "
+                     "for the smoke's time limit"]}
+    t = time.perf_counter()
+    cluster, tree, eng, keys = YB.build(
+        n_keys, YCSB_OPS, 1, device, heap_pages=heap_pages,
+        value_bytes=HEAP_VALUE_BYTES, migrate=False, log=_log)
+    rec["build_s"] = time.perf_counter() - t
+    vh = eng.value_heap
+    with ShapeLog() as log:
+        dt = YB.migrate_to_heap(vh, keys, YCSB_OPS, HEAP_VALUE_BYTES)
+        rec["migration"] = {"s": dt, "records_s": keys.size / dt,
+                            "stats": vh.stats()}
+        _log(f"24b migration: {keys.size:,} records in {dt:.1f} s")
+        reads = HeapReads(vh, HEAP_VALUE_BYTES)
+        rows, checked = {}, 0
+        try:
+            for w in "ABCDEF":
+                gen = YcsbGen(w, n_keys, theta=0.99, seed=17, salt=YB.SALT,
+                              value_bytes=HEAP_VALUE_BYTES)
+                rows[w] = YB.run_workload(eng, gen, ops=YCSB_OPS,
+                                          steps=YCSB_STEPS, seal=(w == "C"),
+                                          vh=vh)
+                t = time.perf_counter()
+                n = reads.check()
+                rows[w]["answers_checked"] = n
+                rows[w]["check_s"] = time.perf_counter() - t
+                checked += n
+                _log(f"YCSB-{w} heap: {rows[w]['ops_s']:,.0f} ops/s, "
+                     f"{n:,} answers checked")
+        finally:
+            reads.close()
+        if rows["C"]["retraces"]:
+            raise AssertionError(f"24b: YCSB-C retraced "
+                                 f"{rows['C']['retraces']} times sealed")
+        rec["workloads"] = rows
+        rec["answers_checked"] = checked
+        rec["heap_phase_ms"] = YB.heap_phase_attribution(eng, vh, keys,
+                                                         YCSB_OPS)
+        rec["audit_ok"] = YB.audit_heap(eng, vh, keys)
+        if not rec["audit_ok"]:
+            raise AssertionError("24b: the heap audit failed")
+        rec["heap"] = vh.stats()
+    log.check(path, ("descent_round", "gather_pages", "writeback"))
+    rec["launches"] = dict(log.launches)
+    shapes = replay(log, path)
+    box = {"cluster": cluster, "tree": tree, "eng": eng, "keys": keys}
+    del reads, cluster, tree, eng, vh, keys
+    rec["durability"] = heap_durability(box, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["ycsb_c_ab"] = YB.run_c_ab(HEAP_AB_KEYS, YCSB_OPS, YCSB_STEPS,
+                                   device=device, log=_log)
+    rec["ab_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps(rec), flush=True)
+    _log(f"24b heap at full width: {rec['wall_s']:.1f} s")
+    return shapes
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -4159,8 +4825,25 @@ def _main(bb: str) -> int:
     _log(f"phase 22a with the flight record: {time.perf_counter() - t:.1f} s")
     for k, v in obs_full_width(ycsb, flight, smi).items():
         shapes.setdefault(k, []).extend(v)
-    del ycsb
     _log("obs path parity at every launched shape (K1-K3): exact")
+
+    t = time.perf_counter()
+    cache_reference_check(1)
+    cache_reference_check(8)
+    _log(f"phase 23a: {time.perf_counter() - t:.1f} s")
+    for k, v in cache_full_width(ycsb, smi).items():
+        shapes.setdefault(k, []).extend(v)
+    del ycsb
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log("cache path parity at every launched shape (K1, K2): exact")
+    t = time.perf_counter()
+    heap_reference_check(1)
+    heap_reference_check(8)
+    _log(f"phase 24a: {time.perf_counter() - t:.1f} s")
+    for k, v in heap_full_width(smi).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("heap path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

@@ -27,6 +27,16 @@ the default router, zipf 0.99, batches of 4,194,304 client ops, the
    tightened after a warm-up step as ``bench.py`` tightens them, the
    carry never reset (the pool holds the warm-up's stamps).
 
+With ``SHERMAN_LEAF_CACHE`` set, the hot-key tier
+(``models/leaf_cache.py``) is attached after the bulk load and filled
+with the hottest ranks (as many as it admits), and the sustained YCSB-C
+run probes it: its residual cap ``dev_b_resid`` is sized from two
+warm-up steps (the mean misses a step x 1.05, rounded up to 8192, within
+``dev_b``), and the line gains a ``cache`` block: slots, capacity, keys
+placed, hits over the timed window's client ops (the measured hit
+ratio) beside ``zipf.expected_hit_ratio`` at the keys placed, unique
+rows taken out of the serve, ``dev_b_resid`` and invalidations.
+
 Every receipt is asserted: ``ok == 1``, every client answer correct, and
 for the mixed loop every read linearization-checked and every write
 applied.  The program ledger (``obs/device.py``) is sealed around every
@@ -181,22 +191,48 @@ def tighten_caps(carry, R: int, W: int) -> tuple[int, int]:
             min(W, -(-int(c[6] * 1.04) // 65536) * 65536))
 
 
+def size_dev_b_resid(eng, n_keys: int, theta: float, salt: int,
+                     batch: int, dev_b: int, staged, *, sampler: str,
+                     leaf_cache) -> int:
+    """The cached read loop's residual cap from two warm-up steps at
+    ``dev_b_resid = dev_b``: the mean misses a step (unique rows less
+    cache hits) x 1.05, rounded up to 8192, within ``dev_b`` (the
+    reference bench's tightening)."""
+    from sherman_tpu_torch.workload import device_prep as DP
+    step, (new_carry, tb, rt, rk) = DP.make_staged_step(
+        eng, n_keys=n_keys, theta=theta, salt=salt, batch=batch,
+        dev_b=dev_b, sampler=sampler, fusion="aligned", staged=staged,
+        leaf_cache=leaf_cache)
+    carry = new_carry()
+    for _ in range(2):
+        _, carry = step(eng.dsm.pool, eng.dsm.counters, tb, rt, rk, carry)
+    c = _ints(carry)
+    if c[1] != 1:
+        raise AssertionError(f"cached sizing steps receipts {c}")
+    resid = max(1, (c[3] - c[6] + 1) // 2)
+    return min(dev_b, -(-int(resid * 1.05) // 8192) * 8192)
+
+
 def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
                 dev_b: int, staged, *, sampler: str,
                 fusion: str | None = None, steps: int = STEPS,
-                lat_steps: int = LAT_STEPS):
+                lat_steps: int = LAT_STEPS, leaf_cache=None,
+                dev_b_resid: int | None = None):
     """Staged YCSB-C on ``eng``: two warm-up steps, ``steps`` timed steps
     with one sync at the window's end, then ``lat_steps`` steps synced
     one by one (their walls); each run from a fresh carry, every receipt
     asserted.  ``batch`` clients a node.  The ledger is sealed around
-    both measured runs and the timed window goes to the SLO plane.
+    both measured runs and the timed window goes to the SLO plane.  With
+    ``leaf_cache`` the loop probes it (residual cap ``dev_b_resid``) and
+    the record's receipts end with the hit sums.
     -> (record, step, new_carry)."""
     from sherman_tpu_torch.workload import device_prep as DP
     N = eng.cfg.machine_nr
     want = batch * N
     step, (new_carry, tb, rt, rk) = DP.make_staged_step(
         eng, n_keys=n_keys, theta=theta, salt=salt, batch=batch,
-        dev_b=dev_b, sampler=sampler, fusion=fusion, staged=staged)
+        dev_b=dev_b, sampler=sampler, fusion=fusion, staged=staged,
+        leaf_cache=leaf_cache, dev_b_resid=dev_b_resid)
     pool, counters = eng.dsm.pool, eng.dsm.counters
 
     ledger = DEV.get_ledger()
@@ -386,8 +422,21 @@ def main(argv=None) -> int:
                                  f"{n_keys} loaded")
     eng = b["eng_c"]
     dev_b, staged = size_dev_b(eng, n_keys, theta, salt, batch, sampler)
-    read, step, _ = staged_read(eng, n_keys, theta, salt, batch, dev_b, staged,
-                             sampler=sampler)
+    cache = cache_fill = resid = None
+    if C.leaf_cache_slots():
+        from sherman_tpu_torch.ops import bits
+        cache = eng.attach_leaf_cache(slots=C.leaf_cache_slots())
+        hot = bits.mix64_np(np.arange(cache.capacity, dtype=np.uint64)
+                            ^ np.uint64(salt))
+        t1 = time.perf_counter()
+        cache_fill = cache.fill(hot)
+        resid = size_dev_b_resid(eng, n_keys, theta, salt, batch, dev_b,
+                                 staged, sampler=sampler, leaf_cache=cache)
+        _say(f"leaf cache: {cache.slots} slots, {cache_fill} in "
+             f"{time.perf_counter() - t1:.3f} s, dev_b_resid {resid}")
+    read, step, _ = staged_read(eng, n_keys, theta, salt, batch, dev_b,
+                                staged, sampler=sampler, leaf_cache=cache,
+                                dev_b_resid=resid)
     _say(f"sustained(device-staged): {read['steps']} steps -> "
          f"{read['ops_per_s'] / 1e6:.2f} M ops/s "
          f"({read['ms_per_step']:.1f} ms/step, dev_b {dev_b})")
@@ -395,6 +444,26 @@ def main(argv=None) -> int:
     phase_ms = step.phase_profile(pool, counters, *staged, reps=4)[0]
     from sherman_tpu_torch.workload.device_prep import record_phase_obs
     record_phase_obs("staged", phase_ms)
+    cache_rec = None
+    if cache is not None:
+        from sherman_tpu_torch.workload.zipf import expected_hit_ratio
+        c = read["receipts"]
+        ops = read["steps"] * batch
+        cache_rec = {
+            "enabled": True, "slots": cache.slots,
+            "capacity": cache.capacity,
+            "cached_keys": cache_fill["placed"],
+            "placement_failed": cache_fill["failed"],
+            "hits": c[5], "uniq_hits": c[6], "client_ops": ops,
+            "dev_b_resid": resid, "hit_ratio": c[5] / ops,
+            "hit_ratio_pred": expected_hit_ratio(n_keys, theta,
+                                                 cache_fill["placed"]),
+            "invalidations": cache.invalidations}
+        # the throughput window below times the uncached serve
+        from sherman_tpu_torch.workload import device_prep as DP
+        step, _ = DP.make_staged_step(
+            eng, n_keys=n_keys, theta=theta, salt=salt, batch=batch,
+            dev_b=dev_b, sampler=sampler, staged=staged)
     win = _throughput_window(eng, step, staged, batch)
     mixed = staged_mixed(b["eng_a"], n_keys, theta, salt, batch,
                          sampler=sampler, dev_b=dev_b)[0]
@@ -435,6 +504,7 @@ def main(argv=None) -> int:
         "slo": {cls: rnd(s) for cls, s in obs.slo_window().items()},
         "ledger": {k: v for k, v in DEV.get_ledger().summary().items()
                    if k != "entries"},
+        "cache": cache_rec,
         "obs": obs.obs_section(),
         "device": device,
         "config": {"staged_fusion": fusion,

@@ -44,6 +44,11 @@ class DSMConfig:
     step_capacity: int = 512
     host_step_capacity: int = 64
     chunk_pages: int = 256
+    # The out-of-line value heap (models/value_heap.py): a second region
+    # of this many 1 KB pages a node, carved into size-class slabs of
+    # variable-length payloads; leaf values then hold versioned handles.
+    # 0 (default) = no heap, inline 64-bit values.
+    heap_pages_per_node: int = 0
     device: str = "cuda"
 
     def __post_init__(self):
@@ -63,6 +68,10 @@ class DSMConfig:
         if self.locks_per_node < 1 or self.step_capacity < 1 \
                 or self.host_step_capacity < 1 or self.chunk_pages < 1:
             raise ConfigError("DSMConfig sizes must be >= 1")
+        if not 0 <= self.heap_pages_per_node <= (1 << ADDR_PAGE_BITS):
+            raise ConfigError(
+                f"DSMConfig.heap_pages_per_node={self.heap_pages_per_node}:"
+                f" want 0..{1 << ADDR_PAGE_BITS}")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ConfigError(
                 f"DSMConfig.device={self.device!r}: want 'cuda' (default), "
@@ -165,8 +174,7 @@ def value_heap_pages() -> int:
     """Out-of-line value heap knob (``SHERMAN_VALUE_HEAP``): heap pages a
     node of the region that stores variable-length payloads, 0 (the
     default) for inline 64-bit values; ``1`` asks for the default region
-    of 4,096 pages.  The port has no value heap yet (ROADMAP item 6b):
-    callers refuse a nonzero value."""
+    of 4,096 pages."""
     v = os.environ.get("SHERMAN_VALUE_HEAP", "0").strip().lower()
     if v in ("", "0", "false", "off", "no"):
         return 0
@@ -179,6 +187,27 @@ def value_heap_pages() -> int:
                           "pages-per-node count") from None
     if n < 0:
         raise ConfigError(f"SHERMAN_VALUE_HEAP={n}: want >= 0")
+    return n
+
+
+def leaf_cache_slots() -> int:
+    """Hot-key tier knob (``SHERMAN_LEAF_CACHE``): the physical slot count
+    of the versioned leaf/value cache (``models/leaf_cache.py``), 0 (the
+    default) = off; ``1`` asks for 65,536 slots, a larger integer is the
+    slot count (rounded up to a power of two by the cache; it admits
+    half as many keys)."""
+    v = os.environ.get("SHERMAN_LEAF_CACHE", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return 0
+    if v in ("1", "true", "on", "yes"):
+        return 65536
+    try:
+        n = int(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_LEAF_CACHE={v!r}: want 0/1 or a slot "
+                          "count") from None
+    if n < 0:
+        raise ConfigError(f"SHERMAN_LEAF_CACHE={n}: want >= 0")
     return n
 
 

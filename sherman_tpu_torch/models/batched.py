@@ -972,6 +972,16 @@ class BatchedEngine:
         # concurrent op: an overlapping call is refused
         self._reclaim_mutex = threading.Lock()
         self.router = None
+        # the hot-key tier (models/leaf_cache.py, attach_leaf_cache): a
+        # versioned leaf/value cache probed in front of the descent by
+        # search, search_combined and mixed; the write entry points
+        # invalidate it and degraded entry flushes it.  None costs one
+        # ``is None`` test a read batch.
+        self.leaf_cache = None
+        # the out-of-line value heap (models/value_heap.py,
+        # attach_value_heap): leaf values become versioned slab handles;
+        # journal replay finds it here.  None = inline 64-bit values.
+        self.value_heap = None
         self._search_cache = {}
         self._insert_cache = {}
         self._delete_cache = {}
@@ -1027,12 +1037,14 @@ class BatchedEngine:
         raise :class:`DegradedError`.  Idempotent: the first reason, the
         root cause, stays.  Sets the ``engine.degraded`` gauge, records
         an ``engine.degraded_enter`` flight event and auto-dumps the black
-        box.  (The reference also flushes its leaf cache here, ROADMAP.md
-        item 6a.)"""
+        box, and flushes the hot-key tier: it must not serve answers
+        certified against a pool the engine no longer trusts."""
         if self._degraded_reason is None:
             self._degraded_reason = reason
             _OBS_DEGRADED.set(1)
             obs.counter("engine.degraded_entries").inc()
+            if self.leaf_cache is not None:
+                self.leaf_cache.flush()
             FR.record_event("engine.degraded_enter", reason=reason)
             FR.auto_dump("degraded_entry")
 
@@ -1089,6 +1101,34 @@ class BatchedEngine:
         self.router = r
         return r
 
+    def attach_leaf_cache(self, slots: int | None = None,
+                          admit_every: int = 0):
+        """Create and attach the hot-key tier (models/leaf_cache.py),
+        probed in front of the descent by every read entry point.
+        ``slots`` defaults to the ``SHERMAN_LEAF_CACHE`` knob (65,536 when
+        it only says "on"); ``admit_every`` > 0 arms auto-admission every
+        that many observed read batches (0: manual ``fill``)."""
+        from sherman_tpu_torch.models.leaf_cache import LeafCache
+        self.leaf_cache = LeafCache(self, slots=slots,
+                                    admit_every=admit_every)
+        return self.leaf_cache
+
+    def attach_value_heap(self, **kw):
+        """Create and attach the out-of-line value heap
+        (models/value_heap.py) over this engine's DSM heap region
+        (``DSMConfig.heap_pages_per_node``): ``put``/``get``/``remove``/
+        ``scan`` on the returned ``ValueHeap`` serve variable-length
+        payloads behind versioned handles."""
+        from sherman_tpu_torch.models.value_heap import ValueHeap
+        return ValueHeap(self, **kw)
+
+    def detach_leaf_cache(self) -> None:
+        """Drop the hot-key tier (reads go back to full descents) and its
+        ``cache`` collector."""
+        if self.leaf_cache is not None:
+            obs.get_registry().unregister_collector("cache")
+        self.leaf_cache = None
+
     # -- helpers -------------------------------------------------------------
 
     def _pad(self, arr: np.ndarray, fill=0) -> np.ndarray:
@@ -1128,7 +1168,16 @@ class BatchedEngine:
         t_slo = time.perf_counter() if _depth == 0 else None
         khi, klo = bits.keys_to_pairs(keys)
         khi, klo = self._pad(khi), self._pad(klo)
-        active = self._dev(self._pad(np.ones(n, bool)))
+        active = self._pad(np.ones(n, bool))
+        # the hot-key tier: validated hits (bit-identical to a descent)
+        # leave the device batch, and the search serves the residual rows
+        cache = self.leaf_cache if _depth == 0 and n else None
+        c_hit = None
+        if cache is not None:
+            cache.observe(keys)
+            c_hit, c_vhi, c_vlo = cache.probe(khi, klo, active)
+            active = active & ~c_hit
+        active = self._dev(active)
         # retries (depth > 0) bypass the index cache and descend from root
         use_router = self.router is not None and _depth == 0
         fn = self._get_search(self._iters(), use_router)
@@ -1145,6 +1194,13 @@ class BatchedEngine:
         done = done[:n]
         vals = bits.pairs_to_keys(vhi[:n], vlo[:n])
         fnd = found[:n].copy()
+        if c_hit is not None and c_hit[:n].any():
+            # merge the cache hits back (their device rows were inactive)
+            hits = c_hit[:n]
+            done = done.copy()
+            done[hits] = True
+            fnd[hits] = True
+            vals[hits] = bits.pairs_to_keys(c_vhi[:n], c_vlo[:n])[hits]
         if not done.all():
             if _depth >= 8:
                 raise KeyRangeError("search stragglers not converging")
@@ -1221,7 +1277,18 @@ class BatchedEngine:
         n = keys.size
         khi, klo = bits.keys_to_pairs(uk)
         khi, klo = self._pad(khi), self._pad(klo)
-        active = self._dev(self._pad(np.ones(uk.size, bool)))
+        active = self._pad(np.ones(uk.size, bool))
+        # the hot-key tier probes the unique set; hits leave the device
+        # batch and merge back per client row through the inverse map.
+        # The admission sketch sees the raw keys (their multiplicities).
+        cache = self.leaf_cache if uk.size else None
+        hit_u = None
+        if cache is not None:
+            cache.observe(keys)
+            c_hit, c_vhi, c_vlo = cache.probe(khi, klo, active)
+            active = active & ~c_hit
+            hit_u = c_hit[:uk.size]
+        active = self._dev(active)
         start = self._dev(self.router.host_start(khi, klo))
         kt, lt = self._dev(khi), self._dev(klo)
         inv_t = self._dev(inv.astype(np.int64))
@@ -1232,7 +1299,11 @@ class BatchedEngine:
                 done, found, vhi, vlo = fn(
                     self.dsm.pool, self.dsm.counters, kt, lt,
                     self.tree._root_addr, active, start, inv_t)
-            all_done = bool(done[:uk.size].all())
+            if hit_u is None:
+                all_done = bool(done[:uk.size].all())
+            else:
+                all_done = bool((done[:uk.size].cpu().numpy()
+                                 | hit_u).all())
             if all_done:
                 # one device-to-host copy of the packed answers
                 ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
@@ -1241,6 +1312,13 @@ class BatchedEngine:
             # straggler rescue: search() attributes the rescue batch
             vals, fnd = self.search(uk)
             return vals[inv], fnd[inv]
+        if hit_u is not None and hit_u.any():
+            # the hits' fan-out rows carried an inactive unique row:
+            # overwrite them client-side through the inverse map
+            chit = hit_u[inv]
+            ans[chit, 0] = 1
+            ans[chit, 1] = c_vhi[:uk.size][inv][chit]
+            ans[chit, 2] = c_vlo[:uk.size][inv][chit]
         _slo_observe("read", n, t_slo)
         return bits.pairs_to_keys(ans[:, 1], ans[:, 2]), ans[:, 0] != 0
 
@@ -1267,8 +1345,17 @@ class BatchedEngine:
         khi, klo = bits.keys_to_pairs(keys)
         vhi, vlo = bits.keys_to_pairs(values)
         khi, klo, vhi, vlo = (self._pad(x) for x in (khi, klo, vhi, vlo))
-        ar = self._dev(self._pad(is_read))       # pad rows neither read
+        ar = self._pad(is_read)                  # pad rows neither read
         aw = self._dev(self._pad(~is_read))      # nor write
+        # the hot-key tier probes the read rows only: hits see the same
+        # pre-step pool the fused step's reads see, so the mixed
+        # linearization (reads before the step's writes) holds
+        cache = self.leaf_cache
+        c_hit = None
+        if cache is not None and bool(is_read.any()):
+            c_hit, c_vhi, c_vlo = cache.probe(khi, klo, ar)
+            ar = ar & ~c_hit
+        ar = self._dev(ar)
         start = (self._dev(self.router.host_start(khi, klo))
                  if self.router is not None else None)
         t = [self._dev(x) for x in (khi, klo, vhi, vlo)]
@@ -1286,11 +1373,25 @@ class BatchedEngine:
         status = status.copy()
         found = found.copy()
         out_vals = bits.pairs_to_keys(rvh, rvl)
+        if c_hit is not None and c_hit[:n].any():
+            # merge the cache-served reads (the probe's active rows were
+            # the read rows, so every hit is a read row)
+            hits = c_hit[:n]
+            done_r = done_r.copy()
+            done_r[hits] = True
+            found[hits] = True
+            out_vals[hits] = bits.pairs_to_keys(c_vhi[:n], c_vlo[:n])[hits]
         # journal the fast path's applied writes BEFORE the retry through
         # insert() (which journals its own record): record order then
         # equals apply order, same-key duplicates across the two included
         fast_app = ~is_read & (status == ST_APPLIED)
         self._journal_applied(J.J_UPSERT, keys[fast_app], values[fast_app])
+        if cache is not None and bool((~is_read).any()):
+            # the write path's invalidation: these keys' entry versions
+            # bump this step (the whole write class, conservatively;
+            # retried writes go through insert(), which invalidates its
+            # own keys)
+            cache.invalidate_keys(keys[~is_read])
         miss_r = is_read & ~done_r
         if miss_r.any():
             out_vals[miss_r], found[miss_r] = self.search(keys[miss_r])
@@ -1401,6 +1502,10 @@ class BatchedEngine:
         # never applied: both excluded), durable before the stats return
         self._journal_applied(J.J_UPSERT, keys[applied_rows],
                               values[applied_rows])
+        if self.leaf_cache is not None and n:
+            # the write path's invalidation (entry versions bumped), the
+            # whole batch: superseded duplicates share their winner's key
+            self.leaf_cache.invalidate_keys(keys)
         # the wall holds flush_parents and the durable journal append:
         # insert's ack latency, which an SLO target governs
         _slo_observe("insert", n, t_slo)
@@ -1776,6 +1881,8 @@ class BatchedEngine:
         # journal the deletes that cleared a slot (not-found rows are
         # no-ops, left out so the record set is the applied set)
         self._journal_applied(J.J_DELETE, keys[out])
+        if self.leaf_cache is not None and n:
+            self.leaf_cache.invalidate_keys(keys)
         _slo_observe("delete", n, t_slo)
         return out
 
@@ -1995,6 +2102,12 @@ class BatchedEngine:
             dsm._batch(out_rows)
         if mapping and self.router is not None:
             self.router.remap_addrs(mapping)
+        if mapping and self.leaf_cache is not None:
+            # drop every cached entry on either side of each unlinked
+            # pair: the absorber's header changed, and a later reuse of
+            # the retired page must never meet a stale cached position
+            self.leaf_cache.invalidate_pages(
+                list(mapping.keys()) + list(mapping.values()))
 
         # parent-entry removal; only cleaned pages go into quarantine
         if st["pending_parent"]:

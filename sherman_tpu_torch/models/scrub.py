@@ -30,8 +30,8 @@ fallback when the repair cannot re-certify.
 Each pass runs in a ``scrub.pass`` span and counts ``scrub.passes``,
 ``scrub.pages_checked`` and ``scrub.violations``; ``scrub.quarantined``
 gauges the held words, ``scrub.pages_quarantined`` counts them, and each
-new violation and quarantine is a flight event.  Not here yet: the
-leaf-cache invalidation of flagged pages (ROADMAP.md item 6a).
+new violation and quarantine is a flight event.  A flagged page's keys
+drop out of the engine's hot-key tier before the quarantine.
 """
 
 from __future__ import annotations
@@ -104,8 +104,11 @@ class Scrubber:
             obs.record_event("scrub.violation", addr=hex(addr),
                              mask=self._mask_names(mask),
                              structural=bool(mask & SCRUB_STRUCTURAL))
-            # (the reference drops a flagged page's keys from its leaf
-            # cache here: ROADMAP.md item 6a)
+            # the hot-key tier must never vouch for content the scrubber
+            # just impeached (structural damage also flushes it through
+            # enter_degraded below)
+            if self.eng.leaf_cache is not None:
+                self.eng.leaf_cache.invalidate_pages([addr])
             contained = self._quarantine_page(addr) if self.quarantine \
                 else False
             if mask & SCRUB_STRUCTURAL:

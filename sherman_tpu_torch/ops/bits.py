@@ -173,6 +173,19 @@ def lock_index_host(addr: int, locks_per_node: int) -> int:
     return hash32_host(addr) % locks_per_node
 
 
+def hash32_np(x: np.ndarray) -> np.ndarray:
+    """Vectorized host twin of :func:`hash32` on uint32 arrays, bit for
+    bit: the leaf cache places keys on the host with it, and its device
+    probe must land on the same slots."""
+    v = np.asarray(x).astype(np.uint32).copy()
+    v ^= v >> np.uint32(16)
+    v *= np.uint32(0x85EBCA6B)
+    v ^= v >> np.uint32(13)
+    v *= np.uint32(0xC2B2AE35)
+    v ^= v >> np.uint32(16)
+    return v
+
+
 # -- splitmix64 finalizer (the bench's rank -> key map) ----------------------
 
 def mix64_np(x: np.ndarray) -> np.ndarray:

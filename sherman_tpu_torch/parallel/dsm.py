@@ -469,6 +469,14 @@ class DSM(_HostOps):
         # host steps and direct installs the host set
         self.dirty = z(N * P, dtype=torch.bool)
         self._dirty_host: set[int] = set()
+        # the value heap, the second region (``models/value_heap.py`` owns
+        # the slab/handle protocol): ``[N*H, 256]`` int32 node-major like
+        # the pool, None without one; its written rows in a host set
+        self.heap = None
+        self._heap_dirty_host: set[int] = set()
+        if cfg.heap_pages_per_node > 0:
+            self.heap = z(N * cfg.heap_pages_per_node, PAGE_WORDS,
+                          dtype=torch.int32)
         self.host_capacity = min(cfg.step_capacity, cfg.host_step_capacity)
         # the host step's own small routing capacity
         self._host_cfg = dataclasses.replace(
@@ -498,6 +506,10 @@ class DSM(_HostOps):
         for _src in ("pool", "locks", "counters", "dirty"):
             acct.register(_src, (lambda r=ref, n=_src: (
                 _nbytes(getattr(r(), n)) if r() is not None else 0)))
+        if self.heap is not None:
+            acct.register("heap", (lambda r=ref: (
+                _nbytes(r().heap)
+                if r() is not None and r().heap is not None else 0)))
 
     # -- raw step ------------------------------------------------------------
 
@@ -587,11 +599,82 @@ class DSM(_HostOps):
         return sorted_unique(np.concatenate([dev.astype(np.int64), host]))
 
     def clear_dirty(self) -> None:
-        """Reset both dirty tiers (a checkpoint artifact captured them).
-        (The reference also hands the rows to its registered dirty sinks
-        first, the online migrator's feed: ROADMAP.md item 7c.)"""
+        """Reset both dirty tiers and the heap's dirty rows (a checkpoint
+        artifact captured them).  (The reference also hands the rows to
+        its registered dirty sinks first, the online migrator's feed:
+        ROADMAP.md item 7c.)"""
         self.dirty.zero_()
         self._dirty_host.clear()
+        self._heap_dirty_host.clear()
+
+    def read_rows_local(self, rows, region: str = "pool") -> np.ndarray:
+        """Pool (or heap, ``region="heap"``) rows copied to the host.  One
+        process holds every node here, so every row is local."""
+        arr = self.heap if region == "heap" else self.pool
+        if arr is None:
+            raise ConfigError("no value heap configured")
+        rows = np.asarray(rows, np.int64).ravel()
+        if rows.size == 0:
+            return np.zeros((0, arr.shape[1]), np.int32)
+        return arr[torch.as_tensor(rows, device=arr.device)].cpu().numpy()
+
+    # -- the value-heap region (the second DSM region) -------------------------
+    # Word-cell writes and page reads over ``self.heap``; the slab/handle
+    # protocol lives in models/value_heap.py.  They sit on the DSM so that
+    # dirty tracking and checkpoints see one owner of both regions.
+
+    def _require_heap(self) -> None:
+        if self.heap is None:
+            raise ConfigError(
+                "no value heap configured: set "
+                "DSMConfig.heap_pages_per_node > 0 (SHERMAN_VALUE_HEAP)")
+
+    def heap_write_cells(self, rows, woffs, vals) -> None:
+        """``heap[rows[i], woffs[i]] = vals[i]`` in one in-place scatter
+        under the step mutex; marks the touched heap rows dirty (the
+        delta checkpoints' feed)."""
+        self._require_heap()
+        rows = np.asarray(rows, np.int64).ravel()
+        if rows.size == 0:
+            return
+        woffs = np.asarray(woffs, np.int64).ravel()
+        vals = np.asarray(vals).astype(np.int32).ravel()
+        dev = self.heap.device
+        with self._step_mutex:
+            self.heap[torch.as_tensor(rows, device=dev),
+                      torch.as_tensor(woffs, device=dev)] = \
+                torch.as_tensor(vals, device=dev)
+        self._heap_dirty_host.update(sorted_unique(rows).tolist())
+
+    def heap_read_rows(self, rows) -> np.ndarray:
+        """Heap pages by global heap row, copied to the host (the host
+        resolver's and the scrub's convenience; the read path gathers on
+        the device)."""
+        self._require_heap()
+        rows = np.asarray(rows, np.int64)
+        if rows.size == 0:
+            return np.zeros((0, PAGE_WORDS), np.int32)
+        with self._step_mutex:
+            return self.read_rows_local(rows, "heap")
+
+    def heap_snapshot(self) -> np.ndarray:
+        """A host copy of the whole heap region."""
+        self._require_heap()
+        with self._step_mutex:
+            return self.heap.to("cpu", copy=True).numpy()
+
+    def mark_heap_dirty_rows(self, rows) -> None:
+        """Mark global heap rows dirty (restore and replay writes that
+        bypass :meth:`heap_write_cells`)."""
+        self._heap_dirty_host.update(
+            int(r) for r in np.asarray(rows).ravel())
+
+    def heap_dirty_rows(self) -> np.ndarray:
+        """Sorted global heap rows written since the last clear."""
+        if not self._heap_dirty_host:
+            return np.zeros(0, np.int64)
+        return np.sort(np.fromiter(self._heap_dirty_host, np.int64,
+                                   len(self._heap_dirty_host)))
 
     # -- host convenience ops --------------------------------------------------
 

@@ -55,8 +55,11 @@ on-disk bytes are the memory accountant's ``host_checkpoints_bytes``.
 
 Not here: the reference's per-host chain ownership (``hosts > 1``, the
 ``-h<host>-`` namespaces and ``recover_union``: the multihost service
-plane, ROADMAP.md item 7c, refused with :class:`NotPortedError`) and the
-leaf-cache flush of ``targeted_repair`` (item 6a).
+plane, ROADMAP.md item 7c, refused with :class:`NotPortedError`).
+
+With a value heap, ``recover`` attaches a ``ValueHeap`` to the rebuilt
+engine and rebuilds its allocator from the restored region before the
+replay; ``targeted_repair`` restarts the hot-key tier cold.
 """
 
 from __future__ import annotations
@@ -366,6 +369,12 @@ class RecoveryPlane:
         eng = BatchedEngine(tree, batch_per_node=batch_per_node, tcfg=tcfg)
         if attach_router:
             eng.attach_router()
+        # the value heap: re-attach it and rebuild its allocator from the
+        # restored region BEFORE the replay (heap records rewrite slabs
+        # at their recorded addresses through the attached heap)
+        if cluster.cfg.heap_pages_per_node > 0:
+            from sherman_tpu_torch.models.value_heap import ValueHeap
+            ValueHeap(eng).rebuild()
         replay_stats = {"records": 0, "rows": 0, "upserts": 0,
                         "deletes": 0, "segments": 0}
         # replay ALL live-chain segments ascending: in-order replay is
@@ -516,6 +525,11 @@ class RecoveryPlane:
                 "is the documented exit")
         if scrubber is not None:
             scrubber.release_quarantine()
+        # the hot-key tier is volatile across a repair: the restored
+        # pages' entry versions rolled back to the chain tip's (a state
+        # that cached entries may match by chance), so it restarts cold
+        if self.eng.leaf_cache is not None:
+            self.eng.leaf_cache.flush()
         self.eng.exit_degraded()
         # content catch-up: ops acknowledged since the chain tip live in
         # the journal; replaying them (journal detached — replay must

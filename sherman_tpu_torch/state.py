@@ -2,7 +2,8 @@
 
 A tree built by the JAX package (or saved from it) is plain arrays: the
 pool, the lock table, the op counters, the root, the allocators'
-high-water marks and their reclaimed-page pools.  :func:`from_jax_arrays` takes them as numpy arrays —
+high-water marks, their reclaimed-page pools and, with a value heap, the
+heap region.  :func:`from_jax_arrays` takes them as numpy arrays —
 ``np.asarray(cluster.dsm.pool)`` and friends — and returns a port
 cluster, tree and engine serving the same tree on ``device``.
 """
@@ -26,7 +27,7 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
                     leaf_dir=None, *, device, batch_per_node: int = 1024,
                     tcfg: TreeConfig | None = None, router_table=None,
                     router_shift: int | None = None, free_pages=(),
-                    **cfg_kw):
+                    heap=None, **cfg_kw):
     """-> (cluster, tree, engine) whose pool, locks, counters, root,
     allocator high-water marks and free pools equal the given arrays'.
 
@@ -45,7 +46,11 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
     optionally the reference router's ``table_np`` (a power-of-two number
     of int32 start addresses) with its ``router_shift``: the engine gets
     a router holding exactly that table, so a staged loop carried across
-    probes the same start pages.  Extra keyword arguments go to
+    probes the same start pages.  ``heap`` optionally the reference's
+    value-heap region (``[N*H, 256]`` int32, ``np.asarray(dsm.heap)``):
+    the cluster gets a heap of ``H`` pages a node holding it, and the
+    engine an attached ``ValueHeap`` whose allocator is rebuilt from the
+    region, as recovery rebuilds it.  Extra keyword arguments go to
     :class:`DSMConfig`."""
     # writable host copies only where needed: torch refuses to wrap the
     # read-only buffers np.asarray gives for a JAX array
@@ -66,6 +71,13 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
         raise ConfigError(
             f"root_addr={root_addr} disagrees with the pool's meta word "
             f"{int(pool[0, 0])}")
+    if heap is not None:
+        heap = np.require(heap, np.int32, ("C", "W"))
+        if heap.ndim != 2 or heap.shape[1] != PAGE_WORDS \
+                or heap.shape[0] % N or not heap.shape[0]:
+            raise ConfigError(f"heap shape {heap.shape}: want [{N}*H, "
+                              f"{PAGE_WORDS}]")
+        cfg_kw["heap_pages_per_node"] = heap.shape[0] // N
     cfg = DSMConfig(machine_nr=N, pages_per_node=pool.shape[0] // N,
                     locks_per_node=locks.shape[0] // N, device=device,
                     **cfg_kw)
@@ -73,6 +85,8 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
     dsm = cluster.dsm
     dsm.pool.copy_(torch.from_numpy(pool))
     dsm.locks.copy_(torch.from_numpy(locks))
+    if heap is not None:
+        dsm.heap.copy_(torch.from_numpy(heap))
     for d in cluster.directories:
         d.allocator._next = int(alloc_next[d.node_id])
     set_free_pools(cluster, free_pages)
@@ -93,6 +107,9 @@ def from_jax_arrays(pool, locks, counters, root_addr, root_level, alloc_next,
     engine = BatchedEngine(tree, batch_per_node=batch_per_node, tcfg=tcfg)
     if router_table is not None:
         engine.router = _router_of(tree, router_table, router_shift)
+    if heap is not None:
+        from sherman_tpu_torch.models.value_heap import ValueHeap
+        ValueHeap(engine).rebuild()
     return cluster, tree, engine
 
 

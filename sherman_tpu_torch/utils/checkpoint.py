@@ -13,13 +13,14 @@ the other:
 - ``pool`` int32 ``[N*P, 256]``, ``locks`` int32 ``[N*L]``, ``counters``
   uint32 ``[N*10]`` (the port counts in int64 holding uint32 values and
   saves them as uint32), ``epoch`` int32 ``[nonce, seq, crc]``;
-- ``cfg`` carries the reference's nine config fields.  The three the port
+- ``cfg`` carries the reference's nine config fields.  The two the port
   has no knob for are written with the reference's defaults
-  (``exchange_impl`` and ``gather_impl`` ``"xla"``,
-  ``heap_pages_per_node`` 0); on load the two ``*_impl`` choices are
-  accepted and ignored (the port always runs its own kernels) and a
-  nonzero heap is refused until the value heap is ported (ROADMAP.md
-  item 6b).  The device is never saved: the caller gives it on restore.
+  (``exchange_impl`` and ``gather_impl`` ``"xla"``); on load they are
+  accepted and ignored (the port always runs its own kernels).  The
+  device is never saved: the caller gives it on restore;
+- with a value heap (``heap_pages_per_node`` > 0), ``heap`` int32
+  ``[N*H, 256]``, the whole region; a delta carries the heap rows written
+  since its parent as ``heap_rows``/``heap_pages``.
 
 Delta artifacts (:func:`checkpoint_delta`) hold only the pages written
 since the previous chain link; their page gather runs on the device
@@ -38,8 +39,7 @@ and a restore a ``checkpoint.restore`` one.
 
 Not here: the reference's collective multihost save and restore (one
 shard file per host; ROADMAP.md item 7c — a multihost artifact is refused
-with :class:`MultiprocessUnsupportedError`) and its value-heap arrays
-(item 6b).
+with :class:`MultiprocessUnsupportedError`).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig
 from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
                                       MultiprocessUnsupportedError,
-                                      NotPortedError, ShermanError)
+                                      ShermanError)
 from sherman_tpu_torch.ops import bits as _bits
 from sherman_tpu_torch.ops import page_kernels as PK
 
@@ -73,8 +73,7 @@ _CFG_FIELDS = ("machine_nr", "pages_per_node", "locks_per_node",
                "exchange_impl", "gather_impl", "heap_pages_per_node")
 # the reference's config fields the port has no knob for, with the
 # values its build writes by default
-_REFERENCE_ONLY = {"exchange_impl": "xla", "gather_impl": "xla",
-                   "heap_pages_per_node": 0}
+_REFERENCE_ONLY = {"exchange_impl": "xla", "gather_impl": "xla"}
 
 # fsync indirection for tests (patching os.fsync itself would also
 # intercept interpreter/numpy internals)
@@ -126,11 +125,6 @@ def cfg_from_json(raw, device: str = "cuda") -> DSMConfig:
         raise CheckpointFormatError(
             f"checkpoint cfg carries unknown fields {unknown} (written "
             "by a newer build?); refusing to drop config knobs silently")
-    if int(d.pop("heap_pages_per_node", 0)):
-        raise NotPortedError(
-            "checkpoint configures a value heap (heap_pages_per_node > 0), "
-            "which the port does not have yet (models/value_heap.py, "
-            "ROADMAP.md item 6b)")
     d.pop("exchange_impl", None)   # the port always runs its own kernels
     d.pop("gather_impl", None)
     return DSMConfig(**d, device=device)
@@ -155,6 +149,9 @@ def checkpoint(cluster, path: str):
     seq = cluster.keeper.mem_fetch_and_add("checkpoint_epoch")
     epoch = make_epoch(man, seq)
     arrays = dict(**_state_arrays(dsm), epoch=epoch, **man)
+    # the value-heap region (heap-off checkpoints carry no heap array)
+    if dsm.heap is not None:
+        arrays["heap"] = dsm.heap_snapshot()
     arrays["integrity"] = _integrity(arrays)
     _savez_atomic(path, 0, **arrays)
     _OBS_FULL_SAVES.inc()
@@ -333,6 +330,13 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
     if not clear_locks:
         dsm.locks.copy_(torch.from_numpy(z["locks"]))
     dsm.counters.copy_(torch.from_numpy(z["counters"].astype(np.int64)))
+    if dsm.heap is not None:
+        if "heap" not in z:
+            raise CheckpointCorruptError(
+                f"{path}: cfg configures a value heap "
+                f"({cfg.heap_pages_per_node} pages/node) but the "
+                "artifact carries no heap array")
+        dsm.heap.copy_(torch.from_numpy(z["heap"]))
     _restore_directories(cluster, z)
     # a restore is the recovery step every drill's black box must show
     obs.record_event("checkpoint.restore", path=path)
@@ -399,6 +403,12 @@ def checkpoint_delta(cluster, path: str, parent_epoch) -> dict:
         counters=dsm.counters_np(),
         **man,
     )
+    # the heap's dirty rows ride the same link (heap-off deltas carry
+    # neither array)
+    if dsm.heap is not None:
+        hrows = dsm.heap_dirty_rows()
+        arrays["heap_rows"] = hrows.astype(np.int64)
+        arrays["heap_pages"] = _gather_rows(dsm.heap, hrows)
     arrays["integrity"] = _integrity(arrays)
     _savez_atomic(path, 0, **arrays)
     dsm.clear_dirty()
@@ -470,6 +480,20 @@ def restore_chain(base_path: str, delta_paths, device: str = "cuda",
                 0, torch.as_tensor(rows, device=dsm.device),
                 torch.as_tensor(np.asarray(z["delta_pages"], np.int32),
                                 device=dsm.device))
+        if dsm.heap is not None and "heap_rows" in z:
+            hrows = np.asarray(z["heap_rows"], np.int64)
+            if hrows.size:
+                hpages = np.asarray(z["heap_pages"])
+                if hpages.shape != (hrows.size, _C.PAGE_WORDS) \
+                        or hrows.min() < 0 \
+                        or hrows.max() >= dsm.heap.shape[0]:
+                    raise CheckpointCorruptError(
+                        f"{path}: heap delta rows/pages shape mismatch "
+                        "or rows outside the heap region")
+                dsm.heap.index_copy_(
+                    0, torch.as_tensor(hrows, device=dsm.device),
+                    torch.as_tensor(hpages.astype(np.int32),
+                                    device=dsm.device))
         dsm.locks.zero_()
         if not clear_locks:
             dsm.locks.copy_(torch.from_numpy(np.asarray(z["locks"])))

@@ -816,8 +816,7 @@ def apply_records(records, eng, ack_sink=None, stats=None) -> dict:
         if kind in (J_HEAP_PUT, J_HEAP_FREE):
             # value-heap records: slab rewrites at their RECORDED
             # addresses — the engine must carry an attached heap, or
-            # replay cannot honor the record (the port's engines carry
-            # none until the value heap comes, ROADMAP.md item 6b)
+            # replay cannot honor the record
             heap = getattr(eng, "value_heap", None)
             if heap is None:
                 raise StateError(

@@ -38,7 +38,8 @@ host sync a round), which bounds what the pipelined forms can overlap.
 
 Observability: the prep, serve and verify functions go through the
 program ledger (``staged.prep``, ``engine.search_fanout``,
-``staged.verify``; ``staged_mixed.prep``, ``staged_mixed.serve_fanout``,
+``staged.verify``, with the hot-key tier ``staged.cache_probe``;
+``staged_mixed.prep``, ``staged_mixed.serve_fanout``,
 ``staged_mixed.verify``), so a new shape inside a sealed window counts as
 a retrace.  A step touches no other obs object: the driver attributes a
 drained window to the SLO plane with ``step.record_slo``, and publishes
@@ -54,7 +55,7 @@ import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import ConfigError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.models.batched import (ST_APPLIED, ST_SUPERSEDED,
                                               mixed_step_spmd)
 from sherman_tpu_torch.obs import device as DEV
@@ -417,11 +418,7 @@ def _slo_hook(step, op_class: str, batch: int) -> None:
     step.record_slo = record_slo
 
 
-def _check_step_args(eng, leaf_cache):
-    if leaf_cache is not None:
-        raise NotPortedError(
-            "leaf_cache: the hot-key leaf cache comes with ROADMAP.md "
-            "item 6a")
+def _check_step_args(eng):
     if eng.router is None:
         raise ConfigError("attach_router() first: the staged loop probes "
                           "the engine's router")
@@ -435,7 +432,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                      batch: int, dev_b: int, log2_bins: int = 20,
                      check_xor: int = 0xDEADBEEF, seed: int = 11,
                      staged=None, sampler: str = "table",
-                     fusion: str | None = None, leaf_cache=None):
+                     fusion: str | None = None, leaf_cache=None,
+                     dev_b_resid: int | None = None):
     """The device-staged read step for ``eng`` (a ``BatchedEngine`` with
     an attached router).
 
@@ -458,10 +456,25 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     batch until ``step.drain(carry)``, after which the carry equals
     ``aligned``'s.  The pending slot lives on the step: one pipelined
     step drives one carry stream (``new_carry()`` resets it).
-    ``chained`` and ``fused`` raise :class:`ConfigError`; ``leaf_cache``
-    raises :class:`NotPortedError` (ROADMAP.md item 6a).
+    ``chained`` and ``fused`` raise :class:`ConfigError`.
+
+    ``leaf_cache`` (optional): an attached
+    :class:`~sherman_tpu_torch.models.leaf_cache.LeafCache`.  A fourth
+    program, ``cache_probe`` (ledgered ``staged.cache_probe``), runs
+    between prep and serve: validated hits leave the unique batch and the
+    misses are compacted into a residual of ``dev_b_resid`` rows a node
+    (default ``dev_b``: no shrink), the width the serve descends.  The
+    verify merges the cache's answers back per client row before the
+    same receipts, so the drained receipts equal the uncached loop's;
+    the carry gains ``sum_hits`` (client ops served by the cache) and
+    ``sum_hits_uniq`` (unique rows taken out of the serve) at its end.
+    A step whose misses overflow ``dev_b_resid`` voids the run through
+    ``ok``, as the ``dev_b`` cap does.  The cache's tables are staged
+    once here: in the window a stale entry keeps missing (the pool
+    validation stays the guard), and nothing invalidates on the device.
 
     Attributes: ``fusion``, ``sampler`` (effective), ``pipeline_depth``,
+    ``cache``, ``cache_slots``, ``dev_b_resid`` (None without the cache),
     ``drain``, ``programs`` (phase -> ledgered function),
     ``phase_labels`` (phase -> ledger label), ``jprep``/``jserve``/
     ``jverify``, ``slo_class`` (``read``) and ``record_slo(n_steps,
@@ -471,7 +484,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     rkey_d, reps=4) -> ({phase: ms}, counters)``: each phase's time per
     call — device-stream time between CUDA events on the card, the K/2K
     chained delta on the host clock on the CPU — plus, when pipelined,
-    the overlap receipt of the drained pipelined step."""
+    the overlap receipt of the drained pipelined step (the cache probe's
+    time counted on the prep's side)."""
     fusion = fusion or C.staged_fusion()
     if fusion in C.STAGED_FUSIONS_NOT_BUILT:
         raise ConfigError(
@@ -479,10 +493,15 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
             "does not build yet; want aligned|pipelined")
     if fusion not in C.STAGED_FUSIONS:
         raise ConfigError(f"fusion={fusion!r}: want aligned|pipelined")
-    _check_step_args(eng, leaf_cache)
+    _check_step_args(eng)
     if not 0 < dev_b <= batch:
         raise ConfigError(f"dev_b={dev_b}: the unique-row cap must lie in "
                           f"1..batch={batch}")
+    use_cache = leaf_cache is not None
+    R_resid = int(dev_b_resid) if dev_b_resid else dev_b
+    if use_cache and not 0 < R_resid <= dev_b:
+        raise ConfigError(f"dev_b_resid={R_resid}: the residual cap must "
+                          f"lie in 1..dev_b={dev_b}")
     router, cfg, dsm = eng.router, eng.cfg, eng.dsm
     dev = eng.device
     N = cfg.machine_nr
@@ -514,7 +533,7 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     # the serve is the engine's own ledgered fan-out program
     jserve = eng._get_search_fanout(iters)
 
-    def verify(rcarry, skhi, sklo, found, vhi, vlo, n_uniq):
+    def verify_core(rcarry, skhi, sklo, found, vhi, vlo, n_uniq):
         """Receipts: every (sorted-order) client answer must equal its
         key ^ check_xor, summed over the nodes."""
         ok, n_correct, sum_nu, max_nu = rcarry
@@ -526,20 +545,96 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                 sum_nu + n_uniq.sum().to(torch.int32),
                 torch.maximum(max_nu, n_uniq.max()))
 
+    verify = verify_core
+    jcache = cache_tables = None
+    if use_cache:
+        from sherman_tpu_torch.models.leaf_cache import probe_rows
+        cache_tables = leaf_cache.device_tables()
+        nodes = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+        iota_r = torch.arange(R_resid, dtype=torch.int32,
+                              device=dev).expand(N, R_resid)
+        iota_u = torch.arange(dev_b, dtype=torch.int32,
+                              device=dev).expand(N, dev_b)
+
+        def cache_probe(pool, tkhi, tklo, tvhi, tvlo, tver, taddr, tslot,
+                        khi, klo, active, start, inv):
+            """Probe the unique rows, then compact every node's misses
+            into its first ``R_resid`` residual rows (their order kept;
+            rows past the cap are dropped and void the step through
+            ``n_resid``), and remap each client's unique row onto the
+            residual (a hit client lands on residual row 0: the verify
+            overwrites its answer)."""
+            tbl = dict(khi=tkhi, klo=tklo, vhi=tvhi, vlo=tvlo, ver=tver,
+                       addr=taddr, slot=tslot)
+            hit, cvhi, cvlo, _, _ = probe_rows(pool, tbl, khi, klo, active,
+                                               cfg=cfg)
+            resid = (active & ~hit).view(N, dev_b)
+            pos = torch.cumsum(resid.to(torch.int32), dim=1) - 1
+            n_resid = resid.sum(dim=1).to(torch.int32)
+            keep = resid & (pos < R_resid)
+            # each kept unique row into its residual position (column
+            # R_resid is the sink of the rest); unfilled slots hold dev_b
+            sidx = torch.full((N, R_resid + 1), dev_b, dtype=torch.int32,
+                              device=dev)
+            sidx.scatter_(1, torch.where(keep, pos, R_resid).long(), iota_u)
+            sidx = sidx[:, :R_resid]
+            valid = sidx < dev_b
+            ci = (sidx.clamp(0, dev_b - 1) + nodes * dev_b).view(-1).long()
+            remap = torch.zeros((N, dev_b + 1), dtype=torch.int32,
+                                device=dev)
+            remap.scatter_(1, torch.where(valid, sidx, dev_b).long(), iota_r)
+            loc = (inv.view(N, -1) - nodes * dev_b).clamp(0, dev_b)
+            inv_r = remap.gather(1, loc.long()) + nodes * R_resid
+            return (hit, cvhi, cvlo, khi[ci], klo[ci], start[ci],
+                    valid.view(-1), inv_r.view(-1), n_resid)
+
+        jcache = DEV.wrap_program("staged.cache_probe", cache_probe)
+
+        def verify(rcarry, skhi, sklo, found, vhi, vlo, n_uniq, seg, hit,
+                   cvhi, cvlo, n_resid):
+            """Cache-aware receipts: each client's cache answer (through
+            its global unique row ``seg``) overrides the serve's, then
+            the same receipts, the two hit sums and the residual cap's
+            void."""
+            ok, n_correct, sum_nu, max_nu, hits_c, hits_u = rcarry
+            ctab = torch.stack([hit.to(torch.int32), cvhi, cvlo], dim=1)
+            cout = ctab[seg.clamp(0, ctab.shape[0] - 1)]
+            chit = cout[:, 0] != 0
+            rok = (n_resid <= R_resid).all().to(torch.int32)
+            base = verify_core(
+                (ok, n_correct, sum_nu, max_nu), skhi, sklo, found | chit,
+                torch.where(chit, cout[:, 1], vhi),
+                torch.where(chit, cout[:, 2], vlo), n_uniq)
+            return ((torch.minimum(base[0], rok),) + tuple(base[1:])
+                    + (hits_c + chit.sum().to(torch.int32),
+                       hits_u + hit.sum().to(torch.int32)))
+
     verify = DEV.wrap_program("staged.verify", verify)
 
     def serve(pool, counters, khi, klo, active, start, inv):
         return jserve(pool, counters, khi, klo, root, active, start, inv)
 
+    def served(pool, counters, arrs):
+        """Probe (cache on) and serve one prepped batch.  -> the verify's
+        inputs after the receipts carry."""
+        skhi, sklo, khi, klo, start, active, inv, nu = arrs
+        if not use_cache:
+            _, found, vhi, vlo = serve(pool, counters, khi, klo, active,
+                                       start, inv)
+            return skhi, sklo, found, vhi, vlo, nu
+        (hit, cvhi, cvlo, rkhi, rklo, rstart, ractive, rinv,
+         nr) = jcache(pool, *cache_tables, khi, klo, active, start, inv)
+        _, found, vhi, vlo = serve(pool, counters, rkhi, rklo, ractive,
+                                   rstart, rinv)
+        return skhi, sklo, found, vhi, vlo, nu, inv, hit, cvhi, cvlo, nr
+
     pipe_reset = None
     if fusion == "aligned":
         def step(pool, counters, tpair, rtable, rkey, carry):
             step_idx, *rcarry = carry
-            (step_idx, skhi, sklo, khi, klo, start, active, inv,
-             nu) = prep(tpair, rtable, rkey, step_idx)
-            _, found, vhi, vlo = serve(pool, counters, khi, klo, active,
-                                       start, inv)
-            rcarry = verify(tuple(rcarry), skhi, sklo, found, vhi, vlo, nu)
+            step_idx, *arrs = prep(tpair, rtable, rkey, step_idx)
+            vin = served(pool, counters, arrs)
+            rcarry = verify(tuple(rcarry), *vin)
             return counters, (step_idx,) + tuple(rcarry)
 
         step.drain = lambda carry: carry
@@ -549,11 +644,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
         def step(pool, counters, tpair, rtable, rkey, carry):
             step_idx, *rcarry = carry
             rcarry = fold(tuple(rcarry))                  # batch k-1
-            (step_idx, skhi, sklo, khi, klo, start, active, inv,
-             nu) = prep(tpair, rtable, rkey, step_idx)    # batch k
-            _, found, vhi, vlo = serve(pool, counters, khi, klo, active,
-                                       start, inv)
-            put(skhi, sklo, found, vhi, vlo, nu)
+            step_idx, *arrs = prep(tpair, rtable, rkey, step_idx)
+            put(*served(pool, counters, arrs))            # batch k
             return counters, (step_idx,) + tuple(rcarry)
 
         step.drain = drain
@@ -564,8 +656,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
         if pipe_reset is not None:
             pipe_reset()
         z = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
-        return (torch.zeros((), dtype=torch.int64, device=dev), z(1), z(0),
-                z(0), z(0))
+        return ((torch.zeros((), dtype=torch.int64, device=dev), z(1), z(0),
+                 z(0), z(0)) + ((z(0), z(0)) if use_cache else ()))
 
     def phase_profile(pool, counters, tpair, rtable, rkey, reps: int = 4):
         """Time per call of each phase (see :func:`make_staged_step`).
@@ -580,18 +672,32 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
         out["prep"] = _phase_ms(dev, prep_loop, reps)
         (_, skhi, sklo, khi, klo, start, active, inv,
          nu) = prep(tpair, rtable, rkey, new_carry()[0])
+        extra = ()
+        inv_s = inv
+        if use_cache:
+            def cache_loop(k):
+                for _ in range(k):
+                    jcache(pool, *cache_tables, khi, klo, active, start,
+                           inv)
+
+            out["cache_probe"] = _phase_ms(dev, cache_loop, reps)
+            # the serve is timed on the compacted residual, the width
+            # the cached loop descends
+            (hit, cvhi, cvlo, khi, klo, start, active, inv_s,
+             nr) = jcache(pool, *cache_tables, khi, klo, active, start, inv)
+            extra = (inv, hit, cvhi, cvlo, nr)
 
         def serve_loop(k):
             for _ in range(k):
-                serve(pool, counters, khi, klo, active, start, inv)
+                serve(pool, counters, khi, klo, active, start, inv_s)
 
         out["serve_fanout"] = _phase_ms(dev, serve_loop, reps)
-        _, f, vh, vl = serve(pool, counters, khi, klo, active, start, inv)
+        _, f, vh, vl = serve(pool, counters, khi, klo, active, start, inv_s)
 
         def verify_loop(k):
             rc = tuple(new_carry()[1:])
             for _ in range(k):
-                rc = verify(rc, skhi, sklo, f, vh, vl, nu)
+                rc = verify(rc, skhi, sklo, f, vh, vl, nu, *extra)
 
         out["verify"] = _phase_ms(dev, verify_loop, reps)
         if fusion == "pipelined":
@@ -601,9 +707,10 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                     c = step(pool, counters, tpair, rtable, rkey, c)[1]
                 step.drain(c)
 
-            out.update(overlap_receipt(out["prep"], out["serve_fanout"],
-                                       out["verify"],
-                                       _phase_ms(dev, pipe_loop, reps)))
+            out.update(overlap_receipt(
+                out["prep"] + out.get("cache_probe", 0.0),
+                out["serve_fanout"], out["verify"],
+                _phase_ms(dev, pipe_loop, reps)))
         _sync(dev)
         return out, counters
 
@@ -611,6 +718,14 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     step.pipeline_depth = 2 if fusion == "pipelined" else 1
     step.jprep, step.jserve, step.jverify = prep, jserve, verify
     step.programs = {"prep": prep, "serve_fanout": jserve, "verify": verify}
+    if use_cache:
+        # dispatch order: prep -> cache_probe -> serve -> verify
+        step.jcache = jcache
+        step.programs = {"prep": prep, "cache_probe": jcache,
+                         "serve_fanout": jserve, "verify": verify}
+    step.cache = use_cache
+    step.cache_slots = leaf_cache.slots if use_cache else None
+    step.dev_b_resid = R_resid if use_cache else None
     step.phase_labels = {name: prog.label
                          for name, prog in step.programs.items()}
     _slo_hook(step, "read", batch)
@@ -660,7 +775,7 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
     if fusion not in ("chained", "pipelined"):
         raise ConfigError(f"mixed fusion={fusion!r}: want "
                           "chained|pipelined")
-    _check_step_args(eng, None)
+    _check_step_args(eng)
     router, cfg, dsm = eng.router, eng.cfg, eng.dsm
     dev = eng.device
     N = cfg.machine_nr

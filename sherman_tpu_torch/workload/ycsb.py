@@ -41,7 +41,7 @@ from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.workload.zipf import ZipfGen
 
-__all__ = ["WORKLOADS", "YcsbGen", "payload_for_key"]
+__all__ = ["WORKLOADS", "YcsbGen", "payload_for_key", "payloads_of"]
 
 WORKLOADS = {
     "A": {"read": 0.50, "update": 0.50, "dist": "zipf"},
@@ -70,6 +70,28 @@ def payload_for_key(key: int, value_bytes: int,
     seed = np.uint64(bits.mix64_host(int(key)))
     block = seed.tobytes()
     return (block * (n // 8 + 1))[:n]
+
+
+def payloads_of(keys, value_bytes: int, value_dist: str = "fixed") -> list:
+    """:func:`payload_for_key` of every key, vectorized: the same bytes,
+    built from one ``mix64`` pass and one tiled byte block."""
+    keys = np.asarray(keys, np.uint64).ravel()
+    if value_dist == "fixed":
+        n = np.full(keys.size, int(value_bytes), np.int64)
+    elif value_dist == "uniform":
+        n = 1 + (bits.mix64_np(keys ^ np.uint64(0x5CAB))
+                 % np.uint64(int(value_bytes))).astype(np.int64)
+    else:
+        raise ConfigError(
+            f"value_dist={value_dist!r}: want fixed|uniform")
+    if keys.size == 0:
+        return []
+    block = bits.mix64_np(keys).astype("<u8").view(np.uint8).reshape(-1, 8)
+    width = int(n.max())
+    tiled = np.tile(block, (1, width // 8 + 1))[:, :width]
+    if value_dist == "fixed":
+        return [r.tobytes() for r in tiled]
+    return [r[:k].tobytes() for r, k in zip(tiled, n.tolist())]
 
 
 class YcsbGen:
@@ -114,8 +136,7 @@ class YcsbGen:
         return np.clip(k, np.uint64(C.KEY_MIN), np.uint64(C.KEY_MAX))
 
     def payloads_for_keys(self, keys) -> list:
-        return [payload_for_key(int(k), self.value_bytes,
-                                self.value_dist) for k in keys]
+        return payloads_of(keys, self.value_bytes, self.value_dist)
 
     def _hot_ranks(self, n: int) -> np.ndarray:
         if self.mix["dist"] == "latest":

@@ -55,3 +55,17 @@ class ZipfGen:
 def uniform_ranks(n: int, size: int, rng: np.random.Generator) -> np.ndarray:
     """theta=0 degenerate case: uniform over [0, n)."""
     return rng.integers(0, n, size, dtype=np.int64)
+
+
+def expected_hit_ratio(n: int, theta: float, k: int) -> float:
+    """Analytic Zipf(theta) CDF at rank ``k``: the chance that one sample
+    over [0, n) lands in the hottest ``k`` ranks, i.e. the hit ratio a
+    hot-key cache holding exactly the top ``k`` keys should measure
+    (``zeta(k, theta) / zeta(n, theta)``; theta 0 gives ``k / n``)."""
+    assert n >= 1 and 0.0 <= theta < 1.0
+    k = max(0, min(int(k), int(n)))
+    if k == 0:
+        return 0.0
+    if theta == 0.0:
+        return k / n
+    return _zeta(k, theta) / _zeta(n, theta)

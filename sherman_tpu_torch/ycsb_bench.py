@@ -3,37 +3,42 @@
 :mod:`sherman_tpu_torch.workload.ycsb` as bench rows over one bulk-loaded
 tree, on the card.
 
-- **A/B** (zipf read/update) ride the fused ``mixed`` step;
-- **C** (zipf read-only) runs ``search_combined``;
+- **A/B** (zipf read/update) ride the fused ``mixed`` step inline, or
+  the value heap's ``get``/``put`` with variable-length payloads;
+- **C** (zipf read-only) runs ``search_combined``, or with the heap on
+  ``ValueHeap.get`` (the fan-out and the heap gather in one call);
 - **D** (read-latest + inserts) advances the insert frontier;
-- **E** (scans + inserts) drives ``range_query_many``;
-- **F** (read-modify-write) reads with ``search_combined``, then writes
-  each value xor 1 back through ``insert``.
+- **E** (scans + inserts) drives ``range_query_many`` (with the heap on,
+  ``ValueHeap.scan``: every hit's payload gathered in one resolve);
+- **F** (read-modify-write) reads, then writes each value xor 1 back (or
+  with the heap, the payload with one byte appended).
 
 Every row publishes its analytic twin (the op-class mix by construction,
 the expected rows per scan in the hashed keyspace) next to the measured
-numbers.  Run on the GPU::
+numbers.  With the heap on (``SHERMAN_VALUE_HEAP`` pages a node), the
+build migrates every loaded record out of line (``--value-bytes``,
+``--value-dist``), and the line adds the heap's stats, ``heap_phase_ms``
+(the fan-out alone against the fan-out with the heap gather, and the
+resolve alone) and ``audit_ok`` (device payloads against the host
+resolver on a sample); ``--ab`` adds YCSB-C inline against the heap at
+28 B and 252 B records, each arm on a fresh tree.  Run on the GPU::
 
     python -m sherman_tpu_torch.ycsb_bench [--keys 200000] [--ops 8192]
         [--steps 8] [--theta 0.99] [--workloads A,B,C,D,E,F] [--nodes 1]
+        [--value-bytes 64] [--value-dist fixed] [--ab]
     python -m sherman_tpu_torch.bench --ycsb [the same arguments]
 
-``SHERMAN_BENCH_KEYS``, ``SHERMAN_YCSB_OPS`` and
-``SHERMAN_YCSB_WORKLOADS`` are the environment twins of ``--keys``,
-``--ops`` and ``--workloads``.  Prints one JSON line (``metric:
-ycsb_matrix``) with the card's name and power limit; without a CUDA
-device it exits with code 2.  ``--nodes N`` emulates N nodes on the card.
+``SHERMAN_BENCH_KEYS``, ``SHERMAN_YCSB_OPS``, ``SHERMAN_YCSB_WORKLOADS``,
+``SHERMAN_VALUE_BYTES`` and ``SHERMAN_VALUE_DIST`` are the environment
+twins of the arguments.  Prints one JSON line (``metric: ycsb_matrix``)
+with the card's name and power limit; without a CUDA device it exits with
+code 2.  ``--nodes N`` emulates N nodes on the card.
 
 As in the reference, YCSB-C's timed steps run with the program ledger
 sealed (``sealed``; ``retraces`` counts new program shapes in the window
 and must be 0), and the line carries the ``obs`` section (the registry
 snapshot and the span summary: per-class ``slo.*`` latencies, ``dsm.*``
 op counts, ``kernels.*`` launches).
-
-Not here yet: the value heap's paths (``--value-bytes``,
-``--value-dist``, ``--ab``, the heap phase attribution and audit) wait
-for ``models/value_heap.py`` (ROADMAP item 6b), and a nonzero
-``SHERMAN_VALUE_HEAP`` is refused.
 """
 
 from __future__ import annotations
@@ -73,25 +78,27 @@ def synthetic_keys(n_keys: int, salt: int = SALT) -> np.ndarray:
 
 
 def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
-          step_capacity: int | None = None, log=_say):
+          step_capacity: int | None = None, log=_say,
+          heap_pages: int | None = None, value_bytes: int = 64,
+          value_dist: str = "fixed", migrate: bool = True):
     """The tool's tree: keys ``mix64(rank ^ SALT)`` for ranks below
     ``n_keys``, values ``key ^ 0xD00D``, bulk-loaded at fill 0.75 into a
     pool sized for the D/E inserts too, with the router attached; an
     engine of ``max(256, ceil(ops / nodes))`` rows a node and a sibling
     chase budget of 2.  ``step_capacity`` None is the tool's
-    ``max(512, min(ops, 8192))``.  -> (cluster, tree, eng, keys)."""
+    ``max(512, min(ops, 8192))``.  ``heap_pages`` (None: the
+    ``SHERMAN_VALUE_HEAP`` knob) > 0 gives the DSM a value heap of that
+    many pages a node and attaches a ``ValueHeap`` (``eng.value_heap``),
+    and with ``migrate`` moves every record out of line
+    (:func:`migrate_to_heap`).  -> (cluster, tree, eng, keys)."""
     from sherman_tpu_torch.cluster import Cluster
     from sherman_tpu_torch.config import (DSMConfig, TreeConfig,
                                           value_heap_pages)
-    from sherman_tpu_torch.errors import NotPortedError
     from sherman_tpu_torch.models import batched
     from sherman_tpu_torch.models.btree import Tree
 
-    if value_heap_pages():
-        raise NotPortedError(
-            "SHERMAN_VALUE_HEAP asks for the value heap, which the port "
-            "does not have yet (models/value_heap.py, ROADMAP item 6b); "
-            "unset it to run the matrix with inline values")
+    if heap_pages is None:
+        heap_pages = value_heap_pages()
     t0 = time.perf_counter()
     keys = synthetic_keys(n_keys)
     vals = keys ^ np.uint64(0xD00D)
@@ -102,7 +109,7 @@ def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
         pages_per_node=pages_for_keys((n_keys + grow) // nodes + 1),
         locks_per_node=16384,
         step_capacity=step_capacity or max(512, min(ops, 8192)),
-        chunk_pages=256, device=device)
+        chunk_pages=256, heap_pages_per_node=heap_pages, device=device)
     cluster = Cluster(cfg)
     tree = Tree(cluster)
     stats = batched.bulk_load(tree, keys, vals)
@@ -115,7 +122,27 @@ def build(n_keys: int, ops: int, nodes: int, device: str = "cuda", *,
         f"{cfg.pages_per_node} step_capacity={cfg.step_capacity} "
         f"batch_per_node={eng.B} {stats} router_log2_buckets={router.lb} "
         f"build_s={time.perf_counter() - t0:.3f}")
+    if heap_pages:
+        vh = eng.attach_value_heap()
+        if migrate:
+            dt = migrate_to_heap(vh, keys, ops, value_bytes, value_dist)
+            log(f"heap migration: {keys.size} records of {value_bytes} B "
+                f"({value_dist}) in {dt:.3f} s; {vh.stats()}")
     return cluster, tree, eng, keys
+
+
+def migrate_to_heap(vh, keys, ops: int, value_bytes: int,
+                    value_dist: str = "fixed") -> float:
+    """Move every loaded record out of line: ``vh.put`` of each key's
+    ``payload_for_key`` record in chunks of ``max(1024, ops)`` keys (the
+    reference tool's migration).  -> seconds."""
+    from sherman_tpu_torch.workload.ycsb import payloads_of
+    t0 = time.perf_counter()
+    step = max(1024, ops)
+    for i in range(0, keys.size, step):
+        ck = keys[i: i + step]
+        vh.put(ck, payloads_of(ck, value_bytes, value_dist))
+    return time.perf_counter() - t0
 
 
 def _percentiles(walls_ms):
@@ -127,22 +154,26 @@ def _percentiles(walls_ms):
 
 
 def run_workload(eng, gen, *, ops: int, steps: int,
-                 seal: bool = False) -> dict:
+                 seal: bool = False, vh=None) -> dict:
     """One warm-up batch, then ``steps`` closed-loop batches of ``ops``
     ops drawn from ``gen`` (a :class:`~sherman_tpu_torch.workload.ycsb.
     YcsbGen`), each played to its end (every call returns host arrays),
-    with the program ledger sealed around them when ``seal``.
+    with the program ledger sealed around them when ``seal``.  With
+    ``vh`` (a ``ValueHeap``) every read, update, insert, read-modify-
+    write and scan goes through the heap's payload API.
     -> the workload's row: ops/s over the timed steps, p50/p99 step
     wall, the op counts, the analytic expectations, ``sealed`` and
     ``retraces``."""
     from sherman_tpu_torch.obs import device as DEV
+    from sherman_tpu_torch.workload.ycsb import payloads_of
     counts = {"read": 0, "update": 0, "insert": 0, "rmw": 0,
               "scan": 0, "scan_rows": 0, "scan_rows_expected": 0}
 
     def play(b) -> None:
+        heap = vh is not None
         rk = b.get("read")
         uk = b.get("update")
-        if rk is not None and uk is not None \
+        if not heap and rk is not None and uk is not None \
                 and "scan" not in b and "rmw" not in b:
             # the fused mixed step serves the whole read+update batch
             keys = np.concatenate([rk, uk])
@@ -153,23 +184,37 @@ def run_workload(eng, gen, *, ops: int, steps: int,
             counts["update"] += uk.size
             rk = uk = None
         if rk is not None:
-            eng.search_combined(rk)
+            (vh.get(rk) if heap else eng.search_combined(rk))
             counts["read"] += rk.size
         if uk is not None:
-            eng.insert(uk, uk ^ np.uint64(0xBEEF))
+            if heap:
+                vh.put(uk, payloads_of(uk ^ np.uint64(1), gen.value_bytes,
+                                       gen.value_dist))
+            else:
+                eng.insert(uk, uk ^ np.uint64(0xBEEF))
             counts["update"] += uk.size
         ik = b.get("insert")
         if ik is not None:
-            eng.insert(ik, ik ^ np.uint64(0xD00D))
+            if heap:
+                vh.put(ik, gen.payloads_for_keys(ik))
+            else:
+                eng.insert(ik, ik ^ np.uint64(0xD00D))
             counts["insert"] += ik.size
         fk = b.get("rmw")
         if fk is not None:
-            v, _ = eng.search_combined(fk)
-            eng.insert(fk, v ^ np.uint64(1))
+            if heap:
+                got, _ = vh.get(fk)
+                vh.put(fk, [(g or b"\x00") + b"!"
+                            if len(g or b"") < gen.value_bytes
+                            else (g or b"\x00")
+                            for g in got])
+            else:
+                v, _ = eng.search_combined(fk)
+                eng.insert(fk, v ^ np.uint64(1))
             counts["rmw"] += fk.size
         sc = b.get("scan")
         if sc is not None:
-            res = eng.range_query_many(sc)
+            res = vh.scan(sc) if heap else eng.range_query_many(sc)
             counts["scan"] += len(sc)
             counts["scan_rows"] += int(sum(len(r[0]) for r in res))
             counts["scan_rows_expected"] += int(
@@ -209,6 +254,93 @@ def run_workload(eng, gen, *, ops: int, steps: int,
     return out
 
 
+def heap_phase_attribution(eng, vh, keys, ops: int, reps: int = 4) -> dict:
+    """The heap read path's time split: ``search_combined`` (the fan-out
+    alone), ``vh.get`` (the fan-out and the heap gather) and the resolve
+    alone, in ms a call of ``ops`` keys (the mean of ``reps`` calls after
+    one warm call; every call returns host arrays)."""
+    rng = np.random.default_rng(3)
+    kb = keys[rng.integers(0, keys.size, ops)]
+    dev = eng.dsm.pool.device
+
+    def t(fn):
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    fanout_ms = t(lambda: eng.search_combined(kb))
+    fused_ms = t(lambda: vh.get(kb))
+    vals, found = eng.search_combined(kb)
+    resolve_ms = t(lambda: vh.resolve_u64(vals, found))
+    return {"read_fanout_ms": fanout_ms, "fused_read_ms": fused_ms,
+            "heap_gather_ms": resolve_ms,
+            "fused_overhead_ms": fused_ms - fanout_ms}
+
+
+def audit_heap(eng, vh, keys, n: int = 256) -> bool:
+    """A sample's device payloads against the host reference resolver:
+    True when every found flag and payload agrees."""
+    rng = np.random.default_rng(11)
+    ks = keys[rng.integers(0, keys.size, n)]
+    dev, found = vh.get(ks)
+    vals, f2 = eng.search(ks)
+    ref, ok = vh.resolve_host(vals, f2)
+    for i in range(ks.size):
+        if bool(found[i]) != bool(f2[i] and ok[i]):
+            return False
+        if found[i] and dev[i] != ref[i]:
+            return False
+    return True
+
+
+def heap_pages_for(n_keys: int, value_bytes: int, nodes: int = 1) -> int:
+    """Heap pages a node for ``n_keys`` records of ``value_bytes``: the
+    reference tool's A/B sizing (a slab a record, an eighth more, 64
+    spare pages)."""
+    from sherman_tpu_torch.models import value_heap as VH
+    cls = VH.class_for_bytes(value_bytes)
+    slabs = VH.SLAB_REGION_WORDS // VH.HEAP_CLASSES[cls]
+    return n_keys // slabs // max(1, nodes) + n_keys // slabs // 8 + 64
+
+
+def run_c_ab(keys: int, ops: int, steps: int, nodes: int = 1,
+             theta: float = 0.99, device: str = "cuda", log=_say) -> dict:
+    """YCSB-C with inline values against the heap at two size classes
+    (28 B and 252 B), each arm on a fresh tree (no arm shares warm
+    shapes or pool state with another), sealed."""
+    from sherman_tpu_torch.workload.ycsb import YcsbGen
+    arms = {}
+    for label, vb in (("inline", 8), ("heap_28B", 28), ("heap_252B", 252)):
+        hp = 0 if label == "inline" else heap_pages_for(keys, vb, nodes)
+        cluster, tree, eng, _ = build(keys, ops, nodes, device,
+                                      heap_pages=hp, value_bytes=vb,
+                                      value_dist="fixed", log=log)
+        gen = YcsbGen("C", keys, theta=theta, seed=17, salt=SALT,
+                      value_bytes=vb, value_dist="fixed")
+        arms[label] = run_workload(eng, gen, ops=ops, steps=steps,
+                                   seal=True, vh=eng.value_heap)
+        arms[label]["value_bytes"] = vb
+        arms[label]["heap_pages_per_node"] = hp
+        log(f"YCSB-C A/B {label}: {arms[label]['ops_s']:,.0f} ops/s")
+        del cluster, tree, eng
+        _release(device)
+    return arms
+
+
+def _release(device) -> None:
+    """Free a dropped tree's device memory before the next one."""
+    import gc
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="YCSB A-F matrix bench of the "
                                  "PyTorch/CUDA port (on the GPU)")
@@ -221,6 +353,12 @@ def main(argv=None) -> int:
     ap.add_argument("--workloads", default=os.environ.get(
         "SHERMAN_YCSB_WORKLOADS", "A,B,C,D,E,F"))
     ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--value-bytes", type=int, default=int(os.environ.get(
+        "SHERMAN_VALUE_BYTES", 64)))
+    ap.add_argument("--value-dist", default=os.environ.get(
+        "SHERMAN_VALUE_DIST", "fixed"), choices=("fixed", "uniform"))
+    ap.add_argument("--ab", action="store_true",
+                    help="YCSB-C heap-on vs inline A/B at 2 size classes")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.ycsb_bench: no CUDA device; the port's "
@@ -228,19 +366,26 @@ def main(argv=None) -> int:
         return 2
     from sherman_tpu_torch import obs
     from sherman_tpu_torch.bench import _device_info
+    from sherman_tpu_torch.config import value_heap_pages
     from sherman_tpu_torch.workload.ycsb import YcsbGen
 
     device = _device_info()
-    _, _, eng, _ = build(a.keys, a.ops, a.nodes, "cuda")
+    heap_pages = value_heap_pages()
+    cluster, tree, eng, keys = build(a.keys, a.ops, a.nodes, "cuda",
+                                     heap_pages=heap_pages,
+                                     value_bytes=a.value_bytes,
+                                     value_dist=a.value_dist)
+    vh = eng.value_heap
     rows = {}
     for w in [w.strip().upper() for w in a.workloads.split(",")
               if w.strip()]:
-        gen = YcsbGen(w, a.keys, theta=a.theta, seed=17, salt=SALT)
+        gen = YcsbGen(w, a.keys, theta=a.theta, seed=17, salt=SALT,
+                      value_bytes=a.value_bytes, value_dist=a.value_dist)
         rows[w] = run_workload(eng, gen, ops=a.ops, steps=a.steps,
-                               seal=(w == "C"))
+                               seal=(w == "C"), vh=vh)
         _say(f"YCSB-{w}: {rows[w]['ops_s']:,.0f} ops/s "
              f"(p99 {rows[w]['step_p99_ms']:.3f} ms/step)")
-    print(json.dumps({
+    out = {
         "metric": "ycsb_matrix",
         "schema_version": 3,
         "keys": a.keys,
@@ -248,12 +393,24 @@ def main(argv=None) -> int:
         "nodes": a.nodes,
         "theta": a.theta,
         "workloads": rows,
-        "config": {"value_bytes": 8, "value_dist": "fixed",
-                   "value_heap": False, "torch": torch.__version__,
-                   "cuda": torch.version.cuda},
-        "obs": obs.obs_section(),
-        "device": device,
-    }), flush=True)
+        "config": {"value_bytes": a.value_bytes if heap_pages else 8,
+                   "value_dist": a.value_dist if heap_pages else "fixed",
+                   "value_heap": bool(heap_pages),
+                   "heap_pages_per_node": heap_pages,
+                   "torch": torch.__version__, "cuda": torch.version.cuda},
+    }
+    if vh is not None:
+        out["heap"] = vh.stats()
+        out["heap_phase_ms"] = heap_phase_attribution(eng, vh, keys, a.ops)
+        out["audit_ok"] = audit_heap(eng, vh, keys)
+    if a.ab and heap_pages:
+        del cluster, tree, eng, vh
+        _release("cuda")
+        out["ycsb_c_ab"] = run_c_ab(a.keys, a.ops, a.steps, a.nodes,
+                                    a.theta)
+    out["obs"] = obs.obs_section()
+    out["device"] = device
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -29,9 +29,8 @@ from sherman_tpu.models.btree import Tree as JTree
 from sherman_tpu.utils import checkpoint as JCK
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
-from sherman_tpu_torch.errors import (CheckpointFormatError,
-                                      MultiprocessUnsupportedError,
-                                      NotPortedError)
+from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
+                                      MultiprocessUnsupportedError)
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.utils import checkpoint as CK
@@ -134,13 +133,15 @@ def _cfg_raw(**edit):
 @pytest.mark.parametrize("edit, want", [
     ({"exchange_impl": "pallas", "gather_impl": "pallas"}, None),
     ({"chunk_pages": None, "host_step_capacity": None}, None),
-    ({"heap_pages_per_node": 64}, NotPortedError),
+    ({"heap_pages_per_node": (1 << 24) + 1}, ConfigError),
     ({"heap_pages_per_node": 0}, None),
+    ({"heap_pages_per_node": 64}, None),
     ({"device": "cpu"}, CheckpointFormatError),
     ({"fancy_knob": 1}, CheckpointFormatError),
     ({"_layout": "pw256+leaf5x48+int3x82"}, CheckpointFormatError),
     ({"_layout": None}, CheckpointFormatError),
 ], ids=["impls_ignored", "missing_defaults", "heap_refused", "heap_zero",
+        "heap_accepted",
         "device_unknown", "unknown_field", "wrong_layout", "unstamped"])
 def test_cfg_from_json_rules(edit, want):
     raw = _cfg_raw(**edit)
@@ -150,6 +151,9 @@ def test_cfg_from_json_rules(edit, want):
         if "chunk_pages" in edit:
             assert cfg.chunk_pages == DSMConfig.chunk_pages
             assert cfg.machine_nr == base.machine_nr
+        elif edit.get("heap_pages_per_node"):
+            assert cfg == DSMConfig(device="cpu", **_kw(1),
+                                    heap_pages_per_node=64)
         else:
             assert cfg == base
     else:

@@ -15,8 +15,10 @@ the multi-node serving path; the scan prefetch and the YCSB A-F matrix;
 the structure validator, the scrub pass and the chaos pokes on a pool on
 the card; the observability plane's card readings (the memory
 accountant's CUDA allocator gauges, ``obs.device_trace`` naming the page
-kernels, the kernel build's ledger entry).  Every comparison is exact
-equality.
+kernels, the kernel build's ledger entry); the hot-key tier and the
+value heap against the CPU (the smoke's phase 23a/24a sequences), the
+cached staged loop and the heap resolve on garbage handles.  Every
+comparison is exact equality.
 """
 
 import numpy as np
@@ -811,3 +813,127 @@ def test_kernel_build_is_a_ledger_entry(dev):
     for src in ("sherman_tpu_torch/ops/csrc/page_kernels.cu",
                 "sherman_tpu_torch/parallel/csrc/exchange.cu"):
         assert src in sig
+
+
+def _smoke():
+    """``chip_smoke.py`` (the repo root's), whose phase 23a/24a sequences
+    these card tests share."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_leaf_cache_on_the_card_matches_the_cpu(dev, machine_nr):
+    """The hot-key tier's sequence (probes, fills, the write paths'
+    invalidations, reclaim, auto-admission, a quarantine, the degraded
+    flush, the sidecar) on the card and on the CPU: answers, the cache's
+    mirror, stats and device tables, pools and counters bit-identical."""
+    PK.reset_launches()
+    _smoke().cache_reference_check(machine_nr)
+    assert PK.LAUNCHES["gather_pages"] > 0
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_value_heap_on_the_card_matches_the_cpu(dev, machine_nr):
+    """The value heap's sequence (puts, gets with and without the cache,
+    scans, overwrites, removes, the double free, scrub, rebuild, a
+    checkpoint chain, a crash and ``recover``) on the card and on the CPU:
+    payloads, heap regions, allocators, journal bytes and the recovered
+    state bit-identical."""
+    PK.reset_launches()
+    _smoke().heap_reference_check(machine_nr)
+    assert PK.LAUNCHES["gather_pages"] > 0 and PK.LAUNCHES["writeback"] > 0
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_cached_staged_loop_on_the_card_matches_the_cpu(dev, machine_nr):
+    """The staged read loop with the cache probe (aligned and pipelined, a
+    tight residual cap and a starved one) leaves the same carries on the
+    card and on the CPU, and the same as the loop without the cache."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.workload import device_prep as DP
+
+    N, n_keys, salt = machine_nr, 20_000, 0x5E17AB1E5A17
+    B = 2048 if N == 1 else 512
+    keys = bits.mix64_np(np.arange(n_keys, dtype=np.uint64)
+                         ^ np.uint64(salt))
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cl = Cluster(DSMConfig(machine_nr=N, pages_per_node=2048 // N * 2,
+                               locks_per_node=1024, step_capacity=B,
+                               chunk_pages=16, device=d))
+        tree = Tree(cl)
+        eng = batched.BatchedEngine(tree, batch_per_node=B)
+        batched.bulk_load(tree, keys, keys ^ np.uint64(0xDEADBEEF), fill=0.8)
+        eng.attach_router()
+        lc = eng.attach_leaf_cache(slots=2048)
+        lc.fill(bits.mix64_np(np.arange(lc.capacity, dtype=np.uint64)
+                              ^ np.uint64(salt)))
+        carries = []
+        for fusion, resid, cache in (("aligned", None, None),
+                                     ("aligned", None, lc),
+                                     ("pipelined", B // 2, lc),
+                                     ("aligned", 16, lc)):
+            step, (nc, tb, rt, rk) = DP.make_staged_step(
+                eng, n_keys=n_keys, theta=0.99, salt=salt, batch=B,
+                dev_b=B, log2_bins=16, fusion=fusion, leaf_cache=cache,
+                dev_b_resid=resid)
+            c = nc()
+            for _ in range(3):
+                _, c = step(cl.dsm.pool, cl.dsm.counters, tb, rt, rk, c)
+            carries.append([int(x) for x in step.drain(c)])
+        runs[d] = (carries, cl.dsm.counters.cpu())
+    (ca, na), (cb, nb) = runs["cuda"], runs["cpu"]
+    assert ca == cb and torch.equal(na, nb)
+    assert ca[0] == ca[1][:5] == ca[2][:5] and ca[1][1] == 1
+    assert ca[1][5] > 0 and ca[3][1] == 0
+
+
+def test_heap_resolve_on_garbage_matches_the_cpu(dev):
+    """``resolve_rows`` over a heap of random words and handles of every
+    validity class (rows out of range, negative rows, wrong classes,
+    version 0, versions of 0x8000 and above): payloads, lengths and
+    ``ver_ok`` equal on the card and on the CPU."""
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models.value_heap import resolve_rows
+
+    rng = np.random.default_rng(12)
+    H, M = 777, 100_003
+    heap = rng.integers(-2**31, 2**31, (H, C.PAGE_WORDS), dtype=np.int64)
+    heap = heap.astype(np.int32)
+    rows = rng.integers(-5, H + 5, M).astype(np.int32)
+    lo = rng.integers(-2**31, 2**31, M, dtype=np.int64).astype(np.int32)
+    act = rng.random(M) < 0.9
+    # a third of the rows made valid: their headers carry the handles'
+    # versions, some with the version's top bit set
+    v = rng.integers(0, M, M // 3)
+    r = rng.integers(0, H, v.size).astype(np.int32)
+    cls = rng.integers(0, 4, v.size)
+    slab = rng.integers(0, 7, v.size) % (255 // np.array([8, 16, 32, 64])
+                                         [cls])
+    ver = rng.integers(1, 0x10000, v.size)
+    rows[v] = r
+    lo[v] = ((slab << 24) | (cls << 20) | ver).astype(np.uint32).view(
+        np.int32)
+    off = slab * np.array([8, 16, 32, 64])[cls]
+    heap[r, off] = ((ver << 16) | rng.integers(0, 300, v.size)).astype(
+        np.uint32).view(np.int32)
+    hcfg = DSMConfig(pages_per_node=H, step_capacity=M, device="cpu")
+    outs = []
+    for d in ("cuda", "cpu"):
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d)
+        outs.append([x.cpu() for x in resolve_rows(
+            t(heap), t(rows), t(lo), t(act), hcfg=hcfg)])
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert outs[1][2].sum() > M // 20

@@ -28,7 +28,7 @@ from sherman_tpu_torch import config as C
 from sherman_tpu_torch import state
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
-from sherman_tpu_torch.errors import ConfigError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.ops import bits
@@ -362,6 +362,53 @@ def test_staged_mixed_matches_jax(fusion, eight_devices):
         _same_state(je, pe, f"staged mixed {fusion} N={n}")
 
 
+def _run_capped(eng, mod, kind, fusion, caps, S=2):
+    """S staged steps with the given row caps, drained -> the carry."""
+    n = eng.cfg.machine_nr
+    B = _batch(n)
+    if kind == "read":
+        step, (new_carry, tb, rt, rk) = mod.make_staged_step(
+            eng, n_keys=N_KEYS, theta=0.99, salt=SALT, batch=B,
+            dev_b=caps[0], log2_bins=16, fusion=fusion)
+    else:
+        step, (new_carry, tb, rt, rk) = mod.make_staged_mixed_step(
+            eng, n_keys=N_KEYS, theta=0.99, salt=SALT, batch=B,
+            read_ratio=0.5, dev_rb=caps[0], dev_wb=caps[1], log2_bins=16,
+            fusion=fusion)
+    carry = new_carry()
+    dsm = eng.dsm
+    pool, counters = dsm.pool, dsm.counters
+    for _ in range(S):
+        if kind == "read":
+            counters, carry = step(pool, counters, tb, rt, rk, carry)
+        else:
+            pool, counters, carry = step(pool, dsm.locks, counters, tb, rt,
+                                         rk, carry)
+    carry = step.drain(carry)
+    dsm.pool, dsm.counters = pool, counters
+    return tuple(int(np.asarray(x)) for x in carry)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+def test_staged_cap_overflow_voids_like_jax(eight_devices, n):
+    """Unique-row caps far below a step's unique counts: the read loop's
+    ``dev_b`` and the mixed loop's ``dev_rb`` and ``dev_wb`` (each alone)
+    overflow, every run is voided through ``ok = 0``, and every
+    carry (the counts of the rows that were served too) and the state
+    after it equal the JAX package's."""
+    je, pe = _pair(n)
+    B = _batch(n)
+    runs = [("read", f, (B // 8,)) for f in ("aligned", "pipelined")]
+    runs += [("mixed", "chained", (B // 16, B // 2)),
+             ("mixed", "pipelined", (B // 2, B // 16))]
+    for kind, fusion, caps in runs:
+        want = _run_capped(je, JP, kind, fusion, caps)
+        got = _run_capped(pe, TP, kind, fusion, caps)
+        assert got == want, (kind, fusion, caps)
+        assert got[1] == 0, (kind, fusion, caps)
+        _same_state(je, pe, f"{kind} {fusion} {caps}")
+
+
 def test_staged_pipelined_receipts_lag_then_drain():
     _, pe = _pair(1)
     B = _batch(1)
@@ -402,8 +449,12 @@ def test_staged_knobs_and_refusals(monkeypatch):
     with pytest.raises(ConfigError):
         C.staged_fusion()
     monkeypatch.delenv("SHERMAN_STAGED_FUSION")
-    with pytest.raises(NotPortedError, match="item 6a"):
-        TP.make_staged_step(pe, leaf_cache=object(), **kw)
+    lc = pe.attach_leaf_cache(slots=256)
+    step, _ = TP.make_staged_step(pe, leaf_cache=lc, **kw)
+    assert step.cache and step.dev_b_resid == 256
+    with pytest.raises(ConfigError):
+        TP.make_staged_step(pe, leaf_cache=lc, fusion="chained", **kw)
+    pe.detach_leaf_cache()
     with pytest.raises(ConfigError):
         TP.make_staged_step(pe, fusion="fused", **kw)
     with pytest.raises(ConfigError):

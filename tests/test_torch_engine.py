@@ -367,6 +367,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if os.path.dirname(f) == obs_dir} >= {
         "__init__.py", "registry.py", "spans.py", "slo.py", "recorder.py",
         "export.py", "device.py"}
+    models_dir = os.path.join(REPO, "sherman_tpu_torch", "models")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == models_dir} >= {
+        "batched.py", "leaf_cache.py", "value_heap.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -15,7 +15,7 @@ and ``sherman_tpu_torch.ycsb_bench``) against the JAX package's
   of the live set, pools, locks and counters bit-identical.
 - ``main`` refuses to run without a card (exit code 2, also through
   ``bench --ycsb``), and a value heap asked for through
-  ``SHERMAN_VALUE_HEAP`` raises ``NotPortedError``.
+  ``SHERMAN_VALUE_HEAP`` is built with the records out of line.
 
 Every tolerance is exact equality.
 """
@@ -30,7 +30,7 @@ import torch
 from sherman_tpu.workload import ycsb as JY
 from sherman_tpu_torch import bench as TBench
 from sherman_tpu_torch import ycsb_bench as TYB
-from sherman_tpu_torch.errors import ConfigError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.workload import ycsb as TY
 
 torch.set_num_threads(1)
@@ -92,12 +92,18 @@ def test_payload_for_key_matches_jax():
                 assert got == JY.payload_for_key(k, nb, dist)
                 assert (len(got) == nb) if dist == "fixed" \
                     else 1 <= len(got) <= nb
+            # the vectorized constructor: the same bytes for every key
+            assert TY.payloads_of(np.asarray(keys, np.uint64), nb, dist) \
+                == [JY.payload_for_key(k, nb, dist) for k in keys]
     gen = TY.YcsbGen("A", 100, value_bytes=12, value_dist="uniform")
     assert gen.payloads_for_keys([5, 6]) == [
         JY.payload_for_key(5, 12, "uniform"),
         JY.payload_for_key(6, 12, "uniform")]
     with pytest.raises(ConfigError):
         TY.payload_for_key(1, 8, "zipf")
+    with pytest.raises(ConfigError):
+        TY.payloads_of(np.ones(2, np.uint64), 8, "zipf")
+    assert TY.payloads_of(np.zeros(0, np.uint64), 8) == []
 
 
 class _Replay:
@@ -216,14 +222,17 @@ def test_matrix_driver_matches_jax(eight_devices, nodes):
 def test_main_refuses_without_a_card_and_a_value_heap(monkeypatch):
     """Without a CUDA device ``main`` exits with code 2 before building
     anything, also through ``bench --ycsb``; a value heap asked for
-    through ``SHERMAN_VALUE_HEAP`` is refused, never run inline."""
+    through ``SHERMAN_VALUE_HEAP`` is built (the records moved out of
+    line), never run inline."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert TYB.main(["--keys", "1000", "--workloads", "E"]) == 2
     assert TBench.main(["--ycsb", "--keys", "1000"]) == 2
     for v in ("1", "4096", "on"):
         monkeypatch.setenv("SHERMAN_VALUE_HEAP", v)
-        with pytest.raises(NotPortedError, match="item 6"):
-            TYB.build(1000, 256, 1, "cpu", log=lambda m: None)
+        c, _, eng, keys = TYB.build(1000, 256, 1, "cpu", log=lambda m: None)
+        assert c.cfg.heap_pages_per_node == 4096
+        got, found = eng.value_heap.get(keys[:5])
+        assert found.all() and got == TY.payloads_of(keys[:5], 64)
     monkeypatch.setenv("SHERMAN_VALUE_HEAP", "0")
     _, _, eng, keys = TYB.build(1000, 256, 1, "cpu", log=lambda m: None)
     k, v = eng.range_query(int(keys[10]), int(keys[20]))
