@@ -287,7 +287,31 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     arms on fresh trees of 1,000,000 keys; a heap tree of 1,000,000 keys
     through a base, acked puts and removes, a delta, a crash and
     ``recover`` (RPO 0, every get equal); the ``ycsb_matrix_heap`` JSON
-    line, K1-K3 replayed at every shape (path ``one_node_heap``).
+    line, K1-K3 replayed at every shape (path ``one_node_heap``);
+25. the serving front door (``make_ingress_step``, ``serve.py``,
+    ``audit.py``, ``serve_bench.py``), after phase 24: (a) the front-door
+    reference check on 1 and on 8 nodes (step capacity 32), card against
+    the CPU at 20,000 keys (:func:`_front_run`: the ingress step on host
+    and device prep at three rungs against ``search_combined``, partial,
+    all-duplicate, full and single-key batches, stragglers after an
+    insert storm, a cache attached, the device prep's six outputs against
+    the host staging; a serial ``ShermanServer`` sequence with a journal
+    and an ``Auditor`` — reads, rid inserts and a retried rid re-acked,
+    deletes, a scan, a degraded entry shedding writes while reads serve,
+    a deadline shed, payloads through the value heap — answers, pools,
+    journal bytes, dedup windows and the heap bit-identical, the audit
+    clean); (b) ``serve_bench`` at ``BENCHMARKS.md:130-133``'s
+    configuration (100,000,000 keys, widths 262,144 / 1,048,576 /
+    4,194,304, 65,536-op requests, 30 s, theta 0.99, 3 paced tenants and
+    the greedy one, rho 0.6, ``pipelined``, group commit 2 ms) with the
+    host syncs of one dispatch and one complete at each rung; (c) on that
+    tree the host-vs-device prep A/B at each rung, then ``serve_bench``
+    again with ``SHERMAN_PREP_IMPL=device`` and an ``Auditor``
+    (sample_mod 8); (d) ``run_crash_drill`` at 100,000,000 keys, 4
+    writers, group commit 2 ms, 10 s (RPO 0, acks per fsync above 1); the
+    ``serve_bench``, ``serve_bench_device_prep`` and
+    ``serve_crash_drill`` JSON lines, K1-K3 replayed at every shape
+    (paths ``one_node_serve`` for (b)+(c), ``one_node_crash`` for (d)).
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -296,8 +320,8 @@ launch), around each staged window, around each storm's timed window
 (K1-K3), around each YCSB matrix (K1-K3 on one node; K2-K4 on eight),
 around phase 19's serving steps (K1-K3), around phase 21's traffic
 and delta, its recovery and its repair (K1-K3 in each), around phase
-22b (K1-K3), around 23b (K1, K2) and around 24b's migration and matrix
-(K1-K3);
+22b (K1-K3), around 23b (K1, K2), around 24b's migration and matrix
+(K1-K3), and around 25b+c and 25d (K1-K3 in each);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -309,7 +333,8 @@ per launch over its shapes, each listed under ``shapes`` (and
 computes the same function). The lines before the last are the
 ``integrity``, ``durability``, ``obs``, ``cache`` and
 ``ycsb_matrix_heap`` JSON records (printed after phases 19, 21, 22, 23
-and 24), the K1 and K3 ablations, the
+and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
+``serve_crash_drill`` records, the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -1096,7 +1121,7 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
          "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
          "one_node_durability", "one_node_obs", "one_node_cache",
-         "one_node_heap")
+         "one_node_heap", "one_node_serve", "one_node_crash")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -3529,6 +3554,11 @@ def obs_run(m, machine_nr: int, step_capacity: int | None,
         known.update(ks[:n].tolist())
         return ks[:n]
 
+    # objects that earlier callers left in reference cycles (a value
+    # heap's or a cache's weakly held pull collector) keep reporting until
+    # the collector frees them: free them now, so the delta is this
+    # sequence's alone
+    gc.collect()
     obs_reset(m)
     reg = m.obs.get_registry()
     s0 = reg.snapshot()
@@ -4668,6 +4698,466 @@ def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the serving front door (make_ingress_step on host and device
+# prep, serve.py, audit.py, serve_bench.py).
+# ---------------------------------------------------------------------------
+
+FRONT_KEYS = 20_000             # 25a's tree (numpy seed 42)
+FRONT_RUNGS = (256, 1024, 4096)
+FRONT_STAMP = np.uint64(0xD00D)
+SERVE_KEYS = 100_000_000        # BENCHMARKS.md:130-133's configuration
+SERVE_WIDTHS = "262144,1048576,4194304"
+SERVE_REQ_OPS = 65_536
+SERVE_SECS = 30.0               # (b); cut to 15 past the projection
+SERVE_SECS_DEVICE = 30.0        # (c)'s second run; cut to 10 first
+CRASH_SECS = 10.0               # (d)
+FRONT_EST_S = 200.0             # 25b-d at full length (a chip run: ~160 s)
+FRONT_LIMIT_S = 1000.0          # the projection past which 25 cuts
+
+
+def front_build(machine_nr: int, device: str):
+    """25a's tree: 20,000 distinct random keys below 2^63 (numpy seed 42),
+    values ``key ^ 0xD00D``, a heap region, the router; one node 2,048
+    pages and 256 rows, eight 512 pages and 32 rows a node (step capacity
+    32).  -> (tree, eng, keys)."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    N = machine_nr
+    rng = np.random.default_rng(42)
+    keys = np.unique(rng.integers(1, 1 << 63, FRONT_KEYS + 1000,
+                                  dtype=np.uint64))[:FRONT_KEYS]
+    tree = Tree(Cluster(DSMConfig(
+        machine_nr=N, pages_per_node=2048 if N == 1 else 512,
+        locks_per_node=512, step_capacity=1024 if N == 1 else 32,
+        chunk_pages=32, heap_pages_per_node=256 if N == 1 else 64,
+        device=device)))
+    eng = batched.BatchedEngine(tree, batch_per_node=256 if N == 1 else 32)
+    batched.bulk_load(tree, keys, keys ^ FRONT_STAMP)
+    eng.attach_router()
+    return tree, eng, keys
+
+
+def _prep_outputs(eng, prep_fn, batch, width) -> list:
+    """The device prep's six outputs for ``batch``, on the host, and the
+    host path's staging of the same batch; they must be equal."""
+    from sherman_tpu_torch.ops import bits
+    n = batch.size
+    kh, kl = bits.keys_to_pairs(batch)
+    raw = [np.full(width, -1, np.int32) for _ in range(2)]
+    raw[0][:n], raw[1][:n] = kh, kl
+    r = eng.router
+    with r._read_locked():
+        rtable = eng._dev(np.array(r.table_np))
+        shift = torch.tensor(int(r.shift), dtype=torch.int64,
+                             device=eng.device)
+    out = prep_fn(eng._dev(raw[0]), eng._dev(raw[1]), n, rtable, shift)
+    dev = [t.cpu().numpy() for t in out[:5]] + [int(out[5])]
+    uk, inv = np.unique(batch, return_inverse=True)
+    U = uk.size
+    host = [np.zeros(width, np.int32), np.zeros(width, np.int32),
+            np.zeros(width, bool), None, np.zeros(width, np.int32), U]
+    host[0][:U], host[1][:U] = bits.keys_to_pairs(uk)
+    host[2][:U] = True
+    host[3] = r.host_start(host[0], host[1])
+    host[4][:n] = inv.reshape(-1)
+    if not _same_obj(dev, host):
+        raise AssertionError(f"device prep differs from the host staging "
+                             f"at width {width}: {_diff(dev, host)}")
+    return dev
+
+
+def _front_run(machine_nr: int, device: str, rdir: str) -> list:
+    """Phase 25a's sequence on one device -> [(label, result)]:
+
+    - the ingress step on host and on device prep at each of three rungs
+      against ``search_combined`` (partial, all-duplicate and full
+      batches; after an insert storm, batches with its keys, whose stale
+      seeds straggle; with a cache attached), the device prep's six
+      outputs against the host staging;
+    - a serial front-door sequence through ``ShermanServer`` with a
+      journal and an ``Auditor``: reads, inserts with rids and a retried
+      rid re-acked, deletes, a scan, a degraded entry shedding writes
+      while reads serve, drain; a deadline shed on an admission-only
+      server; then a value heap: payload inserts with rids, payload
+      reads, a payload delete;
+
+    after each, the answers, and the pool, locks and counters; at the
+    end the journal segments' bytes, the dedup windows and the heap."""
+    from sherman_tpu_torch import audit as AU
+    from sherman_tpu_torch import serve as SV
+    from sherman_tpu_torch.utils import journal as J
+    from sherman_tpu_torch.workload import device_prep as TP
+    tree, eng, keys = front_build(machine_nr, device)
+    out = []
+
+    def rec(label, res):
+        out.append((label, [res, _pool_state(tree)]))
+
+    rng = np.random.default_rng(42)
+    steps = {}
+    for w in FRONT_RUNGS:
+        steps[w] = (TP.make_ingress_step(eng, width=w, prep_impl="host"),
+                    TP.make_ingress_step(eng, width=w, prep_impl="device"),
+                    TP.make_device_prep(eng, width=w))
+
+    def ingress(label, batch, w, cache=None):
+        h, d, prep_fn = steps[w]
+        got = h(batch)
+        for other in (d(batch), eng.search_combined(batch)):
+            if not _same_obj(got, other):
+                raise AssertionError(f"25a ingress {label} ({device}): "
+                                     f"answers differ: {_diff(got, other)}")
+        if cache is not None:
+            c = TP.make_ingress_step(eng, width=w, leaf_cache=cache,
+                                     prep_impl="device")
+            if c.prep_impl != "host" or not _same_obj(c(batch), got):
+                raise AssertionError(f"25a ingress {label} ({device}): "
+                                     "the cached step differs")
+        rec(f"ingress {label} W={w}",
+            [got, _prep_outputs(eng, prep_fn, batch, w)])
+        return got
+
+    for w in FRONT_RUNGS:
+        for name, b in (("partial", rng.choice(keys, w // 2 + 3)),
+                        ("all_dup", np.full(w // 3, keys[17], np.uint64)),
+                        ("full", rng.choice(keys, w)),
+                        ("single", keys[5:6])):
+            v, f = ingress(name, np.ascontiguousarray(b, np.uint64), w)
+            if not (f.all() and np.array_equal(v, b ^ FRONT_STAMP)):
+                raise AssertionError(f"25a ingress {name} W={w} "
+                                     f"({device}): wrong answers")
+    fresh = np.setdiff1d(keys[:4000] + np.uint64(1), keys)
+    rec("storm", eng.insert(fresh, fresh ^ FRONT_STAMP))
+    allk = np.concatenate([keys, fresh])
+    for w in FRONT_RUNGS:
+        b = np.concatenate([rng.choice(fresh, w // 2), rng.choice(keys, 7)])
+        v, f = ingress("stragglers", b, w)
+        if not (f.all() and np.array_equal(v, b ^ FRONT_STAMP)):
+            raise AssertionError(f"25a stragglers W={w} ({device}): "
+                                 "wrong answers")
+    cache = eng.attach_leaf_cache(slots=1024)
+    rec("cache fill", cache.fill(allk[:300]))
+    for w in FRONT_RUNGS:
+        hot = allk[: min(w // 4, 300)]
+        ingress("cached", np.concatenate([hot, hot,
+                                          rng.choice(allk, w // 4)]),
+                w, cache=cache)
+    rec("cache stats", cache.stats())
+    eng.detach_leaf_cache()
+
+    # -- the serial front-door sequence ---------------------------------
+    targets = {c: 1e9 for c in SV.OP_CLASSES}
+    jpath = os.path.join(rdir, "front.wal")
+    journal = J.Journal(jpath, sync=True, group_commit_ms=1.0)
+    aud = AU.Auditor(sample_mod=1, interval_s=60.0)
+    aud.seed_initial(allk, allk ^ FRONT_STAMP)
+    srv = SV.ShermanServer(eng, SV.ServeConfig(
+        widths=(256, 1024), p99_targets_ms=targets, write_linger_ms=0.5),
+        journal=journal, auditor=aud)
+    try:
+        srv.start(calib_keys=keys,
+                  calib_writes=(keys[:64], keys[:64] ^ FRONT_STAMP),
+                  calib_delete_keys=np.asarray([3], np.uint64))
+        for i, n in enumerate((100, 700, 1, 256)):
+            b = rng.choice(allk, n)
+            rec(f"read {i}", srv.submit("read", b, tenant=f"t{i % 2}")
+                .result(timeout=120))
+        k = keys[:64]
+        rec("insert rid 1", srv.submit("insert", k, k ^ np.uint64(0xA1),
+                                       rid=1, tenant="w")
+            .result(timeout=120))
+        f = srv.submit("insert", k, k ^ np.uint64(0xA1), rid=1, tenant="w")
+        rec("retry rid 1", [f.result(timeout=120), f.deduped])
+        rec("insert rid 2", srv.submit("insert", k, k ^ np.uint64(0xB2),
+                                       rid=2, tenant="w")
+            .result(timeout=120))
+        rec("read back", srv.submit("read", k).result(timeout=120))
+        rec("delete rid 3", srv.submit("delete", keys[100:110], rid=3,
+                                       tenant="w").result(timeout=120))
+        f = srv.submit("delete", keys[100:110], rid=3, tenant="w")
+        rec("retry rid 3", [f.result(timeout=120), f.deduped])
+        lo, hi = np.sort(keys[200:202])
+        rec("scan", srv.submit("scan", ranges=[(int(lo), int(hi) + 1)])
+            .result(timeout=120))
+        eng.enter_degraded("phase 25a")
+        try:
+            rec("degraded insert", _outcome(lambda: srv.submit(
+                "insert", k, k, rid=4, tenant="w")))
+            rec("degraded read", srv.submit("read", keys[300:340])
+                .result(timeout=120))
+        finally:
+            eng.exit_degraded()
+        srv.drain()
+        st = srv.stats()
+        rec("contract", [st["contract"], st["tenants"], st["rejects"],
+                         st["acked_writes"], st["retraces"]])
+        rec("window", [[(t, rid, list(e)) for rid, e in s.dedup.items()]
+                       for t, s in srv._tenants.items()])
+    finally:
+        srv.stop()
+        journal.close()
+    res = aud.tick(drain_all=True)
+    if aud.violations or not res["linearizable"]:
+        raise AssertionError(f"25a ({device}): the auditor reports "
+                             f"violations: {res['violations'][:3]}")
+    rec("audit", [res["linearizable"], aud.rec.events])
+    # a deadline shed, on an admission-only server (no dispatcher)
+    adm = SV.ShermanServer(eng, SV.ServeConfig(widths=(256,),
+                                               p99_targets_ms=targets))
+    adm._running = True
+    fut = adm.submit("read", keys[:8], deadline_ms=0.01, tenant="d")
+    time.sleep(0.002)
+    shed = adm._take(("read",), 256)
+    rec("deadline", [shed, _outcome(lambda: fut.result(timeout=1)),
+                     adm.deadline_shed])
+    adm._running = False
+    adm._fail_queued(RuntimeError("25a done"))
+
+    # -- payloads through the value heap ----------------------------------
+    vh = eng.attach_value_heap()
+    jpath2 = os.path.join(rdir, "front-heap.wal")
+    journal2 = J.Journal(jpath2, sync=True, group_commit_ms=1.0)
+    srv = SV.ShermanServer(eng, SV.ServeConfig(
+        widths=(256,), p99_targets_ms=targets, write_linger_ms=0.5,
+        calib_steps=1, seal=False), journal=journal2)
+    try:
+        srv.start(calib_keys=keys)
+        pk = keys[400:432]
+        pays = [bytes([i % 251]) * (1 + (i * 37) % 200) for i in range(32)]
+        rec("payload insert", srv.submit("insert", pk, payloads=pays,
+                                         rid=10, tenant="h")
+            .result(timeout=120))
+        got, fnd = srv.submit("read", pk, resolve_payloads=True
+                              ).result(timeout=120)
+        if not (fnd.all() and got == pays):
+            raise AssertionError(f"25a ({device}): payload reads differ")
+        rec("payload read", [got, fnd])
+        rec("payload delete", srv.submit("delete", pk[:4], rid=11,
+                                         tenant="h").result(timeout=120))
+        rec("heap", [vh.stats(), tree.dsm.heap.to("cpu", copy=True)])
+    finally:
+        srv.stop()
+        journal2.close()
+    with open(jpath, "rb") as fh:
+        rec("journal bytes", fh.read())
+    with open(jpath2, "rb") as fh:
+        rec("heap journal bytes", fh.read())
+    return out
+
+
+def front_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """Phase 25a on ``machine_nr`` nodes: :func:`_front_run` on the card
+    and on the plain path on the CPU, every result, pool, journal byte,
+    dedup window and heap bit-identical, the auditor clean."""
+    t = time.perf_counter()
+    runs = []
+    for d in devices:
+        rdir = tempfile.mkdtemp(prefix="sherman_front_ref_")
+        try:
+            runs.append(_front_run(machine_nr, d, rdir))
+        finally:
+            shutil.rmtree(rdir, ignore_errors=True)
+    n = _tier_compare("front door", machine_nr, devices, runs)
+    _log(f"25a front-door reference check ({machine_nr} node(s), "
+         f"{FRONT_KEYS:,} keys, {devices[0]} vs {devices[1]}): ingress "
+         f"answers on both placements, device prep outputs, the serial "
+         f"sequence's answers, pools, journal bytes, dedup windows and "
+         f"heap bit-identical, audit clean ({n} results; "
+         f"{time.perf_counter() - t:.1f} s)")
+
+
+def _serve_args(secs: float, *extra) -> "object":
+    from sherman_tpu_torch import serve_bench as SB
+    return SB.parse_args(["--keys", str(SERVE_KEYS), "--widths", SERVE_WIDTHS,
+                          "--req-ops", str(SERVE_REQ_OPS), "--secs",
+                          str(secs), "--theta", "0.99", "--tenants", "3",
+                          "--rho", "0.6", "--fusion", "pipelined",
+                          "--write-frac", "0", "--group-commit-ms", "2",
+                          *extra])
+
+
+def dispatch_syncs(eng, widths, sample) -> dict:
+    """Host syncs of one ``dispatch`` and of one ``complete`` at each rung
+    on each placement (torch's sync debug mode; the port's serve reads a
+    pending count back once per straggler round)."""
+    from sherman_tpu_torch.workload import device_prep as TP
+    out = {}
+    for w in widths:
+        kb = sample(w)
+        for p in ("host", "device"):
+            step = TP.make_ingress_step(eng, width=w, prep_impl=p)
+            step(kb)                                   # warm
+            h = [None]
+            nd = count_syncs(lambda: h.__setitem__(0, step.dispatch(kb)))
+            nc = count_syncs(lambda: step.complete(h[0]))
+            out[f"{w}.{p}"] = {"dispatch": nd, "complete": nc}
+    return out
+
+
+def prep_ab(eng, widths, sample) -> dict:
+    """``BENCHMARKS.md:199-215``'s placement A/B at each rung: one batch
+    of 65,536-op requests coalesced to the rung through host and through
+    device prep; answers equal; ``prep_profile`` ms of each placement and
+    the closed-loop wall of a step (dispatch + complete, 3 steps)."""
+    from sherman_tpu_torch.workload import device_prep as TP
+    out = {}
+    for w in widths:
+        kb = np.concatenate([sample(SERVE_REQ_OPS)
+                             for _ in range(w // SERVE_REQ_OPS)])
+        row = {}
+        ans = {}
+        for p in ("host", "device"):
+            step = TP.make_ingress_step(eng, width=w, prep_impl=p)
+            ans[p] = step(kb)
+            row[f"prep_{p}_ms"] = step.prep_profile(kb, reps=4)[
+                f"prep_{p}_ms"]
+            TP._sync(eng.device)
+            t = time.perf_counter()
+            for _ in range(3):
+                step(kb)
+            row[f"step_{p}_ms"] = (time.perf_counter() - t) / 3 * 1e3
+        row["answers_equal"] = _same_obj(ans["host"], ans["device"])
+        if not row["answers_equal"]:
+            raise AssertionError(f"25c W={w}: host and device prep answer "
+                                 "differently")
+        row["all_found"] = bool(ans["host"][1].all())
+        out[str(w)] = row
+        _log(f"25c W={w}: prep host {row['prep_host_ms']:.3f} ms, device "
+             f"{row['prep_device_ms']:.3f} ms; step host "
+             f"{row['step_host_ms']:.1f} ms, device "
+             f"{row['step_device_ms']:.1f} ms; answers equal")
+    return out
+
+
+def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
+    """Phase 25b-d at the north star's size, ``tools/serve_bench.py``'s
+    configuration of ``BENCHMARKS.md:126-136``:
+
+    - (b) the open-loop serve at 100,000,000 keys, widths 262,144 /
+      1,048,576 / 4,194,304, 65,536-op requests, theta 0.99, 3 paced
+      tenants and the greedy one, rho 0.6, ``pipelined``, reads only,
+      group commit 2 ms; its ``serve_bench`` line, with the host syncs of
+      one dispatch and one complete at each rung and placement;
+    - (c) on (b)'s tree the prep placement A/B of ``BENCHMARKS.md:199-215``
+      at each rung, then ``serve_bench`` again with
+      ``SHERMAN_PREP_IMPL=device`` and an ``Auditor`` (sample_mod 8);
+    - (d) ``run_crash_drill`` at 100,000,000 keys, 4 writers, group commit
+      2 ms, 10 s: ``rpo_ops`` 0, ``acks_per_fsync`` above 1.
+
+    (b)+(c) is the window ``one_node_serve``, (d) ``one_node_crash``; K1-K3
+    replayed at every shape of each.  Past a projection of 1,000 s for the
+    smoke, (c)'s second run is cut to 10 s, then (b) to 15 s (listed in
+    ``reduced``).  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import audit as AU
+    from sherman_tpu_torch import serve_bench as SB
+    reduced = []
+    secs_b, secs_c = SERVE_SECS, SERVE_SECS_DEVICE
+    proj = time.perf_counter() - t_smoke + FRONT_EST_S
+    if proj > FRONT_LIMIT_S:
+        secs_c = 10.0
+        reduced.append(f"(c)'s second serve run --secs 30 -> 10: the "
+                       f"smoke's projection {proj:.0f} s passed "
+                       f"{FRONT_LIMIT_S:.0f} s")
+        proj -= SERVE_SECS_DEVICE - secs_c
+    if proj > FRONT_LIMIT_S:
+        secs_b = 15.0
+        reduced.append(f"(b) --secs 30 -> 15: the smoke's projection "
+                       f"{proj:.0f} s passed {FRONT_LIMIT_S:.0f} s")
+    widths = tuple(int(w) for w in SERVE_WIDTHS.split(","))
+    shapes: dict = {}
+    t_phase = time.perf_counter()
+    with ShapeLog() as log:
+        t = time.perf_counter()
+        SB.keyspace(SERVE_KEYS)
+        keys_s = time.perf_counter() - t
+        built = SB.build_engine(SERVE_KEYS, widths, False, device)
+        build_s = time.perf_counter() - t
+        _log(f"25b build: {SERVE_KEYS:,} keys in {build_s:.1f} s (the "
+             f"keyspace {keys_s:.1f} s)")
+        t = time.perf_counter()
+        rec_b = SB.run_serve(_serve_args(secs_b, "--device", device),
+                             built=built)
+        rec_b["wall_s"] = time.perf_counter() - t
+        eng, keys = built[2], built[3]
+        sample = SB.make_sampler(SERVE_KEYS, 0.99, built[4], 4242)
+        rec_b["host_syncs"] = dispatch_syncs(eng, widths, sample)
+        rec_b.update(card=smi, build_s=build_s, keyspace_s=keys_s,
+                     reduced=reduced[-1:]
+                     if secs_b != SERVE_SECS else [])
+        print(json.dumps(rec_b), flush=True)
+        _log(f"25b open-loop serve: {rec_b['serve_ops_s']:,} ops/s, read "
+             f"p99 {rec_b['serve_read_p99_ms']} ms, retraces "
+             f"{rec_b['serve']['retraces']}, bad values "
+             f"{rec_b['serve']['bad_values']} ({rec_b['wall_s']:.1f} s)")
+        if rec_b["serve"]["retraces"] or rec_b["serve"]["bad_values"]:
+            raise AssertionError("25b: retraces or bad values in the "
+                                 "open-loop serve")
+        t = time.perf_counter()
+        ab = prep_ab(eng, widths, sample)
+        ab_s = time.perf_counter() - t
+        old = os.environ.get("SHERMAN_PREP_IMPL")
+        os.environ["SHERMAN_PREP_IMPL"] = "device"
+        aud = AU.Auditor(sample_mod=8)
+        try:
+            t = time.perf_counter()
+            rec_c = SB.run_serve(_serve_args(secs_c, "--device", device),
+                                 built=built, auditor=aud)
+            rec_c["wall_s"] = time.perf_counter() - t
+        finally:
+            if old is None:
+                os.environ.pop("SHERMAN_PREP_IMPL", None)
+            else:
+                os.environ["SHERMAN_PREP_IMPL"] = old
+        rec_c.update(card=smi, prep_ab=ab, prep_ab_s=ab_s,
+                     reduced=reduced[:1] if secs_c != SERVE_SECS_DEVICE
+                     else [])
+        rec_c["metric"] = "serve_bench_device_prep"
+        print(json.dumps(rec_c), flush=True)
+        audit = rec_c["serve"]["audit"]
+        _log(f"25c device-prep serve: {rec_c['serve_ops_s']:,} ops/s, read "
+             f"p99 {rec_c['serve_read_p99_ms']} ms, audit violations "
+             f"{audit['violations']}, cost_frac {audit['cost_frac']:.4f} "
+             f"({rec_c['wall_s']:.1f} s)")
+        if audit["violations"] or rec_c["serve"]["retraces"] \
+                or rec_c["serve"]["bad_values"]:
+            raise AssertionError("25c: audit violations, retraces or bad "
+                                 "values in the device-prep serve")
+        del built, eng, keys, sample
+    log.check("one_node_serve", ("descent_round", "gather_pages",
+                                 "writeback"))
+    for k, v in replay(log, "one_node_serve").items():
+        shapes.setdefault(k, []).extend(v)
+    del log
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ShapeLog() as log:
+        t = time.perf_counter()
+        rec_d = SB.run_crash_drill(_serve_args(CRASH_SECS, "--crash-drill",
+                                               "--device", device))
+        rec_d["wall_s"] = time.perf_counter() - t
+    rec_d["card"] = smi
+    print(json.dumps(rec_d), flush=True)
+    _log(f"25d crash drill: rpo_ops {rec_d['rpo_ops']}, acks/fsync "
+         f"{rec_d['acks_per_fsync']}, replayed "
+         f"{rec_d['replay']['records']} records ({rec_d['wall_s']:.1f} s)")
+    if rec_d["rpo_ops"] or not (rec_d["acks_per_fsync"] or 0) > 1 \
+            or not rec_d["ok"]:
+        raise AssertionError(f"25d: the crash drill failed: {rec_d}")
+    log.check("one_node_crash", ("descent_round", "gather_pages",
+                                 "writeback"))
+    for k, v in replay(log, "one_node_crash").items():
+        shapes.setdefault(k, []).extend(v)
+    del log
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"25b-d front door at full width: "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -4844,6 +5334,15 @@ def _main(bb: str) -> int:
     for k, v in heap_full_width(smi).items():
         shapes.setdefault(k, []).extend(v)
     _log("heap path parity at every launched shape (K1-K3): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    front_reference_check(1)
+    front_reference_check(8)
+    _log(f"phase 25a: {time.perf_counter() - t:.1f} s")
+    for k, v in front_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("front-door path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

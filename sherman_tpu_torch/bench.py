@@ -3,9 +3,12 @@ lookups, zipf 0.99, 100 M keys, with the client side staged on the card.
 
     python -m sherman_tpu_torch.bench
     python -m sherman_tpu_torch.bench --ycsb [ycsb_bench's arguments]
+    python -m sherman_tpu_torch.bench --serve [serve_bench's arguments]
 
 With ``--ycsb`` it runs the YCSB A-F matrix instead
-(:mod:`sherman_tpu_torch.ycsb_bench`).  The configuration is the north
+(:mod:`sherman_tpu_torch.ycsb_bench`), with ``--serve`` the open-loop
+front-door bench or, with ``--crash-drill`` too, its journaled-ack drill
+(:mod:`sherman_tpu_torch.serve_bench`).  The configuration is the north
 star of the repo's ``bench.py``: keys ``mix64(rank ^ 0x5E17AB1E5A17)``,
 values ``key ^ 0xDEADBEEF``, leaf fill 0.75 and the same pool sizing,
 the default router, zipf 0.99, batches of 4,194,304 client ops, the
@@ -392,6 +395,12 @@ def main(argv=None) -> int:
         argv.remove("--ycsb")
         from sherman_tpu_torch import ycsb_bench
         return ycsb_bench.main(argv)
+    if "--serve" in argv:
+        # the serving front door's open-loop bench (or crash drill), with
+        # its own arguments and JSON line
+        argv.remove("--serve")
+        from sherman_tpu_torch import serve_bench
+        return serve_bench.main(argv)
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.bench: no CUDA device; the port's benchmark "
               "runs on the GPU", file=sys.stderr)

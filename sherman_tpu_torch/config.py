@@ -170,6 +170,43 @@ def write_combine() -> bool:
     raise ConfigError(f"SHERMAN_WRITE_COMBINE={v!r}: want 0/1")
 
 
+def prep_impl() -> str:
+    """Request-plane placement knob (``SHERMAN_PREP_IMPL``): where the
+    serving front door's ingress step
+    (``workload.device_prep.make_ingress_step``) combines, dedups, sorts
+    and routes each client batch.
+
+    - ``host`` (default): ``np.unique`` and the host router probe, then
+      the device fan-out.
+    - ``device``: one device function (``make_device_prep``) sorts,
+      dedups and router-probes the raw request pairs, with outputs
+      bit-identical to the host path's.  A step built with a leaf cache
+      falls back to ``host``: the cache probe is host-in/host-out."""
+    v = os.environ.get("SHERMAN_PREP_IMPL", "host").strip().lower()
+    if v not in ("host", "device"):
+        raise ConfigError(f"SHERMAN_PREP_IMPL={v!r}: want host|device")
+    return v
+
+
+def ack_quorum() -> int:
+    """Quorum-ack knob (``SHERMAN_ACK_QUORUM``): the durable copies a
+    write needs before its ack resolves (the primary's fsync'd journal
+    record counts as one).  1, the default, acks on the primary's
+    durability alone; more copies need the replica group of ROADMAP.md
+    item 7b, which the serving front door refuses until then."""
+    v = os.environ.get("SHERMAN_ACK_QUORUM", "1").strip().lower()
+    if v in ("", "0", "1", "false", "off", "no"):
+        return 1
+    try:
+        n = int(v)
+    except ValueError:
+        raise ConfigError(
+            f"SHERMAN_ACK_QUORUM={v!r}: want a copy count >= 1") from None
+    if n < 1:
+        raise ConfigError(f"SHERMAN_ACK_QUORUM={n}: want >= 1")
+    return n
+
+
 def value_heap_pages() -> int:
     """Out-of-line value heap knob (``SHERMAN_VALUE_HEAP``): heap pages a
     node of the region that stores variable-length payloads, 0 (the

@@ -26,10 +26,17 @@ Event sources (each site calls :func:`record_event`):
   ``recovery.targeted_repair_failed``
 - ``compile.retrace``           a new call signature of a ledgered
   program inside a sealed window (``obs/device.py``)
+- ``serve.start`` / ``serve.sealed`` / ``serve.width_change`` /
+  ``serve.brownout_enter`` / ``serve.brownout_exit`` /
+  ``serve.dispatch_error`` / ``serve.heap_warm_skipped`` /
+  ``serve.stop`` / ``serve.drain``   (the serving front door's
+  control-plane moments — ``serve.py``)
+- ``audit.violation`` / ``audit.checker_error``   (the client-contract
+  linearizability auditor — ``audit.py``; a violation also auto-dumps
+  the black box)
 
-The serving front door's and the auditor's events (``serve.*``,
-``audit.*``) and ``watchdog.fired`` come with those modules (ROADMAP.md
-item 6c).
+``watchdog.fired`` comes with the host failure detector
+(``utils/failure.py``, ROADMAP.md item 7b).
 
 Auto-dump: :func:`auto_dump` fires on degraded entry, typed-error
 raise, a sealed-window retrace and watchdog expiry — but only when ``SHERMAN_BLACKBOX_DIR``

@@ -149,7 +149,8 @@ class RecoveryPlane:
         self._segment = 0
         #: exactly-once window reconstructed by :meth:`recover` from the
         #: journal's J_ACK records: {(tenant, rid): (op_kind, ok[,
-        #: handles])}, in ack order
+        #: handles])}, in ack order; a fresh front door adopts it with
+        #: ``ShermanServer.seed_dedup``, which rejournals it
         self.dedup_window: dict = {}
 
         # the memory accountant's host source: the chain's on-disk bytes

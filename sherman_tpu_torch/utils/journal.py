@@ -28,7 +28,7 @@ Frame format (little-endian, after the 8-byte file magic)::
 Format v2 (magic ``SHJRNL02``): the second header byte is a
 FLAGS field; ``FLAG_RID`` marks a client request id (u64) riding the
 record — the exactly-once plane's join key (the serving front door's
-dedup window; ``serve.py`` comes to the port with ROADMAP.md item 6c).  v1 segments (``SHJRNL01``) wrote that byte as zero
+dedup window, ``serve.py``).  v1 segments (``SHJRNL01``) wrote that byte as zero
 pad, and readers decode them with flags forced to 0: old journals
 replay cleanly, just with no request ids — dedup is DISABLED for
 those segments (the client-contract back-compat rule).  Appends to a

@@ -36,14 +36,20 @@ host-staged ``search_combined`` calls.
 The serve's descent loop reads a pending count back once per round (one
 host sync a round), which bounds what the pipelined forms can overlap.
 
+The serving front door's ingress step (:func:`make_ingress_step`) is the
+host-fed twin of the staged read loop: client batches that arrive from
+outside, combined and probed on the host (``np.unique``, the router) or
+on the card (:func:`make_device_prep`), served through the same fan-out.
+
 Observability: the prep, serve and verify functions go through the
 program ledger (``staged.prep``, ``engine.search_fanout``,
 ``staged.verify``, with the hot-key tier ``staged.cache_probe``;
 ``staged_mixed.prep``, ``staged_mixed.serve_fanout``,
-``staged_mixed.verify``), so a new shape inside a sealed window counts as
-a retrace.  A step touches no other obs object: the driver attributes a
-drained window to the SLO plane with ``step.record_slo``, and publishes
-``phase_profile``'s walls with :func:`record_phase_obs`.
+``staged_mixed.verify``; the front door's ``serve.device_prep``), so a
+new shape inside a sealed window counts as a retrace.  A step touches no
+other obs object: the caller attributes a drained window to the SLO plane
+with ``step.record_slo``, and publishes ``phase_profile``'s walls with
+:func:`record_phase_obs`.
 """
 
 from __future__ import annotations
@@ -960,3 +966,310 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
     table_d, rtable_d, rkey_d = staged or _stage_inputs(
         dsm, router, n_keys, theta, LB, seed, sampler)
     return step, (new_carry, table_d, rtable_d, rkey_d)
+
+
+# ---------------------------------------------------------------------------
+# The serving front door's ingress step (host-fed batches).
+# ---------------------------------------------------------------------------
+
+def make_device_prep(eng, *, width: int):
+    """Device request-plane prep for the ingress step
+    (``config.prep_impl() == "device"``): on the card, what the host
+    path's ``np.unique`` + ``LeafRouter.host_start`` + zero padding do,
+    with the staged fan-out inputs ``(khi, klo, active, start, inv)``
+    bit-identical to the host path's, plus the unique count as a device
+    scalar.
+
+    One sort of an int64 key built from the raw (hi, lo) words (the high
+    word offset by 2^31, so signed order is the unsigned order) carries
+    each client's row index; a segment cumsum numbers the unique groups
+    (``np.unique``'s inverse is each key's rank among the unique keys);
+    the first occurrences move to the front in key order (the
+    reference's flag sort, as :func:`_sort_combine` computes it); the
+    router probe shifts by a 0-d shift tensor
+    (:func:`sherman_tpu_torch.ops.bits.u64_shr_dyn`), so a span grow
+    changes data and not the call's signature; ``inv`` is the segment
+    map un-sorted.  Ties among equal keys reach no output.
+
+    Padding: rows past ``n`` carry the ``KEY_POS_INF`` pair ``(-1, -1)``,
+    outside the valid key range, which sorts last and forms exactly one
+    trailing group when ``n < width``; subtracting it gives the host's
+    unique count, and the masked unique rows and the inverse map zero
+    like the host path's padding.
+
+    Returns ``prep_fn(khi_raw, klo_raw, n, rtable, shift) -> (khi, klo,
+    active, start, inv, n_uniq)``: ``khi_raw``/``klo_raw`` int32
+    ``[width]`` device tensors, ``n`` a Python int, ``rtable`` the router
+    table and ``shift`` a 0-d int64 tensor on the engine's device.  Plain
+    torch: the reference computes this outside any Pallas kernel.
+    Ledgered as ``serve.device_prep``."""
+    dev = eng.device
+    idx0 = torch.arange(width, device=dev)
+
+    def prep_core(khi_raw, klo_raw, n, rtable, shift):
+        key = (bits.u32(khi_raw) - _TOP) * (1 << 32) + bits.u32(klo_raw)
+        sk, sidx = torch.sort(key)
+        first = torch.ones_like(sk, dtype=torch.bool)
+        first[1:] = sk[1:] != sk[:-1]
+        seg = torch.cumsum(first, 0) - 1
+        n_groups = seg[-1] + 1
+        # the sentinel contributes one trailing group iff padding exists
+        n_uniq = n_groups - int(n < width)
+        # first occurrences to [0, n_groups) in key order, duplicates
+        # behind them; the sentinel's head lands at n_uniq and is masked
+        # with the rest of the tail, like the host pad
+        dest = torch.where(first, seg, n_groups + idx0 - seg - 1)
+        ck = torch.empty_like(sk).scatter_(0, dest, sk)
+        active = idx0 < n_uniq
+        ck = torch.where(active, ck, _TOP * -(1 << 32))   # key 0
+        ukhi = (ck >> 32) + _TOP
+        uklo = ck & _MASK
+        # router probe (host_start's twin: key 0 -> bucket 0 -> table[0]
+        # covers the masked tail exactly like the host)
+        nb = rtable.shape[0]
+        bhi, blo = bits.u64_shr_dyn(ukhi, uklo, shift)
+        bucket = torch.where(bhi != 0, nb - 1, blo.clamp(max=nb - 1))
+        start = rtable[bucket]
+        # un-sort the segment map: inv[i] = unique rank of client row i
+        inv = torch.empty_like(seg).scatter_(0, sidx, seg)
+        inv = torch.where(idx0 < n, inv, 0)
+        return (bits.i32(ukhi), bits.i32(uklo), active, start,
+                inv.to(torch.int32), n_uniq.to(torch.int32))
+
+    return DEV.wrap_program("serve.device_prep", prep_core)
+
+
+def make_ingress_step(eng, *, width: int, leaf_cache=None,
+                      prep_impl: str | None = None):
+    """The serving front door's read path (:mod:`sherman_tpu_torch.serve`):
+    the host-fed twin of the staged loops.  Client key batches of one
+    fixed ``width`` are combined, probed and served through the engine's
+    own fan-out function (``BatchedEngine._get_search_fanout``, the
+    object ``search_combined`` and the staged loops call, so the
+    program-identity pin and the ledger label carry over), with each
+    client's answer fanned out on the device through the unique-inverse
+    map.  Every ladder rung is one shape: a warmed, sealed serving loop
+    records no new signature.
+
+    Split protocol (the two-deep pipeline's raw material)::
+
+        handle = step.dispatch(keys)        # keys u64 [n], 0 < n <= width
+        vals, found = step.complete(handle) # copies to the host
+
+    ``keys`` must be a uint64 array of in-range keys (the front door
+    validates at admission).  Duplicates share one descent row; the
+    unique set is key-sorted.  With ``leaf_cache`` the unique batch is
+    probed first (validated hits leave the active set and merge back per
+    client row in ``complete``, bit-identical to the uncached path) and
+    the raw client stream feeds the admission sketch (``observe``).
+
+    Unlike the reference's launch-only ``dispatch``, the port's syncs the
+    host once per straggler round of the serve (``_routed_resolve`` reads
+    its pending count back), so the ``pipelined`` form overlaps less.
+
+    Stragglers (stale router seeds after splits or growth) are rescued in
+    ``complete`` through the engine's root-descent ``search``.
+    ``prep_impl`` (default :func:`sherman_tpu_torch.config.prep_impl`)
+    places the prep: ``host`` or ``device`` (:func:`make_device_prep`; a
+    step with a leaf cache falls back to ``host``, the probe being
+    host-in/host-out).
+
+    This factory and ``BatchedEngine.search_combined`` implement one
+    combine/probe/fan-out/rescue/merge protocol at two width regimes;
+    the parity tests pin the two equal."""
+    router = eng.router
+    if router is None:
+        raise ConfigError("make_ingress_step: attach_router() first — "
+                          "the front door serves router-seeded descents")
+    if width <= 0 or width % eng.cfg.machine_nr != 0:
+        raise ConfigError(
+            f"ingress width {width} must be a positive multiple of "
+            f"machine_nr={eng.cfg.machine_nr} (the batch is node-major)")
+    if prep_impl is None:
+        prep_impl = C.prep_impl()
+    if prep_impl not in ("host", "device"):
+        raise ConfigError(
+            f"make_ingress_step: prep_impl={prep_impl!r}: want host|device")
+    if prep_impl == "device" and leaf_cache is not None:
+        # the documented fallback: the cache probe syncs its hit count,
+        # which would bring back the per-batch host round trip
+        prep_impl = "host"
+    iters = eng._iters()
+    fn = eng._get_search_fanout(iters)
+    root = int(eng.tree._root_addr)
+    dev = eng.device
+    # histogram handles made here, so a dispatch records plain floats
+    _h_prep = obs.histogram("prep.device_dispatch_ms"
+                            if prep_impl == "device" else "prep.host_ms")
+    obs.gauge("prep.impl_device").set(
+        1.0 if prep_impl == "device" else 0.0)
+
+    def _host_stage(keys):
+        n = keys.shape[0]
+        uk, inv = np.unique(keys, return_inverse=True)
+        U = uk.shape[0]
+        kh, kl = bits.keys_to_pairs(uk)
+        khi = np.zeros(width, kh.dtype)
+        klo = np.zeros(width, kl.dtype)
+        khi[:U] = kh
+        klo[:U] = kl
+        active = np.zeros(width, bool)
+        active[:U] = True
+        return n, uk, inv.reshape(-1), U, khi, klo, active
+
+    def dispatch(keys):
+        t0p = time.perf_counter()
+        n, uk, inv, U, khi, klo, active = _host_stage(keys)
+        chit = cvhi = cvlo = None
+        if leaf_cache is not None:
+            # the sketch sees the raw (duplicated) client stream; the
+            # probe drops validated hits out of the device batch
+            leaf_cache.observe(keys)
+            chit, cvhi, cvlo = leaf_cache.probe(khi, klo, active)
+            active = active & ~chit
+        start = router.host_start(khi, klo)
+        inv_p = np.zeros(width, np.int32)
+        inv_p[:n] = inv
+        args = (eng._dev(khi), eng._dev(klo), root, eng._dev(active),
+                eng._dev(start), eng._dev(inv_p))
+        with eng._step_mutex:
+            done, found, vhi, vlo = fn(eng.dsm.pool, eng.dsm.counters,
+                                       *args)
+        _h_prep.record((time.perf_counter() - t0p) * 1e3)
+        return (n, U, uk, inv, done, found, vhi, vlo, chit, cvhi, cvlo)
+
+    def _answers(found, vhi, vlo, n):
+        """One copy of the packed client answers to the host."""
+        ans = torch.stack([found[:n].to(torch.int32), vhi[:n], vlo[:n]],
+                          dim=1).cpu().numpy()
+        return bits.pairs_to_keys(ans[:, 1], ans[:, 2]), ans[:, 0] != 0
+
+    def complete(handle):
+        n, U, uk, inv, done, found, vhi, vlo, chit, cvhi, cvlo = handle
+        done_u = done[:U].cpu().numpy()
+        if chit is not None:
+            done_u = done_u | chit[:U]
+        if not done_u.all():
+            # straggler rescue (stale seeds, height growth): the engine's
+            # root-descent path answers the whole unique set
+            vals_u, found_u = eng.search(uk)
+            return vals_u[inv][:n], found_u[inv][:n]
+        vals, fnd = _answers(found, vhi, vlo, n)
+        if chit is not None and chit[:U].any():
+            # the hits' device rows were inactive: overwrite their client
+            # rows through the inverse map the fan-out used
+            ch = chit[:U][inv][:n]
+            fnd[ch] = True
+            vals[ch] = bits.pairs_to_keys(cvhi[:U], cvlo[:U])[inv][:n][ch]
+        return vals, fnd
+
+    def step(keys):
+        """dispatch + complete in one call (closed loops, tests)."""
+        return complete(dispatch(keys))
+
+    def drain(handle):
+        """Teardown completion (the front door's kill path): wait out the
+        handle's device work and discard it, without the straggler
+        rescue — a crashing server must not launch fresh descents."""
+        done = handle[4]
+        if done.is_cuda:
+            torch.cuda.current_stream(done.device).synchronize()
+
+    prep_fn = None
+    if prep_impl == "device":
+        prep_fn = make_device_prep(eng, width=width)
+        # the router table on the card, versioned by the split and grow
+        # counters (plain ints: two compares a dispatch, a copy only when
+        # the table moved)
+        _rt = {"ver": None, "rtable": None, "shift": None}
+
+        def _router_state():
+            ver = (router.splits_noted, router.span_grows)
+            if _rt["ver"] != ver:
+                with router._read_locked():
+                    table = np.array(router.table_np)
+                    shift = int(router.shift)
+                    ver = (router.splits_noted, router.span_grows)
+                _rt["rtable"] = torch.from_numpy(table).to(dev)
+                _rt["shift"] = torch.tensor(shift, dtype=torch.int64,
+                                            device=dev)
+                _rt["ver"] = ver
+            return _rt["rtable"], _rt["shift"]
+
+        def _raw(keys):
+            n = keys.shape[0]
+            kh, kl = bits.keys_to_pairs(keys)
+            khi_raw = np.full(width, -1, np.int32)   # the KEY_POS_INF pair
+            klo_raw = np.full(width, -1, np.int32)
+            khi_raw[:n] = kh
+            klo_raw[:n] = kl
+            return n, eng._dev(khi_raw), eng._dev(klo_raw)
+
+        def dispatch_device(keys):
+            """``dispatch`` with the prep on the card: the host splits the
+            pairs, pads with the sentinel and copies; combining, dedup,
+            sort and the router probe run in ``prep_fn``, whose outputs
+            feed the fan-out without touching the host."""
+            t0p = time.perf_counter()
+            n, khi_raw, klo_raw = _raw(keys)
+            rtable, shift = _router_state()
+            khi, klo, active, start, inv_p, n_uniq = prep_fn(
+                khi_raw, klo_raw, n, rtable, shift)
+            with eng._step_mutex:
+                done, found, vhi, vlo = fn(eng.dsm.pool, eng.dsm.counters,
+                                           khi, klo, root, active, start,
+                                           inv_p)
+            _h_prep.record((time.perf_counter() - t0p) * 1e3)
+            return (n, n_uniq, (khi, klo), inv_p, done, found, vhi, vlo,
+                    None, None, None)
+
+        def complete_device(handle):
+            """The unique count syncs here; the rescue copies the unique
+            set and the inverse map only when a descent overran."""
+            n, n_uniq, ukpair, inv_p, done, found, vhi, vlo, *_ = handle
+            U = int(n_uniq)
+            if not bool(done[:U].all()):
+                ukhi, uklo = (t[:U].cpu().numpy() for t in ukpair)
+                uk = bits.pairs_to_keys(ukhi, uklo)
+                inv = inv_p[:n].cpu().numpy()
+                vals_u, found_u = eng.search(uk)
+                return vals_u[inv], found_u[inv]
+            return _answers(found, vhi, vlo, n)
+
+        dispatch, complete = dispatch_device, complete_device
+
+    def prep_profile(keys, reps: int = 8) -> dict:
+        """Chained-delta wall of this step's prep alone, in ms (the
+        host-vs-device A/B's number): host mode times ``np.unique``, the
+        pad and the router probe; device mode chains ``prep_fn`` calls
+        and syncs once at the end of each loop."""
+        keys = np.asarray(keys, np.uint64)
+        if prep_impl == "device":
+            n, dk, dl = _raw(keys)
+            rtable, shift = _router_state()
+
+            def loop(k):
+                for _ in range(k):
+                    prep_fn(dk, dl, n, rtable, shift)
+                _sync(dev)
+            return {"prep_device_ms": _delta_ms(loop, reps)}
+
+        def loop(k):
+            for _ in range(k):
+                _, _, _, _, khi, klo, _ = _host_stage(keys)
+                router.host_start(khi, klo)
+        return {"prep_host_ms": _delta_ms(loop, reps)}
+
+    step.dispatch = dispatch
+    step.complete = complete
+    step.drain = drain
+    step.width = width
+    step.cache = leaf_cache is not None
+    step.prep_impl = prep_impl
+    step.prep_profile = prep_profile
+    step.programs = {"serve_fanout": fn}
+    step.phase_labels = {"serve_fanout": fn.label}
+    if prep_fn is not None:
+        step.programs["device_prep"] = prep_fn
+        step.phase_labels["device_prep"] = prep_fn.label
+    return step

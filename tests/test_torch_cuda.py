@@ -17,8 +17,9 @@ the card; the observability plane's card readings (the memory
 accountant's CUDA allocator gauges, ``obs.device_trace`` naming the page
 kernels, the kernel build's ledger entry); the hot-key tier and the
 value heap against the CPU (the smoke's phase 23a/24a sequences), the
-cached staged loop and the heap resolve on garbage handles.  Every
-comparison is exact equality.
+cached staged loop and the heap resolve on garbage handles; the serving
+front door against the CPU (phase 25a's sequence) and the device prep on
+garbage pairs.  Every comparison is exact equality.
 """
 
 import numpy as np
@@ -937,3 +938,50 @@ def test_heap_resolve_on_garbage_matches_the_cpu(dev):
     for x, y in zip(*outs):
         assert torch.equal(x, y)
     assert outs[1][2].sum() > M // 20
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_front_door_on_the_card_matches_the_cpu(dev, machine_nr):
+    """The front door's sequence (the ingress step on host and device
+    prep at three rungs, a serial ShermanServer sequence with rids, a
+    scan, a degraded entry, a deadline shed, payloads through the value
+    heap) on the card and on the CPU: answers, device prep outputs,
+    pools, journal bytes, dedup windows and the heap bit-identical, the
+    auditor clean."""
+    PK.reset_launches()
+    _smoke().front_reference_check(machine_nr)
+    assert PK.LAUNCHES["writeback"] > 0
+    if machine_nr == 1:
+        assert PK.LAUNCHES["descent_round"] > 0
+
+
+@pytest.mark.parametrize("W", [1, 257, 4096, 100_003])
+def test_device_prep_on_garbage_matches_the_cpu(dev, W):
+    """``make_device_prep`` on random raw pairs (the sentinel pair among
+    them, duplicates, every partial count) and random router tables and
+    shifts: the six outputs equal on the card and on the CPU."""
+    import types
+    from sherman_tpu_torch.workload.device_prep import make_device_prep
+
+    rng = np.random.default_rng(W)
+    for trial in range(3):
+        n = int(rng.integers(1, W + 1))
+        pool = rng.integers(-2**31, 2**31, max(2, n // 3), dtype=np.int64)
+        kh = rng.choice(pool, W).astype(np.int32)
+        kl = rng.choice(pool, W).astype(np.int32)
+        kh[n:] = -1
+        kl[n:] = -1
+        nb = 1 << int(rng.integers(1, 20))
+        table = rng.integers(-2**31, 2**31, nb, dtype=np.int64).astype(
+            np.int32)
+        shift = int(rng.integers(0, 64))
+        outs = []
+        for d in ("cuda", "cpu"):
+            fn = make_device_prep(types.SimpleNamespace(
+                device=torch.device(d)), width=W)
+            t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d)
+            outs.append([x.cpu() for x in fn(
+                t(kh), t(kl), n, t(table),
+                torch.tensor(shift, dtype=torch.int64, device=d))])
+        for x, y in zip(*outs):
+            assert torch.equal(x, y), (trial, n, shift)

@@ -371,6 +371,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == models_dir} >= {
         "batched.py", "leaf_cache.py", "value_heap.py"}
+    top_dir = os.path.join(REPO, "sherman_tpu_torch")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == top_dir} >= {
+        "serve.py", "audit.py", "replica.py", "serve_bench.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -1,7 +1,8 @@
 """Port parity: the value heap (``sherman_tpu_torch/models/value_heap.py``),
 the DSM heap region and the heap's checkpoint, journal and recovery paths,
-against the JAX package, case by case after tests/test_value_heap.py (the
-cases that use neither the serving front door nor the reshard).
+against the JAX package, case by case after tests/test_value_heap.py (all
+but the reshard and migration cases), the serving front door's payload
+reads, payload inserts, sidecar and heap-ack provenance included.
 
 Both packages load the same tree, attach a heap and drive the same puts,
 gets, removes, scans, scrubs, checkpoints and recoveries: the answers and
@@ -27,10 +28,12 @@ from sherman_tpu.config import DSMConfig as JDSMConfig
 from sherman_tpu.models import batched as JB
 from sherman_tpu.models import value_heap as JVH
 from sherman_tpu.models.btree import Tree as JTree
+from sherman_tpu import serve as JS
 from sherman_tpu.utils import checkpoint as JCK
 from sherman_tpu.utils import journal as JJ
 from sherman_tpu_torch import obs as OBS
 from sherman_tpu_torch import recovery as RC
+from sherman_tpu_torch import serve as PS
 from sherman_tpu_torch import state
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
@@ -620,3 +623,217 @@ def test_free_wrong_class_handle_typed(eight_devices):
             s.vh.free_handles(keys[:1], forged)
     got, found = P.both(lambda s: s.vh.get(keys[:1]), "get")
     assert found[0] and got[0] == b"tiny"
+
+
+# -- the serving front door over the heap ------------------------------------
+
+def _heap_server(s, keys, **kw):
+    S = JS if s.jax else PS
+    cfg = S.ServeConfig(widths=kw.pop("widths", (256, 1024)),
+                        p99_targets_ms={c: 200.0 for c in
+                                        ("read", "scan", "insert",
+                                         "delete")},
+                        calib_steps=1, seal=False, **kw)
+    srv = S.ShermanServer(s.e, cfg)
+    srv.start(calib_keys=keys)
+    return srv
+
+
+def test_serve_variable_size_records(eight_devices):
+    """Payload reads behind the ingress step, payload inserts through the
+    write lane, scans with payloads and deletes that free slabs: the same
+    answers and the same heap and allocator state in both packages."""
+    P, keys, pay = loaded(n=300)
+
+    def go(s):
+        srv = _heap_server(s, keys, write_linger_ms=0.5, write_lane=True)
+        try:
+            got, found = srv.submit("read", keys[:64],
+                                    resolve_payloads=True).result(timeout=30)
+            assert found.all() and all(got[i] == pay[i] for i in range(64))
+            ok = srv.submit("insert", keys[:8],
+                            payloads=[b"served!"] * 8).result(timeout=30)
+            assert ok.all()
+            got3, _ = srv.submit("read", keys[:8],
+                                 resolve_payloads=True).result(timeout=30)
+            assert all(g == b"served!" for g in got3)
+            (ks, ps), = srv.submit(
+                "scan", ranges=[(int(keys[100]), int(keys[120]))],
+                resolve_payloads=True).result(timeout=30)
+            assert len(ps) == ks.size > 0
+            fnd = srv.submit("delete", keys[8:12]).result(timeout=30)
+            assert fnd.all()
+            st = srv.stats()
+            assert st["value_heap"]["frees"] >= 4
+            assert st["write_lane"] is True
+            return got, found, ok, got3, ks, ps, fnd, st["value_heap"]
+        finally:
+            srv.stop()
+    P.both(go, "serve")
+
+
+def test_serve_write_lane_off_still_serves(eight_devices):
+    P, keys, pay = loaded(n=200)
+
+    def go(s):
+        srv = _heap_server(s, keys, widths=(256,), write_lane=False,
+                           write_linger_ms=0.5)
+        try:
+            ok = srv.submit("insert", keys[:4],
+                            payloads=[b"one-lane"] * 4).result(timeout=30)
+            assert ok.all()
+            got, _ = srv.submit("read", keys[:4],
+                                resolve_payloads=True).result(timeout=30)
+            assert all(p == b"one-lane" for p in got)
+            return ok, got
+        finally:
+            srv.stop()
+    P.both(go, "one lane")
+
+
+def test_serve_payload_read_of_inline_value_fails_typed(eight_devices):
+    """A payload read of a key written inline fails its future typed
+    (HeapCorruptError), and the loop keeps serving its batch-mates."""
+    P, keys, pay = loaded(n=200)
+
+    def go(s):
+        srv = _heap_server(s, keys, widths=(256,), write_linger_ms=0.5)
+        try:
+            bad_key = np.asarray([0xBAD_C0DE_1], np.uint64)
+            srv.submit("insert", bad_key,
+                       values=np.asarray([7], np.uint64)).result(timeout=30)
+            f1 = srv.submit("read", bad_key, resolve_payloads=True)
+            err = JVH.HeapCorruptError if s.jax else VH.HeapCorruptError
+            with pytest.raises(err):
+                f1.result(timeout=30)
+            got, found = srv.submit("read", keys[:4],
+                                    resolve_payloads=True).result(timeout=30)
+            assert found.all() and all(got[i] == pay[i] for i in range(4))
+            return got, found, srv.dispatch_errors
+        finally:
+            srv.stop()
+    P.both(go, "inline value")
+
+
+def test_serve_oversized_payload_rejected_at_submit():
+    P, keys, _ = loaded(n=100)
+    srv = _heap_server(P.p, keys, widths=(256,))
+    try:
+        with pytest.raises(ConfigError):
+            srv.submit("insert", keys[:1], payloads=[b"x" * 300])
+        with pytest.raises(ConfigError):      # payloads ride inserts only
+            srv.submit("read", keys[:1], payloads=[b"x"])
+        with pytest.raises(ConfigError):
+            srv.submit("insert", keys[:2], payloads=[b"x"])
+    finally:
+        srv.stop()
+
+
+def test_serve_sidecar_skips_gather_bit_identical(eight_devices):
+    """A repeated payload read serves the pinned sidecar bytes (the heap
+    gather is skipped) bit-identical to the resolver's; a rewrite kills
+    the pin and the next read gathers the new bytes.  Both packages
+    count the same gathers and leave the same cache and heap."""
+    P, keys, pay = loaded(n=300)
+
+    def go(s):
+        cache = s.e.attach_leaf_cache(slots=1024)
+        calls = []
+        real = s.vh.resolve_u64
+        s.vh.resolve_u64 = lambda *a, **kw: (calls.append(1)
+                                             or real(*a, **kw))
+        srv = _heap_server(s, keys, write_linger_ms=0.5, write_lane=True)
+        try:
+            k = keys[:64]
+            got1, found = srv.submit("read", k, resolve_payloads=True
+                                     ).result(timeout=30)
+            assert found.all() and all(got1[i] == pay[i] for i in range(64))
+            assert calls, "first read must gather"
+            assert cache.stats()["sidecar_pins"] >= 64
+            n_calls = len(calls)
+            got2, found2 = srv.submit("read", k, resolve_payloads=True
+                                      ).result(timeout=30)
+            assert found2.all() and got2 == got1
+            assert len(calls) == n_calls, "a sidecar hit must skip the gather"
+            assert cache.stats()["sidecar_hits"] >= 64
+            ok = srv.submit("insert", k[:8], payloads=[b"rewritten!"] * 8
+                            ).result(timeout=30)
+            assert ok.all()
+            got3, found3 = srv.submit("read", k[:8], resolve_payloads=True
+                                      ).result(timeout=30)
+            assert found3.all() and all(g == b"rewritten!" for g in got3)
+            assert len(calls) > n_calls
+            return got1, got2, got3, len(calls), cache.stats()
+        finally:
+            srv.stop()
+            del s.vh.resolve_u64
+            s.e.detach_leaf_cache()
+    P.both(go, "sidecar")
+
+
+def test_heap_ack_provenance_retry_across_crash(eight_devices, tmp_path):
+    """Heap-write acks journal their payload provenance (the installed
+    handles ride the J_ACK record): after a crash the recovered dedup
+    window carries them, ``seed_dedup`` rejournals them, and a write
+    retried across the crash re-acks its original result without
+    stomping a newer payload — the same windows and state in both
+    packages."""
+    P, keys, pay = loaded(n=200)
+    k = keys[:8]
+    orig = [bytes([65 + i]) * 16 for i in range(8)]
+    out = []
+    for s in (P.j, P.p):
+        rdir = str(tmp_path / ("j" if s.jax else "p"))
+        plane = s.RC.RecoveryPlane(s.c, s.t, s.e, rdir)
+        plane.checkpoint_base()
+        srv = _heap_server(s, keys, write_linger_ms=0.5, write_lane=True)
+        try:
+            ok0 = srv.submit("insert", k, payloads=orig, rid=500,
+                             tenant="t").result(timeout=30)
+            assert ok0.all()
+        finally:
+            srv.stop()
+        jj = JJ if s.jax else J
+        jpath = s.e.journal.path
+        acks = [a for kind, _k, aux, _r in jj.read_records(jpath,
+                                                            with_rids=True)
+                if kind == jj.J_ACK for a in aux]
+        withprov = [a for a in acks if a[0] == 500 and len(a) == 5]
+        assert withprov, "a heap-write ack must carry provenance"
+        assert (np.asarray(withprov[-1][4]) != 0).all()
+        plane.close()
+        rec = jj.encode_record(jj.J_UPSERT, k[:1], k[:1])
+        with open(jpath, "ab") as f:
+            f.write(rec[: len(rec) // 2])                  # a torn tail
+        kw = {} if s.jax else {"device": "cpu"}
+        plane2, c2, t2, e2, _ = s.RC.RecoveryPlane.recover(
+            rdir, batch_per_node=256, **kw)
+        entry = plane2.dedup_window[("t", 500)]
+        assert len(entry) == 3, "the recovered window keeps the provenance"
+        np.testing.assert_array_equal(entry[1], ok0)
+        s2 = Side(s.jax, cluster=c2, tree=t2, eng=e2)
+        srv2 = _heap_server(s2, keys, write_linger_ms=0.5, write_lane=True)
+        try:
+            assert srv2.seed_dedup(plane2.dedup_window) >= 1
+            okn = srv2.submit("insert", k, rid=501, tenant="t",
+                              payloads=[b"newer-payload"] * 8
+                              ).result(timeout=30)
+            assert okn.all()
+            f = srv2.submit("insert", k, payloads=orig, rid=500,
+                            tenant="t")
+            okr = f.result(timeout=30)
+            assert f.deduped and np.array_equal(okr, ok0)
+            got, fnd = srv2.submit("read", k, resolve_payloads=True
+                                   ).result(timeout=30)
+            assert fnd.all() and all(g == b"newer-payload" for g in got)
+            acks2 = [a for kind, _k, aux, _r in
+                     jj.read_records(e2.journal.path, with_rids=True)
+                     if kind == jj.J_ACK for a in aux]
+            assert any(a[0] == 500 and len(a) == 5 for a in acks2)
+        finally:
+            srv2.stop()
+        out.append((s2, [tuple(np.asarray(x) for x in entry), ok0, okn,
+                         okr, got, fnd]))
+        plane2.close()
+    _eq(out[0][1], out[1][1], "results")
+    same(out[0][0], out[1][0], "recovered and served")
