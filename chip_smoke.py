@@ -76,7 +76,8 @@ splits, ``flush_parents`` and the router's split notes), after phase 7,
 in ``tools/insert_bench.py``'s configuration:
 
 8. the storm reference check at 20,000 warm keys (fill 0.9) and 20,000
-   fresh ones (``split_slots`` 256) on 1 and on 8 nodes, card against the
+   fresh ones (``split_slots`` 256) on 1 node, 10,000 and 10,000 on 8
+   nodes (for the time limit), card against the
    plain path on the CPU: stats, pools, locks and counters bit-identical,
    ``Tree.check_structure`` equal, every key found;
 9. one node: 10,000,000 warm keys ``mix64(rank ^ 0x5E17AB1E5A17)``
@@ -280,12 +281,12 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     chain, a torn tail, a crash and ``recover`` — payloads, heap regions,
     allocators, journal bytes and the recovered state bit-identical, RPO
     0); (b) ``tools/ycsb_bench.py --value-bytes 64 --value-dist fixed``
-    on phase 15's configuration at 10,000,000 keys with 1,500,000 heap
-    pages: the migration of every record out of line, A-F through the
+    on phase 15's configuration at 2,000,000 keys with 300,000 heap pages
+    (the keys halved past the smoke's projection): the migration of every record out of line, A-F through the
     heap (C sealed), every get and scan answer checked against the
     records' bytes, ``heap_phase_ms``, ``audit_ok``; the ``--ab`` YCSB-C
-    arms on fresh trees of 1,000,000 keys; a heap tree of 1,000,000 keys
-    through a base, acked puts and removes, a delta, a crash and
+    arms on fresh trees of 1,000,000 keys; the heap tree through a base,
+    acked puts and removes, a delta, a crash and
     ``recover`` (RPO 0, every get equal); the ``ycsb_matrix_heap`` JSON
     line, K1-K3 replayed at every shape (path ``one_node_heap``);
 25. the serving front door (``make_ingress_step``, ``serve.py``,
@@ -311,7 +312,26 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     writers, group commit 2 ms, 10 s (RPO 0, acks per fsync above 1); the
     ``serve_bench``, ``serve_bench_device_prep`` and
     ``serve_crash_drill`` JSON lines, K1-K3 replayed at every shape
-    (paths ``one_node_serve`` for (b)+(c), ``one_node_crash`` for (d)).
+    (paths ``one_node_serve`` for (b)+(c), ``one_node_crash`` for (d));
+26. the replication plane (``replica.py``, the ``repl_*`` chaos layer,
+    the quorum gate, ``failover_drill.py``, ``partition_drill.py``),
+    after phase 25: (a) the replication reference check on 1 and on 8
+    nodes, card against the CPU at 3,000 keys (:func:`_repl_run`: ship,
+    a sweeping delta and the re-bootstraps, replica reads served and
+    forwarded, a ``ReplChaos.storm`` and its detections, quorum waits
+    covered and timed out, an anti-entropy divergence repaired, a front
+    door with rids, the split-brain fence point and its suffix count, the
+    promotion, ``seed_dedup`` and the retried rids — pools, watermarks,
+    windows, tails and counters bit-identical); (b) the failover drill at
+    100,000,000 keys, one node, two followers, 30 s (``lost_acks``,
+    ``duplicate_acks`` 0, linearizable, ``fenced_writes`` >= 1, two
+    re-bootstraps; lag, availability gap, promotion, each bootstrap by
+    part, device memory); (c) the partition drill at 10,000,000 keys,
+    seed 11, 20 rounds (every injection detected or refused, no fenced
+    ack merged, no diverged follower left, no lost or duplicate ack,
+    linearizable; the quorum A/B and the re-join catch-up); the
+    ``failover_drill`` and ``partition_drill`` JSON lines, K1-K3 replayed
+    at every shape (paths ``one_node_failover``, ``one_node_partition``).
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -321,7 +341,7 @@ launch), around each staged window, around each storm's timed window
 around phase 19's serving steps (K1-K3), around phase 21's traffic
 and delta, its recovery and its repair (K1-K3 in each), around phase
 22b (K1-K3), around 23b (K1, K2), around 24b's migration and matrix
-(K1-K3), and around 25b+c and 25d (K1-K3 in each);
+(K1-K3), around 25b+c and 25d, and around 26b and 26c (K1-K3 in each);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -334,7 +354,8 @@ computes the same function). The lines before the last are the
 ``integrity``, ``durability``, ``obs``, ``cache`` and
 ``ycsb_matrix_heap`` JSON records (printed after phases 19, 21, 22, 23
 and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
-``serve_crash_drill`` records, the K1 and K3 ablations, the
+``serve_crash_drill`` records, phase 26's ``failover_drill`` and
+``partition_drill`` records, the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -353,6 +374,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 
@@ -896,6 +918,7 @@ class ShapeLog:
         from sherman_tpu_torch.parallel import transport_kernel as TK
         self.counts: dict[str, dict[tuple, int]] = {}
         self.args: dict[str, dict[tuple, tuple]] = {}
+        self._lock = threading.Lock()   # several threads launch (26b-c)
         self._idle: set = set()      # K3 shapes kept with an empty mask
         self._orig = [(m, a, getattr(m, a)) for m, a in (
             (PK, "descent_round"), (PK, "gather_pages"), (PK, "writeback"),
@@ -909,7 +932,9 @@ class ShapeLog:
     def _spy(self, kernel: str, fn):
         def spy(*args, **kw):
             out = fn(*args, **kw)
-            if args[0].device.type == self.device_type:
+            if args[0].device.type != self.device_type:
+                return out
+            with self._lock:
                 shape = _shape(kernel, args, kw)
                 if kernel == "gather_pages" and self.site:
                     shape += (self.site,)
@@ -1121,7 +1146,8 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_storm", "eight_nodes_storm", "one_node_churn",
          "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
          "one_node_durability", "one_node_obs", "one_node_cache",
-         "one_node_heap", "one_node_serve", "one_node_crash")
+         "one_node_heap", "one_node_serve", "one_node_crash",
+         "one_node_failover", "one_node_partition")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1692,8 +1718,9 @@ def storm(ctx: dict, path: str, chunk: int, must_launch,
     return replay(log, path)
 
 
-def storm_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
-    """The storm at 20,000 warm keys (fill 0.9) and 20,000 fresh keys
+def storm_reference_check(machine_nr: int, devices=("cuda", "cpu"),
+                          n: int = 20_000) -> None:
+    """The storm at ``n`` warm keys (fill 0.9) and ``n`` fresh keys
     (``split_slots`` 256, one ``eng.insert`` call) on the card and on the
     plain path on the CPU from one seed: the stats, pools, locks and
     counters bit-identical, ``Tree.check_structure`` equal and every key
@@ -1701,7 +1728,7 @@ def storm_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
     N = machine_nr
     out = []
     for d in devices:
-        ctx = storm_build(20_000, 20_000, d, machine_nr=N,
+        ctx = storm_build(n, n, d, machine_nr=N,
                           batch=2048, split_slots=256, locks_per_node=4096,
                           chunk_pages=64, host_step_capacity=64,
                           log=lambda m: None)
@@ -1716,9 +1743,9 @@ def storm_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
                                        for x, y in zip(xa, xb)):
         raise AssertionError(f"the storm ({N} nodes) on the card disagrees "
                              f"with the plain path: {sa} {ca} vs {sb} {cb}")
-    if sa["host_path"] or ca["keys"] != 40_000:
+    if sa["host_path"] or ca["keys"] != 2 * n:
         raise AssertionError(f"storm reference: {sa} {ca}")
-    _log(f"storm reference check ({N} node(s), 20,000 + 20,000 keys, card "
+    _log(f"storm reference check ({N} node(s), {n:,} + {n:,} keys, card "
          f"vs plain path on the CPU): stats {sa}, structure {ca}; pools, "
          f"locks and counters bit-identical")
 
@@ -4076,8 +4103,9 @@ TIER_KEYS = 3000                # the reference checks' tree (keys 100 + 3i)
 CACHE_SLOTS = 65536             # SHERMAN_LEAF_CACHE=1
 CACHE_AB_REPEATS = 3            # cached staged windows a side, interleaved
 CACHE_AB_STEPS = 8
-HEAP_KEYS = 10_000_000          # 24b's tree (phase 15's configuration)
-HEAP_PAGES = 1_500_000          # heap pages a node (1.54 GB)
+HEAP_KEYS = 2_000_000           # 24b's tree (phase 15's configuration)
+HEAP_PAGES = 300_000            # heap pages a node (0.31 GB)
+HEAP_EST_S = 60.0               # 24b at HEAP_KEYS (a chip run: 167 s at 10 M)
 HEAP_VALUE_BYTES = 64
 HEAP_AB_KEYS = 1_000_000        # the --ab arms' fresh trees
 HEAP_DUR_PUTS = 8               # acked heap put batches after the base
@@ -4612,7 +4640,8 @@ def heap_durability(box: dict, device: str) -> dict:
 
 def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
                     heap_pages: int = HEAP_PAGES,
-                    device: str = "cuda") -> dict:
+                    device: str = "cuda", t_smoke: float | None = None
+                    ) -> dict:
     """Phase 24b: ``tools/ycsb_bench.py --value-bytes 64 --value-dist
     fixed`` on phase 15's configuration at ``n_keys`` keys with
     ``heap_pages`` heap pages: the build, the migration of every record
@@ -4623,12 +4652,24 @@ def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
     ``HEAP_AB_KEYS``; before them, on the same heap tree,
     :func:`heap_durability`; the ``ycsb_matrix_heap`` line; K1-K3
     replayed at every shape of the migration and the matrix (path
-    ``one_node_heap``).  -> {kernel: [shapes]}."""
+    ``one_node_heap``).  Past a projection of ``SMOKE_CUT_S`` for the
+    smoke (from ``t_smoke``), ``n_keys`` is halved (listed in
+    ``reduced``).  -> {kernel: [shapes]}."""
     from sherman_tpu_torch import ycsb_bench as YB
     from sherman_tpu_torch.recovery import RecoveryPlane
     from sherman_tpu_torch.workload.ycsb import YcsbGen, payloads_of
     path = "one_node_heap"
     t_phase = time.perf_counter()
+    cut = []
+    if t_smoke is not None:
+        proj = (time.perf_counter() - t_smoke + HEAP_EST_S + FRONT_EST_S
+                + REPL_EST_S)
+        if proj > SMOKE_CUT_S:
+            # the heap pages stay: the durability puts below need their
+            # own slabs whatever the key count
+            n_keys //= 2
+            cut.append(f"keys halved: the smoke's projection {proj:.0f} s "
+                       f"passed {SMOKE_CUT_S:.0f} s")
     rec: dict = {"metric": "ycsb_matrix_heap", "path": path, "card": smi,
                  "keys": n_keys, "batch": YCSB_OPS, "steps": YCSB_STEPS,
                  "value_bytes": HEAP_VALUE_BYTES, "value_dist": "fixed",
@@ -4636,7 +4677,7 @@ def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
                      f"keys 100,000,000 -> {n_keys:,}, for the smoke's "
                      "time limit",
                      f"--ab arms at {HEAP_AB_KEYS:,} keys (fresh trees), "
-                     "for the smoke's time limit"]}
+                     "for the smoke's time limit"] + cut}
     t = time.perf_counter()
     cluster, tree, eng, keys = YB.build(
         n_keys, YCSB_OPS, 1, device, heap_pages=heap_pages,
@@ -4711,9 +4752,8 @@ SERVE_WIDTHS = "262144,1048576,4194304"
 SERVE_REQ_OPS = 65_536
 SERVE_SECS = 30.0               # (b); cut to 15 past the projection
 SERVE_SECS_DEVICE = 30.0        # (c)'s second run; cut to 10 first
-CRASH_SECS = 10.0               # (d)
-FRONT_EST_S = 200.0             # 25b-d at full length (a chip run: ~160 s)
-FRONT_LIMIT_S = 1000.0          # the projection past which 25 cuts
+CRASH_SECS = 10.0               # (d); cut to 5 third
+FRONT_EST_S = 165.0             # 25b-d at full length (a chip run: 130 cut)
 
 
 def front_build(machine_nr: int, device: str):
@@ -5048,24 +5088,30 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
       2 ms, 10 s: ``rpo_ops`` 0, ``acks_per_fsync`` above 1.
 
     (b)+(c) is the window ``one_node_serve``, (d) ``one_node_crash``; K1-K3
-    replayed at every shape of each.  Past a projection of 1,000 s for the
-    smoke, (c)'s second run is cut to 10 s, then (b) to 15 s (listed in
+    replayed at every shape of each.  Past a projection of
+    ``SMOKE_CUT_S`` for the smoke (phase 26 included), (c)'s second run is
+    cut to 10 s, then (b) to 15 s, then (d) to 5 s (listed in
     ``reduced``).  -> {kernel: [shapes]}."""
     from sherman_tpu_torch import audit as AU
     from sherman_tpu_torch import serve_bench as SB
     reduced = []
-    secs_b, secs_c = SERVE_SECS, SERVE_SECS_DEVICE
-    proj = time.perf_counter() - t_smoke + FRONT_EST_S
-    if proj > FRONT_LIMIT_S:
+    secs_b, secs_c, secs_d = SERVE_SECS, SERVE_SECS_DEVICE, CRASH_SECS
+    proj = time.perf_counter() - t_smoke + FRONT_EST_S + REPL_EST_S
+    if proj > SMOKE_CUT_S:
         secs_c = 10.0
         reduced.append(f"(c)'s second serve run --secs 30 -> 10: the "
                        f"smoke's projection {proj:.0f} s passed "
-                       f"{FRONT_LIMIT_S:.0f} s")
+                       f"{SMOKE_CUT_S:.0f} s")
         proj -= SERVE_SECS_DEVICE - secs_c
-    if proj > FRONT_LIMIT_S:
+    if proj > SMOKE_CUT_S:
         secs_b = 15.0
         reduced.append(f"(b) --secs 30 -> 15: the smoke's projection "
-                       f"{proj:.0f} s passed {FRONT_LIMIT_S:.0f} s")
+                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
+        proj -= SERVE_SECS - secs_b
+    if proj > SMOKE_CUT_S:
+        secs_d = 5.0
+        reduced.append(f"(d) --secs 10 -> 5: the smoke's projection "
+                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
     widths = tuple(int(w) for w in SERVE_WIDTHS.split(","))
     shapes: dict = {}
     t_phase = time.perf_counter()
@@ -5085,8 +5131,7 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
         sample = SB.make_sampler(SERVE_KEYS, 0.99, built[4], 4242)
         rec_b["host_syncs"] = dispatch_syncs(eng, widths, sample)
         rec_b.update(card=smi, build_s=build_s, keyspace_s=keys_s,
-                     reduced=reduced[-1:]
-                     if secs_b != SERVE_SECS else [])
+                     reduced=[r for r in reduced if r.startswith("(b)")])
         print(json.dumps(rec_b), flush=True)
         _log(f"25b open-loop serve: {rec_b['serve_ops_s']:,} ops/s, read "
              f"p99 {rec_b['serve_read_p99_ms']} ms, retraces "
@@ -5112,8 +5157,7 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
             else:
                 os.environ["SHERMAN_PREP_IMPL"] = old
         rec_c.update(card=smi, prep_ab=ab, prep_ab_s=ab_s,
-                     reduced=reduced[:1] if secs_c != SERVE_SECS_DEVICE
-                     else [])
+                     reduced=[r for r in reduced if r.startswith("(c)")])
         rec_c["metric"] = "serve_bench_device_prep"
         print(json.dumps(rec_c), flush=True)
         audit = rec_c["serve"]["audit"]
@@ -5135,10 +5179,11 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
     torch.cuda.empty_cache()
     with ShapeLog() as log:
         t = time.perf_counter()
-        rec_d = SB.run_crash_drill(_serve_args(CRASH_SECS, "--crash-drill",
+        rec_d = SB.run_crash_drill(_serve_args(secs_d, "--crash-drill",
                                                "--device", device))
         rec_d["wall_s"] = time.perf_counter() - t
     rec_d["card"] = smi
+    rec_d["reduced"] = [r for r in reduced if r.startswith("(d)")]
     print(json.dumps(rec_d), flush=True)
     _log(f"25d crash drill: rpo_ops {rec_d['rpo_ops']}, acks/fsync "
          f"{rec_d['acks_per_fsync']}, replayed "
@@ -5156,6 +5201,431 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
     _log(f"25b-d front door at full width: "
          f"{time.perf_counter() - t_phase:.1f} s")
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the replication plane.
+# ---------------------------------------------------------------------------
+
+REPL_KEYS = 3000                # 26a's tree (the reference drills' keys)
+FAILOVER_KEYS = 100_000_000     # 26b: BENCHMARKS.md:174-185's capture
+FAILOVER_SECS = 30.0            # cut to 15 past the projection
+PARTITION_KEYS = 10_000_000     # 26c: 100,000,000 -> 10,000,000
+PARTITION_ROUNDS = 20
+REPL_EST_S = 260.0              # 26a-c at full length (a chip run: 257 s)
+SMOKE_CUT_S = 1050.0            # the projection past which 24b-26b cut
+SMOKE_LIMIT_S = 1200.0          # the smoke's time limit; 26c cuts 100 s before
+
+
+def _kind(fn):
+    """-> ("ok", result) or ("raised", the error's class name): the
+    replication plane's messages name chain ids, which are nonces."""
+    try:
+        return ("ok", fn())
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        return ("raised", type(e).__name__)
+
+
+def _repl_strip(x, cids=()):
+    """A receipt without its wall times and chain ids."""
+    if isinstance(x, str):
+        for c in cids:
+            if c:
+                x = x.replace(c, "CID")
+        return x
+    if isinstance(x, dict):
+        return {k: (None if k in ("promote_ms", "catchup_ms", "waited_ms",
+                                  "quorum_wait_ms") else _repl_strip(v, cids))
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_repl_strip(v, cids) for v in x)
+    return x
+
+
+def _repl_state(group) -> list:
+    """A group's observables: its counters (no wall times) and, a
+    follower, the pool, the watermark file, the window and the tail."""
+    st = dict(group.stats())
+    st.pop("quorum_wait_ms")
+    out = [st]
+    for f in group.followers:
+        with open(os.path.join(f.dir, "watermark.json")) as fh:
+            wm = json.load(fh)
+        if wm["cid"] != f.cid:
+            raise AssertionError(f"follower {f.idx}: watermark {wm} names "
+                                 f"another chain than {f.cid}")
+        t = f.tailer
+        out.append([f.cluster.dsm.pool.to("cpu", copy=True),
+                    (wm["link"], wm["seq"]),
+                    (f.link, f.seq, f.rebootstraps, f.caught_up,
+                     f.quarantined, f.chaos_detected),
+                    {k: [np.asarray(x) for x in v]
+                     for k, v in f.window.items()},
+                    dict(f.stats),
+                    (None if t._cur is None else
+                     os.path.basename(t._cur).replace(f.cid, "CID"),
+                     t._off, t.seg_crc, t.torn_waits, t.stalls)])
+    return out
+
+
+def _repl_run(machine_nr: int, device: str, rdir: str) -> list:
+    """Phase 26a's sequence on one device -> [(label, result)]: a primary
+    of 3,000 keys with a recovery plane and a group of two followers
+    (256-slot caches); shipped upserts, deletes and acks; a delta that
+    sweeps the live segment and the re-bootstraps; replica reads served
+    and forwarded; a ``ReplChaos.storm`` over the tail with its
+    detections; quorum waits covered and timed out under a ship hold;
+    an anti-entropy divergence repaired (full and sampled audits); a
+    front door with rids; the split-brain fence point, the stale
+    primary's fenced suffix and its typed refusal; the promotion,
+    ``seed_dedup`` on the winner's front door and the retried rids; after
+    each, the group's state (pools, watermarks, windows, tails, counters)
+    and the primary's pool."""
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch import serve as SV
+    from sherman_tpu_torch.failover_drill import (SALT, build_cluster,
+                                                  drill_keyspace)
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.replica import AntiEntropy, ReplicaGroup
+    from sherman_tpu_torch.utils import journal as J
+    N = machine_nr
+    cluster, tree, eng = build_cluster(
+        N, 1024 if N == 1 else 256, batch_per_node=128, device=device,
+        locks_per_node=256, chunk_pages=32)
+    keys = drill_keyspace(REPL_KEYS)
+    vals = keys ^ np.uint64(SALT)
+    batched.bulk_load(tree, keys, vals)
+    eng.attach_router()
+    plane = RecoveryPlane(cluster, tree, eng, os.path.join(rdir, "primary"))
+    plane.checkpoint_base()
+    group = ReplicaGroup(plane, 2, batch_per_node=128, cache_slots=256,
+                         poll_ms=1e9)
+    out = []
+
+    def rec(label, res):
+        out.append((label, [res, _repl_state(group), _pool_state(tree)]))
+
+    rec("bootstrap", None)
+    eng.insert(keys[:200], vals[:200] ^ np.uint64(0x11))
+    eng.delete(keys[200:216])
+    okv = np.asarray([True, False, True])
+    eng.journal.append_acks([(7, "t", J.J_UPSERT, okv),
+                             (8, "t", J.J_DELETE, okv)])
+    rec("ship", group.pump())
+    plane.checkpoint_delta()
+    eng.insert(keys[216:300], vals[216:300] ^ np.uint64(0x12))
+    rec("sweep", [group.pump(), [f.rebootstraps for f in group.followers]])
+    if any(f.rebootstraps != 1 for f in group.followers):
+        raise AssertionError(f"26a ({device}): the sweep did not "
+                             "re-bootstrap every follower")
+    for f in group.followers:
+        f.admit(keys[:64])
+    rec("reads", [group.read(keys[:64]), group.read(keys[100:140]),
+                  group.reads_served, group.reads_forwarded])
+    # a seeded storm over the shipping tail
+    storm = CH.ReplChaos.storm(5, n_faults=6, poll_hi=16, span_hi=3,
+                               followers=2)
+    group.attach_chaos(storm)
+    for i in range(8):
+        k = keys[300 + 24 * i: 324 + 24 * i]
+        eng.insert(k, k ^ np.uint64(0x13 + i))
+        group.pump()
+    for _ in range(40):
+        group.pump()
+        if storm.exhausted and all(f.caught_up for f in group.followers):
+            break
+    rec("storm", [storm.injected, storm.detected, storm.describe()])
+    if not (storm.exhausted and storm.injected and storm.detected):
+        raise AssertionError(f"26a ({device}): the storm {storm.describe()}"
+                             f" injected {storm.injected}, detected "
+                             f"{storm.detected}")
+    # quorum waits: covered, then timed out under a ship hold
+    hold = CH.ReplChaos([], seed=0)
+    group.attach_chaos(hold)
+    eng.insert(keys[500:540], vals[500:540] ^ np.uint64(0x21))
+    rc = group.wait_quorum(2, timeout_s=60.0)
+    hold.hold("ship")
+    eng.insert(keys[540:560], vals[540:560] ^ np.uint64(0x22))
+    timed_out = _kind(lambda: group.wait_quorum(1, timeout_s=0.05))
+    hold.heal()
+    rc2 = group.wait_quorum(2, timeout_s=60.0)
+    rec("quorum", [rc["needed"], rc["covered"], timed_out, rc2["covered"],
+                   group.quorum_acks, group.quorum_timeouts])
+    if timed_out[1] != "QuorumTimeoutError":
+        raise AssertionError(f"26a ({device}): a held quorum gave "
+                             f"{timed_out}")
+    # anti-entropy: a divergence found, the follower repaired
+    victim = group.followers[1]
+    rows = victim.cluster.dsm.pool.shape[0]
+    victim.cluster.dsm.pool[rows // 3, 9] = 0x0BAD
+    ae = AntiEntropy(group, period_s=0, sample_rows=0)
+    r1 = ae.tick()
+    sampled = AntiEntropy(group, period_s=0, sample_rows=16, seed=3)
+    victim.cluster.dsm.pool[rows // 2, 11] = 0x0BAD
+    verdicts = [sampled._pages_equal(victim, full=False) for _ in range(24)]
+    victim.cluster.dsm.pool[rows // 2, 11] = \
+        plane.cluster.dsm.pool[rows // 2, 11]
+    rec("anti-entropy", [_repl_strip(r1), verdicts, ae.audits,
+                         ae.divergences, ae.repairs, ae.unrepaired()])
+    if not (ae.divergences == 1 and ae.repairs == 1
+            and ae.unrepaired() == 0):
+        raise AssertionError(f"26a ({device}): anti-entropy {r1}")
+    # a front door with rids on the primary (its acks ride the journal)
+    targets = {c: 1e9 for c in SV.OP_CLASSES}
+    cfg = SV.ServeConfig(widths=(256,), p99_targets_ms=targets,
+                         write_linger_ms=0.5, calib_steps=1, seal=False)
+    srv = SV.ShermanServer(eng, cfg)
+    acks = []
+    try:
+        srv.start(calib_keys=keys)
+        for rid in (1, 2, 3):
+            k = keys[600 + 16 * rid: 616 + 16 * rid]
+            acks.append(srv.submit("insert", k, k ^ np.uint64(0x30 + rid),
+                                   rid=rid, tenant="w").result(timeout=120))
+        f = srv.submit("insert", keys[632:648],
+                       keys[632:648] ^ np.uint64(0x32), rid=2, tenant="w")
+        acks.append([f.result(timeout=120), f.deduped])
+    finally:
+        srv.stop()
+    rec("front door", [acks, group.pump()])
+    # the split-brain fence point and the stale primary's suffix
+    lease = CH.ReplChaos([], seed=0)
+    group.attach_chaos(lease)
+    lease.hold("lease")
+    eng.insert(keys[700:708], vals[700:708] ^ np.uint64(0x41))
+    rcpt = group.promote()
+    eng.insert(keys[708:716], vals[708:716] ^ np.uint64(0xFE))
+    eng.insert(keys[716:724], vals[716:724] ^ np.uint64(0xFE))
+    fenced_before = group.fenced_writes
+    lease.heal()
+    stale = _kind(lambda: eng.insert(keys[724:726], vals[724:726]))
+    suffix = group.count_fenced_suffix()
+    rec("fence", [_repl_strip(rcpt, (plane.cid,)), fenced_before, stale,
+                  group.fenced_writes, suffix])
+    if stale[1] != "StalePrimaryError" or suffix < 2 \
+            or rcpt["fence"] is None:
+        raise AssertionError(f"26a ({device}): fence {rcpt['fence']}, "
+                             f"stale write {stale}, suffix {suffix}")
+    # the winner's front door: seed_dedup, the retried rids re-acked
+    win = group.promoted
+    plane2 = RecoveryPlane(win.cluster, win.tree, win.eng,
+                           os.path.join(rdir, "promoted"))
+    plane2.checkpoint_base()
+    srv2 = SV.ShermanServer(win.eng, cfg)
+    try:
+        srv2.start(calib_keys=keys)
+        adopted = srv2.seed_dedup(group.promoted_window())
+        retried = []
+        for rid in (1, 3):
+            k = keys[600 + 16 * rid: 616 + 16 * rid]
+            f = srv2.submit("insert", k, k ^ np.uint64(0x30 + rid), rid=rid,
+                            tenant="w")
+            retried.append([f.result(timeout=120), f.deduped])
+        back = srv2.submit("read", keys[600:720]).result(timeout=120)
+    finally:
+        srv2.stop()
+        plane2.close()
+    rec("resume", [adopted, retried, back, _pool_state(win.tree)])
+    if not (adopted and all(d for _, d in retried)):
+        raise AssertionError(f"26a ({device}): adopted {adopted}, retries "
+                             f"deduped {[d for _, d in retried]}")
+    group.close()
+    plane.close()
+    return out
+
+
+def repl_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
+    """Phase 26a on ``machine_nr`` nodes: :func:`_repl_run` on the card and
+    on the plain path on the CPU, every result bit-identical."""
+    t = time.perf_counter()
+    runs = []
+    for d in devices:
+        rdir = tempfile.mkdtemp(prefix="sherman_repl_ref_")
+        try:
+            runs.append(_repl_run(machine_nr, d, rdir))
+        finally:
+            shutil.rmtree(rdir, ignore_errors=True)
+    n = _tier_compare("replication", machine_nr, devices, runs)
+    _log(f"26a replication reference check ({machine_nr} node(s), "
+         f"{REPL_KEYS:,} keys, {devices[0]} vs {devices[1]}): pools, "
+         f"watermarks, windows, tails, repl counters, the storm's "
+         f"detections, quorum outcomes, anti-entropy verdicts, the fence "
+         f"point, the suffix count and the retried rids bit-identical "
+         f"({n} results; {time.perf_counter() - t:.1f} s)")
+
+
+def repl_eight_node_drill(device: str = "cuda") -> dict:
+    """Phase 26a's concurrent case: the failover drill at 5,000 keys on 8
+    nodes (its writers, reader and replica reader launch from their own
+    threads beside the front door's dispatcher and the group's pumps;
+    the reference runs its drill on one node because concurrent
+    multi-device XLA launches can deadlock their rendezvous, which the
+    port's emulation does not have) with the drill's pins."""
+    from sherman_tpu_torch import failover_drill as FD
+    d = tempfile.mkdtemp(prefix="sherman_failover8_")
+    t = time.perf_counter()
+    try:
+        rec = FD.run(_drill_args(FD, ["--keys", "5000", "--nodes", "8",
+                                      "--secs", "1"], d, device))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _boot_split(rec)
+    _repl_pins("failover", rec, "26a")
+    _log(f"26a failover drill on 8 nodes, 5,000 keys: pins held "
+         f"({time.perf_counter() - t:.1f} s)")
+    return rec
+
+
+def _drill_args(mod, argv, d: str, device: str):
+    return mod.parse_args(list(argv) + ["--dir", d, "--device", device])
+
+
+def repl_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
+    """Phase 26b-c:
+
+    - (b) the failover drill (``failover_drill.py``) at 100,000,000 keys,
+      one node, ``--replicas 2 --secs 30``, the reference's queued capture
+      (``BENCHMARKS.md:174-185``); pins ``lost_acks == 0``,
+      ``duplicate_acks == 0``, ``linearizable``, ``fenced_writes >= 1``
+      and ``rebootstraps == 2``; with each bootstrap's seconds by part
+      (the chain's inflate, the copy to the card, engine, router, cache)
+      and the device memory;
+    - (c) the partition drill (``partition_drill.py``) at 10,000,000 keys
+      (``reduced``: 100,000,000 -> 10,000,000 for the time limit),
+      ``--replicas 2 --seed 11 --rounds 20``; pins every scheduled fault
+      fired and each kind of injection detected or refused,
+      ``fenced_acks_merged == 0``, ``diverged_followers_unrepaired == 0``,
+      ``lost_acks == 0``, ``duplicate_acks == 0``, ``linearizable``.
+
+    (b) is the window ``one_node_failover``, (c) ``one_node_partition``;
+    K1-K3 replayed at every shape of each.  Past a projection of
+    ``SMOKE_CUT_S`` for the smoke, (b)'s traffic is cut to 15 s; past 100
+    s before the limit, (c)'s keys to 1,000,000 (listed in ``reduced``).
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import failover_drill as FD
+    from sherman_tpu_torch import partition_drill as PD
+    from sherman_tpu_torch.utils import checkpoint as CK
+    shapes: dict = {}
+    kern = ("descent_round", "gather_pages", "writeback")
+    t_phase = time.perf_counter()
+    secs, p_keys = FAILOVER_SECS, PARTITION_KEYS
+    reduced = []
+    proj = time.perf_counter() - t_smoke + REPL_EST_S
+    if proj > SMOKE_CUT_S:
+        secs = 15.0
+        reduced.append(f"--secs 30 -> 15: the smoke's projection "
+                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
+        proj -= 10.0
+    p_cut = [f"keys 100,000,000 -> {PARTITION_KEYS:,}, for the smoke's "
+             "time limit"]
+    if proj > SMOKE_LIMIT_S - 100:
+        p_keys = 1_000_000
+        p_cut.append(f"keys {PARTITION_KEYS:,} -> {p_keys:,}: the smoke's "
+                     f"projection {proj:.0f} s passed "
+                     f"{SMOKE_LIMIT_S - 100:.0f} s")
+    for name, mod, argv, cut, path in (
+            ("failover", FD, ["--keys", str(FAILOVER_KEYS), "--replicas",
+                              "2", "--secs", str(secs)], reduced,
+             "one_node_failover"),
+            ("partition", PD, ["--keys", str(p_keys), "--replicas",
+                               "2", "--seed", "11", "--rounds",
+                               str(PARTITION_ROUNDS)], p_cut,
+             "one_node_partition")):
+        d = tempfile.mkdtemp(prefix=f"sherman_{name}_")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with ShapeLog() as log, Spans(CK, "_load_arrays") as sp:
+                t = time.perf_counter()
+                rec = mod.run(_drill_args(mod, argv, d, device))
+                rec["wall_s"] = time.perf_counter() - t
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        rec.update(card=smi, reduced=cut, inflate_s=sp.s["_load_arrays"],
+                   inflate_calls=sp.calls["_load_arrays"])
+        _boot_split(rec)
+        if device == "cuda":
+            rec["device_bytes"] = dict(rec.get("device_bytes", {}),
+                                       peak=torch.cuda.max_memory_allocated())
+        try:
+            _repl_pins(name, rec, "26b" if name == "failover" else "26c")
+        finally:
+            print(json.dumps(rec), flush=True)
+        log.check(path, kern)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log, rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    _log(f"26b-c replication at full width: "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return shapes
+
+
+def _boot_split(rec: dict) -> dict:
+    """The drill's follower bootstraps summed by part, into the record."""
+    boots = [b for f in rec["bootstrap_s"] for b in f]
+    rec["bootstrap_split_s"] = {"bootstraps": len(boots),
+                                **{k: sum(b[k] for b in boots)
+                                   for k in boots[0]}}
+    return rec["bootstrap_split_s"]
+
+
+def _repl_pins(name: str, rec: dict, tag: str) -> None:
+    """The drills' pins; a failed one fails the smoke."""
+    bad = [k for k in ("lost_acks", "duplicate_acks") if rec[k] != 0]
+    if not rec["linearizable"]:
+        bad.append("linearizable")
+    if name == "failover":
+        if rec["fenced_writes"] < 1:
+            bad.append("fenced_writes")
+        if rec["repl"]["rebootstraps"] != 2:
+            bad.append("rebootstraps")
+        if rec["repl"]["read_failures"] or not rec["repl"]["reads_served"]:
+            bad.append("replica reads")
+        _log(f"{tag} failover drill at {rec['keys']:,} keys on "
+             f"{rec['nodes']} node(s): lost_acks "
+             f"{rec['lost_acks']}, duplicate_acks {rec['duplicate_acks']}, "
+             f"linearizable {rec['linearizable']}, fenced "
+             f"{rec['fenced_writes']}, rebootstraps "
+             f"{rec['repl']['rebootstraps']}; lag {rec['repl']['lag_ms']} "
+             f"ms, availability gap {rec['availability_gap_ms']} ms, "
+             f"promote {rec['promote']['promote_ms']} ms; applied "
+             f"{rec['repl']['applied_records']} records "
+             f"({rec['repl']['applied_rows']} rows); replica reads served "
+             f"{rec['repl']['reads_served']}, forwarded "
+             f"{rec['repl']['reads_forwarded']}; bootstraps "
+             f"{rec['bootstrap_split_s']}; device bytes "
+             f"{rec.get('device_bytes')}; phases {rec['phase_s']} "
+             f"({rec.get('wall_s', rec['elapsed_s']):.1f} s)")
+    else:
+        ch = rec["chaos"]
+        detections = {
+            "scheduled_windows_fired": all(f["fired"] for f in ch["faults"]),
+            "reordered_views_refused": ch["detected"] >= 1,
+            "ship_hold_quorum_typed": rec["quorum_timeout"]["typed"],
+            "lease_hold_fenced_typed": rec["stale_rejected_typed"],
+            "divergence_repaired": rec["anti_entropy"]["divergences"] >= 1}
+        rec["detections"] = detections
+        bad += [k for k, v in detections.items() if not v]
+        bad += [k for k in ("fenced_acks_merged",
+                            "diverged_followers_unrepaired") if rec[k] != 0]
+        _log(f"{tag} partition drill at {rec['keys']:,} keys: "
+             f"fenced_acks_merged {rec['fenced_acks_merged']}, unrepaired "
+             f"{rec['diverged_followers_unrepaired']}, lost_acks "
+             f"{rec['lost_acks']}, duplicate_acks {rec['duplicate_acks']}, "
+             f"linearizable {rec['linearizable']}; quorum "
+             f"{rec['quorum_latency']}; rejoin_catchup_ms "
+             f"{rec['anti_entropy']['rejoin_catchup_ms']}; chaos injected "
+             f"{ch['injected']}, detected {ch['detected']}; detections "
+             f"{detections}; phases {rec['phase_s']} "
+             f"({rec['wall_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"{tag}: the {name} drill failed its pins "
+                             f"{bad}")
+
 
 
 def main() -> int:
@@ -5229,7 +5699,7 @@ def _main(bb: str) -> int:
     torch.cuda.empty_cache()
 
     storm_reference_check(1)
-    storm_reference_check(8)
+    storm_reference_check(8, n=10_000)      # 20,000 -> 10,000: time limit
     passes: list = []           # the integrity passes' records (18, 19)
     ctx = storm_build(10_000_000, 3_000_000, "cuda")
     for k, v in storm(ctx, "one_node_storm", 1 << 20,
@@ -5331,7 +5801,7 @@ def _main(bb: str) -> int:
     heap_reference_check(1)
     heap_reference_check(8)
     _log(f"phase 24a: {time.perf_counter() - t:.1f} s")
-    for k, v in heap_full_width(smi).items():
+    for k, v in heap_full_width(smi, t_smoke=t_smoke).items():
         shapes.setdefault(k, []).extend(v)
     _log("heap path parity at every launched shape (K1-K3): exact")
     gc.collect()
@@ -5343,6 +5813,16 @@ def _main(bb: str) -> int:
     for k, v in front_full_width(smi, t_smoke).items():
         shapes.setdefault(k, []).extend(v)
     _log("front-door path parity at every launched shape (K1-K3): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    repl_reference_check(1)
+    repl_reference_check(8)
+    repl_eight_node_drill()
+    _log(f"phase 26a: {time.perf_counter() - t:.1f} s")
+    for k, v in repl_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("replication path parity at every launched shape (K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

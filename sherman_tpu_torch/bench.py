@@ -401,6 +401,17 @@ def main(argv=None) -> int:
         argv.remove("--serve")
         from sherman_tpu_torch import serve_bench
         return serve_bench.main(argv)
+    if "--failover-drill" in argv:
+        # the replication plane's failover drill, with its own arguments
+        # and JSON line
+        argv.remove("--failover-drill")
+        from sherman_tpu_torch import failover_drill
+        return failover_drill.main(argv)
+    if "--partition-drill" in argv:
+        # the partition plane's drill, with its own arguments and JSON line
+        argv.remove("--partition-drill")
+        from sherman_tpu_torch import partition_drill
+        return partition_drill.main(argv)
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.bench: no CUDA device; the port's benchmark "
               "runs on the GPU", file=sys.stderr)

@@ -31,10 +31,35 @@ Every fired fault counts in ``chaos.faults_injected`` and
 ``chaos.<kind>`` and is a ``chaos.inject`` flight event, so a drill's
 black box shows what was injected before what was detected.
 
-Not here yet: the replication (``repl_*``) and host (``host_*``) fault
-layers, which perturb planes the port does not have (ROADMAP.md item
-7b), with their counters and events.  A plan naming one of those kinds
-raises :class:`NotPortedError`.
+**The replication fault layer.**  The ``repl_*`` kinds perturb the
+replication plane's two message boundaries instead of pool state: the
+journal-shipping tail a follower polls, and the lease-table view the
+primary's durability fence reads (``replica.py``):
+
+- ``repl_drop``: a poll's fetch is lost; the follower sees no new bytes
+  this round (offset untouched, the next poll retries);
+- ``repl_delay``: shipped bytes are in flight; the same observable as a
+  drop in the pull model, counted apart;
+- ``repl_reorder``: two chunks of the fetched byte view are swapped; the
+  per-frame CRC must refuse it and the follower retry a clean view;
+- ``repl_partition``: the follower (scope ``"ship"``) cannot reach the
+  journal, and/or the primary (scope ``"lease"``) sees a frozen copy of
+  the lease table, so it cannot watch its own epoch get bumped;
+- ``repl_slow``: the follower's poll stalls ``ms`` before it fetches.
+
+View faults never touch the journal file: they perturb one poll's read
+of it.  ``ReplFault`` windows run on the layer's replication clock (one
+tick a tailer poll across the group), so the same seed over the same
+poll sequence fires the same faults; drills open partitions by hand
+with :meth:`ReplChaos.hold` / :meth:`ReplChaos.heal`.  A plan's
+``repl_*`` faults go to :meth:`FaultPlan.repl_layer`, not the DSM hook.
+Counters ride ``chaos.repl_*``; every window start is a
+``chaos.repl_inject`` flight event.
+
+Not here yet: the host fault layer (``host_*``, ``HostChaos``), which
+perturbs the multihost service plane's dispatch seam and host leases
+(ROADMAP.md item 7c).  A plan naming one of its kinds raises
+:class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -52,12 +77,16 @@ from sherman_tpu_torch.ops import bits
 
 KINDS = ("torn_page", "flip_entry_ver", "wedge_lock", "drop_cas",
          "stale_read")
-# the kinds of the layers not ported yet
-_LATER_KINDS = ("repl_drop", "repl_delay", "repl_reorder", "repl_partition",
-                "repl_slow", "host_crash", "host_freeze", "host_zombie")
+REPL_KINDS = ("repl_drop", "repl_delay", "repl_reorder", "repl_partition",
+              "repl_slow")
+# the kinds of the host layer, not ported yet
+_LATER_KINDS = ("host_crash", "host_freeze", "host_zombie")
 
 _OBS = {k: obs.counter(f"chaos.{k}") for k in KINDS}
 _OBS_TOTAL = obs.counter("chaos.faults_injected")
+_OBS_REPL = {k: obs.counter(f"chaos.{k}") for k in REPL_KINDS}
+_OBS_REPL_TOTAL = obs.counter("chaos.repl_faults_injected")
+_OBS_REPL_DETECTED = obs.counter("chaos.repl_detected")
 
 # a lease word no live client can own: an unregistered owner tag and an
 # epoch far from any real client's generation
@@ -68,8 +97,9 @@ DEAD_OWNER_EPOCH = 0x5A
 def _refuse_later_kind(kind) -> None:
     if kind in _LATER_KINDS:
         raise NotPortedError(
-            f"fault kind {kind!r} perturbs the replication or host plane, "
-            "which the port does not have yet (ROADMAP.md item 7b)")
+            f"fault kind {kind!r} perturbs the multihost service plane "
+            "(HostChaos), which the port does not have yet (ROADMAP.md "
+            "item 7c)")
 
 
 @dataclasses.dataclass
@@ -97,22 +127,245 @@ class Fault:
                               f"want one of {KINDS}")
 
 
+@dataclasses.dataclass
+class ReplFault:
+    """One scheduled replication fault.  ``poll`` is the window start on
+    the layer's replication clock (one tick a tailer poll across the
+    group), ``span`` the window length in ticks.  ``follower`` limits a
+    ship-side fault to one follower index (-1 = all).  ``ms`` is the stall
+    a poll of ``repl_slow``.  ``scope`` applies to ``repl_partition``
+    only: ``"ship"`` cuts the follower's view of the journal tail,
+    ``"lease"`` freezes the primary's view of the lease table, ``"both"``
+    does both."""
+
+    kind: str
+    poll: int = 0
+    span: int = 1
+    follower: int = -1
+    ms: float = 2.0
+    scope: str = "ship"
+    fired: bool = dataclasses.field(default=False, compare=False)
+
+    def __post_init__(self):
+        _refuse_later_kind(self.kind)
+        if self.kind not in REPL_KINDS:
+            raise ConfigError(f"unknown repl fault kind {self.kind!r}; "
+                              f"want one of {REPL_KINDS}")
+        if self.scope not in ("ship", "lease", "both"):
+            raise ConfigError(f"repl fault scope {self.scope!r}: want "
+                              "'ship', 'lease' or 'both'")
+        if self.span < 1:
+            raise ConfigError(f"repl fault span {self.span}: want >= 1")
+
+
+class ReplChaos:
+    """The replication fault layer a :class:`FaultPlan` exposes.
+
+    Attached to a ``ReplicaGroup`` (``group.attach_chaos``): the journal
+    tailer asks :meth:`on_poll` for the poll's directives and routes the
+    fetched bytes through :meth:`view` when told to reorder; the primary's
+    durability fence reads the lease table through :meth:`lease_view`.
+    Deterministic in (plan, seed, poll sequence).  Scheduled windows and
+    the manual :meth:`hold`/:meth:`heal` compose."""
+
+    def __init__(self, faults, seed: int = 0):
+        self.faults = [f if isinstance(f, ReplFault) else ReplFault(**f)
+                       for f in faults]
+        self.seed = int(seed)
+        self._rng = np.random.default_rng(self.seed ^ 0x5EA1)
+        self._clock = 0             # replication time: one tick a poll
+        self._held: set[str] = set()
+        self._lease_frozen = None   # the snapshot while a lease cut lasts
+        self.injected = 0
+        self.detected = 0
+
+    @classmethod
+    def storm(cls, seed: int, n_faults: int = 8, poll_hi: int = 24,
+              span_hi: int = 4, followers: int = 2,
+              kinds=REPL_KINDS) -> "ReplChaos":
+        """Seeded random storm over the shipping tail: windows of drop,
+        delay, reorder, partition and slow over ``poll_hi`` ticks.  Ship
+        scope only: lease cuts change who may ack and belong to the
+        drills' manual holds."""
+        rng = np.random.default_rng(int(seed))
+        faults = [ReplFault(
+            kind=str(rng.choice(list(kinds))),
+            poll=int(rng.integers(0, max(poll_hi, 1))),
+            span=1 + int(rng.integers(0, max(span_hi, 1))),
+            follower=int(rng.integers(-1, max(followers, 1))),
+            ms=float(rng.integers(1, 4)))
+            for _ in range(n_faults)]
+        return cls(faults, seed=seed)
+
+    # -- scheduling -----------------------------------------------------------
+
+    def _active(self, t: int, follower: int, side: str):
+        """Faults whose window covers tick ``t`` for this follower and
+        boundary (``side`` in {"ship", "lease"})."""
+        out = []
+        for f in self.faults:
+            if not (f.poll <= t < f.poll + f.span):
+                continue
+            if side == "lease":
+                if f.kind == "repl_partition" and f.scope in ("lease",
+                                                             "both"):
+                    out.append(f)
+                continue
+            if f.kind == "repl_partition" and f.scope == "lease":
+                continue
+            if f.follower not in (-1, follower):
+                continue
+            out.append(f)
+        return out
+
+    def _fire(self, f: ReplFault, t: int) -> None:
+        if f.fired:
+            return
+        f.fired = True
+        self.injected += 1
+        _OBS_REPL_TOTAL.inc()
+        _OBS_REPL[f.kind].inc()
+        obs.record_event("chaos.repl_inject", fault=f.kind, poll=t,
+                         span=int(f.span), follower=int(f.follower),
+                         scope=f.scope)
+
+    # -- the tailer hook (journal-shipping boundary) --------------------------
+
+    def on_poll(self, follower: int = 0) -> dict | None:
+        """Directives for this poll of ``follower``'s tailer, or None when
+        nothing is active.  Ticks the replication clock."""
+        t = self._clock
+        self._clock += 1
+        live = self._active(t, follower, "ship")
+        held = "ship" in self._held or "both" in self._held
+        if not live and not held:
+            return None
+        d = {"drop": False, "freeze": False, "reorder": False,
+             "partition": held, "slow_ms": 0.0}
+        for f in live:
+            self._fire(f, t)
+            if f.kind == "repl_drop":
+                d["drop"] = True
+            elif f.kind == "repl_delay":
+                d["freeze"] = True
+            elif f.kind == "repl_reorder":
+                d["reorder"] = True
+            elif f.kind == "repl_partition":
+                d["partition"] = True
+            else:  # repl_slow
+                d["slow_ms"] = max(d["slow_ms"], float(f.ms))
+        return d
+
+    def view(self, blob: bytes) -> bytes:
+        """The reorder perturbation: swap two chunks of one poll's fetched
+        byte view (the file is never touched); too short to swap, flip one
+        bit."""
+        n = len(blob)
+        b = bytearray(blob)
+        if n < 48:
+            if n:
+                b[n // 2] ^= 0x01
+            return bytes(b)
+        ch = 16
+        i = int(self._rng.integers(0, n - 2 * ch))
+        j = int(self._rng.integers(i + ch, n - ch + 1))
+        b[i:i + ch], b[j:j + ch] = b[j:j + ch], b[i:i + ch]
+        if bytes(b) == blob:          # identical chunks: force a change
+            b[i] ^= 0x01
+        return bytes(b)
+
+    def note_detected(self) -> None:
+        """A perturbed view was refused: the detection half of an
+        injection."""
+        self.detected += 1
+        _OBS_REPL_DETECTED.inc()
+
+    # -- the fence hook (lease-table boundary) --------------------------------
+
+    def lease_view(self, epochs: dict) -> dict:
+        """The lease table as the primary's durability fence sees it.
+        While a lease-scope partition is active the view stays frozen at
+        the cut's first observation; healing restores the live table."""
+        t = self._clock
+        active = ("lease" in self._held or "both" in self._held
+                  or bool(self._active(t, -1, "lease")))
+        if not active:
+            self._lease_frozen = None
+            return epochs
+        for f in self._active(t, -1, "lease"):
+            self._fire(f, t)
+        if self._lease_frozen is None:
+            self._lease_frozen = dict(epochs)
+        return self._lease_frozen
+
+    # -- manual partition control (drills) ------------------------------------
+
+    def hold(self, scope: str = "both") -> None:
+        """Open a partition by hand (``scope`` in ship/lease/both) until
+        :meth:`heal`; counted and recorded like a scheduled window."""
+        if scope not in ("ship", "lease", "both"):
+            raise ConfigError(f"hold scope {scope!r}: want 'ship', "
+                              "'lease' or 'both'")
+        self._held.add(scope)
+        self.injected += 1
+        _OBS_REPL_TOTAL.inc()
+        _OBS_REPL["repl_partition"].inc()
+        obs.record_event("chaos.repl_inject", fault="repl_partition",
+                         poll=self._clock, span=-1, follower=-1,
+                         scope=scope)
+
+    def heal(self) -> None:
+        """Close every manual partition."""
+        self._held.clear()
+        self._lease_frozen = None
+        obs.record_event("chaos.repl_heal", poll=self._clock)
+
+    @property
+    def exhausted(self) -> bool:
+        """Every scheduled window has passed and no hold is open."""
+        return not self._held and all(
+            f.poll + f.span <= self._clock for f in self.faults)
+
+    def describe(self) -> list[dict]:
+        return [{"kind": f.kind, "poll": f.poll, "span": f.span,
+                 "follower": f.follower, "scope": f.scope,
+                 "fired": f.fired} for f in self.faults]
+
+
 class FaultPlan:
-    """A deterministic schedule of data-plane faults over one DSM."""
+    """A deterministic schedule of data-plane faults over one DSM.
+    ``repl_*`` kinds in the same grammar are split out into the
+    replication layer (:meth:`repl_layer`) instead of the DSM hook."""
 
     def __init__(self, faults, seed: int = 0):
         self.faults = []
+        repl = []
         for f in faults:
-            if not isinstance(f, Fault):
+            if isinstance(f, ReplFault):
+                repl.append(f)
+            elif isinstance(f, Fault):
+                self.faults.append(f)
+            elif isinstance(f, dict) and f.get("kind") in REPL_KINDS:
+                repl.append(ReplFault(**f))
+            else:
                 _refuse_later_kind(f.get("kind"))
-                f = Fault(**f)
-            self.faults.append(f)
+                self.faults.append(Fault(**f))
         self.seed = int(seed)
+        self.repl_faults = repl
+        self._repl_layer: ReplChaos | None = None
         self._rng = np.random.default_rng(self.seed)
         self._steps = 0
         self._undo: list = []       # (space, row, col, old, injected)
         self._stale_pool = None     # host snapshot for stale_read
         self.injected = 0
+
+    def repl_layer(self) -> "ReplChaos | None":
+        """The plan's replication fault layer (None when the plan has no
+        ``repl_*`` faults), built once and shared, so the replication
+        clock is group-global."""
+        if self._repl_layer is None and self.repl_faults:
+            self._repl_layer = ReplChaos(self.repl_faults, seed=self.seed)
+        return self._repl_layer
 
     # -- construction ---------------------------------------------------------
 
@@ -333,9 +586,17 @@ class FaultPlan:
 
     @property
     def exhausted(self) -> bool:
-        """Every fault has fired."""
+        """Every data-plane fault has fired (repl windows are judged by
+        :attr:`ReplChaos.exhausted` on the layer's own clock)."""
         return all(f.fired for f in self.faults)
 
     def describe(self) -> list[dict]:
-        return [{"kind": f.kind, "step": f.step, "addr": f.addr,
-                 "fired": f.fired} for f in self.faults]
+        out = [{"kind": f.kind, "step": f.step, "addr": f.addr,
+                "fired": f.fired} for f in self.faults]
+        if self._repl_layer is not None:
+            out.extend(self._repl_layer.describe())
+        else:
+            out.extend({"kind": f.kind, "poll": f.poll, "span": f.span,
+                        "follower": f.follower, "scope": f.scope,
+                        "fired": f.fired} for f in self.repl_faults)
+        return out

@@ -188,12 +188,52 @@ def prep_impl() -> str:
     return v
 
 
+def replica_count() -> int:
+    """Replication-plane knob (``SHERMAN_REPL``): the number of in-process
+    follower engines of the journal-shipped replica group
+    (``replica.ReplicaGroup.from_env``), 0 = off, the default: no
+    follower is built, no tailer polls, and the primary's pool is
+    bit-identical to a build without the plane.  ``1`` (or true/on/yes)
+    runs one follower; a larger integer is the follower count."""
+    v = os.environ.get("SHERMAN_REPL", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return 0
+    if v in ("1", "true", "on", "yes"):
+        return 1
+    try:
+        n = int(v)
+    except ValueError:
+        raise ConfigError(
+            f"SHERMAN_REPL={v!r}: want 0/1 or a follower count") from None
+    if n < 0:
+        raise ConfigError(f"SHERMAN_REPL={n}: want >= 0")
+    return n
+
+
+def replica_poll_ms() -> float:
+    """Replication tail cadence (``SHERMAN_REPL_POLL_MS``, default 20):
+    milliseconds between the background pump's polls of the primary's
+    live journal segment (callers that pump by hand ignore it)."""
+    v = os.environ.get("SHERMAN_REPL_POLL_MS", "20").strip()
+    try:
+        ms = float(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_REPL_POLL_MS={v!r}: want a float of "
+                          "milliseconds") from None
+    if ms <= 0:
+        raise ConfigError(f"SHERMAN_REPL_POLL_MS={ms}: want > 0")
+    return ms
+
+
 def ack_quorum() -> int:
     """Quorum-ack knob (``SHERMAN_ACK_QUORUM``): the durable copies a
-    write needs before its ack resolves (the primary's fsync'd journal
-    record counts as one).  1, the default, acks on the primary's
-    durability alone; more copies need the replica group of ROADMAP.md
-    item 7b, which the serving front door refuses until then."""
+    write needs before its ack resolves; the primary's fsync'd journal
+    record counts as one, and every follower whose applied watermark
+    covers the record adds one.  1, the default, acks on the primary's
+    durability alone and never consults the replica group.  ``K > 1``
+    gates each write ack on ``K - 1`` follower watermarks with a bounded
+    wait (``replica.QuorumTimeoutError`` on expiry; the rid stays in the
+    exactly-once window, so a retry re-acks)."""
     v = os.environ.get("SHERMAN_ACK_QUORUM", "1").strip().lower()
     if v in ("", "0", "1", "false", "off", "no"):
         return 1
@@ -205,6 +245,42 @@ def ack_quorum() -> int:
     if n < 1:
         raise ConfigError(f"SHERMAN_ACK_QUORUM={n}: want >= 1")
     return n
+
+
+def tail_wait_s() -> float:
+    """Tailer stall watchdog (``SHERMAN_TAIL_WAIT_S``, default 5): how
+    long a follower's journal tail may wait at one torn frame (an append
+    in flight) before it asks the lease table.  With the primary's lease
+    dead the tail raises ``replica.TailStalledError`` instead of waiting
+    forever; with it live the wait goes on (evented once)."""
+    v = os.environ.get("SHERMAN_TAIL_WAIT_S", "5").strip()
+    try:
+        s = float(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_TAIL_WAIT_S={v!r}: want a float of "
+                          "seconds") from None
+    if s <= 0:
+        raise ConfigError(f"SHERMAN_TAIL_WAIT_S={s}: want > 0")
+    return s
+
+
+def anti_entropy_s() -> float:
+    """Anti-entropy cadence (``SHERMAN_ANTI_ENTROPY_S``): seconds between
+    the background audits of ``replica.AntiEntropy`` (watermark
+    freshness, the consumed-segment CRC, a sampled pool compare against
+    the primary).  0, the default, starts no thread; drills call
+    ``tick()``."""
+    v = os.environ.get("SHERMAN_ANTI_ENTROPY_S", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return 0.0
+    try:
+        s = float(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_ANTI_ENTROPY_S={v!r}: want a float of "
+                          "seconds") from None
+    if s < 0:
+        raise ConfigError(f"SHERMAN_ANTI_ENTROPY_S={s}: want >= 0")
+    return s
 
 
 def value_heap_pages() -> int:

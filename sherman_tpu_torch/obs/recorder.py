@@ -35,8 +35,16 @@ Event sources (each site calls :func:`record_event`):
   linearizability auditor — ``audit.py``; a violation also auto-dumps
   the black box)
 
+- ``chaos.repl_inject`` / ``chaos.repl_heal``   (the replication fault
+  layer — ``chaos.py``)
+- ``repl.promote`` / ``repl.fenced`` / ``repl.tail_torn_wait`` /
+  ``repl.tail_slow`` / ``repl.tail_stalled`` / ``repl.rebootstrap`` /
+  ``repl.quorum_timeout`` / ``repl.quarantine`` / ``repl.repair`` /
+  ``repl.tail_error`` / ``repl.anti_entropy_error``   (the replication
+  plane — ``replica.py``)
+
 ``watchdog.fired`` comes with the host failure detector
-(``utils/failure.py``, ROADMAP.md item 7b).
+(``utils/failure.py``, ROADMAP.md item 7c).
 
 Auto-dump: :func:`auto_dump` fires on degraded entry, typed-error
 raise, a sealed-window retrace and watchdog expiry — but only when ``SHERMAN_BLACKBOX_DIR``

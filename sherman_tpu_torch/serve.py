@@ -58,9 +58,9 @@ Knobs: ``SHERMAN_SERVE_WIDTHS``, ``SHERMAN_SERVE_P99_MS``,
 ``SHERMAN_SERVE_QUEUE_OPS``, ``SHERMAN_SERVE_GROUP_COMMIT_MS``,
 ``SHERMAN_SERVE_WEIGHTS``, ``SHERMAN_SERVE_DEDUP``,
 ``SHERMAN_SERVE_WRITE_LANE`` (off) and ``SHERMAN_ACK_QUORUM`` (1).
-Quorum acks past the primary need the replica group of ROADMAP.md item
-7b: ``ack_quorum > 1`` and :meth:`ShermanServer.attach_replica_group`
-raise :class:`~sherman_tpu_torch.errors.NotPortedError`.
+Quorum acks past the primary (``ack_quorum`` K > 1) gate every write ack
+on K-1 follower watermarks of the replica group attached with
+:meth:`ShermanServer.attach_replica_group` (``replica.py``).
 
 Not promised: cross-request ordering.  A read admitted after a write may
 be served from the pre-write state; per-key read-your-write holds once
@@ -82,7 +82,7 @@ import numpy as np
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.errors import ConfigError, KeyRangeError, \
-    NotPortedError, ShermanError, StateError
+    ShermanError, StateError
 from sherman_tpu_torch.models.batched import DegradedError
 from sherman_tpu_torch.obs import device as DEV
 from sherman_tpu_torch.obs import recorder as FR
@@ -236,10 +236,13 @@ class ServeConfig:
     dedup_window: int = 4096
     #: quorum acks (``SHERMAN_ACK_QUORUM``): the durable copies a write
     #: needs before its ack resolves, the primary counting as one.  1
-    #: (the default) is primary durability only; more copies need the
-    #: replica group of ROADMAP.md item 7b and raise NotPortedError
+    #: (the default) is primary durability only: the front door is
+    #: bit-identical to one without the gate.  More copies need an
+    #: attached group (:meth:`ShermanServer.attach_replica_group`)
     ack_quorum: int = dataclasses.field(default_factory=C.ack_quorum)
-    #: bounded quorum wait per flushed write lane (used with 7b)
+    #: bounded quorum wait per flushed write lane; expiry fails the
+    #: lane's futures with the typed ``QuorumTimeoutError`` (the rid is
+    #: already in the dedup window, so a retry re-acks)
     quorum_timeout_ms: float = 5000.0
     #: p99 model: est_p99(W) = model_mult x measured wall(W) (formation
     #: wait + service; the open-loop 1.5x-span model plus slack)
@@ -270,12 +273,6 @@ class ServeConfig:
             raise ConfigError(
                 f"ServeConfig.quorum_timeout_ms="
                 f"{self.quorum_timeout_ms}: want > 0")
-        if int(self.ack_quorum) > 1:
-            raise NotPortedError(
-                f"ServeConfig.ack_quorum={self.ack_quorum}: quorum acks "
-                "wait on the follower watermarks of a replica group, "
-                "which comes to the port with ROADMAP.md item 7b "
-                "(replication); want 1")
 
     @classmethod
     def from_env(cls, **overrides) -> "ServeConfig":
@@ -615,7 +612,7 @@ class ShermanServer:
         self.quorum_acks = 0        # write lanes released by a quorum
         self.quorum_timeouts = 0    # bounded waits that expired typed
         self.quorum_wait_ms = 0.0   # summed quorum wait
-        self.replica_group = None   # the group quorum waits ride (7b)
+        self.replica_group = None   # the ReplicaGroup quorum waits ride
         self.calibration: dict[int, dict] = {}
         ref = weakref.ref(self)
 
@@ -871,6 +868,12 @@ class ShermanServer:
         retraces."""
         if self._running:
             raise StateError("server already running")
+        if int(self.cfg.ack_quorum) > 1 and self.replica_group is None:
+            raise ConfigError(
+                f"ack_quorum={self.cfg.ack_quorum} promises multi-copy "
+                "durability but no replica group is attached "
+                "(attach_replica_group): acking K copies without K-1 "
+                "followers would be a lie")
         ledger = DEV.get_ledger()
         FR.record_event("serve.start", widths=list(self.cfg.widths),
                         fusion=self.cfg.fusion)
@@ -1046,20 +1049,20 @@ class ShermanServer:
         self.auditor = auditor
 
     def attach_replica_group(self, group) -> None:
-        """The replica group whose follower watermarks quorum acks
-        resolve against: ROADMAP.md item 7b, not ported yet."""
-        raise NotPortedError(
-            "ShermanServer.attach_replica_group: replica groups and "
-            "quorum acks come to the port with ROADMAP.md item 7b "
-            "(replication)")
+        """Attach (or detach, with None) the replica group whose follower
+        watermarks quorum acks resolve against (``cfg.ack_quorum`` > 1).
+        With the default ``ack_quorum=1`` the write path ignores it."""
+        self.replica_group = group
 
     def _quorum_gate(self) -> None:
         """The quorum-ack gate: with ``ack_quorum`` K > 1 and a group
-        attached, block until K-1 follower watermarks cover the durable
-        journal frontier, raising the typed ``QuorumTimeoutError`` at
-        the bounded deadline (the rids are already in the dedup window,
-        so a retry re-acks).  With K = 1, the only value the port takes
-        until item 7b, it returns at once."""
+        attached, block until K-1 non-quarantined follower watermarks
+        cover the durable journal frontier (captured now, after the lane's
+        engine op and ack record returned, so it bounds both), raising
+        the typed ``QuorumTimeoutError`` at the bounded deadline (the rids
+        are already durable in the dedup window, so a retry re-acks).
+        Never entered with K = 1, the default: no added work and
+        bit-identical acks."""
         g = self.replica_group
         need = int(self.cfg.ack_quorum) - 1
         if g is None or need <= 0:

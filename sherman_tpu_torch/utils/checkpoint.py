@@ -44,10 +44,13 @@ with :class:`MultiprocessUnsupportedError`).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import glob
 import json
 import os
+import threading
 import zlib
 
 import numpy as np
@@ -244,11 +247,76 @@ def _verify_integrity(arrays: dict, path: str) -> None:
                 "is corrupt; restore from another chain link")
 
 
+# shared_loads(): the store of the innermost open context (a dict of
+# loaded arrays by (path, inode, size, mtime, keys)); an artifact rewritten
+# in place of another (tmp + rename) is a new inode, so a hit is always the
+# file's bytes.  A context var: each thread sees its own contexts.
+_shared_lock = threading.Lock()
+_shared_store = contextvars.ContextVar("sherman_shared_loads", default=None)
+
+
+@contextlib.contextmanager
+def shared_loads(store: dict | None = None):
+    """While open, :func:`_load_arrays` hands every caller (in this thread)
+    that asks for the same unchanged artifact and the same arrays the
+    read-only arrays of the first load: N followers restoring one chain
+    inflate and CRC-check each artifact once (``replica.ReplicaGroup``).
+    ``store`` keeps the loads past the context (the caller prunes it);
+    by default a context nested in another shares the outer one's store,
+    and an outermost one drops its loads when it closes."""
+    if store is None:
+        store = _shared_store.get()
+        if store is None:
+            store = {}
+    tok = _shared_store.set(store)
+    try:
+        yield store
+    finally:
+        _shared_store.reset(tok)
+
+
+def shared_load_key(path: str, keys=None):
+    """The store key of ``path``'s arrays ``keys`` as the file is now,
+    or None when it is gone."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (path, st.st_ino, st.st_size, st.st_mtime_ns,
+            None if keys is None else tuple(sorted(keys)))
+
+
+def keep_shared_loads(store: dict, path: str) -> None:
+    """Drop from a :func:`shared_loads` store every load but those of
+    ``path`` as the file is now."""
+    now = shared_load_key(path)
+    with _shared_lock:
+        for k in list(store):
+            if now is None or k[:4] != now[:4]:
+                del store[k]
+
+
 def _load_arrays(path: str, keys=None) -> dict:
     """np.load + materialize (+ CRC verify) with typed failure: any
     unreadable/torn/corrupt artifact surfaces as
     :class:`CheckpointCorruptError`, never a stack of zipfile/zlib
-    internals half-way through a restore."""
+    internals half-way through a restore.  Inside :func:`shared_loads`
+    the result is shared and must not be written."""
+    store = _shared_store.get()
+    if store is not None:
+        tag = shared_load_key(path, keys)
+        if tag is not None:
+            with _shared_lock:
+                hit = store.get(tag)
+            if hit is None:
+                hit = _load_arrays_once(path, keys)
+                with _shared_lock:
+                    store[tag] = hit
+            return hit
+    return _load_arrays_once(path, keys)
+
+
+def _load_arrays_once(path: str, keys=None) -> dict:
     try:
         with np.load(path) as z:
             names = z.files if keys is None else \

@@ -781,8 +781,8 @@ def _truncate(path: str, off: int, size: int, do_truncate: bool) -> None:
 def apply_records(records, eng, ack_sink=None, stats=None) -> dict:
     """Apply decoded journal records through a (writable) engine, in
     record order — the SHARED apply core of recovery replay
-    (:func:`replay` / ``RecoveryPlane.recover``) and, in the reference,
-    the replication followers (``replica.py``): both planes converge on
+    (:func:`replay` / ``RecoveryPlane.recover``) and the replication
+    followers (``replica.py``): both planes converge on
     this one dispatch loop, so a follower applies a shipped segment
     exactly the way recovery would replay it, by construction.
 

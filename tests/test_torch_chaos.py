@@ -139,14 +139,116 @@ def test_parse_random_storm_and_describe_match_jax():
 
 
 def test_later_fault_layers_are_not_ported():
-    for kind in ("repl_drop", "repl_partition", "host_crash"):
-        with pytest.raises(NotPortedError, match="item 7"):
+    """``repl_*`` kinds now parse as the JAX package's (split into the
+    replication layer); the ``host_*`` kinds of the multihost plane still
+    raise NotPortedError, naming item 7c."""
+    spec = ('[{"kind": "wedge_lock", "step": 1, "addr": 5},'
+            ' {"kind": "repl_drop", "poll": 2, "span": 3},'
+            ' {"kind": "repl_partition", "poll": 4, "scope": "lease"}]')
+    a, b = JCH.FaultPlan.parse(spec), CH.FaultPlan.parse(spec)
+    assert _faults(b) == _faults(a) and b.describe() == a.describe()
+    assert len(b.repl_faults) == len(a.repl_faults) == 2
+    for kind in ("host_crash", "host_freeze", "host_zombie"):
+        with pytest.raises(NotPortedError, match="item 7c"):
             CH.FaultPlan([{"kind": kind}])
-        with pytest.raises(NotPortedError, match="item 7"):
+        with pytest.raises(NotPortedError, match="item 7c"):
             CH.Fault(kind=kind)
+        with pytest.raises(NotPortedError, match="item 7c"):
+            CH.ReplFault(kind=kind)
     with pytest.raises(NotPortedError):
         CH.FaultPlan.parse('[{"kind": "wedge_lock", "step": 1, "addr": 5},'
                            ' {"kind": "host_freeze", "host": 0}]')
+
+
+# -- the replication fault layer (tests/test_chaos.py:348-424) ----------------
+
+REPL_FIELDS = ("kind", "poll", "span", "follower", "ms", "scope", "fired")
+
+
+def _repl(layer):
+    return [tuple(getattr(f, k) for k in REPL_FIELDS) for f in layer.faults]
+
+
+def test_repl_fault_grammar_and_split():
+    """``repl_*`` kinds ride the FaultPlan grammar but split into the
+    replication layer, as in the JAX package; validation is typed."""
+    spec = ('[{"kind": "repl_drop", "poll": 2, "span": 3},'
+            ' {"kind": "wedge_lock", "step": 1, "addr": 5},'
+            ' {"kind": "repl_partition", "poll": 4, "scope": "lease"}]')
+    a, b = JCH.FaultPlan.parse(spec), CH.FaultPlan.parse(spec)
+    assert len(b.faults) == 1 and len(b.repl_faults) == 2
+    assert _faults(b) == _faults(a)
+    layer = b.repl_layer()
+    assert layer is not None and layer is b.repl_layer()  # cached
+    assert _repl(layer) == _repl(a.repl_layer())
+    assert b.describe() == a.describe()
+    assert CH.FaultPlan([{"kind": "wedge_lock", "step": 0,
+                          "addr": 1}]).repl_layer() is None
+    for bad in ({"kind": "repl_nope"}, {"kind": "repl_drop", "span": 0},
+                {"kind": "repl_partition", "scope": "wat"}):
+        with pytest.raises(ConfigError):
+            CH.ReplFault(**bad)
+        with pytest.raises(Exception) as ej:
+            JCH.ReplFault(**bad)
+        assert type(ej.value).__name__ == "ConfigError"
+    with pytest.raises(ConfigError):
+        CH.ReplChaos([]).hold("sideways")
+
+
+@pytest.mark.parametrize("seed", [5, 11])
+def test_repl_chaos_directives_deterministic(seed):
+    """The same (plan, seed) gives the JAX package's directive sequence,
+    byte perturbations, injected counts and storm schedules."""
+    faults = [dict(kind="repl_drop", poll=1, span=2),
+              dict(kind="repl_delay", poll=4, span=1, follower=1),
+              dict(kind="repl_reorder", poll=6, span=2),
+              dict(kind="repl_slow", poll=9, span=1, ms=3.0),
+              dict(kind="repl_partition", poll=12, span=2)]
+    a = JCH.ReplChaos([dict(f) for f in faults], seed=seed)
+    b = CH.ReplChaos([dict(f) for f in faults], seed=seed)
+    for i in range(30):
+        assert b.on_poll(i % 2) == a.on_poll(i % 2), i
+    blob = bytes(range(200)) * 2
+    for n in (400, 47, 1, 0):
+        assert b.view(blob[:n]) == a.view(blob[:n]), n
+    assert b.view(blob) != blob
+    assert (b.injected, b.exhausted) == (a.injected, a.exhausted)
+    assert b.describe() == a.describe()
+    for s in range(seed, seed + 4):
+        assert CH.ReplChaos.storm(s, n_faults=6).describe() \
+            == JCH.ReplChaos.storm(s, n_faults=6).describe()
+    assert all(f["scope"] == "ship"
+               for f in CH.ReplChaos.storm(seed).describe())
+
+
+def test_repl_chaos_hold_heal_and_lease_freeze():
+    """Manual holds: a ship hold partitions every poll; a lease hold
+    freezes the primary's lease view at the first observation until the
+    heal; every step as in the JAX package."""
+    layers = (JCH.ReplChaos([], seed=0), CH.ReplChaos([], seed=0))
+    seen = []
+    for layer in layers:
+        out = [layer.on_poll(0)]
+        layer.hold("ship")
+        out += [layer.on_poll(0), layer.exhausted]
+        layer.heal()
+        out += [layer.on_poll(0), layer.exhausted]
+        layer.hold("lease")
+        out.append(layer.on_poll(1))
+        live = {7: 1}
+        out.append(dict(layer.lease_view(live)))
+        live[7] = 2
+        out.append(dict(layer.lease_view(live)))
+        layer.heal()
+        out.append(dict(layer.lease_view(live)))
+        out += [layer.injected, layer.describe()]
+        seen.append(out)
+    assert seen[1] == seen[0]
+    b = seen[1]
+    assert b[0] is None and b[1]["partition"] and not b[2]
+    assert b[3] is None and b[4]
+    assert b[5] is None and b[6] == {7: 1} and b[7] == {7: 1}
+    assert b[8] == {7: 2}
 
 
 def test_env_spec_installs_on_the_dsm(eight_devices, monkeypatch):

@@ -19,7 +19,9 @@ kernels, the kernel build's ledger entry); the hot-key tier and the
 value heap against the CPU (the smoke's phase 23a/24a sequences), the
 cached staged loop and the heap resolve on garbage handles; the serving
 front door against the CPU (phase 25a's sequence) and the device prep on
-garbage pairs.  Every comparison is exact equality.
+garbage pairs; the replication plane against the CPU (phase 26a's
+sequence) and a follower's apply and replica reads on the card.  Every
+comparison is exact equality.
 """
 
 import numpy as np
@@ -985,3 +987,61 @@ def test_device_prep_on_garbage_matches_the_cpu(dev, W):
                 torch.tensor(shift, dtype=torch.int64, device=d))])
         for x, y in zip(*outs):
             assert torch.equal(x, y), (trial, n, shift)
+
+
+@pytest.mark.parametrize("machine_nr", [1, 8])
+def test_replication_on_the_card_matches_the_cpu(dev, machine_nr):
+    """The replication plane's sequence (phase 26a: ship, a sweeping
+    delta, replica reads, a chaos storm, quorum waits, an anti-entropy
+    repair, the split-brain fence and the promotion with its retried
+    rids) on the card and on the CPU: pools, watermarks, windows, tails
+    and counters bit-identical."""
+    PK.reset_launches()
+    _smoke().repl_reference_check(machine_nr)
+    assert PK.LAUNCHES["writeback"] > 0
+    if machine_nr == 1:
+        assert PK.LAUNCHES["descent_round"] > 0
+
+
+def test_follower_apply_and_replica_read_on_the_card(dev, tmp_path):
+    """A follower on the card applies shipped upserts and deletes through
+    the page kernels and serves certified replica reads; its pool, its
+    answers and its counters equal a CPU follower's on the same journal."""
+    from sherman_tpu_torch.failover_drill import build_cluster
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.replica import ReplicaGroup
+
+    out = []
+    for d in ("cuda", "cpu"):
+        cluster, tree, eng = build_cluster(1, 1024, 128, device=d,
+                                           locks_per_node=256,
+                                           chunk_pages=32)
+        keys = np.arange(1, 2001, dtype=np.uint64) * np.uint64(97)
+        batched.bulk_load(tree, keys, keys ^ np.uint64(0xFA11))
+        eng.attach_router()
+        plane = RecoveryPlane(cluster, tree, eng, str(tmp_path / d))
+        plane.checkpoint_base()
+        group = ReplicaGroup(plane, 1, cache_slots=256, poll_ms=1e9)
+        f = group.followers[0]
+        assert f.cluster.dsm.pool.device.type == d
+        eng.insert(keys[:300], keys[:300] ^ np.uint64(0x77))
+        eng.delete(keys[300:340])
+        PK.reset_launches()
+        applied = group.pump()
+        launched = dict(PK.LAUNCHES)
+        f.admit(keys[:64])
+        got = group.read(np.concatenate([keys[:64], keys[300:310]]))
+        out.append([applied, f.cluster.dsm.pool.cpu(), got,
+                    group.reads_served, group.reads_forwarded,
+                    dict(f.stats)])
+        if d == "cuda":
+            assert launched["writeback"] > 0 and launched["descent_round"] > 0
+        group.close()
+        plane.close()
+    a, b = out
+    assert a[0] == b[0] == 2
+    assert torch.equal(a[1], b[1])
+    for x, y in zip(a[2], b[2]):
+        np.testing.assert_array_equal(x, y)
+    assert a[3:] == b[3:] and a[3] > 0

@@ -374,7 +374,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     top_dir = os.path.join(REPO, "sherman_tpu_torch")
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == top_dir} >= {
-        "serve.py", "audit.py", "replica.py", "serve_bench.py"}
+        "serve.py", "audit.py", "replica.py", "serve_bench.py", "chaos.py",
+        "failover_drill.py", "partition_drill.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

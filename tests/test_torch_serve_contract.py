@@ -4,8 +4,8 @@ by case after tests/test_serve.py: exactly-once writes and the dedup
 window, ``seed_dedup``, ``J_ACK`` records before the ack, deadlines, the
 retrying client, drain, the journal's v2 records, the sealed zero-retrace
 loop, the cache sketch fed by the front door, the journaled-ack crash
-drill, and the quorum knobs (``ack_quorum > 1`` and replica groups raise
-``NotPortedError`` until ROADMAP.md item 7b).
+drill, and the quorum acks (``ack_quorum > 1`` over an attached replica
+group, ``replica.py``).
 
 After a serial sequence (each future resolves before the next submit)
 both packages must leave the same answers, pools, journal segment bytes
@@ -27,7 +27,9 @@ import pytest
 import torch
 
 from sherman_tpu import audit as JA
+from sherman_tpu import chaos as JCH
 from sherman_tpu import recovery as JRC
+from sherman_tpu import replica as JRP
 from sherman_tpu import serve as JS
 from sherman_tpu.cluster import Cluster as JCluster
 from sherman_tpu.config import DSMConfig as JDSMConfig
@@ -36,11 +38,13 @@ from sherman_tpu.models import batched as JB
 from sherman_tpu.models.btree import Tree as JTree
 from sherman_tpu.utils import journal as JJ
 from sherman_tpu_torch import audit as A
+from sherman_tpu_torch import chaos as CH
 from sherman_tpu_torch import recovery as RC
+from sherman_tpu_torch import replica as RP
 from sherman_tpu_torch import serve as PS
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import ConfigError, NotPortedError, StateError
+from sherman_tpu_torch.errors import ConfigError, StateError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.utils import journal as J
@@ -59,6 +63,8 @@ class Side:
         self.J = JJ if jax_side else J
         self.A = JA if jax_side else A
         self.RC = JRC if jax_side else RC
+        self.RP = JRP if jax_side else RP
+        self.CH = JCH if jax_side else CH
         kw = dict(machine_nr=1, pages_per_node=pages, locks_per_node=512,
                   step_capacity=cap, chunk_pages=32)
         cfg = (JDSMConfig(gather_impl="xla", **kw) if jax_side
@@ -734,25 +740,31 @@ def test_front_door_acks_recover_across_packages(eight_devices, tmp_path):
     same(out[0], out[1])
 
 
-# -- quorum acks (ROADMAP.md item 7b) ------------------------------------------
+# -- quorum acks (replica.py) ---------------------------------------------------
 
 def test_quorum_config_validation():
-    """The quorum knobs refuse bad values typed, and the port refuses a
-    quorum past the primary, and a replica group, as not ported."""
+    """The quorum knobs refuse bad values typed, ``ack_quorum=2`` is
+    accepted, ``attach_replica_group`` stores the group, and
+    ``ack_quorum > 1`` without a group is a start()-time ConfigError (as
+    in tests/test_serve.py::test_quorum_config_validation)."""
     with pytest.raises(ConfigError):
         PS.ServeConfig(widths=(128,), p99_targets_ms=targets(),
                        ack_quorum=0)
     with pytest.raises(ConfigError):
         PS.ServeConfig(widths=(128,), p99_targets_ms=targets(),
                        quorum_timeout_ms=0.0)
-    with pytest.raises(NotPortedError, match="7b"):
-        PS.ServeConfig(widths=(128,), p99_targets_ms=targets(),
-                       ack_quorum=2)
+    cfg = PS.ServeConfig(widths=(128,), p99_targets_ms=targets(),
+                         ack_quorum=2)
+    assert cfg.ack_quorum == 2
     s = Side(False, n=900, pages=1024, B=128, cap=512)
-    srv = PS.ShermanServer(s.eng, PS.ServeConfig(
-        widths=(128,), p99_targets_ms=targets()))
-    with pytest.raises(NotPortedError, match="7b"):
-        srv.attach_replica_group(object())
+    srv = PS.ShermanServer(s.eng, cfg)
+    with pytest.raises(ConfigError):
+        srv.start()
+    group = object()
+    srv.attach_replica_group(group)
+    assert srv.replica_group is group
+    srv.attach_replica_group(None)
+    assert srv.replica_group is None
 
 
 def _quorum_off(s, d):
@@ -782,4 +794,116 @@ def test_quorum_off_bit_identity(eight_devices, tmp_path):
     """ack_quorum=1 (the default) takes the write path of a build without
     the quorum gate: the pool equals JAX's."""
     j, p = both(_quorum_off, tmp_path)
+    same(j, p)
+
+
+def _quorum_off_group(s, d):
+    """The default ``ack_quorum=1`` with a replica group attached: the gate
+    never runs, and the pool and the journal's bytes equal a front door's
+    without a group."""
+    out = []
+    for tag, attach in (("off", False), ("on", True)):
+        side = Side(s.jax, n=900, pages=1024, B=128, cap=512)
+        plane = s.RC.RecoveryPlane(side.cluster, side.tree, side.eng,
+                                   str(d / tag))
+        plane.checkpoint_base()
+        cfg = s.S.ServeConfig(widths=(128,), p99_targets_ms=targets(),
+                              write_linger_ms=0.0)
+        srv = s.S.ShermanServer(side.eng, cfg)
+        group = None
+        if attach:
+            group = s.RP.ReplicaGroup(plane, 1)
+            srv.attach_replica_group(group)
+        srv.start()
+        try:
+            kreq = side.keys[:256]
+            ok1 = srv.submit("insert", kreq, kreq ^ np.uint64(0xC0DE),
+                             rid=5).result(timeout=60)
+            ok2 = srv.submit("delete", side.keys[300:316]).result(timeout=60)
+            srv.drain()
+            assert srv.quorum_acks == 0          # the gate never ran
+        finally:
+            srv.stop()
+        jbytes = read_bytes(side.eng.journal.path)
+        if group is not None:
+            group.close()
+        plane.close()
+        out.append((np.asarray(ok1), np.asarray(ok2), side.pool(), jbytes))
+    same(out[0][:3], out[1][:3], "group on vs off")
+    assert out[0][3] == out[1][3], "journal bytes moved with a group"
+    return out[1][:3], len(out[1][3])
+
+
+def test_quorum_off_with_group_bit_identity(eight_devices, tmp_path):
+    """tests/test_serve.py::test_quorum_off_bit_identity: with a group
+    attached and ``ack_quorum=1`` the acks, pool and journal bytes are
+    those of a front door without one, in both packages, and equal."""
+    j, p = both(_quorum_off_group, tmp_path)
+    same(j, p)
+
+
+def _quorum_gate(s, d):
+    """tests/test_serve.py::test_quorum_gate_end_to_end's sequence."""
+    plane = s.RC.RecoveryPlane(s.cluster, s.tree, s.eng, str(d / "rec"))
+    plane.checkpoint_base()
+    group = s.RP.ReplicaGroup(plane, 1)
+    chaos = s.CH.ReplChaos([], seed=0)
+    group.attach_chaos(chaos)
+    cfg = s.S.ServeConfig(widths=(128,), p99_targets_ms=targets(),
+                          write_linger_ms=0.0, ack_quorum=2,
+                          quorum_timeout_ms=400.0)
+    srv = s.S.ShermanServer(s.eng, cfg)
+    srv.attach_replica_group(group)
+    srv.start()
+    try:
+        keys = s.keys
+        kreq = keys[:48]
+        ok = srv.submit("insert", kreq, kreq ^ np.uint64(0xACDC),
+                        tenant="q").result(timeout=60)
+        assert int(np.sum(ok)) > 0 and srv.quorum_acks >= 1
+        q1 = {k: v for k, v in srv.stats()["quorum"].items()
+              if k != "wait_ms"}
+        assert group.followers[0].tailer.covers(*group.quorum_token())
+        # a full ship partition: the bounded wait expires typed
+        chaos.hold("ship")
+        rid = (0x77 << 32) | 3
+        k2 = keys[64:80]
+        v2 = k2 ^ np.uint64(0xD1CE)
+        t0 = time.perf_counter()
+        with pytest.raises(Exception) as ei:
+            srv.submit("insert", k2, v2, tenant="q",
+                       rid=rid).result(timeout=30)
+        tip = ei.value
+        while tip is not None and not isinstance(
+                tip, s.RP.QuorumTimeoutError):
+            tip = tip.__cause__
+        assert tip is not None, f"untyped quorum expiry: {ei.value!r}"
+        assert time.perf_counter() - t0 < 5.0, "wait was not bounded"
+        timeouts = srv.quorum_timeouts
+        # the heal: the same rid re-acks its original result (dedup)
+        chaos.heal()
+        fut = srv.submit("insert", k2, v2, tenant="q", rid=rid)
+        ok2 = fut.result(timeout=60)
+        assert fut.deduped, "quorum retry re-applied, not re-acked"
+        assert srv.duplicate_applies == 0
+        srv.drain()
+        group.pump()
+        st = {k: v for k, v in group.stats().items()
+              if k not in ("quorum_wait_ms",)}
+        fpool = group.followers[0].cluster.dsm.pool
+        fpool = np.asarray(fpool) if s.jax else fpool.numpy()
+    finally:
+        srv.stop()
+        group.close()
+        plane.close()
+    return (np.asarray(ok), q1, timeouts, np.asarray(ok2), st, window(srv),
+            s.pool(), fpool)
+
+
+def test_quorum_gate_end_to_end(eight_devices, tmp_path):
+    """ack_quorum=2 through the front door: acks resolve after a follower
+    covers them, a full ship partition expires the wait typed, and the
+    same-rid retry after the heal re-acks; acks, counters, dedup windows
+    and both pools equal JAX's."""
+    j, p = both(_quorum_gate, tmp_path)
     same(j, p)
