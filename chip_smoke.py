@@ -331,7 +331,23 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     ack merged, no diverged follower left, no lost or duplicate ack,
     linearizable; the quorum A/B and the re-join catch-up); the
     ``failover_drill`` and ``partition_drill`` JSON lines, K1-K3 replayed
-    at every shape (paths ``one_node_failover``, ``one_node_partition``).
+    at every shape (paths ``one_node_failover``, ``one_node_partition``);
+27. elastic resize (``utils/reshard.py``, ``migrate.py``, the DSM's dirty
+    sinks, ``reshard_drill.py``, ``contract_drill.py``), after phase 26:
+    (a) the resize sequence at 4,000 keys, 1 -> 4 and 4 -> 6 nodes, the
+    heap off and on, card against the CPU (:func:`resize_run`: grow under
+    traffic, a delta with the dirty sink, a crash, ``resume``, the
+    cutover, the offline reshard, the restore at the target — emitted
+    arrays, artifacts by seq, ``migrate.*`` counters and the restored tree
+    bit-identical; the card's kernel shapes replayed exact); (b) the
+    reshard drill, one node to four, ``--batch-pages 32``, and (c) the
+    contract drill, two nodes to three, at 1,000,000 keys (in
+    ``reduced``; (c) to 100,000 past the time budget): no lost ack, RPO 0, bit-identical, resume verified; no
+    duplicate or lost ack, linearizable, no retrace; the
+    ``reshard_drill`` and ``contract_drill`` JSON lines, K1-K4 replayed
+    at every shape (paths
+    ``one_node_reshard``, ``two_node_contract``), the certification
+    gather's K2 shape among them.
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -341,7 +357,8 @@ launch), around each staged window, around each storm's timed window
 around phase 19's serving steps (K1-K3), around phase 21's traffic
 and delta, its recovery and its repair (K1-K3 in each), around phase
 22b (K1-K3), around 23b (K1, K2), around 24b's migration and matrix
-(K1-K3), around 25b+c and 25d, and around 26b and 26c (K1-K3 in each);
+(K1-K3), around 25b+c and 25d, around 26b and 26c (K1-K3 in each), around
+each of 27a's card runs (K2-K4) and around 27b (K1-K4) and 27c (K2-K4);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -355,7 +372,8 @@ computes the same function). The lines before the last are the
 ``ycsb_matrix_heap`` JSON records (printed after phases 19, 21, 22, 23
 and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
 ``serve_crash_drill`` records, phase 26's ``failover_drill`` and
-``partition_drill`` records, the K1 and K3 ablations, the
+``partition_drill`` records, phase 27's ``reshard_drill`` and
+``contract_drill`` records, the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -364,9 +382,11 @@ prints no ``ok`` line, also when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import gc
+import glob
 import json
 import os
 import re
@@ -396,6 +416,50 @@ _T0 = time.perf_counter()
 def _log(msg: str) -> None:
     """One progress line, stamped with the seconds since the start."""
     print(f"[{time.perf_counter() - _T0:.1f} s] {msg}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The time budget.
+# ---------------------------------------------------------------------------
+
+SMOKE_CUT_S = 1050.0            # the projection past which phases cut
+#                                 depth (the smoke's limit is 1,200 s)
+# The phases whose depth the budget sets, in run order: each one's seconds
+# at full depth on the H100 (a whole smoke with no cut: 41, 153, 131 and
+# 313 s of its 1,094.8 s), and its cuts in the order taken, as (key, the
+# cut, the seconds it saves).  An earlier phase cuts first.
+BUDGET = {
+    "24b": (41.0, (("keys", "keys halved", 15.0),)),
+    "25": (153.0, (
+        ("c_secs", "(c)'s second serve run --secs 30 -> 10", 20.0),
+        ("b_secs", "(b) --secs 30 -> 15", 15.0),
+        ("d_secs", "(d) --secs 10 -> 5", 5.0))),
+    "26": (131.0, (
+        ("b_secs", "(b) --secs 30 -> 15", 15.0),
+        ("c_keys", "(c) keys 10,000,000 -> 1,000,000", 12.0),
+        ("b_keys", "(b) keys 100,000,000 -> 10,000,000 (the base saves "
+         "and the followers' bootstraps scale with them)", 65.0))),
+    "27": (313.0, (
+        ("c_keys", "(c) keys 1,000,000 -> 100,000", 85.0),)),
+}
+
+
+def budget_cuts(phase: str, t_smoke: float) -> dict:
+    """The cuts ``phase`` takes as it starts, in :data:`BUDGET`'s order:
+    each while the projection (the seconds since ``t_smoke`` plus the
+    estimates of ``phase`` and every later phase, less what the cuts
+    taken save) passes ``SMOKE_CUT_S``.  -> {key: its ``reduced`` line}."""
+    names = list(BUDGET)
+    proj = time.perf_counter() - t_smoke + sum(
+        BUDGET[p][0] for p in names[names.index(phase):])
+    taken = {}
+    for key, what, saves in BUDGET[phase][1]:
+        if proj <= SMOKE_CUT_S:
+            break
+        taken[key] = (f"{what}: the smoke's projection {proj:.0f} s passed "
+                      f"{SMOKE_CUT_S:.0f} s")
+        proj -= saves
+    return taken
 
 
 def keys_of(ranks: np.ndarray, salt: int) -> np.ndarray:
@@ -1147,7 +1211,8 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_ycsb", "eight_nodes_ycsb", "one_node_integrity",
          "one_node_durability", "one_node_obs", "one_node_cache",
          "one_node_heap", "one_node_serve", "one_node_crash",
-         "one_node_failover", "one_node_partition")
+         "one_node_failover", "one_node_partition", "one_node_reshard",
+         "two_node_contract")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -4105,7 +4170,6 @@ CACHE_AB_REPEATS = 3            # cached staged windows a side, interleaved
 CACHE_AB_STEPS = 8
 HEAP_KEYS = 2_000_000           # 24b's tree (phase 15's configuration)
 HEAP_PAGES = 300_000            # heap pages a node (0.31 GB)
-HEAP_EST_S = 60.0               # 24b at HEAP_KEYS (a chip run: 167 s at 10 M)
 HEAP_VALUE_BYTES = 64
 HEAP_AB_KEYS = 1_000_000        # the --ab arms' fresh trees
 HEAP_DUR_PUTS = 8               # acked heap put batches after the base
@@ -4653,23 +4717,19 @@ def heap_full_width(smi: str, n_keys: int = HEAP_KEYS,
     :func:`heap_durability`; the ``ycsb_matrix_heap`` line; K1-K3
     replayed at every shape of the migration and the matrix (path
     ``one_node_heap``).  Past a projection of ``SMOKE_CUT_S`` for the
-    smoke (from ``t_smoke``), ``n_keys`` is halved (listed in
-    ``reduced``).  -> {kernel: [shapes]}."""
+    smoke (from ``t_smoke``, :func:`budget_cuts`), ``n_keys`` is halved
+    (listed in ``reduced``).  -> {kernel: [shapes]}."""
     from sherman_tpu_torch import ycsb_bench as YB
     from sherman_tpu_torch.recovery import RecoveryPlane
     from sherman_tpu_torch.workload.ycsb import YcsbGen, payloads_of
     path = "one_node_heap"
     t_phase = time.perf_counter()
-    cut = []
-    if t_smoke is not None:
-        proj = (time.perf_counter() - t_smoke + HEAP_EST_S + FRONT_EST_S
-                + REPL_EST_S)
-        if proj > SMOKE_CUT_S:
-            # the heap pages stay: the durability puts below need their
-            # own slabs whatever the key count
-            n_keys //= 2
-            cut.append(f"keys halved: the smoke's projection {proj:.0f} s "
-                       f"passed {SMOKE_CUT_S:.0f} s")
+    cut = [] if t_smoke is None else list(budget_cuts("24b",
+                                                      t_smoke).values())
+    if cut:
+        # the heap pages stay: the durability puts below need their own
+        # slabs whatever the key count
+        n_keys //= 2
     rec: dict = {"metric": "ycsb_matrix_heap", "path": path, "card": smi,
                  "keys": n_keys, "batch": YCSB_OPS, "steps": YCSB_STEPS,
                  "value_bytes": HEAP_VALUE_BYTES, "value_dist": "fixed",
@@ -4753,7 +4813,6 @@ SERVE_REQ_OPS = 65_536
 SERVE_SECS = 30.0               # (b); cut to 15 past the projection
 SERVE_SECS_DEVICE = 30.0        # (c)'s second run; cut to 10 first
 CRASH_SECS = 10.0               # (d); cut to 5 third
-FRONT_EST_S = 165.0             # 25b-d at full length (a chip run: 130 cut)
 
 
 def front_build(machine_nr: int, device: str):
@@ -5089,29 +5148,16 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
 
     (b)+(c) is the window ``one_node_serve``, (d) ``one_node_crash``; K1-K3
     replayed at every shape of each.  Past a projection of
-    ``SMOKE_CUT_S`` for the smoke (phase 26 included), (c)'s second run is
-    cut to 10 s, then (b) to 15 s, then (d) to 5 s (listed in
+    ``SMOKE_CUT_S`` for the smoke (:func:`budget_cuts`), (c)'s second run
+    is cut to 10 s, then (b) to 15 s, then (d) to 5 s (listed in
     ``reduced``).  -> {kernel: [shapes]}."""
     from sherman_tpu_torch import audit as AU
     from sherman_tpu_torch import serve_bench as SB
-    reduced = []
-    secs_b, secs_c, secs_d = SERVE_SECS, SERVE_SECS_DEVICE, CRASH_SECS
-    proj = time.perf_counter() - t_smoke + FRONT_EST_S + REPL_EST_S
-    if proj > SMOKE_CUT_S:
-        secs_c = 10.0
-        reduced.append(f"(c)'s second serve run --secs 30 -> 10: the "
-                       f"smoke's projection {proj:.0f} s passed "
-                       f"{SMOKE_CUT_S:.0f} s")
-        proj -= SERVE_SECS_DEVICE - secs_c
-    if proj > SMOKE_CUT_S:
-        secs_b = 15.0
-        reduced.append(f"(b) --secs 30 -> 15: the smoke's projection "
-                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
-        proj -= SERVE_SECS - secs_b
-    if proj > SMOKE_CUT_S:
-        secs_d = 5.0
-        reduced.append(f"(d) --secs 10 -> 5: the smoke's projection "
-                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
+    cuts = budget_cuts("25", t_smoke)
+    reduced = list(cuts.values())
+    secs_b = 15.0 if "b_secs" in cuts else SERVE_SECS
+    secs_c = 10.0 if "c_secs" in cuts else SERVE_SECS_DEVICE
+    secs_d = 5.0 if "d_secs" in cuts else CRASH_SECS
     widths = tuple(int(w) for w in SERVE_WIDTHS.split(","))
     shapes: dict = {}
     t_phase = time.perf_counter()
@@ -5212,9 +5258,6 @@ FAILOVER_KEYS = 100_000_000     # 26b: BENCHMARKS.md:174-185's capture
 FAILOVER_SECS = 30.0            # cut to 15 past the projection
 PARTITION_KEYS = 10_000_000     # 26c: 100,000,000 -> 10,000,000
 PARTITION_ROUNDS = 20
-REPL_EST_S = 260.0              # 26a-c at full length (a chip run: 257 s)
-SMOKE_CUT_S = 1050.0            # the projection past which 24b-26b cut
-SMOKE_LIMIT_S = 1200.0          # the smoke's time limit; 26c cuts 100 s before
 
 
 def _kind(fn):
@@ -5500,32 +5543,24 @@ def repl_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
 
     (b) is the window ``one_node_failover``, (c) ``one_node_partition``;
     K1-K3 replayed at every shape of each.  Past a projection of
-    ``SMOKE_CUT_S`` for the smoke, (b)'s traffic is cut to 15 s; past 100
-    s before the limit, (c)'s keys to 1,000,000 (listed in ``reduced``).
-    -> {kernel: [shapes]}."""
+    ``SMOKE_CUT_S`` for the smoke (:func:`budget_cuts`), (b)'s traffic is
+    cut to 15 s, then (c)'s keys to 1,000,000, then (b)'s keys to
+    10,000,000 (each listed in ``reduced``).  -> {kernel: [shapes]}."""
     from sherman_tpu_torch import failover_drill as FD
     from sherman_tpu_torch import partition_drill as PD
     from sherman_tpu_torch.utils import checkpoint as CK
     shapes: dict = {}
     kern = ("descent_round", "gather_pages", "writeback")
     t_phase = time.perf_counter()
-    secs, p_keys = FAILOVER_SECS, PARTITION_KEYS
-    reduced = []
-    proj = time.perf_counter() - t_smoke + REPL_EST_S
-    if proj > SMOKE_CUT_S:
-        secs = 15.0
-        reduced.append(f"--secs 30 -> 15: the smoke's projection "
-                       f"{proj:.0f} s passed {SMOKE_CUT_S:.0f} s")
-        proj -= 10.0
+    cuts = budget_cuts("26", t_smoke)
+    secs = 15.0 if "b_secs" in cuts else FAILOVER_SECS
+    f_keys = 10_000_000 if "b_keys" in cuts else FAILOVER_KEYS
+    p_keys = 1_000_000 if "c_keys" in cuts else PARTITION_KEYS
+    reduced = [cuts[k] for k in ("b_secs", "b_keys") if k in cuts]
     p_cut = [f"keys 100,000,000 -> {PARTITION_KEYS:,}, for the smoke's "
-             "time limit"]
-    if proj > SMOKE_LIMIT_S - 100:
-        p_keys = 1_000_000
-        p_cut.append(f"keys {PARTITION_KEYS:,} -> {p_keys:,}: the smoke's "
-                     f"projection {proj:.0f} s passed "
-                     f"{SMOKE_LIMIT_S - 100:.0f} s")
+             "time limit"] + [cuts[k] for k in ("c_keys",) if k in cuts]
     for name, mod, argv, cut, path in (
-            ("failover", FD, ["--keys", str(FAILOVER_KEYS), "--replicas",
+            ("failover", FD, ["--keys", str(f_keys), "--replicas",
                               "2", "--secs", str(secs)], reduced,
              "one_node_failover"),
             ("partition", PD, ["--keys", str(p_keys), "--replicas",
@@ -5626,6 +5661,357 @@ def _repl_pins(name: str, rec: dict, tag: str) -> None:
         raise AssertionError(f"{tag}: the {name} drill failed its pins "
                              f"{bad}")
 
+
+# ---------------------------------------------------------------------------
+# Phase 27: elastic resize.
+# ---------------------------------------------------------------------------
+
+RESIZE_KEYS = 4000              # 27a: the reference drills' keys
+RESIZE_BATCH = 16               # 27a's batch: more batches than rounds
+RESIZE_CASES = ((1, 4), (4, 6))  # 27a's (source, target) node counts
+RESIZE_SALT = 0xE1A57C
+RESHARD_KEYS = 1_000_000        # 27b: 100,000,000 -> 1,000,000
+RESHARD_BATCH = 32              # tools/reshard_drill.py's --batch-pages
+CONTRACT_KEYS = 1_000_000       # 27c: 27b's key count
+CONTRACT_SECS = 3.0             # 27c: the reference drill's default
+
+
+def port_resize_mods(device: str):
+    """The port's module handles for :func:`resize_run` on ``device``."""
+    import types
+
+    from sherman_tpu_torch import obs
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.migrate import Migrator
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.utils import checkpoint as CK
+    from sherman_tpu_torch.utils import journal as J
+    from sherman_tpu_torch.utils import reshard as RS
+    return types.SimpleNamespace(
+        Cluster=Cluster, cfg=lambda **kw: DSMConfig(device=device, **kw),
+        TreeConfig=TreeConfig, Tree=Tree, batched=batched, obs=obs,
+        Migrator=Migrator, CK=CK, J=J, RS=RS,
+        recover=lambda d, **kw: RecoveryPlane.recover(d, device=device,
+                                                      **kw),
+        plane=RecoveryPlane,
+        restore=lambda path: CK.restore(path, device=device))
+
+
+def _np(x) -> np.ndarray:
+    """A host copy of a tensor or array of either package."""
+    if isinstance(x, torch.Tensor):
+        return x.to("cpu", copy=True).numpy()
+    return np.array(x)
+
+
+def _mig_counters(mig) -> list:
+    return [mig.pages_moved, mig.batches, mig.retries, mig.lock_conflicts,
+            mig.resume_count, mig.resume_verified, mig.recopies_clean,
+            mig.seq, mig.staged_pages, len(mig._pending), sorted(mig._dirt)]
+
+
+def _npz(path: str, drop=()) -> dict:
+    with np.load(path) as z:
+        return {k: np.asarray(z[k]) for k in z.files if k not in drop}
+
+
+def _heap_alloc(vh) -> list:
+    return [vh._page_cls.copy(), vh._ver.copy(), vh._next_page.copy(),
+            list(vh._spare_pages),
+            [(k, sorted(s)) for k, s in vh._free.items()]]
+
+
+def resize_run(m, src: int, dst: int, heap: bool, rdir: str) -> list:
+    """Phase 27a's sequence with one package's modules ``m`` -> [(label,
+    result)], every result host numpy: a ``src``-node tree of the reference
+    drills' 4,000 keys (with ``heap``, 540 payloads of keys no inline write
+    touches, in a value heap of 256 pages in all) behind a recovery plane;
+    ``Migrator.start`` toward ``dst`` nodes; six batches interleaved with
+    acked inserts, deletes and heap puts; a delta whose clear the dirty
+    sink rides; two more batches; a crash with a torn journal tail;
+    ``recover`` and ``Migrator.resume``; more inserts, the copy to its end
+    and ``finish``; then the emitted
+    arrays, the batch artifacts by ``seq`` (the migration id, a nonce,
+    taken out), the ``migrate.*`` counters and the dirt set at each step,
+    the offline ``reshard`` of the final checkpoint (held equal to the
+    emitted arrays), and the ``dst``-node restore: every answer, fresh
+    inserts with splits, the pool, and with ``heap`` the rebuilt
+    allocator and the payloads."""
+    from sherman_tpu_torch.failover_drill import drill_keyspace
+    pages = 1024
+    kw = dict(pages_per_node=pages, locks_per_node=256, step_capacity=256,
+              chunk_pages=32, heap_pages_per_node=256 // src if heap else 0)
+    cl = m.Cluster(m.cfg(machine_nr=src, **kw))
+    tree = m.Tree(cl)
+    tcfg = m.TreeConfig(sibling_chase_budget=1)
+    eng = m.batched.BatchedEngine(tree, batch_per_node=128, tcfg=tcfg)
+    keys = drill_keyspace(RESIZE_KEYS)
+    m.batched.bulk_load(tree, keys, keys ^ np.uint64(RESIZE_SALT))
+    eng.attach_router()
+    rng = np.random.default_rng(11)
+    pay = [bytes(rng.integers(0, 256, int(n), dtype=np.uint8))
+           for n in rng.integers(1, 250, 540)]
+    hk = keys[3000:3540]        # the heap's keys: no inline write hits them
+    vh = eng.attach_value_heap() if heap else None
+    if heap:
+        vh.put(hk[:400], pay[:400])
+    rec_dir, mig_dir = os.path.join(rdir, "rec"), os.path.join(rdir, "mig")
+    plane = m.plane(cl, tree, eng, rec_dir)
+    plane.checkpoint_base()
+    mig = m.Migrator(cl, tree, eng, dst, mig_dir,
+                     target_pages_per_node=pages, batch_pages=RESIZE_BATCH)
+    out = []
+    info = mig.start()
+    out.append(("start", [info["live_pages"], _mig_counters(mig)]))
+    for r in range(6):
+        res = mig.step()
+        b = keys[r * 300: r * 300 + 200]
+        st = eng.insert(b, b ^ np.uint64(0x1111 + r))
+        if heap:
+            vh.put(hk[400 + 20 * r: 420 + 20 * r],
+                   pay[400 + 20 * r: 420 + 20 * r])
+        out.append((f"batch {r}", [res, st["applied"], _mig_counters(mig)]))
+    gone = eng.delete(keys[2000:2100])
+    d = plane.checkpoint_delta()
+    out.append(("delta", [_np(gone), d["pages"], _mig_counters(mig)]))
+    for r in range(2):
+        out.append((f"after delta {r}", [mig.step(), _mig_counters(mig)]))
+    seg = eng.journal.path
+    plane.close()
+    mig.close()
+    with open(seg, "ab") as f:  # a crash mid-append: half a record
+        rec = m.J.encode_record(m.J.J_UPSERT,
+                                np.asarray([1 << 40], np.uint64),
+                                np.asarray([7], np.uint64))
+        f.write(rec[: len(rec) // 2])
+    del plane, mig, eng, tree, cl, vh
+    plane, cl, tree, eng, rc = m.recover(rec_dir, batch_per_node=128,
+                                         tcfg=tcfg)
+    mig = m.Migrator.resume(cl, tree, eng, mig_dir,
+                            batch_pages=RESIZE_BATCH)
+    out.append(("resume", [rc["replay"]["records"], _mig_counters(mig)]))
+    b = keys[2200:2600]
+    st = eng.insert(b, b ^ np.uint64(0x3333))
+    if heap:
+        eng.value_heap.put(hk[520:], pay[520:])
+    n = mig.run_to_copied()
+    out.append(("copied", [st["applied"], n, _mig_counters(mig)]))
+    online = os.path.join(rdir, "online.npz")
+    summ = mig.finish(online)
+    out.append(("finish", [{k: v for k, v in summ.items()
+                            if k not in ("mid", "cutover_ms",
+                                         "cutover_parts_ms", "dst")},
+                           _mig_counters(mig)]))
+    emitted = _npz(online)
+    out.append(("emitted", emitted))
+    arts = {}
+    for path in glob.glob(os.path.join(mig_dir, "migbatch-*.npz")):
+        z = _npz(path, drop=("mid", "integrity"))
+        arts[int(z["seq"][0])] = z
+    out.append(("artifacts", [arts[k] for k in sorted(arts)]))
+    final = os.path.join(rdir, "final.npz")
+    m.CK.checkpoint(cl, final)
+    offline = os.path.join(rdir, "offline.npz")
+    summ_off = m.RS.reshard(final, offline, dst, pages_per_node=pages)
+    off = _npz(offline)
+    if off.keys() != emitted.keys() or not all(
+            np.array_equal(off[k], emitted[k]) for k in off):
+        raise AssertionError(f"27a {src}->{dst} heap={heap}: the online "
+                             "cutover differs from the offline reshard")
+    out.append(("offline", summ_off))
+    plane.close()
+    want_v, want_f = eng.search(keys)
+    del plane, mig, eng, tree, cl
+    c2 = m.restore(online)
+    t2 = m.Tree(c2)
+    e2 = m.batched.BatchedEngine(t2, batch_per_node=128, tcfg=tcfg)
+    e2.attach_router()
+    got = e2.search(keys)
+    if not (np.array_equal(got[0], want_v)
+            and np.array_equal(got[1], want_f)):
+        raise AssertionError(f"27a {src}->{dst} heap={heap}: the restored "
+                             "tree answers differently from the source")
+    out.append(("restored search", [_np(x) for x in got]))
+    if heap:
+        vh2 = e2.attach_value_heap()
+        rb = vh2.rebuild()
+        out.append(("heap rebuild", [rb, _heap_alloc(vh2),
+                                     vh2.get(hk)]))
+    fresh = np.unique(np.random.default_rng(7).integers(
+        1 << 57, 1 << 58, 700, dtype=np.uint64))[:600]
+    st = e2.insert(fresh, fresh)
+    out.append(("fresh inserts", [st["applied"], st.get("device_splits"),
+                                  _np(e2.search(fresh)[1])]))
+    out.append(("pool", [_np(x) for x in (c2.dsm.pool, c2.dsm.locks,
+                                          c2.dsm.counters)]))
+    return out
+
+
+def resize_reference_check(devices=("cuda", "cpu"), cases=RESIZE_CASES,
+                           replay_shapes: bool = True) -> None:
+    """Phase 27a: :func:`resize_run` at 1->4 and 4->6 nodes, the heap off
+    and on, on the card and on the plain path on the CPU, every result
+    bit-identical; on the card every kernel shape the runs launched is
+    replayed against its plain twin (exact; ``replay_shapes``, which needs
+    ``main()``'s build of the earlier designs)."""
+    n_shapes = 0
+    for src, dst in cases:
+        for heap in (False, True):
+            t = time.perf_counter()
+            runs = []
+            for d in devices:
+                rdir = tempfile.mkdtemp(prefix="sherman_resize_ref_")
+                spy = replay_shapes and d == "cuda" and d == devices[0]
+                try:
+                    with (ShapeLog() if spy
+                          else contextlib.nullcontext()) as log:
+                        runs.append(resize_run(port_resize_mods(d), src,
+                                               dst, heap, rdir))
+                finally:
+                    shutil.rmtree(rdir, ignore_errors=True)
+                if spy:
+                    log.check(f"27a {src}->{dst} heap={heap}",
+                              ("gather_pages", "writeback", "exchange"))
+                    n_shapes += sum(len(v) for v in replay(
+                        log, "resize_reference").values())
+            n = _tier_compare(f"resize {src}->{dst} heap={heap}", src,
+                              devices, runs)
+            _log(f"27a resize {src}->{dst} nodes, heap {heap} "
+                 f"({RESIZE_KEYS:,} keys, {devices[0]} vs {devices[1]}): "
+                 f"emitted arrays, artifacts by seq, migrate counters, the "
+                 f"offline reshard and the restored tree bit-identical "
+                 f"({n} results; {time.perf_counter() - t:.1f} s)")
+    _log(f"27a: {n_shapes} kernel shapes replayed against their plain "
+         f"twins (exact)")
+
+
+def _resize_pins(name: str, rec: dict, tag: str) -> None:
+    """The drills' pins; a failed one fails the smoke."""
+    if name == "reshard":
+        bad = [k for k in ("lost_acks", "rpo_ops") if rec[k] != 0]
+        if rec["bit_identical"] is not True:
+            bad.append("bit_identical")
+        if rec["cutover"]["resume_verified"] <= 0:
+            bad.append("resume_verified")
+        b, c = rec["batch"], rec["cutover"]
+        _log(f"{tag} reshard drill at {rec['keys']:,} keys, "
+             f"{rec['nodes']} -> {rec['target_nodes']} nodes, batch "
+             f"{rec['batch_pages']}: lost_acks {rec['lost_acks']}, rpo_ops "
+             f"{rec['rpo_ops']}, bit_identical {rec['bit_identical']}, "
+             f"resume_verified {c['resume_verified']}; pages_moved "
+             f"{c['pages_moved']} / batches {c['batches']}; host steps a "
+             f"batch {b.get('host_steps_mean')}, ms a batch "
+             f"{b.get('ms_mean')} (p99 {b.get('ms_p99')}), ms a host step "
+             f"{b.get('ms_per_host_step')}; read p99 before / during "
+             f"{rec['slo']['read_p99_before_ms']} / "
+             f"{rec['slo']['read_p99_during_ms']} ms; cutover_ms "
+             f"{c['cutover_ms']} by part {c['cutover_parts_ms']}; device "
+             f"peak {rec.get('device_bytes', {}).get('peak')}; phases "
+             f"{rec['phase_s']} ({rec['wall_s']:.1f} s)")
+    else:
+        bad = [k for k in ("duplicate_acks", "lost_acks", "rpo_ops",
+                           "retraces") if rec[k] != 0]
+        if rec["linearizable"] is not True:
+            bad.append("linearizable")
+        mg = rec["migration"]
+        _log(f"{tag} contract drill at {rec['keys']:,} keys, "
+             f"{rec['nodes']} -> {rec['target_nodes']} nodes, --secs "
+             f"{rec['secs']}: duplicate_acks {rec['duplicate_acks']}, "
+             f"lost_acks {rec['lost_acks']}, linearizable "
+             f"{rec['linearizable']}, retraces {rec['retraces']}; "
+             f"migration {mg['pages_moved']} pages in {mg['batches']} "
+             f"batches ({mg['batch']}), cutover {mg['cutover_ms']} ms "
+             f"{mg['cutover_parts_ms']}; audit cost "
+             f"{rec['phase_a']['audit_cost_frac']}; phases "
+             f"{rec['phase_s']} ({rec['wall_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"{tag}: the {name} drill failed its pins "
+                             f"{bad}")
+
+
+def resize_full_width(smi: str, t_smoke: float | None = None,
+                      device: str = "cuda") -> dict:
+    """Phase 27b-c:
+
+    - (b) the reshard drill (``reshard_drill.py``) at the reference's
+      queued capture (``BENCHMARKS.md:111-125``: one node to four, the
+      drill's mix, ``--batch-pages 32``) at 1,000,000 keys (``reduced``:
+      100,000,000 -> 1,000,000: one host step a lock word puts the copy
+      at live pages x one host step); pins ``lost_acks == 0``,
+      ``rpo_ops == 0``, ``bit_identical``, ``resume_verified > 0``;
+    - (c) the contract drill (``contract_drill.py``) at its reference node
+      counts (2 -> 3) and (b)'s key count, ``--secs 3``, cut to 100,000
+      keys past a projection of ``SMOKE_CUT_S`` for the smoke (from
+      ``t_smoke``, :func:`budget_cuts`; listed in ``reduced``); pins
+      ``duplicate_acks``, ``lost_acks``, ``rpo_ops`` and ``retraces`` 0,
+      ``linearizable``.
+
+    (b) is the window ``one_node_reshard`` (K1-K4: the source is one node,
+    the restored target four), (c) ``two_node_contract`` (K2-K4); each must
+    show the cutover's certification gather (K2 over every live row) and
+    every shape is replayed.  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import contract_drill as CD
+    from sherman_tpu_torch import reshard_drill as RD
+    shapes: dict = {}
+    t_phase = time.perf_counter()
+    keys_cut = ("keys 100,000,000 -> 1,000,000: the migrator takes one host "
+                "step a lock word, in the reference's order, so the copy and "
+                "the cutover's re-stage after the resume are live pages x one "
+                "host step; 100 M and 10 M keys do not fit the smoke's time "
+                "limit")
+    cuts = {} if t_smoke is None else budget_cuts("27", t_smoke)
+    c_keys = 100_000 if "c_keys" in cuts else CONTRACT_KEYS
+    for name, mod, argv, cut, path, kern in (
+            ("reshard", RD, ["--keys", str(RESHARD_KEYS), "--nodes", "1",
+                             "--target-nodes", "4", "--batch-pages",
+                             str(RESHARD_BATCH)],
+             [keys_cut], "one_node_reshard", tuple(KERNELS)),
+            ("contract", CD, ["--keys", str(c_keys), "--nodes", "2",
+                              "--target-nodes", "3", "--secs",
+                              str(CONTRACT_SECS)],
+             [keys_cut] + list(cuts.values()), "two_node_contract",
+             ("gather_pages", "writeback", "exchange"))):
+        d = tempfile.mkdtemp(prefix=f"sherman_{name}_")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with ShapeLog() as log:
+                t = time.perf_counter()
+                rec = mod.run(_drill_args(mod, argv, d, device))
+                rec["wall_s"] = time.perf_counter() - t
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        rec.update(card=smi, reduced=cut)
+        if device == "cuda":
+            rec["device_bytes"] = dict(rec.get("device_bytes", {}),
+                                       peak=torch.cuda.max_memory_allocated())
+        try:
+            _resize_pins(name, rec, "27b" if name == "reshard" else "27c")
+        finally:
+            print(json.dumps(rec), flush=True)
+        log.check(path, kern)
+        # the cutover's certification gather: K2 over every live row of
+        # the source pool
+        live = (rec["cutover"] if name == "reshard"
+                else rec["migration"])["live_pages"]
+        cert = [s for s in log.counts.get("gather_pages", {})
+                if not s[2] and s[1] == live]
+        if not cert:
+            raise AssertionError(f"{path}: the certification gather (K2 "
+                                 f"over the {live} live rows) was not "
+                                 "launched")
+        _log(f"{path}: the certification gather at {cert}")
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log, rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    _log(f"27b-c resize at full width: {time.perf_counter() - t_phase:.1f} s")
+    return shapes
 
 
 def main() -> int:
@@ -5823,6 +6209,14 @@ def _main(bb: str) -> int:
     for k, v in repl_full_width(smi, t_smoke).items():
         shapes.setdefault(k, []).extend(v)
     _log("replication path parity at every launched shape (K1-K3): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    resize_reference_check()
+    _log(f"phase 27a: {time.perf_counter() - t:.1f} s")
+    for k, v in resize_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("resize path parity at every launched shape (K1-K4): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

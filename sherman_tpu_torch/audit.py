@@ -58,9 +58,8 @@ Deployment shapes:
   (:meth:`Auditor.cost_frac`) and pinned < 2% of the serve wall in CI
   (the obs-cost-pin pattern).
 - **offline** (:func:`check_events` / :func:`check_jsonl`): a drill
-  records its full client-side history and re-checks it after crash and
-  recovery (the reference's contract drill, which needs the migration
-  of ROADMAP.md item 7c, is not ported yet).
+  records its full client-side history and re-checks it after crash,
+  recovery and a live migration (``contract_drill.py``).
 """
 
 from __future__ import annotations

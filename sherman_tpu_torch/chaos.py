@@ -58,8 +58,8 @@ Counters ride ``chaos.repl_*``; every window start is a
 
 Not here yet: the host fault layer (``host_*``, ``HostChaos``), which
 perturbs the multihost service plane's dispatch seam and host leases
-(ROADMAP.md item 7c).  A plan naming one of its kinds raises
-:class:`NotPortedError`.
+(ROADMAP.md item 7c-iii, host failover).  A plan naming one of its kinds
+raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def _refuse_later_kind(kind) -> None:
         raise NotPortedError(
             f"fault kind {kind!r} perturbs the multihost service plane "
             "(HostChaos), which the port does not have yet (ROADMAP.md "
-            "item 7c)")
+            "item 7c-iii, host failover)")
 
 
 @dataclasses.dataclass

@@ -15,6 +15,7 @@ __all__ = [
     "MultiprocessUnsupportedError",
     "TreeCorruptError",
     "CheckpointFormatError",
+    "ReshardError",
     "KernelUnavailableError",
     "NotPortedError",
     "ExchangeLaneError",
@@ -67,6 +68,12 @@ class CheckpointFormatError(ShermanError, RuntimeError):
     config, missing arrays, incompatible layout.  Distinct from
     :class:`~sherman_tpu_torch.utils.checkpoint.CheckpointCorruptError`
     (a content CRC mismatch on an artifact with the right shape)."""
+
+
+class ReshardError(ShermanError, RuntimeError):
+    """A checkpoint could not be repacked onto the target node count
+    (non-covering host shards, a dangling or out-of-range address, a shape
+    that does not match the manifest)."""
 
 
 class KernelUnavailableError(ShermanError, RuntimeError):

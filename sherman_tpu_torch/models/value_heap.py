@@ -41,8 +41,11 @@ The counters ``heap.*`` and the ``heap`` pull collector report the work;
 the resolve programs are ledgered as ``heap.resolve`` and
 ``heap.fanout_resolve``.
 
-Not here (ROADMAP.md item 7c): the reshard and the online migration of a
-heap tree.
+A heap tree resizes like any other (``utils/reshard.py``,
+``migrate.py``): handles address the heap by global row, so the region is
+carried verbatim and its node split padded; :meth:`ValueHeap.rebuild` on
+the restored M-node tree recovers the allocator, the spare pages of the
+padded split included.
 """
 
 from __future__ import annotations

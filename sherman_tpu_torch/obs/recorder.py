@@ -44,7 +44,7 @@ Event sources (each site calls :func:`record_event`):
   plane — ``replica.py``)
 
 ``watchdog.fired`` comes with the host failure detector
-(``utils/failure.py``, ROADMAP.md item 7c).
+(``utils/failure.py``, ROADMAP.md item 7c-iii).
 
 Auto-dump: :func:`auto_dump` fires on degraded entry, typed-error
 raise, a sealed-window retrace and watchdog expiry — but only when ``SHERMAN_BLACKBOX_DIR``

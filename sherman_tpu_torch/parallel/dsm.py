@@ -16,7 +16,10 @@ and the replies routed back (:mod:`sherman_tpu_torch.parallel.transport`),
 as ``shard_map`` does on each device of the reference's mesh.
 
 Where the reference mutates a functional array, this module updates the
-pool tensors in place (the step mutex serializes host steps).
+pool tensors in place (the step mutex serializes host steps).  An owner's
+apply is planned on the host, in numpy, from the step's requests and one
+gather of the step-start words they touch; the card gathers and scatters
+(a host step of a few rows is then a dozen small launches, not hundreds).
 """
 
 from __future__ import annotations
@@ -108,86 +111,97 @@ def empty_requests(n: int) -> dict[str, np.ndarray]:
 # Owner-side apply.
 # ---------------------------------------------------------------------------
 
-def _segments(keys: torch.Tensor):
-    """Stable sort of ``keys`` -> (order, sorted keys, segment-head mask,
-    segment id per sorted position)."""
-    sk, order = torch.sort(keys, stable=True)
-    head = torch.ones_like(sk, dtype=torch.bool)
-    head[1:] = sk[1:] != sk[:-1]
-    return order, sk, head, torch.cumsum(head.long(), 0) - 1
+# the counter slots a step's apply moves, in :func:`_apply`'s order
+_STEP_COUNTERS = np.array([CNT_READ_OPS, CNT_READ_PAGES, CNT_WRITE_OPS,
+                           CNT_WRITE_WORDS, CNT_CAS_OPS, CNT_FAA_OPS,
+                           CNT_WW_OPS], np.int64)
 
 
-def _word_apply(flat, m_cas, m_faa, m_ww, m_rw, widx, arg0, arg1,
-                m_mcas, m_mfaa, arg2):
-    """Linearized word ops on a flat int32 word tensor, applied in place.
+def _word_plan(pre, widx, m_cas, m_faa, m_ww, m_rw, m_mcas, m_mfaa,
+               arg0, arg1, arg2):
+    """Linearized word ops of one space, planned on the host.
 
-    Returns (old[M], ok[M]): ``old`` is the pre-step value for CAS/READ_WORD/
-    masked ops and the serial pre-value for FAA; ``ok`` is the winner flag
-    for CAS-like ops (True for everything else).  Masked CAS compares and
-    swaps only the ``arg2`` bits; masked FAA adds ``arg0`` inside the
-    ``arg2`` field and, like a CAS, lands at most once per word per step.
+    ``pre[i]`` is the step-start value of row ``i``'s word (of word 0 for
+    a row with no word op).  -> (old[M], ok[M], words, vals): ``old`` is
+    the pre-step value for CAS/READ_WORD/masked ops and the serial
+    pre-value for FAA; ``ok`` is the winner flag for CAS-like ops (True
+    for everything else); the step stores ``flat[words] = vals``.  Masked
+    CAS compares and swaps only the ``arg2`` bits; masked FAA adds
+    ``arg0`` inside the ``arg2`` field and, like a CAS, lands at most once
+    per word per step.
     """
     M = widx.shape[0]
-    W = flat.shape[0]
     any_word = m_cas | m_faa | m_ww | m_rw | m_mcas | m_mfaa
-    gidx = torch.where(any_word, widx, 0).clamp(0, W - 1)
-    cur = flat[gidx]
+    # one slot per distinct word, holding its value as the ops land
+    words, inv = np.unique(widx[any_word], return_inverse=True)
+    pos = np.zeros(M, np.int64)
+    pos[any_word] = inv
+    val = np.zeros(words.shape[0], np.int32)
+    val[inv] = pre[any_word]
+    start = val.copy()
+    cur = pre
 
     # CAS-like: per word, the lowest-index request whose expected value
     # matches the step-start value wins.
     m_caslike = m_cas | m_mcas | m_mfaa
-    exp_eff = torch.where(m_mcas, (cur & ~arg2) | (arg0 & arg2),
-                          torch.where(m_mfaa, cur, arg0))
-    des_eff = torch.where(
+    exp_eff = np.where(m_mcas, (cur & ~arg2) | (arg0 & arg2),
+                       np.where(m_mfaa, cur, arg0))
+    des_eff = np.where(
         m_mcas, (cur & ~arg2) | (arg1 & arg2),
-        torch.where(m_mfaa, (cur & ~arg2) | (((cur & arg2) + arg0) & arg2),
-                    arg1))
-    eligible = m_caslike & (cur == exp_eff)
-    winner = torch.zeros(M, dtype=torch.bool, device=flat.device)
-    e_idx = torch.nonzero(eligible).squeeze(1)
-    if e_idx.numel():
-        order, _, head, _ = _segments(widx[e_idx])
-        winner[e_idx[order[head]]] = True
-        flat[widx[winner]] = des_eff[winner]
+        np.where(m_mfaa, (cur & ~arg2) | (((cur & arg2) + arg0) & arg2),
+                 arg1))
+    winner = np.zeros(M, bool)
+    e_idx = np.flatnonzero(m_caslike & (cur == exp_eff))
+    if e_idx.size:
+        _, first = np.unique(pos[e_idx], return_index=True)
+        winner[e_idx[first]] = True
+        val[pos[winner]] = des_eff[winner]
 
     # FAA: every request lands; each sees the serial prefix value of the
     # post-CAS word.
-    cur2 = flat[gidx]
-    old_faa = torch.zeros(M, dtype=flat.dtype, device=flat.device)
-    f_idx = torch.nonzero(m_faa).squeeze(1)
-    if f_idx.numel():
-        order, sw, head, seg = _segments(widx[f_idx])
-        rows = f_idx[order]
-        d = arg0[rows].long()
-        excl = torch.cumsum(d, 0) - d
-        seg_base = excl[head][seg]
-        old_faa[rows] = (cur2[rows].long() + excl - seg_base).to(torch.int32)
-        tot = torch.zeros(int(head.sum()), dtype=torch.int64,
-                          device=flat.device).index_add_(0, seg, d)
-        uw = sw[head]
-        flat[uw] = (flat[uw].long() + tot).to(torch.int32)
+    old = cur.copy()
+    f_idx = np.flatnonzero(m_faa)
+    if f_idx.size:
+        rows = f_idx[np.argsort(pos[f_idx], kind="stable")]
+        p = pos[rows]
+        d = arg0[rows].astype(np.int64)
+        excl = np.cumsum(d) - d
+        head = np.ones(rows.shape[0], bool)
+        head[1:] = p[1:] != p[:-1]
+        seg_base = excl[head][np.cumsum(head) - 1]
+        old[rows] = (val[p] + excl - seg_base).astype(np.int32)
+        tot = np.zeros(words.shape[0], np.int64)
+        np.add.at(tot, p, d)
+        val = (val + tot).astype(np.int32)
 
-    # WRITE_WORD: plain store, wins over same-step CAS/FAA results.
-    flat[widx[m_ww]] = arg1[m_ww]
+    # WRITE_WORD: plain store, wins over same-step CAS/FAA results (the
+    # last of a word's stores stands).
+    ww = np.flatnonzero(m_ww)
+    val[pos[ww]] = arg1[ww]
 
-    old = torch.where(m_faa, old_faa, cur)
-    ok = torch.where(m_caslike, winner, True)
-    return old, ok
+    ok = np.where(m_caslike, winner, True)
+    moved = val != start
+    return old, ok, words[moved], val[moved]
 
 
 def _apply(pool, locks, counters, req):
-    """Apply requests ``req`` (dict of [M] int32 tensors + payload
-    [M, 256]) to the node's pool and lock table in place.
-    -> (data [M, 256], old [M], ok [M])."""
+    """Apply one node's requests ``req`` (dict of host ``[M]`` int32
+    arrays + ``payload [M, 256]``) to its pool, lock table and counters
+    in place.  The masks, winners and values are planned on the host from
+    the requests and the step-start words they touch; the card gathers
+    those words and the read pages and scatters the stores.
+    -> (read rows [k] (host), their pre-step pages [k, 256] (device),
+    old [M] (host), ok [M] (host))."""
     P, PW = pool.shape
     L = locks.shape[0]
-    page = bits.addr_page(req["addr"])
-    op = req["op"]
-    m_pool = req["space"] == SPACE_POOL
-    m_lock = req["space"] == SPACE_LOCK
-
+    dev = pool.device
+    op, space = req["op"], req["space"]
+    page = req["addr"] & CFG.ADDR_PAGE_MASK
     woff, nw = req["woff"], req["nw"]
-    page_ok = torch.where(m_lock, page < L, page < P) & (page >= 0)
+    m_pool = space == SPACE_POOL
+    m_lock = space == SPACE_LOCK
+
+    page_ok = np.where(m_lock, page < L, page < P) & (page >= 0)
     word_ok = m_lock | ((woff >= 0) & (woff < PW))
     write_ok = (woff >= 0) & (nw >= 0) & (woff + nw <= PW)
     wordspace = m_pool | m_lock
@@ -201,78 +215,117 @@ def _apply(pool, locks, counters, req):
     m_mcas = (op == OP_MASKED_CAS) & wok
     m_mfaa = (op == OP_MASKED_FAA) & wok
     is_write = (op == OP_WRITE) & m_pool & page_ok & write_ok
+    any_word = m_cas | m_faa | m_ww | m_rw | m_mcas | m_mfaa
+    widx_pool = page.astype(np.int64) * PW + woff
+    widx_lock = page.astype(np.int64)
 
     # READ: snapshot of whole pages before any mutation.
-    data = torch.where(is_read[:, None],
-                       pool[page.clamp(0, P - 1).long()], 0)
+    rd = np.flatnonzero(is_read)
+    data = pool[torch.as_tensor(page[rd], device=dev).long()] \
+        if rd.size else None
 
+    # each space's words: the step-start value of every active row's word
+    # (of word 0 for a row with no word op: what its reply's ``old``
+    # carries), then the planned stores
+    M = op.shape[0]
+    active = op != OP_NOP
     flatpool = pool.view(-1)
-    widx_pool = page.long() * PW + woff.long()
-    a0, a1, a2 = req["arg0"], req["arg1"], req["arg2"]
-    old_p, ok_p = _word_apply(
-        flatpool, m_cas & m_pool, m_faa & m_pool, m_ww & m_pool,
-        m_rw & m_pool, widx_pool, a0, a1, m_mcas & m_pool, m_mfaa & m_pool,
-        a2)
-    old_l, ok_l = _word_apply(
-        locks, m_cas & m_lock, m_faa & m_lock, m_ww & m_lock, m_rw & m_lock,
-        page.long(), a0, a1, m_mcas & m_lock, m_mfaa & m_lock, a2)
+    old = np.zeros(M, np.int32)
+    ok = np.ones(M, bool)
+    for flat, widx, m_sp, mine in ((flatpool, widx_pool, m_pool, ~m_lock),
+                                   (locks, widx_lock, m_lock, m_lock)):
+        rows = np.flatnonzero(active & mine)
+        if not rows.size:
+            continue
+        pre = np.zeros(M, np.int32)
+        g = np.where(any_word[rows], widx[rows], 0)
+        pre[rows] = flat[torch.as_tensor(g, device=dev)].cpu().numpy()
+        o, k, words, vals = _word_plan(
+            pre, widx, m_cas & m_sp, m_faa & m_sp, m_ww & m_sp,
+            m_rw & m_sp, m_mcas & m_sp, m_mfaa & m_sp,
+            req["arg0"], req["arg1"], req["arg2"])
+        if words.size:
+            flat[torch.as_tensor(words, device=dev)] = torch.as_tensor(
+                vals, device=dev)
+        old[mine] = o[mine]
+        ok[mine] = k[mine]
 
     # Page WRITE: word-masked scatter of the payload.
-    w_rows = torch.nonzero(is_write).squeeze(1)
-    if w_rows.numel():
-        cols = torch.arange(PW, device=pool.device)
+    w_rows = np.flatnonzero(is_write)
+    if w_rows.size:
+        cols = np.arange(PW)
         wmask = cols[None, :] < nw[w_rows][:, None]
-        idx = widx_pool[w_rows][:, None] + cols[None, :]
-        flatpool[idx[wmask]] = req["payload"][w_rows][wmask]
+        idx = (widx_pool[w_rows][:, None] + cols[None, :])[wmask]
+        flatpool[torch.as_tensor(idx, device=dev)] = torch.as_tensor(
+            np.ascontiguousarray(req["payload"][w_rows][wmask]), device=dev)
 
-    handled = (is_read | is_write | m_cas | m_faa | m_ww | m_rw
-               | m_mcas | m_mfaa)
-    old = torch.where(m_lock, old_l, old_p)
-    ok = torch.where(m_lock, ok_l, ok_p) & handled
+    handled = is_read | is_write | any_word
+    ok &= handled
 
-    n = lambda m: m.sum()
-    count(counters, CNT_READ_OPS, n(is_read))
-    count(counters, CNT_READ_PAGES, n(is_read))
-    count(counters, CNT_WRITE_OPS, n(is_write))
-    count(counters, CNT_WRITE_WORDS,
-          torch.where(is_write, nw, 0).sum().to(torch.int32).long() & _U32)
-    count(counters, CNT_CAS_OPS, n(m_cas | m_mcas))
-    count(counters, CNT_FAA_OPS, n(m_faa | m_mfaa))
-    count(counters, CNT_WW_OPS, n(m_ww))
-    return data, old, ok
+    n = lambda m: int(np.count_nonzero(m))
+    delta = np.array([n(is_read), n(is_read), n(is_write),
+                      int(nw[is_write].astype(np.int64).sum()) & _U32,
+                      n(m_cas | m_mcas), n(m_faa | m_mfaa), n(m_ww)],
+                     np.int64)
+    hit = np.flatnonzero(delta)
+    if hit.size:
+        s = torch.as_tensor(_STEP_COUNTERS[hit], device=dev)
+        counters[s] = (counters[s] + torch.as_tensor(delta[hit],
+                                                     device=dev)) & _U32
+    return rd, data, old, ok
 
 
 def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
     """One DSM step of every node (``machine_nr > 1``): each node's
     requests are bucketized by owner, exchanged, applied by the owner on
-    its own shard, and the replies exchanged back.
+    its own shard (:func:`_apply`, planned on the host), and the replies
+    exchanged back.
 
-    reqs: dict of global ``[N*R]`` tensors (+ payload ``[N*R, 256]``),
-    node ``n``'s requests in rows ``n*R:(n+1)*R``.  Updates the state in
-    place; returns {"data": [N*R, 256], "old": [N*R], "ok": [N*R]}."""
+    reqs: dict of global host ``[N*R]`` int32 arrays (+ payload
+    ``[N*R, 256]``), node ``n``'s requests in rows ``n*R:(n+1)*R``.
+    Updates the state in place; returns host {"data": [N*R, 256], "old":
+    [N*R], "ok": [N*R]}."""
     N, C = cfg.machine_nr, cfg.step_capacity
-    R = reqs["op"].shape[0] // N
-    nd = {k: v.view((N, R) + v.shape[1:]) for k, v in reqs.items()}
-    active = nd["op"] != OP_NOP
-    bucket_idx, routed = T.bucketize(bits.addr_node(nd["addr"]), active,
+    dev = pool.device
+    F = len(REQ_FIELDS)
+    # a request is one row, its fields then its payload: one copy to the
+    # card, one bucket scatter, one exchange
+    rows = np.empty((reqs["op"].shape[0], F + PAGE_WORDS), np.int32)
+    for i, k in enumerate(REQ_FIELDS):
+        rows[:, i] = reqs[k]
+    rows[:, F:] = reqs["payload"]
+    t = torch.as_tensor(rows, device=dev).view(N, -1, F + PAGE_WORDS)
+    active = t[..., 0] != OP_NOP
+    bucket_idx, routed = T.bucketize(bits.addr_node(t[..., 1]), active,
                                      N, C)
-    inc = T.exchange({k: T.scatter_to_buckets(v, bucket_idx, N * C)
-                      for k, v in nd.items()})
-    outs = [_apply(*shards(cfg, d, pool, locks, counters),
-                   {k: v[d] for k, v in inc.items()}) for d in range(N)]
-    rep = T.exchange({"data": torch.stack([o[0] for o in outs]),
-                      "old": torch.stack([o[1] for o in outs]),
-                      "ok": torch.stack([o[2] for o in outs])})
-    safe_b = torch.where(routed, bucket_idx, 0)
-    served = active & routed
-    data = T.take_local(rep["data"], safe_b)
-    data.masked_fill_(~served[..., None], 0)
+    inc = T.exchange(T.scatter_to_buckets(t, bucket_idx, N * C))
+    # the owners plan their applies on the host: the request fields, and
+    # the payloads only when a page write came in
+    inc_h = inc[..., :F].cpu().numpy()
+    payload = inc[..., F:].cpu().numpy() \
+        if (inc_h[..., 0] == OP_WRITE).any() else None
+    # the reply row: the read page, old, ok
+    rep = torch.zeros((N, N * C, PAGE_WORDS + 2), dtype=torch.int32,
+                      device=dev)
+    words = np.zeros((N, N * C, 2), np.int32)
+    for d in range(N):
+        req = {k: inc_h[d, :, i] for i, k in enumerate(REQ_FIELDS)}
+        req["payload"] = None if payload is None else payload[d]
+        rd, pages, words[d, :, 0], words[d, :, 1] = _apply(
+            *shards(cfg, d, pool, locks, counters), req)
+        if rd.size:
+            rep[d, torch.as_tensor(rd, device=dev), :PAGE_WORDS] = pages
+    rep[..., PAGE_WORDS:] = torch.as_tensor(words, device=dev)
+    back = T.take_local(T.exchange(rep), torch.where(routed, bucket_idx, 0))
+    back = torch.cat([back, routed[..., None].to(torch.int32)], dim=2)
+    back = back.view(-1, PAGE_WORDS + 3).cpu().numpy()
+    act = rows[:, 0] != OP_NOP
+    routed_h = back[:, -1] != 0
+    served = act & routed_h
     return {
-        "data": data.view(N * R, PAGE_WORDS),
-        "old": torch.where(served, T.take_local(rep["old"], safe_b),
-                           0).view(-1),
-        "ok": torch.where(active, routed & T.take_local(rep["ok"], safe_b),
-                          True).view(-1),
+        "data": np.where(served[:, None], back[:, :PAGE_WORDS], 0),
+        "old": np.where(served, back[:, PAGE_WORDS], 0),
+        "ok": np.where(act, routed_h & (back[:, PAGE_WORDS + 1] != 0), True),
     }
 
 
@@ -456,6 +509,10 @@ class DSM(_HostOps):
     """Host handle to the cluster: owns the node-major pool, lock table,
     counters and dirty mask on ``cfg.device``."""
 
+    # one process drives every node: never a multihost mesh (the
+    # reference's multihost plane is ROADMAP.md item 7c-ii)
+    multihost = False
+
     def __init__(self, cfg: DSMConfig):
         self.cfg = cfg
         self.device = cfg.torch_device()
@@ -469,6 +526,10 @@ class DSM(_HostOps):
         # host steps and direct installs the host set
         self.dirty = z(N * P, dtype=torch.bool)
         self._dirty_host: set[int] = set()
+        # dirty sinks (the online migrator's feed, migrate.py): a clear
+        # hands them the rows it is about to drop, so a second consumer of
+        # the dirty tracking never loses rows to a checkpoint
+        self._dirty_sinks: list = []
         # the value heap, the second region (``models/value_heap.py`` owns
         # the slab/handle protocol): ``[N*H, 256]`` int32 node-major like
         # the pool, None without one; its written rows in a host set
@@ -533,29 +594,28 @@ class DSM(_HostOps):
             return self.chaos.on_replies(self, reqs0, rep) if post else rep
 
     def _step_locked(self, reqs: dict[str, np.ndarray]) -> Replies:
-        dev = self.device
-        t = {k: torch.as_tensor(np.asarray(v, np.int32), device=dev)
-             for k, v in reqs.items()}
+        r = {k: np.asarray(v, np.int32) for k, v in reqs.items()}
         N = self.cfg.machine_nr
         if N > 1:
-            if t["op"].shape[0] % N:
+            if r["op"].shape[0] % N:
                 raise ConfigError(
-                    f"DSM.step: {t['op'].shape[0]} request rows do not "
+                    f"DSM.step: {r['op'].shape[0]} request rows do not "
                     f"split into {N} equal node blocks")
-            rep = dsm_step_spmd(self.pool, self.locks, self.counters, t,
-                                cfg=self._host_cfg)
-            return Replies(**{k: v.cpu().numpy() for k, v in rep.items()})
-        active = t["op"] != OP_NOP
-        to_me = active & (bits.addr_node(t["addr"]) == 0)
-        rank = torch.cumsum(to_me.long(), 0) - 1
-        routed = to_me & (rank < self.host_capacity)
-        t["op"] = torch.where(routed, t["op"], OP_NOP)
-        data, old, ok = _apply(self.pool, self.locks, self.counters, t)
+            return Replies(**dsm_step_spmd(self.pool, self.locks,
+                                           self.counters, r,
+                                           cfg=self._host_cfg))
+        active = r["op"] != OP_NOP
+        to_me = active & (
+            (r["addr"].astype(np.int64) & _U32) >> CFG.ADDR_PAGE_BITS == 0)
+        routed = to_me & (np.cumsum(to_me) <= self.host_capacity)
+        r["op"] = np.where(routed, r["op"], OP_NOP).astype(np.int32)
+        rd, pages, old, ok = _apply(self.pool, self.locks, self.counters, r)
         served = active & routed
-        return Replies(
-            data=torch.where(served[:, None], data, 0).cpu().numpy(),
-            old=torch.where(served, old, 0).cpu().numpy(),
-            ok=torch.where(active, routed & ok, True).cpu().numpy())
+        data = np.zeros((r["op"].shape[0], PAGE_WORDS), np.int32)
+        if rd.size:
+            data[rd] = pages.cpu().numpy()
+        return Replies(data=data, old=np.where(served, old, 0),
+                       ok=np.where(active, routed & ok, True))
 
     def install_chaos(self, plan) -> None:
         """Install (or clear, with ``None``) a chaos
@@ -598,11 +658,28 @@ class DSM(_HostOps):
         # bulk load (millions of rows)
         return sorted_unique(np.concatenate([dev.astype(np.int64), host]))
 
+    def add_dirty_sink(self, fn) -> None:
+        """Register a callable handed the dirty rows at every
+        :meth:`clear_dirty`, before the reset: the second-consumer
+        contract of the dirty tracking.  (The reference's multihost sink
+        sees only the rows its process owns; one process owns every row
+        here.)"""
+        self._dirty_sinks.append(fn)
+
+    def remove_dirty_sink(self, fn) -> None:
+        if fn in self._dirty_sinks:
+            self._dirty_sinks.remove(fn)
+
     def clear_dirty(self) -> None:
         """Reset both dirty tiers and the heap's dirty rows (a checkpoint
-        artifact captured them).  (The reference also hands the rows to
-        its registered dirty sinks first, the online migrator's feed:
-        ROADMAP.md item 7c.)"""
+        artifact captured them).  The registered dirty sinks see the rows
+        first: a clear must not hide writes from a concurrent consumer
+        (the migration's re-copy set)."""
+        if self._dirty_sinks:
+            rows = self.dirty_rows()
+            if rows.size:
+                for fn in list(self._dirty_sinks):
+                    fn(rows)
         self.dirty.zero_()
         self._dirty_host.clear()
         self._heap_dirty_host.clear()

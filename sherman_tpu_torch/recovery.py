@@ -55,7 +55,7 @@ on-disk bytes are the memory accountant's ``host_checkpoints_bytes``.
 
 Not here: the reference's per-host chain ownership (``hosts > 1``, the
 ``-h<host>-`` namespaces and ``recover_union``: the multihost service
-plane, ROADMAP.md item 7c, refused with :class:`NotPortedError`).
+plane, ROADMAP.md item 7c-ii, refused with :class:`NotPortedError`).
 
 With a value heap, ``recover`` attaches a ``ValueHeap`` to the rebuilt
 engine and rebuilds its allocator from the restored region before the
@@ -105,7 +105,7 @@ def _refuse_hosts(host_id: int, hosts: int) -> None:
         raise NotPortedError(
             f"hosts={hosts}: per-host chain ownership is the multihost "
             "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7c)")
+            "item 7c-ii)")
     if int(host_id) != 0:
         raise StateError(f"host_id={host_id} outside [0, hosts={hosts})")
 
@@ -417,11 +417,11 @@ class RecoveryPlane:
     @classmethod
     def recover_union(cls, directory: str, hosts: int, **kw):
         """The reference's union recovery over every host's chain: the
-        multihost service plane, not ported yet."""
+        multihost service plane (ROADMAP.md item 7c-ii), not ported yet."""
         raise NotPortedError(
             "recover_union recovers the per-host chains of the multihost "
             "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7c)")
+            "item 7c-ii)")
 
     # -- targeted repair (degraded mode's real exit) --------------------------
 

@@ -80,8 +80,8 @@ Observability: the ``repl.`` collector, the ``repl.lag_ms``,
 ``repl.quarantine`` and ``repl.repair``.
 
 Not here: the reference's cross-host seam (a tailer over another host's
-``-h<id>-`` chain namespace), which needs the multihost plane (ROADMAP.md
-item 7c): the tailer refuses a ``host_id``.
+``-h<id>-`` chain namespace), which comes with host failover (ROADMAP.md
+item 7c-iii): the tailer refuses a ``host_id``.
 """
 
 from __future__ import annotations
@@ -156,8 +156,8 @@ class JournalTailer:
         if host_id is not None:
             raise NotPortedError(
                 f"JournalTailer(host_id={host_id}): tailing another host's "
-                "chain namespace is the multihost plane's seam, which the "
-                "port does not have yet (ROADMAP.md item 7c)")
+                "chain namespace is the seam of host failover, which the "
+                "port does not have yet (ROADMAP.md item 7c-iii)")
         self.dir = directory
         self.cid = cid
         self.host_id = host_id

@@ -342,3 +342,44 @@ def test_savez_atomic_fsyncs_and_sweeps_orphans(tmp_path, monkeypatch):
     assert os.path.exists(str(tmp_path / "d.npz"))
     assert CK.restore(str(tmp_path / "d"), "cpu").dsm.pool.shape == \
         c.dsm.pool.shape
+
+
+def test_parallel_deflate_joins_chunks_into_one_stream():
+    """Chunks deflated apart, each closed by a sync flush, inflate as one
+    raw deflate stream to the input, in order (empty and one-byte chunks
+    included)."""
+    import zlib
+    rng = np.random.default_rng(3)
+    chunks = []
+    for i in range(41):
+        n = int(rng.integers(0, 50_000)) if i % 7 else i % 2
+        c = rng.integers(0, 4, n, dtype=np.uint8) if i % 3 else \
+            rng.integers(0, 256, n, dtype=np.uint8)
+        chunks.append(c.tobytes())
+    d = CK._ParallelDeflate(4)
+    out = b"".join(d.compress(c) for c in chunks) + d.flush()
+    inf = zlib.decompressobj(-15)
+    assert inf.decompress(out) + inf.flush() == b"".join(chunks)
+    assert inf.eof
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_parallel_deflate_checkpoint_restores_across_packages(
+        eight_devices, tmp_path, monkeypatch, n):
+    """With every array over the parallel deflater's threshold, a port
+    checkpoint is a valid zip (member CRCs checked) that both packages
+    restore alike."""
+    import zipfile
+    monkeypatch.setattr(CK, "_PARALLEL_DEFLATE_BYTES", 0)
+    keys = _keys()
+    side = _side(False, n)
+    _grow(side, keys, False)
+    c = side[0]
+    path = str(tmp_path / "ckpt.npz")
+    CK.checkpoint(c, path)
+    with zipfile.ZipFile(path) as zf:
+        assert zf.testzip() is None
+    jc = JCK.restore(path)
+    pc = CK.restore(path, device="cpu")
+    _same_cluster(jc, pc, "parallel deflate")
+    _serve_alike(jc, pc, keys, "parallel deflate")

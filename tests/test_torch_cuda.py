@@ -1045,3 +1045,19 @@ def test_follower_apply_and_replica_read_on_the_card(dev, tmp_path):
     for x, y in zip(a[2], b[2]):
         np.testing.assert_array_equal(x, y)
     assert a[3:] == b[3:] and a[3] > 0
+
+
+@pytest.mark.parametrize("src,dst", [(1, 4), (4, 6)])
+def test_migration_on_the_card_matches_the_cpu(dev, tmp_path, src, dst):
+    """Phase 27a's resize sequence (grow under traffic, a delta with the
+    dirty sink, a crash, ``resume``, the cutover through the certification
+    gather, the offline reshard and the restore at the target) with the
+    heap off and on, on the card and on the CPU: the emitted arrays, the
+    artifacts by seq, the migrate counters and the restored tree
+    bit-identical."""
+    PK.reset_launches()
+    S = _smoke()
+    S.resize_reference_check(cases=((src, dst),), replay_shapes=False)
+    assert PK.LAUNCHES["gather_pages"] > 0 and PK.LAUNCHES["writeback"] > 0
+    if src == 1:
+        assert PK.LAUNCHES["descent_round"] > 0

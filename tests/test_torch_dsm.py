@@ -234,3 +234,47 @@ def test_port_config_is_one_node_on_an_explicit_device():
         # the card is the default, and its absence is an error
         with pytest.raises(ConfigError, match="no CUDA device"):
             D.DSM(DSMConfig(pages_per_node=8, locks_per_node=8))
+
+
+def _random_step(rng, n_nodes, rows, pages, locks):
+    """Raw step requests drawn over a few words, so every op kind collides
+    with every other in one step: reads, page writes (partial, spilling,
+    empty), CAS / masked CAS / masked FAA racing on shared words, FAA
+    chains, WRITE_WORD, READ_WORD, both spaces and an unknown one, bad
+    pages, bad word offsets, other nodes and NOP gaps."""
+    reqs = D.empty_requests(rows)
+    op = rng.integers(0, 9, rows)
+    space = rng.choice([D.SPACE_POOL, D.SPACE_LOCK, 2], rows,
+                       p=[0.6, 0.35, 0.05])
+    node = rng.integers(0, n_nodes + 1 if n_nodes > 1 else 2, rows)
+    node = np.where(rng.random(rows) < 0.9, node % n_nodes, node)
+    page = rng.choice([0, 1, 2, 3, pages - 1, pages, locks - 1, locks],
+                      rows, p=[0.3, 0.25, 0.15, 0.1, 0.05, 0.05, 0.05, 0.05])
+    woff = rng.choice([0, 1, 5, 255, 256, -1], rows,
+                      p=[0.35, 0.3, 0.2, 0.05, 0.05, 0.05])
+    reqs["op"][:] = op
+    reqs["space"][:] = space
+    reqs["addr"][:] = [bits.make_addr(int(d), int(p))
+                       for d, p in zip(node, page)]
+    reqs["woff"][:] = woff
+    reqs["nw"][:] = rng.choice([0, 1, 3, 256, 300], rows)
+    # small values, so expected values match often
+    reqs["arg0"][:] = rng.integers(-2, 3, rows)
+    reqs["arg1"][:] = rng.integers(-2**31, 2**31, rows, dtype=np.int64)
+    reqs["arg2"][:] = rng.choice([0xFFFF, 0x0F0F0F0F, -1, 0], rows)
+    reqs["payload"][:] = rng.integers(-2**31, 2**31, reqs["payload"].shape,
+                                      dtype=np.int64).astype(np.int32)
+    return reqs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_random_raw_steps_match_jax(seed):
+    """Seeded raw steps of every op kind colliding on a few words: the
+    replies and the whole state equal the reference's after each step."""
+    rng = np.random.default_rng(100 + seed)
+    j, t = _pair()
+    for s in range(12):
+        reqs = _random_step(rng, 1, CAP + 8, P, L)
+        rj, rt = j.step(reqs), t.step(reqs)
+        _same_replies(rj, rt, f"seed {seed} step {s}")
+        _same_state(j, t, f"seed {seed} step {s}")

@@ -375,7 +375,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == top_dir} >= {
         "serve.py", "audit.py", "replica.py", "serve_bench.py", "chaos.py",
-        "failover_drill.py", "partition_drill.py"}
+        "failover_drill.py", "partition_drill.py", "migrate.py",
+        "reshard_drill.py", "contract_drill.py"}
+    utils_dir = os.path.join(REPO, "sherman_tpu_torch", "utils")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == utils_dir} >= {
+        "checkpoint.py", "journal.py", "reshard.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -140,6 +140,19 @@ def test_dsm_steps_cross_node(eight_devices, n, impl):
         t.step(D.empty_requests(n * 3 + 1))
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_random_raw_steps_cross_node(eight_devices, n):
+    """Seeded raw steps of every op kind from every node, colliding on a
+    few words of each owner (``test_torch_dsm._random_step``): replies
+    and the whole state equal the reference's after each step."""
+    from test_torch_dsm import _random_step
+    rng = np.random.default_rng(40 + n)
+    j, t = _dsm_pair(n, "xla")
+    for s in range(8):
+        reqs = _random_step(rng, n, n * 12, 128, 64)
+        _both_step(j, t, reqs, f"{n} nodes step {s}")
+
+
 # ---------------------------------------------------------------------------
 # Bulk load and serving.
 # ---------------------------------------------------------------------------
