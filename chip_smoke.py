@@ -347,7 +347,29 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     ``reshard_drill`` and ``contract_drill`` JSON lines, K1-K4 replayed
     at every shape (paths
     ``one_node_reshard``, ``two_node_contract``), the certification
-    gather's K2 shape among them.
+    gather's K2 shape among them;
+28. the multihost service plane and host failover (``multihost.py``, the
+    per-host chains and ``recover_union`` of ``recovery.py``, the
+    cross-host tail of ``replica.py``, ``hostlease.py``, ``HostChaos``),
+    after phase 27: (a) two sequences at the drills' 4,000 keys, two
+    hosts of one node, with no thread, card against the CPU
+    (:func:`host_plane_run`: the routed door's split and merge with rids,
+    per-host deltas, host 0's torn tail, ``recover_union``, host 0's
+    re-base sweeping only ``-h0-``, the cross-host tail;
+    :func:`host_fail_run`: leases, a freeze, detection, the fence point,
+    the adoption, the zombie's fenced suffix and typed refusal, the
+    hand-back — answers, pools, artifact names and journal bytes with the
+    chain ids by role, receipts, counters and merged stats bit-identical;
+    the card's kernel shapes replayed exact); (b) the multihost drill,
+    two hosts, at 100,000,000 keys (``rpo_ops``, ``lost_acks`` 0,
+    linearizable, the ack-bandwidth A/B >= 1.5x), and (c) the hostfail
+    drill, two hosts, lease 0.5 s, at 100,000,000 keys (``lost_acks``,
+    ``duplicate_acks``, ``fenced_acks_merged``, ``unadopted_dead_hosts``
+    0, linearizable; ``detect_ms``, ``adoption_ms``,
+    ``availability_gap_ms``), each cut to 10,000,000 and then 1,000,000
+    keys past the time budget ((c) first, each listed in ``reduced``); the
+    ``multihost_drill`` and ``hostfail_drill`` JSON lines, K1-K3 replayed
+    at every shape (paths ``two_host_multihost``, ``two_host_hostfail``).
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -358,7 +380,8 @@ around phase 19's serving steps (K1-K3), around phase 21's traffic
 and delta, its recovery and its repair (K1-K3 in each), around phase
 22b (K1-K3), around 23b (K1, K2), around 24b's migration and matrix
 (K1-K3), around 25b+c and 25d, around 26b and 26c (K1-K3 in each), around
-each of 27a's card runs (K2-K4) and around 27b (K1-K4) and 27c (K2-K4);
+each of 27a's card runs (K2-K4), around 27b (K1-K4) and 27c (K2-K4),
+around 28a's card runs and around 28b and 28c (K1-K3 in each);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -373,7 +396,8 @@ computes the same function). The lines before the last are the
 and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
 ``serve_crash_drill`` records, phase 26's ``failover_drill`` and
 ``partition_drill`` records, phase 27's ``reshard_drill`` and
-``contract_drill`` records, the K1 and K3 ablations, the
+``contract_drill`` records, phase 28's ``multihost_drill`` and
+``hostfail_drill`` records, the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -426,8 +450,9 @@ SMOKE_CUT_S = 1050.0            # the projection past which phases cut
 #                                 depth (the smoke's limit is 1,200 s)
 # The phases whose depth the budget sets, in run order: each one's seconds
 # at full depth on the H100 (a whole smoke with no cut: 41, 153, 131 and
-# 313 s of its 1,094.8 s), and its cuts in the order taken, as (key, the
-# cut, the seconds it saves).  An earlier phase cuts first.
+# 313 s of its 1,094.8 s; phase 28 alone, 240.8 s), and its cuts in the
+# order taken, as (key, the cut, the seconds it saves).  An earlier phase
+# cuts first.
 BUDGET = {
     "24b": (41.0, (("keys", "keys halved", 15.0),)),
     "25": (153.0, (
@@ -441,6 +466,11 @@ BUDGET = {
          "and the followers' bootstraps scale with them)", 65.0))),
     "27": (313.0, (
         ("c_keys", "(c) keys 1,000,000 -> 100,000", 85.0),)),
+    "28": (245.0, (
+        ("c_keys", "(c) keys 100,000,000 -> 10,000,000", 80.0),
+        ("b_keys", "(b) keys 100,000,000 -> 10,000,000", 120.0),
+        ("c_keys_1m", "(c) keys 10,000,000 -> 1,000,000", 6.0),
+        ("b_keys_1m", "(b) keys 10,000,000 -> 1,000,000", 8.0))),
 }
 
 
@@ -1212,7 +1242,8 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_durability", "one_node_obs", "one_node_cache",
          "one_node_heap", "one_node_serve", "one_node_crash",
          "one_node_failover", "one_node_partition", "one_node_reshard",
-         "two_node_contract")
+         "two_node_contract", "two_host_multihost",
+         "two_host_hostfail")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -6014,6 +6045,541 @@ def resize_full_width(smi: str, t_smoke: float | None = None,
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the multihost service plane and host failover.
+# ---------------------------------------------------------------------------
+
+HOST_KEYS = 4000                # 28a: the reference drills' keys
+HOST_SALT = 0x30057FEB          # the drills' bulk-load stamp
+HOST_LEASE_S = 0.5              # 28c: the reference drill's lease
+MULTIHOST_KEYS = 100_000_000    # 28b: BENCHMARKS.md:225-237's capture
+HOSTFAIL_KEYS = 100_000_000     # 28c: BENCHMARKS.md:252-266's capture
+
+
+def host_mods(device: str):
+    """The port's module handles for :func:`host_plane_run` and
+    :func:`host_fail_run` on ``device``."""
+    import types
+
+    from sherman_tpu_torch import chaos as CH
+    from sherman_tpu_torch import hostlease as HL
+    from sherman_tpu_torch import multihost as MH
+    from sherman_tpu_torch import obs
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig, TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.recovery import RecoveryPlane
+    from sherman_tpu_torch.replica import JournalTailer, ReplicaGroup
+    from sherman_tpu_torch.utils import journal as J
+    return types.SimpleNamespace(
+        Cluster=Cluster, cfg=lambda **kw: DSMConfig(device=device, **kw),
+        TreeConfig=TreeConfig, Tree=Tree, batched=batched, obs=obs, J=J,
+        MH=MH, HL=HL, CH=CH, plane=RecoveryPlane, Tailer=JournalTailer,
+        Group=ReplicaGroup, dev={"device": device})
+
+
+class _Done:
+    """A served request's future (the ``ServeFuture`` surface)."""
+
+    def __init__(self, res, deduped=False):
+        self._res, self.deduped = res, deduped
+
+    def done(self) -> bool:
+        return True
+
+    def result(self, timeout=None):
+        return self._res
+
+
+class SyncDoor:
+    """A front door that serves each request on the caller's thread as it
+    is submitted (the routed door's ``submit``/``stats`` surface, no
+    dispatcher thread): reads through ``search``, writes through
+    ``insert``/``delete`` with their journal records and, with a rid, an
+    ack record and an exactly-once window; scans through
+    ``range_query_many``."""
+
+    def __init__(self, m, eng):
+        self.m, self.eng = m, eng
+        self.window: dict = {}
+        self.admitted = self.acked = self.dedup_hits = 0
+
+    def seed_dedup(self, window, rejournal: bool = True) -> int:
+        for k, v in window.items():
+            self.window[k] = v
+        return len(window)
+
+    def submit(self, op, keys=None, values=None, *, tenant="default",
+               ranges=None, rid=None, deadline_ms=None):
+        J = self.m.J
+        if op == "scan":
+            return _Done(self.eng.range_query_many(ranges))
+        keys = np.ascontiguousarray(keys, np.uint64)
+        self.admitted += int(keys.size)
+        if op == "read":
+            v, f = self.eng.search(keys)
+            return _Done((np.asarray(v, np.uint64), np.asarray(f, bool)))
+        if rid is not None and (tenant, rid) in self.window:
+            self.dedup_hits += 1
+            return _Done(np.asarray(self.window[(tenant, rid)][1]), True)
+        if op == "insert":
+            self.eng.insert(keys, np.ascontiguousarray(values, np.uint64))
+            ok, kind = np.ones(keys.size, bool), J.J_UPSERT
+        else:
+            ok, kind = np.asarray(self.eng.delete(keys), bool), J.J_DELETE
+        self.acked += int(keys.size)
+        if rid is not None:
+            self.eng.journal.append_acks([(rid, tenant, kind, ok)])
+            self.window[(tenant, rid)] = (kind, ok)
+        return _Done(ok)
+
+    def stats(self) -> dict:
+        jr = self.eng.journal
+        return {"admitted_ops": self.admitted, "served_ops": self.admitted,
+                "acked_writes": self.acked,
+                "contract": {"dedup_hits": self.dedup_hits,
+                             "cached_rids": len(self.window)},
+                "journal": {"fsyncs": jr.fsyncs if jr else 0,
+                            "appends": jr.appends if jr else 0}}
+
+
+def _host_small(m, pages: int = 1024):
+    cl = m.Cluster(m.cfg(machine_nr=1, pages_per_node=pages,
+                         locks_per_node=256, step_capacity=256,
+                         chunk_pages=32))
+    tree = m.Tree(cl)
+    eng = m.batched.BatchedEngine(
+        tree, batch_per_node=128,
+        tcfg=m.TreeConfig(sibling_chase_budget=1))
+    return cl, tree, eng
+
+
+def _roles(x, cids: dict):
+    """``x`` with each chain id (a nonce) replaced by its role and every
+    wall time (a ``*_ms`` key) taken out."""
+    if isinstance(x, str):
+        for role, c in cids.items():
+            if c:
+                x = x.replace(c, role)
+        return x
+    if isinstance(x, dict):
+        return {_roles(k, cids): _roles(v, cids) for k, v in x.items()
+                if not (isinstance(k, str) and k.endswith("_ms"))}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_roles(v, cids) for v in x)
+    return x
+
+
+def _dir_state(rdir: str, cids: dict, blobs=("journal-",)) -> list:
+    """The directory's names (chain ids by role) and the bytes of the
+    files whose names start with ``blobs``."""
+    out = []
+    for n in sorted(os.listdir(rdir)):
+        path = os.path.join(rdir, n)
+        if not os.path.isfile(path):
+            continue
+        data = None
+        if n.startswith(blobs):
+            with open(path, "rb") as f:
+                data = f.read()
+        out.append((_roles(n, cids), data))
+    return sorted(out, key=lambda x: x[0])
+
+
+def _hostify(x):
+    """Nested tensors and arrays as host numpy, containers as lists."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return _np(x)
+    if isinstance(x, (list, tuple)):
+        return [_hostify(v) for v in x]
+    return x
+
+
+def _obs_delta(m, s0: dict, prefixes) -> dict:
+    d = m.obs.delta(s0, m.obs.snapshot())
+    return {k: d[k] for k in sorted(d) if k.startswith(prefixes)
+            and not k.endswith("_ms")}
+
+
+def host_plane_run(m, rdir: str) -> list:
+    """Phase 28a's service-plane sequence with one package's modules ``m``
+    -> [(label, result)], every result host numpy: two host contexts of the
+    reference drills' 4,000 keys (one node each) with their recovery
+    planes in one directory (``-h0-``/``-h1-``) behind one
+    ``MultihostService`` of :class:`SyncDoor` s; routed inserts with rids,
+    reads, deletes and a fan-out scan; a delta on both chains; more routed
+    writes; host 0's tail torn and both contexts dropped;
+    ``recover_union`` (receipt, answers, pools); host 0's re-base sweeping
+    only ``-h0-``; the cross-host tail (a tailer and a replica group on
+    host 0's namespace) over routed writes on the recovered engines; the
+    ``multihost.*`` counters and the merged stats."""
+    from sherman_tpu_torch.failover_drill import drill_keyspace
+    s0 = m.obs.snapshot()
+    keys = drill_keyspace(HOST_KEYS)
+    router = m.MH.HostRouter(2)
+    own = router.owner(keys)
+    hk = [keys[own == h] for h in (0, 1)]
+    ctx, cids, out = [], {}, []
+    for h in (0, 1):
+        cl, tree, eng = _host_small(m)
+        m.batched.bulk_load(tree, hk[h], hk[h] ^ np.uint64(HOST_SALT))
+        eng.attach_router()
+        plane = m.plane(cl, tree, eng, rdir, host_id=h, hosts=2)
+        plane.checkpoint_base()
+        cids[f"C{h}"] = plane.cid
+        ctx.append((cl, tree, eng, plane))
+    svc = m.MH.MultihostService([SyncDoor(m, c[2]) for c in ctx], router,
+                                planes=[c[3] for c in ctx])
+    rng = np.random.default_rng(28)
+    for r in range(6):
+        b = np.unique(keys[rng.integers(0, keys.size, 96)])
+        v = b ^ np.uint64(0x1000 + r)
+        out.append((f"insert {r}", svc.submit("insert", b, v, rid=100 + r,
+                                             tenant="w").result()))
+        out.append((f"read {r}", svc.submit("read", b).result()))
+    gone = keys[1000:1040]
+    out.append(("delete", svc.submit("delete", gone, rid=200,
+                                     tenant="w").result()))
+    out.append(("retried rid", svc.submit("insert", keys[:4], keys[:4],
+                                          rid=100, tenant="w").deduped))
+    lo, hi = int(keys[100]), int(keys[160])
+    out.append(("scan", svc.submit("scan",
+                                   ranges=[(lo, hi), (1, 1 << 40)]).result()))
+    out.append(("deltas", [c[3].checkpoint_delta()["pages"] for c in ctx]))
+    b = keys[2000:2300]
+    out.append(("insert after delta", svc.submit(
+        "insert", b, b ^ np.uint64(0x2222), rid=300, tenant="w").result()))
+    out.append(("frontiers", _roles([[os.path.basename(p), n] for p, n
+                                     in svc.journal_frontiers()], cids)))
+    out.append(("stats", _roles(svc.stats(), cids)))
+    torn = ctx[0][2].journal.path
+    for c in ctx:
+        c[3].close()
+    with open(torn, "ab") as f:  # a crash mid-append: half a record
+        rec = m.J.encode_record(m.J.J_UPSERT,
+                                np.asarray([1 << 40], np.uint64),
+                                np.asarray([7], np.uint64), rid=0xDEAD)
+        f.write(rec[: len(rec) // 2])
+    out.append(("written", _dir_state(rdir, cids)))
+    del ctx, svc, c
+    rec_ctx, receipt = m.plane.recover_union(
+        rdir, hosts=2, batch_per_node=128,
+        tcfg=m.TreeConfig(sibling_chase_budget=1), **m.dev)
+    cids.update({f"R{h}": rec_ctx[h][0].cid for h in (0, 1)})
+    out.append(("recover_union", _roles(receipt, cids)))
+    for h in (0, 1):
+        eng = rec_ctx[h][3]
+        out.append((f"host {h} answers",
+                    [_np(x) for x in eng.search(hk[h])]))
+        out.append((f"host {h} torn key", _np(eng.search(
+            np.asarray([1 << 40], np.uint64))[1])))
+        out.append((f"host {h} pool", [_np(x) for x in (
+            rec_ctx[h][1].dsm.pool, rec_ctx[h][1].dsm.locks,
+            rec_ctx[h][1].dsm.counters)]))
+        out.append((f"host {h} window", sorted(rec_ctx[h][0].dedup_window)))
+    h1 = {n: d for n, d in _dir_state(rdir, cids, blobs=("base-h1",
+                                                          "delta-h1",
+                                                          "journal-h1"))
+          if "-h1" in n}
+    rec_ctx[0][0].checkpoint_base()
+    cids["S0"] = rec_ctx[0][0].cid
+    after = _dir_state(rdir, cids, blobs=("base-h1", "delta-h1",
+                                          "journal-h1"))
+    if {n: d for n, d in after if "-h1" in n} != h1:
+        raise AssertionError("28a: host 0's re-base touched host 1's chain")
+    out.append(("rebased", [n for n, _ in after]))
+    tailer = m.Tailer(rdir, rec_ctx[0][0].cid, host_id=0)
+    group = m.Group(rec_ctx[0][0], 1, cache_slots=256, poll_ms=1e9)
+    svc = m.MH.MultihostService([SyncDoor(m, c[3]) for c in rec_ctx],
+                                router, planes=[c[0] for c in rec_ctx])
+    b = keys[2400:2700]
+    out.append(("tail writes", svc.submit("insert", b, b ^ np.uint64(0x77),
+                                          rid=400, tenant="t").result()))
+    recs = tailer.poll()
+    out.append(("tailed", _hostify(recs)))
+    group.pump()
+    st = group.stats()
+    out.append(("group", [st["applied_records"], st["applied_rows"],
+                          group.primary_host]))
+    fol = group.followers[0]
+    out.append(("follower", [_np(fol.cluster.dsm.pool),
+                             [_np(x) for x in fol.eng.search(b)]]))
+    group.close()
+    for c in rec_ctx:
+        c[0].close()
+    out.append(("counters", _obs_delta(m, s0, ("multihost.",))))
+    return out
+
+
+def host_fail_run(m, rdir: str) -> list:
+    """Phase 28c's failover sequence with one package's modules ``m``,
+    without threads -> [(label, result)]: two hosts' chains (one node each,
+    the reference drills' 4,000 keys) behind a ``MultihostService`` of
+    :class:`SyncDoor` s, the lease table (lease 0.5 s, expiry judged at
+    explicit instants) and a ``HostFence`` a host; routed acked writes;
+    host 0 frozen (``HostChaos``: the dispatch refused typed, its renewals
+    stopped, an in-flight append pinning its view, a torn half-frame);
+    detection; the fence point; the adoption (receipt, ownership log,
+    epochs, the recovered pool, answers through the adopted door, the
+    seeded window); the zombie's fenced suffix and its typed refusal on
+    heal; the hand-back and the re-register; the ``hostfail.*``,
+    ``multihost.*`` and ``chaos.host_*`` counters."""
+    from sherman_tpu_torch.failover_drill import drill_keyspace
+    s0 = m.obs.snapshot()
+    keys = drill_keyspace(HOST_KEYS)
+    router = m.MH.HostRouter(2)
+    own = router.owner(keys)
+    hk = [keys[own == h] for h in (0, 1)]
+    hc = m.CH.HostChaos([], seed=7)
+    table = m.HL.HostLeaseTable(rdir, 2, lease_s=HOST_LEASE_S, chaos=hc)
+    ctx, cids, out, epochs = [], {}, [], {}
+    for h in (0, 1):
+        cl, tree, eng = _host_small(m)
+        m.batched.bulk_load(tree, hk[h], hk[h] ^ np.uint64(HOST_SALT))
+        eng.attach_router()
+        plane = m.plane(cl, tree, eng, rdir, host_id=h, hosts=2)
+        plane.checkpoint_base()
+        cids[f"C{h}"] = plane.cid
+        epochs[h] = table.register(h, hwm=plane.journal_frontier())
+        m.HL.HostFence(table, h, epochs[h], chaos=hc).install(eng)
+        ctx.append((cl, tree, eng, plane))
+    out.append(("registered", [_roles({k: v for k, v in table.read(h).items()
+                                       if k != "timestamp"}, cids)
+                               for h in (0, 1)]))
+    doors = [SyncDoor(m, c[2]) for c in ctx]
+    svc = m.MH.MultihostService(doors, router, planes=[c[3] for c in ctx])
+    svc.attach_chaos(hc)
+    rng = np.random.default_rng(29)
+    for r in range(4):
+        b = np.unique(keys[rng.integers(0, keys.size, 96)])
+        out.append((f"insert {r}", svc.submit(
+            "insert", b, b ^ np.uint64(0x3000 + r), rid=500 + r,
+            tenant="w").result()))
+    out.append(("delete", svc.submit("delete", keys[3000:3030], rid=600,
+                                     tenant="w").result()))
+    # host 0 freezes: refused at the dispatch seam, renewals stopped, one
+    # in-flight append pins its lease view, a torn half-frame
+    hc.freeze(0)
+    out.append(("frozen dispatch", _kind(lambda: svc.submit(
+        "read", keys[:64]))))
+    out.append(("frozen renew", [table.renew(0, epochs[0]),
+                                 table.renew(1, epochs[1])]))
+    eng0 = ctx[0][2]
+    eng0.journal.append(m.J.J_UPSERT, np.asarray([1 << 58], np.uint64),
+                        np.asarray([1], np.uint64))
+    rec = m.J.encode_record(m.J.J_UPSERT, np.asarray([1 << 40], np.uint64),
+                            np.asarray([7], np.uint64), rid=0xDEAD)
+    with open(eng0.journal.path, "ab") as f:
+        f.write(rec[: len(rec) // 2])
+    failover = m.HL.HostFailover(rdir, table, 2, recover_kw=dict(
+        batch_per_node=128, tcfg=m.TreeConfig(sibling_chase_budget=1),
+        **m.dev))
+    time.sleep(0.01)
+    table.renew(1, epochs[1])
+    t0 = table.read(0)["timestamp"]
+    out.append(("detect", [failover.detect(now=t0 + HOST_LEASE_S / 2),
+                           failover.detect(now=t0 + HOST_LEASE_S + 0.002),
+                           table.probe(1, now=t0 + HOST_LEASE_S + 0.002)]))
+    fp = failover.fence_point(0)
+    out.append(("fence point", [_roles(os.path.basename(fp[0]), cids),
+                                fp[1]]))
+    adopted = {}
+
+    def door(plane, cluster, tree, eng):
+        adopted["door"] = SyncDoor(m, eng)
+        return adopted["door"]
+
+    r = failover.adopt(0, 1, door_factory=door, service=svc)
+    plane0, cl0, _tree0, e0 = r["context"]
+    cids["R0"] = plane0.cid
+    out.append(("adoption", _roles({k: v for k, v in r.items()
+                                    if k not in ("context", "server")},
+                                   cids)))
+    out.append(("adopted pool", [_np(x) for x in (
+        cl0.dsm.pool, cl0.dsm.locks, cl0.dsm.counters)]))
+    out.append(("window", sorted(plane0.dedup_window)))
+    out.append(("ownership", [failover.log.load()["overlay"],
+                              failover.log.load()["pending"],
+                              [_roles(x, cids) for x in
+                               failover.log.load()["records"]]]))
+    out.append(("epochs", table.epochs()))
+    out.append(("served after adoption", svc.submit("read", hk[0]).result()))
+    out.append(("retried rid", [svc.submit("insert", keys[:4], keys[:4],
+                                           rid=500, tenant="w").deduped]))
+    # the zombie: its pinned view still says epoch 1
+    hc.revive(0, zombie=True)
+    zk = np.unique(hk[0][:24])
+    for i in range(3):
+        eng0.journal.append(m.J.J_UPSERT, zk, zk ^ np.uint64(0xFEFE00 + i),
+                            rid=0xF0 + i)
+    fence = (os.path.join(rdir, r["fence"]["segment"]), r["fence"]["size"])
+    out.append(("fenced suffix", m.HL.count_fenced_suffix(fence)))
+    hc.heal()
+    out.append(("zombie on heal", _kind(lambda: eng0.journal.append(
+        m.J.J_UPSERT, zk[:1], zk[:1]))))
+    out.append(("fenced never merged", [_np(x) for x in e0.search(zk)]))
+    out.append(("unadopted", failover.unadopted_dead_hosts(
+        now=table.read(1)["timestamp"])))
+    out.append(("register while adopted", _kind(lambda: table.register(0))))
+    out.append(("handback", [failover.handback(0, router=router),
+                             router.overlay, table.register(0),
+                             _roles(failover.log.load()["records"][-1],
+                                    cids)]))
+    out.append(("stats", _roles(svc.stats(), cids)))
+    # the ownership log's bytes name the fence's segment (a chain id): its
+    # records are compared by role above
+    out.append(("dir", _dir_state(rdir, cids)))
+    for c in ctx:
+        c[3].close()
+    plane0.close()
+    out.append(("counters", _obs_delta(m, s0, ("hostfail.", "multihost.",
+                                               "chaos.host"))))
+    return out
+
+
+def host_reference_check(devices=("cuda", "cpu"),
+                         replay_shapes: bool = True) -> None:
+    """Phase 28a: :func:`host_plane_run` and :func:`host_fail_run` on the
+    card and on the plain path on the CPU, every result bit-identical
+    (chain ids compared by role); on the card every kernel shape the runs
+    launched is replayed against its plain twin (exact;
+    ``replay_shapes``, which needs ``main()``'s build of the earlier
+    designs)."""
+    n_shapes = 0
+    for name, fn in (("service plane", host_plane_run),
+                     ("host failover", host_fail_run)):
+        t = time.perf_counter()
+        runs = []
+        for d in devices:
+            rdir = tempfile.mkdtemp(prefix="sherman_host_ref_")
+            spy = replay_shapes and d == "cuda" and d == devices[0]
+            try:
+                with (ShapeLog() if spy
+                      else contextlib.nullcontext()) as log:
+                    runs.append(fn(host_mods(d), rdir))
+            finally:
+                shutil.rmtree(rdir, ignore_errors=True)
+            if spy:
+                log.check(f"28a {name}", ("descent_round", "gather_pages",
+                                          "writeback"))
+                n_shapes += sum(len(v) for v in replay(
+                    log, "host_reference").values())
+        n = _tier_compare(f"28a {name}", 1, devices, runs)
+        _log(f"28a {name} ({HOST_KEYS:,} keys, two hosts, {devices[0]} vs "
+             f"{devices[1]}): answers, pools, artifact names and journal "
+             f"bytes (chain ids by role), receipts, counters and merged "
+             f"stats bit-identical ({n} results; "
+             f"{time.perf_counter() - t:.1f} s)")
+    _log(f"28a: {n_shapes} kernel shapes replayed against their plain "
+         f"twins (exact)")
+
+
+def _host_pins(name: str, rec: dict, tag: str) -> None:
+    """The drills' pins; a failed one fails the smoke."""
+    if name == "multihost":
+        bad = [k for k in ("rpo_ops", "lost_acks") if rec[k] != 0]
+        if rec["linearizable"] is not True:
+            bad.append("linearizable")
+        if rec["ack_bandwidth"]["speedup"] < 1.5:
+            bad.append("ack_bandwidth.speedup")
+        _log(f"{tag} multihost drill at {rec['keys']:,} keys, "
+             f"{rec['hosts']} hosts: rpo_ops {rec['rpo_ops']} (superseded "
+             f"by in-flight writes {rec['superseded_by_inflight']}), "
+             f"lost_acks {rec['lost_acks']}, linearizable "
+             f"{rec['linearizable']} over {rec['audit']['events']} events; "
+             f"union {rec['union']['per_host_ms']} ms a host "
+             f"({rec['union']['total_ms']} ms); tail lag "
+             f"{rec['tail']['lag_ms']} ms, replica reads "
+             f"{rec['tail']['reads_served']}; ack A/B speedup "
+             f"{rec['ack_bandwidth']['speedup']} (per-host "
+             f"{rec['ack_bandwidth']['perhost_acks_s']} vs shared "
+             f"{rec['ack_bandwidth']['shared_acks_s']} acks/s); memory "
+             f"{rec['memory']}; phases {rec['phase_s']} "
+             f"({rec['wall_s']:.1f} s)")
+    else:
+        bad = [k for k in ("lost_acks", "duplicate_acks",
+                           "fenced_acks_merged", "unadopted_dead_hosts")
+               if rec[k] != 0]
+        if rec["linearizable"] is not True:
+            bad.append("linearizable")
+        _log(f"{tag} hostfail drill at {rec['keys']:,} keys, lease "
+             f"{rec['lease_s']} s: lost_acks {rec['lost_acks']}, "
+             f"duplicate_acks {rec['duplicate_acks']}, fenced_acks_merged "
+             f"{rec['fenced_acks_merged']} of {rec['fenced_acks']}, "
+             f"unadopted {rec['unadopted_dead_hosts']}, linearizable "
+             f"{rec['linearizable']}; detect_ms {rec['detect_ms']}, "
+             f"adoption_ms {rec['adoption_ms']} (recover "
+             f"{rec['adoption']['recover']}), availability_gap_ms "
+             f"{rec['availability_gap_ms']}; memory {rec['memory']}; "
+             f"phases {rec['phase_s']} ({rec['wall_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"{tag}: the {name} drill failed its pins "
+                             f"{bad}")
+
+
+def host_full_width(smi: str, t_smoke: float | None = None,
+                    device: str = "cuda") -> dict:
+    """Phase 28b-c:
+
+    - (b) the multihost drill (``multihost_drill.py``), two hosts, at the
+      reference's queued capture (``BENCHMARKS.md:225-237``: 100,000,000
+      keys); pins ``rpo_ops == 0``, ``lost_acks == 0``, ``linearizable``
+      and the ack-bandwidth speedup >= 1.5;
+    - (c) the hostfail drill (``hostfail_drill.py``), two hosts, lease
+      0.5 s, at 100,000,000 keys (``BENCHMARKS.md:252-266``); pins
+      ``lost_acks``, ``duplicate_acks``, ``fenced_acks_merged`` and
+      ``unadopted_dead_hosts`` 0 and ``linearizable``.
+
+    Past a projection of ``SMOKE_CUT_S`` for the smoke (from ``t_smoke``,
+    :func:`budget_cuts`) (c)'s keys are cut to 10,000,000, then (b)'s, then
+    each to 1,000,000 (listed in ``reduced``).  (b) is the window
+    ``two_host_multihost``, (c) ``two_host_hostfail`` (K1-K3 in each);
+    every shape is replayed.  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import hostfail_drill as HD
+    from sherman_tpu_torch import multihost_drill as MD
+    shapes: dict = {}
+    kern = ("descent_round", "gather_pages", "writeback")
+    t_phase = time.perf_counter()
+    cuts = {} if t_smoke is None else budget_cuts("28", t_smoke)
+    m_keys = (1_000_000 if "b_keys_1m" in cuts else 10_000_000
+              if "b_keys" in cuts else MULTIHOST_KEYS)
+    f_keys = (1_000_000 if "c_keys_1m" in cuts else 10_000_000
+              if "c_keys" in cuts else HOSTFAIL_KEYS)
+    for name, mod, argv, cut, path in (
+            ("multihost", MD, ["--keys", str(m_keys)],
+             [cuts[k] for k in ("b_keys", "b_keys_1m") if k in cuts],
+             "two_host_multihost"),
+            ("hostfail", HD, ["--keys", str(f_keys), "--lease-s",
+                              str(HOST_LEASE_S)],
+             [cuts[k] for k in ("c_keys", "c_keys_1m") if k in cuts],
+             "two_host_hostfail")):
+        d = tempfile.mkdtemp(prefix=f"sherman_{name}_")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with ShapeLog() as log:
+                t = time.perf_counter()
+                rec = mod.run(_drill_args(mod, argv, d, device))
+                rec["wall_s"] = time.perf_counter() - t
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        rec.update(card=smi, reduced=cut)
+        try:
+            _host_pins(name, rec, "28b" if name == "multihost" else "28c")
+        finally:
+            print(json.dumps(rec), flush=True)
+        log.check(path, kern)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log, rec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    _log(f"28b-c hosts at full width: {time.perf_counter() - t_phase:.1f} s")
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -6217,6 +6783,15 @@ def _main(bb: str) -> int:
     for k, v in resize_full_width(smi, t_smoke).items():
         shapes.setdefault(k, []).extend(v)
     _log("resize path parity at every launched shape (K1-K4): exact")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    host_reference_check()
+    _log(f"phase 28a: {time.perf_counter() - t:.1f} s")
+    for k, v in host_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("multihost and hostfail path parity at every launched shape "
+         "(K1-K3): exact")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

@@ -6,14 +6,17 @@ lookups, zipf 0.99, 100 M keys, with the client side staged on the card.
     python -m sherman_tpu_torch.bench --serve [serve_bench's arguments]
     python -m sherman_tpu_torch.bench --reshard-drill [its arguments]
     python -m sherman_tpu_torch.bench --contract-drill [its arguments]
+    python -m sherman_tpu_torch.bench --multihost-drill [its arguments]
+    python -m sherman_tpu_torch.bench --hostfail-drill [its arguments]
 
 With ``--ycsb`` it runs the YCSB A-F matrix instead
 (:mod:`sherman_tpu_torch.ycsb_bench`), with ``--serve`` the open-loop
 front-door bench or, with ``--crash-drill`` too, its journaled-ack drill
 (:mod:`sherman_tpu_torch.serve_bench`); ``--failover-drill``,
-``--partition-drill``, ``--reshard-drill`` and ``--contract-drill`` run
-those drills (``failover_drill.py``, ``partition_drill.py``,
-``reshard_drill.py``, ``contract_drill.py``).  The configuration is the north
+``--partition-drill``, ``--reshard-drill``, ``--contract-drill``,
+``--multihost-drill`` and ``--hostfail-drill`` run those drills
+(``failover_drill.py``, ``partition_drill.py``, ``reshard_drill.py``,
+``contract_drill.py``, ``multihost_drill.py``, ``hostfail_drill.py``).  The configuration is the north
 star of the repo's ``bench.py``: keys ``mix64(rank ^ 0x5E17AB1E5A17)``,
 values ``key ^ 0xDEADBEEF``, leaf fill 0.75 and the same pool sizing,
 the default router, zipf 0.99, batches of 4,194,304 client ops, the
@@ -428,6 +431,17 @@ def main(argv=None) -> int:
         argv.remove("--contract-drill")
         from sherman_tpu_torch import contract_drill
         return contract_drill.main(argv)
+    if "--multihost-drill" in argv:
+        # the multihost service plane's drill, with its own arguments and
+        # JSON line
+        argv.remove("--multihost-drill")
+        from sherman_tpu_torch import multihost_drill
+        return multihost_drill.main(argv)
+    if "--hostfail-drill" in argv:
+        # host failover's drill, with its own arguments and JSON line
+        argv.remove("--hostfail-drill")
+        from sherman_tpu_torch import hostfail_drill
+        return hostfail_drill.main(argv)
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.bench: no CUDA device; the port's benchmark "
               "runs on the GPU", file=sys.stderr)

@@ -56,10 +56,23 @@ with :meth:`ReplChaos.hold` / :meth:`ReplChaos.heal`.  A plan's
 Counters ride ``chaos.repl_*``; every window start is a
 ``chaos.repl_inject`` flight event.
 
-Not here yet: the host fault layer (``host_*``, ``HostChaos``), which
-perturbs the multihost service plane's dispatch seam and host leases
-(ROADMAP.md item 7c-iii, host failover).  A plan naming one of its kinds
-raises :class:`NotPortedError`.
+**The host fault layer.**  The ``host_*`` kinds perturb the multihost
+service plane (``multihost.py``, ``hostlease.py``) at host granularity:
+
+- ``host_crash``: the host is unreachable at the service's dispatch seam
+  and its lease renewals stop (the process is gone);
+- ``host_freeze``: the same observables for a host that is alive but
+  makes no progress, and its view of its own lease record is pinned;
+- ``host_zombie``: the host is reachable and acks, but its view of its
+  own lease record stays pinned, so it cannot see its epoch bumped: the
+  split-brain ingredient the host fence makes safe.
+
+``HostFault`` windows run on the layer's dispatch clock (one tick a
+``MultihostService`` dispatch, never one a host probed); drills drive
+failures by hand with :meth:`HostChaos.crash` / ``freeze`` / ``revive`` /
+``heal``.  A plan's ``host_*`` faults go to :meth:`FaultPlan.host_layer`.
+Counters ride ``chaos.host_*``; every injection is a ``chaos.host_inject``
+flight event.
 """
 
 from __future__ import annotations
@@ -72,34 +85,27 @@ import numpy as np
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import ConfigError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.ops import bits
 
 KINDS = ("torn_page", "flip_entry_ver", "wedge_lock", "drop_cas",
          "stale_read")
 REPL_KINDS = ("repl_drop", "repl_delay", "repl_reorder", "repl_partition",
               "repl_slow")
-# the kinds of the host layer, not ported yet
-_LATER_KINDS = ("host_crash", "host_freeze", "host_zombie")
+HOST_KINDS = ("host_crash", "host_freeze", "host_zombie")
 
 _OBS = {k: obs.counter(f"chaos.{k}") for k in KINDS}
 _OBS_TOTAL = obs.counter("chaos.faults_injected")
 _OBS_REPL = {k: obs.counter(f"chaos.{k}") for k in REPL_KINDS}
 _OBS_REPL_TOTAL = obs.counter("chaos.repl_faults_injected")
 _OBS_REPL_DETECTED = obs.counter("chaos.repl_detected")
+_OBS_HOST = {k: obs.counter(f"chaos.{k}") for k in HOST_KINDS}
+_OBS_HOST_TOTAL = obs.counter("chaos.host_faults_injected")
 
 # a lease word no live client can own: an unregistered owner tag and an
 # epoch far from any real client's generation
 DEAD_OWNER_TAG = 0xDEAD
 DEAD_OWNER_EPOCH = 0x5A
-
-
-def _refuse_later_kind(kind) -> None:
-    if kind in _LATER_KINDS:
-        raise NotPortedError(
-            f"fault kind {kind!r} perturbs the multihost service plane "
-            "(HostChaos), which the port does not have yet (ROADMAP.md "
-            "item 7c-iii, host failover)")
 
 
 @dataclasses.dataclass
@@ -121,7 +127,6 @@ class Fault:
     fired: bool = dataclasses.field(default=False, compare=False)
 
     def __post_init__(self):
-        _refuse_later_kind(self.kind)
         if self.kind not in KINDS:
             raise ConfigError(f"unknown fault kind {self.kind!r}; "
                               f"want one of {KINDS}")
@@ -147,7 +152,6 @@ class ReplFault:
     fired: bool = dataclasses.field(default=False, compare=False)
 
     def __post_init__(self):
-        _refuse_later_kind(self.kind)
         if self.kind not in REPL_KINDS:
             raise ConfigError(f"unknown repl fault kind {self.kind!r}; "
                               f"want one of {REPL_KINDS}")
@@ -332,27 +336,237 @@ class ReplChaos:
                  "fired": f.fired} for f in self.faults]
 
 
+@dataclasses.dataclass
+class HostFault:
+    """One scheduled host-granularity fault.  ``at`` is the window start
+    on the host layer's dispatch clock (one tick a ``MultihostService``
+    dispatch), ``span`` the window length in ticks, ``host`` the victim.
+    ``host_crash`` and ``host_freeze`` make the host unreachable at the
+    dispatch seam and stop its lease renewals; ``host_zombie`` keeps it
+    reachable and acking but pins its view of its own lease record."""
+
+    kind: str
+    host: int = 0
+    at: int = 0
+    span: int = 1
+    fired: bool = dataclasses.field(default=False, compare=False)
+
+    def __post_init__(self):
+        if self.kind not in HOST_KINDS:
+            raise ConfigError(f"unknown host fault kind {self.kind!r}; "
+                              f"want one of {HOST_KINDS}")
+        if self.span < 1:
+            raise ConfigError(f"host fault span {self.span}: want >= 1")
+        if self.host < 0:
+            raise ConfigError(f"host fault host {self.host}: want >= 0")
+
+
+class HostChaos:
+    """The host fault layer a :class:`FaultPlan` exposes.
+
+    Attached to a ``MultihostService`` (``service.attach_chaos``), which
+    asks :meth:`on_dispatch` about every serving host of a request before
+    routing any part of it, then advances the dispatch clock once with
+    :meth:`tick` (never once a host probed: fan-out must not age the
+    schedule); the host lease table asks :meth:`allow_renew` before each
+    heartbeat, and a host's fence reads its own record through
+    :meth:`lease_view`.  Drills drive failures by hand with
+    :meth:`crash` / :meth:`freeze` / :meth:`revive` / :meth:`heal`, which
+    compose with the scheduled windows."""
+
+    def __init__(self, faults, seed: int = 0):
+        self.faults = [f if isinstance(f, HostFault) else HostFault(**f)
+                       for f in faults]
+        self.seed = int(seed)
+        self._clock = 0              # host time: one tick a dispatch
+        self._crashed: set[int] = set()
+        self._frozen: set[int] = set()
+        self._zombie: set[int] = set()
+        #: each host's pinned lease-record snapshot (the zombie's view)
+        self._lease_frozen: dict[int, dict | None] = {}
+        self.injected = 0
+
+    # -- scheduling -----------------------------------------------------------
+
+    def _active(self, t: int, host: int) -> list[HostFault]:
+        return [f for f in self.faults
+                if f.host == host and f.at <= t < f.at + f.span]
+
+    def _fire(self, f: HostFault, t: int) -> None:
+        if f.fired:
+            return
+        f.fired = True
+        self.injected += 1
+        _OBS_HOST_TOTAL.inc()
+        _OBS_HOST[f.kind].inc()
+        obs.record_event("chaos.host_inject", fault=f.kind,
+                         host=int(f.host), at=t, span=int(f.span))
+
+    def _manual_inject(self, kind: str, host: int) -> None:
+        self.injected += 1
+        _OBS_HOST_TOTAL.inc()
+        _OBS_HOST[kind].inc()
+        obs.record_event("chaos.host_inject", fault=kind,
+                         host=int(host), at=self._clock, span=-1)
+
+    def _state(self, host: int, t: int, tick_fire: bool) -> str:
+        """The manual and scheduled state composed: ``"up"``,
+        ``"crash"``, ``"freeze"`` or ``"zombie"`` (crash dominates
+        freeze, freeze dominates zombie)."""
+        host = int(host)
+        kinds = set()
+        if host in self._crashed:
+            kinds.add("host_crash")
+        if host in self._frozen:
+            kinds.add("host_freeze")
+        if host in self._zombie:
+            kinds.add("host_zombie")
+        for f in self._active(t, host):
+            if tick_fire:
+                self._fire(f, t)
+            kinds.add(f.kind)
+        if "host_crash" in kinds:
+            return "crash"
+        if "host_freeze" in kinds:
+            return "freeze"
+        if "host_zombie" in kinds:
+            return "zombie"
+        return "up"
+
+    # -- the dispatch hook (the service's routing seam) -----------------------
+
+    def on_dispatch(self, host: int) -> dict | None:
+        """The directive for routing a sub-batch to ``host`` at the
+        current dispatch tick, None when the host is healthy.
+        ``{"down": True}`` means unreachable (crashed or frozen): the
+        service must refuse typed rather than strand a sub-future.  A
+        zombie is not down: it accepts and acks (the hazard the fence
+        catches).  Pure in the clock: a request probes every serving host
+        at one tick, and :meth:`tick` advances time once a dispatch."""
+        state = self._state(host, self._clock, tick_fire=True)
+        if state == "up":
+            return None
+        return {"down": state in ("crash", "freeze"), "state": state}
+
+    def tick(self) -> int:
+        """Advance the dispatch clock by one, once a ``MultihostService``
+        dispatch, after its probes.  -> the new clock."""
+        self._clock += 1
+        return self._clock
+
+    # -- the lease-renewal seam -----------------------------------------------
+
+    def allow_renew(self, host: int) -> bool:
+        """May ``host`` heartbeat its lease record now?  False while it is
+        crashed, frozen or a zombie (a zombie's lease expired; re-stamping
+        it would resurrect the lease the adopter is about to bump)."""
+        return self._state(int(host), self._clock,
+                           tick_fire=False) == "up"
+
+    def lease_view(self, host: int, record: dict | None):
+        """``host``'s lease record as its own fence sees it.  While the
+        host is frozen or a zombie the view is pinned at the first
+        observation, so it keeps acking; a heal or a clean revive
+        restores the live record, and the fence fires on the next
+        append."""
+        host = int(host)
+        state = self._state(host, self._clock, tick_fire=False)
+        if state in ("freeze", "zombie"):
+            if host not in self._lease_frozen:
+                self._lease_frozen[host] = None if record is None \
+                    else dict(record)
+            return self._lease_frozen[host]
+        self._lease_frozen.pop(host, None)
+        return record
+
+    # -- manual failure control (drills) --------------------------------------
+
+    def crash(self, host: int) -> None:
+        """Kill ``host`` by hand: unreachable at the dispatch seam, its
+        renewals stopped, until :meth:`revive` or :meth:`heal`."""
+        self._crashed.add(int(host))
+        self._manual_inject("host_crash", host)
+
+    def freeze(self, host: int) -> None:
+        """Freeze ``host`` by hand: alive but making no progress (dispatch
+        refused, renewals stopped, the lease view pinned)."""
+        self._frozen.add(int(host))
+        self._manual_inject("host_freeze", host)
+
+    def revive(self, host: int, zombie: bool = True) -> None:
+        """Bring a crashed or frozen host back.  ``zombie=True`` revives
+        it with its lease view still pinned at the pre-failure snapshot:
+        it dispatches and acks as if it still held its epoch (the
+        fenced-suffix case).  ``zombie=False`` is a clean restart."""
+        host = int(host)
+        self._crashed.discard(host)
+        self._frozen.discard(host)
+        if zombie:
+            self._zombie.add(host)
+            self._manual_inject("host_zombie", host)
+        else:
+            self._zombie.discard(host)
+            self._lease_frozen.pop(host, None)
+
+    def heal(self, host: int | None = None) -> None:
+        """End every manual failure (or ``host``'s): the next lease-view
+        read sees the live record, so a fenced host's next append raises
+        typed."""
+        if host is None:
+            self._crashed.clear()
+            self._frozen.clear()
+            self._zombie.clear()
+            self._lease_frozen.clear()
+        else:
+            host = int(host)
+            self._crashed.discard(host)
+            self._frozen.discard(host)
+            self._zombie.discard(host)
+            self._lease_frozen.pop(host, None)
+        obs.record_event("chaos.host_heal", at=self._clock,
+                         host=-1 if host is None else host)
+
+    @property
+    def exhausted(self) -> bool:
+        """Every scheduled window has passed and no manual failure is
+        open."""
+        return (not self._crashed and not self._frozen
+                and not self._zombie and all(
+                    f.at + f.span <= self._clock for f in self.faults))
+
+    def describe(self) -> list[dict]:
+        return [{"kind": f.kind, "host": f.host, "at": f.at,
+                 "span": f.span, "fired": f.fired} for f in self.faults]
+
+
 class FaultPlan:
     """A deterministic schedule of data-plane faults over one DSM.
     ``repl_*`` kinds in the same grammar are split out into the
-    replication layer (:meth:`repl_layer`) instead of the DSM hook."""
+    replication layer (:meth:`repl_layer`), ``host_*`` kinds into the
+    host layer (:meth:`host_layer`), instead of the DSM hook."""
 
     def __init__(self, faults, seed: int = 0):
         self.faults = []
         repl = []
+        host = []
         for f in faults:
             if isinstance(f, ReplFault):
                 repl.append(f)
+            elif isinstance(f, HostFault):
+                host.append(f)
             elif isinstance(f, Fault):
                 self.faults.append(f)
             elif isinstance(f, dict) and f.get("kind") in REPL_KINDS:
                 repl.append(ReplFault(**f))
+            elif isinstance(f, dict) and f.get("kind") in HOST_KINDS:
+                host.append(HostFault(**f))
             else:
-                _refuse_later_kind(f.get("kind"))
                 self.faults.append(Fault(**f))
         self.seed = int(seed)
         self.repl_faults = repl
+        self.host_faults = host
         self._repl_layer: ReplChaos | None = None
+        self._host_layer: HostChaos | None = None
         self._rng = np.random.default_rng(self.seed)
         self._steps = 0
         self._undo: list = []       # (space, row, col, old, injected)
@@ -366,6 +580,14 @@ class FaultPlan:
         if self._repl_layer is None and self.repl_faults:
             self._repl_layer = ReplChaos(self.repl_faults, seed=self.seed)
         return self._repl_layer
+
+    def host_layer(self) -> "HostChaos | None":
+        """The plan's host fault layer (None when the plan has no
+        ``host_*`` faults), built once and shared, so the dispatch clock
+        is service-global."""
+        if self._host_layer is None and self.host_faults:
+            self._host_layer = HostChaos(self.host_faults, seed=self.seed)
+        return self._host_layer
 
     # -- construction ---------------------------------------------------------
 
@@ -599,4 +821,10 @@ class FaultPlan:
             out.extend({"kind": f.kind, "poll": f.poll, "span": f.span,
                         "follower": f.follower, "scope": f.scope,
                         "fired": f.fired} for f in self.repl_faults)
+        if self._host_layer is not None:
+            out.extend(self._host_layer.describe())
+        else:
+            out.extend({"kind": f.kind, "host": f.host, "at": f.at,
+                        "span": f.span, "fired": f.fired}
+                       for f in self.host_faults)
         return out

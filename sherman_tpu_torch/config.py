@@ -283,6 +283,81 @@ def anti_entropy_s() -> float:
     return s
 
 
+def hosts() -> int:
+    """Host-plane width (``SHERMAN_HOSTS``): how many hosts the multihost
+    service plane spans (``multihost.py``: per-host journal and chain
+    ownership, a front door a host, keys routed to their owner host).
+    1, the default, builds no plane: one front door, one journal stream
+    and the legacy un-tagged artifact names.  ``N > 1`` gives every host
+    its own chain namespace (``base-h<i>.npz``, ``delta-h<i>-...``,
+    ``journal-h<i>-...``) and one Nth of the key space; the port runs the
+    N host contexts in one process."""
+    v = os.environ.get("SHERMAN_HOSTS", "1").strip().lower()
+    if v in ("", "0", "1", "false", "off", "no"):
+        return 1
+    try:
+        n = int(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_HOSTS={v!r}: want a host count "
+                          ">= 1") from None
+    if n < 1:
+        raise ConfigError(f"SHERMAN_HOSTS={n}: want >= 1")
+    return n
+
+
+def host_id() -> int:
+    """This process's host index (``SHERMAN_HOST_ID``, default 0, the only
+    legal value under ``SHERMAN_HOSTS=1``): which host of the plane a
+    process is where each host runs one.  A plane emulated in one process
+    builds every host context itself and does not read it."""
+    v = os.environ.get("SHERMAN_HOST_ID", "0").strip()
+    try:
+        h = int(v) if v else 0
+    except ValueError:
+        raise ConfigError(f"SHERMAN_HOST_ID={v!r}: want a host index "
+                          ">= 0") from None
+    n = hosts()
+    if not (0 <= h < n):
+        raise ConfigError(
+            f"SHERMAN_HOST_ID={h}: want in [0, SHERMAN_HOSTS={n})")
+    return h
+
+
+def host_lease_s() -> float:
+    """Host-lease expiry (``SHERMAN_HOST_LEASE_S``, default 2): how long a
+    host's heartbeat record in the shared chain directory
+    (``hostlease.py``) stays live without a renewal before a probe judges
+    the host dead.  Expiry changes nothing durable; it lets a surviving
+    host bump the dead host's lease epoch (the fence point) and adopt its
+    chain namespace."""
+    v = os.environ.get("SHERMAN_HOST_LEASE_S", "2").strip()
+    try:
+        s = float(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_HOST_LEASE_S={v!r}: want a float of "
+                          "seconds") from None
+    if s <= 0:
+        raise ConfigError(f"SHERMAN_HOST_LEASE_S={s}: want > 0")
+    return s
+
+
+def host_probe_s() -> float:
+    """Host liveness-probe cadence (``SHERMAN_HOST_PROBE_S``): seconds
+    between the background sweeps of ``HostFailover.start`` for expired
+    peers.  0, the default, starts no thread; drills call ``detect()``."""
+    v = os.environ.get("SHERMAN_HOST_PROBE_S", "0").strip().lower()
+    if v in ("", "0", "false", "off", "no"):
+        return 0.0
+    try:
+        s = float(v)
+    except ValueError:
+        raise ConfigError(f"SHERMAN_HOST_PROBE_S={v!r}: want a float of "
+                          "seconds") from None
+    if s < 0:
+        raise ConfigError(f"SHERMAN_HOST_PROBE_S={s}: want >= 0")
+    return s
+
+
 def value_heap_pages() -> int:
     """Out-of-line value heap knob (``SHERMAN_VALUE_HEAP``): heap pages a
     node of the region that stores variable-length payloads, 0 (the

@@ -43,8 +43,14 @@ Event sources (each site calls :func:`record_event`):
   ``repl.tail_error`` / ``repl.anti_entropy_error``   (the replication
   plane — ``replica.py``)
 
-``watchdog.fired`` comes with the host failure detector
-(``utils/failure.py``, ROADMAP.md item 7c-iii).
+- ``host.lease_expired`` / ``host.adopt_begin`` / ``host.adopt_done`` /
+  ``host.zombie_fenced`` / ``host.handback``, ``chaos.host_inject`` /
+  ``chaos.host_heal`` and ``recovery.recover_union``   (host failover and
+  the multihost service plane — ``hostlease.py``, ``chaos.py``,
+  ``recovery.py``)
+
+``watchdog.fired`` comes with the process failure detector
+(``utils/failure.py``, ROADMAP.md item 7c-iv).
 
 Auto-dump: :func:`auto_dump` fires on degraded entry, typed-error
 raise, a sealed-window retrace and watchdog expiry — but only when ``SHERMAN_BLACKBOX_DIR``

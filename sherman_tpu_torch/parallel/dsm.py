@@ -509,8 +509,8 @@ class DSM(_HostOps):
     """Host handle to the cluster: owns the node-major pool, lock table,
     counters and dirty mask on ``cfg.device``."""
 
-    # one process drives every node: never a multihost mesh (the
-    # reference's multihost plane is ROADMAP.md item 7c-ii)
+    # one process drives every node: never a mesh that spans processes
+    # (the reference's process-spanning transport is ROADMAP.md item 7c-iv)
     multihost = False
 
     def __init__(self, cfg: DSMConfig):

@@ -19,9 +19,8 @@ Three primitives, coordinated so that recovery time scales with the
   (:class:`TargetedRepairFailed`) and the caller falls back to the
   full-restore path — never a silently wrong pool.
 
-On-disk layout under one recovery directory, the reference's single-host
-names byte for byte (a directory written by either package recovers in
-the other)::
+On-disk layout under one recovery directory, the reference's names byte
+for byte (a directory written by either package recovers in the other)::
 
     base.npz                     full checkpoint (chain link 0)
     delta-<cid>-000001.npz ...   delta links, in order
@@ -32,6 +31,14 @@ the other)::
 of a superseded chain can never be mistaken for the live one: after a
 crash + recover, the plane re-bases (new cid) and stale files are both
 ignored by discovery and swept.
+
+With ``hosts > 1`` (the multihost service plane, ``multihost.py``) each
+host owns a chain namespace in the shared directory: ``base-h<i>.npz``,
+``delta-h<i>-<cid>-k.npz`` and ``journal-h<i>-<cid>-k.wal``.  Discovery,
+rotation and the stale sweep see only their own host's names, and
+:meth:`RecoveryPlane.recover_union` restores and replays every host's
+chain on its own.  ``hosts == 1`` keeps the un-tagged names, its sweep
+never touches a host-tagged file, and its receipts carry no ``host``.
 
 The crash contract, window by window:
 
@@ -53,10 +60,6 @@ are the drills' to set (``chip_smoke.py`` phase 21).  Every base, delta,
 recover and repair step is a ``recovery.*`` flight event, and the chain's
 on-disk bytes are the memory accountant's ``host_checkpoints_bytes``.
 
-Not here: the reference's per-host chain ownership (``hosts > 1``, the
-``-h<host>-`` namespaces and ``recover_union``: the multihost service
-plane, ROADMAP.md item 7c-ii, refused with :class:`NotPortedError`).
-
 With a value heap, ``recover`` attaches a ``ValueHeap`` to the rebuilt
 engine and rebuilds its allocator from the restored region before the
 replay; ``targeted_repair`` restarts the hot-key tier cold.
@@ -73,11 +76,9 @@ import numpy as np
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import NotPortedError, ShermanError, StateError
+from sherman_tpu_torch.errors import ShermanError, StateError
 from sherman_tpu_torch.utils import checkpoint as CK
 from sherman_tpu_torch.utils import journal as J
-
-_BASE = "base.npz"
 
 _OBS_RPO = obs.gauge("recovery.rpo_ops")
 _OBS_RTO = obs.gauge("recovery.rto_ms")
@@ -100,14 +101,17 @@ def _cid_of(epoch) -> str:
     return f"{int(np.asarray(epoch).ravel()[0]) & 0xFFFFFFFF:08x}"
 
 
-def _refuse_hosts(host_id: int, hosts: int) -> None:
-    if int(hosts) > 1:
-        raise NotPortedError(
-            f"hosts={hosts}: per-host chain ownership is the multihost "
-            "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7c-ii)")
-    if int(host_id) != 0:
-        raise StateError(f"host_id={host_id} outside [0, hosts={hosts})")
+def _base_name(host_id: int | None) -> str:
+    """The base artifact of one host's chain; ``None`` is the legacy
+    single-host namespace (un-tagged names)."""
+    return "base.npz" if host_id is None else f"base-h{int(host_id)}.npz"
+
+
+def _host_tag(host_id: int | None) -> str:
+    """The name infix of one host's chain namespace: deltas and journals
+    are ``delta<tag>-<cid>-k.npz`` / ``journal<tag>-<cid>-k.wal`` with
+    ``tag = "-h<id>"`` (empty for the legacy namespace)."""
+    return "" if host_id is None else f"-h{int(host_id)}"
 
 
 class RecoveryPlane:
@@ -125,7 +129,15 @@ class RecoveryPlane:
                  group_commit_ms: float = 0.0,
                  ack_carry: int = 65536,
                  host_id: int = 0, hosts: int = 1):
-        _refuse_hosts(host_id, hosts)
+        if not (0 <= int(host_id) < int(hosts)):
+            raise StateError(
+                f"host_id={host_id} outside [0, hosts={hosts})")
+        #: this plane's place in the host plane: ``hosts == 1`` keeps the
+        #: legacy un-tagged names; ``hosts > 1`` scopes every artifact and
+        #: the sweep to the ``-h<host_id>-`` namespace
+        self.hosts = int(hosts)
+        self.host_id = int(host_id)
+        self._htag: int | None = self.host_id if self.hosts > 1 else None
         #: exactly-once ack entries carried across journal rotations
         #: (most-recent wins; bounds the re-forwarded window)
         self.ack_carry = int(ack_carry)
@@ -134,15 +146,17 @@ class RecoveryPlane:
         self.eng = eng
         self.dir = directory
         self.journal_sync = bool(journal_sync)
-        #: re-base sweep gate (``recover(sweep_stale=False)`` keeps a
-        #: superseded chain's artifacts on disk)
+        #: re-base sweep gate: an adopting host recovers a dead peer's
+        #: chain with ``recover(sweep_stale=False)``, so the fenced zombie
+        #: segment stays on disk for the fenced-suffix audit
+        #: (``hostlease.py``)
         self.sweep_stale = True
         # bounded-delay journal group commit (utils/journal.py): acks
         # still gate on a covering fsync (RPO 0 by construction), but
         # concurrent ops coalesce into one fsync per window
         self.group_commit_ms = float(group_commit_ms)
         os.makedirs(directory, exist_ok=True)
-        self.base_path = os.path.join(directory, _BASE)
+        self.base_path = os.path.join(directory, _base_name(self._htag))
         self.cid: str | None = None
         self.delta_paths: list[str] = []
         self._tip_epoch = None
@@ -174,43 +188,53 @@ class RecoveryPlane:
     # -- artifact naming ------------------------------------------------------
 
     def _delta_path(self, k: int) -> str:
-        return os.path.join(self.dir, f"delta-{self.cid}-{k:06d}.npz")
+        return os.path.join(
+            self.dir, f"delta{_host_tag(self._htag)}-{self.cid}-{k:06d}.npz")
 
     def _journal_path(self, k: int) -> str:
-        return os.path.join(self.dir, f"journal-{self.cid}-{k:06d}.wal")
+        return os.path.join(
+            self.dir,
+            f"journal{_host_tag(self._htag)}-{self.cid}-{k:06d}.wal")
 
     @staticmethod
-    def _discover(directory: str):
+    def _discover(directory: str, host_id: int | None = None):
         """-> (cid, delta_paths, journal_paths) of the on-disk chain
-        anchored at the base; stale-cid artifacts are ignored."""
-        base = os.path.join(directory, _BASE)
+        anchored at this namespace's base; stale-cid artifacts are
+        ignored.  ``host_id=None`` discovers the legacy un-tagged chain,
+        an integer that host's ``-h<id>-`` chain only: another host's
+        artifacts are invisible to it by name."""
+        tag = _host_tag(host_id)
+        base = os.path.join(directory, _base_name(host_id))
         if not os.path.exists(base):
             raise FileNotFoundError(
-                f"{directory}: no {_BASE} — nothing to recover")
+                f"{directory}: no {_base_name(host_id)} — nothing to "
+                "recover")
         epoch = CK._load_arrays(base, keys=("epoch",)).get("epoch")
         if epoch is None:
             raise CK.CheckpointCorruptError(
                 f"{base}: base carries no epoch (pre-recovery-plane "
                 "artifact) — cannot anchor a chain")
         cid = _cid_of(epoch)
-        deltas = sorted(glob.glob(os.path.join(directory,
-                                               f"delta-{cid}-*.npz")))
-        journals = sorted(glob.glob(os.path.join(directory,
-                                                 f"journal-{cid}-*.wal")))
+        deltas = sorted(glob.glob(
+            os.path.join(directory, f"delta{tag}-{cid}-*.npz")))
+        journals = sorted(glob.glob(
+            os.path.join(directory, f"journal{tag}-{cid}-*.wal")))
         return cid, deltas, journals
 
     def _sweep_stale(self) -> int:
         """Remove artifacts whose cid is not the live chain's (a
-        superseded chain after a re-base).  Host-tagged chains of the
-        reference's multihost plane in the same directory are never
-        touched."""
+        superseded chain after a re-base).  Host-scoped: with ``hosts >
+        1`` only this host's ``-h<id>-`` namespace is swept, since
+        another host's live chain (same directory, its own cids) is never
+        this host's to judge."""
+        tag = _host_tag(self._htag)
         n = 0
-        for f in glob.glob(os.path.join(self.dir, "delta-*.npz")) \
-                + glob.glob(os.path.join(self.dir, "journal-*.wal")):
+        for f in glob.glob(os.path.join(self.dir, f"delta{tag}-*.npz")) \
+                + glob.glob(os.path.join(self.dir, f"journal{tag}-*.wal")):
             name = os.path.basename(f)
-            if name.split("-")[1].startswith("h"):
-                # a host tag (a cid is 8 hex digits — it can never
-                # start with 'h')
+            if self._htag is None and name.split("-")[1].startswith("h"):
+                # the legacy sweep never touches a host-tagged chain (a
+                # cid is 8 hex digits: it can never start with 'h')
                 continue
             if self.cid is not None and f"-{self.cid}-" in name:
                 continue
@@ -263,8 +287,9 @@ class RecoveryPlane:
         """Delete every journal segment other than the live one — only
         once the chain artifact capturing their ops is DURABLE (after a
         base/delta save, never at rotation time)."""
-        for f in glob.glob(os.path.join(self.dir,
-                                        f"journal-{self.cid}-*.wal")):
+        for f in glob.glob(os.path.join(
+                self.dir,
+                f"journal{_host_tag(self._htag)}-{self.cid}-*.wal")):
             if f != self._journal_path(self._segment):
                 try:
                     os.unlink(f)
@@ -355,16 +380,20 @@ class RecoveryPlane:
         restore(base + deltas) -> replay journal segments in order ->
         re-base (a fresh chain capturing the replayed state).  Returns
         (plane, cluster, tree, eng, receipt) with the receipt carrying
-        the per-phase wall times and replay counts.
-        ``sweep_stale=False`` defers the re-base's stale-chain sweep."""
+        the per-phase wall times and replay counts.  With ``hosts > 1``
+        this is one host's half of :meth:`recover_union`: it restores,
+        replays and re-bases the ``-h<host_id>-`` namespace only.
+        ``sweep_stale=False`` defers the re-base's stale-chain sweep:
+        host adoption keeps the dead host's old segments on disk, so the
+        fenced zombie suffix stays auditable (``hostlease.py``)."""
         from sherman_tpu_torch.models.batched import BatchedEngine
         from sherman_tpu_torch.models.btree import Tree
 
-        _refuse_hosts(host_id, hosts)
+        htag = int(host_id) if int(hosts) > 1 else None
         t0 = time.perf_counter()
-        cid, deltas, journals = cls._discover(directory)
-        cluster = CK.restore_chain(os.path.join(directory, _BASE), deltas,
-                                   device=device)
+        cid, deltas, journals = cls._discover(directory, host_id=htag)
+        cluster = CK.restore_chain(os.path.join(directory, _base_name(htag)),
+                                   deltas, device=device)
         t_restore = time.perf_counter()
         tree = Tree(cluster)
         eng = BatchedEngine(tree, batch_per_node=batch_per_node, tcfg=tcfg)
@@ -392,7 +421,8 @@ class RecoveryPlane:
         t_replay = time.perf_counter()
         plane = cls(cluster, tree, eng, directory,
                     journal_sync=journal_sync,
-                    group_commit_ms=group_commit_ms)
+                    group_commit_ms=group_commit_ms,
+                    host_id=host_id, hosts=hosts)
         plane.sweep_stale = bool(sweep_stale)
         for rid, tenant, op, ok, *prov in acks:
             plane.dedup_window[(tenant, rid)] = (op, ok, *prov)
@@ -404,8 +434,12 @@ class RecoveryPlane:
             host=int(host_id), segments=replay_stats["segments"],
             replayed_records=replay_stats["records"],
             total_ms=round((t_end - t0) * 1e3, 1))
+        chain_info = {"cid": cid, "deltas": len(deltas)}
+        if int(hosts) > 1:
+            # hosts == 1 receipts carry no host key (the legacy shape)
+            chain_info["host"] = int(host_id)
         receipt = {
-            "chain": {"cid": cid, "deltas": len(deltas)},
+            "chain": chain_info,
             "restore_ms": round((t_restore - t0) * 1e3, 1),
             "replay_ms": round((t_replay - t_restore) * 1e3, 1),
             "rebase_ms": round((t_end - t_replay) * 1e3, 1),
@@ -415,13 +449,57 @@ class RecoveryPlane:
         return plane, cluster, tree, eng, receipt
 
     @classmethod
-    def recover_union(cls, directory: str, hosts: int, **kw):
-        """The reference's union recovery over every host's chain: the
-        multihost service plane (ROADMAP.md item 7c-ii), not ported yet."""
-        raise NotPortedError(
-            "recover_union recovers the per-host chains of the multihost "
-            "service plane, which the port does not have yet (ROADMAP.md "
-            "item 7c-ii)")
+    def recover_union(cls, directory: str, hosts: int,
+                      device: str = "cuda", batch_per_node: int = 512,
+                      tcfg=None, journal_sync: bool = True,
+                      attach_router: bool = True,
+                      group_commit_ms: float = 0.0):
+        """Union recovery over every host's chain in one directory: the
+        multihost service plane's crash exit.  Each host's chain is
+        restored and replayed on its own, in its own (cid, seq) order
+        (keys are partitioned by owner host, so no cross-host record order
+        exists to get wrong); a torn tail on one host's live segment cuts
+        only that host's replay, as the single-chain contract does, and
+        never blocks another host's.
+
+        All or typed: a host whose chain is missing (no base) or corrupt
+        (a missing delta link, a journal CRC failure mid-file) raises the
+        underlying typed error (:class:`FileNotFoundError`,
+        :class:`~sherman_tpu_torch.utils.checkpoint.CheckpointCorruptError`,
+        :class:`~sherman_tpu_torch.utils.journal.JournalCorruptError`),
+        never a partial union with one host's acked ops gone.
+
+        -> (contexts, receipt): ``contexts[h]`` is host ``h``'s (plane,
+        cluster, tree, eng, receipt) as :meth:`recover` returns it; the
+        receipt carries the per-host chains and the summed replay
+        counts."""
+        if int(hosts) < 2:
+            raise StateError(
+                f"recover_union wants hosts >= 2 (got {hosts}); a "
+                "single-host directory is recover()'s job")
+        t0 = time.perf_counter()
+        contexts = []
+        for h in range(int(hosts)):
+            contexts.append(cls.recover(
+                directory, device=device, batch_per_node=batch_per_node,
+                tcfg=tcfg, journal_sync=journal_sync,
+                attach_router=attach_router,
+                group_commit_ms=group_commit_ms, host_id=h, hosts=hosts))
+        replay = {}
+        for ctx in contexts:
+            for k, v in ctx[4]["replay"].items():
+                replay[k] = replay.get(k, 0) + v
+        receipt = {
+            "hosts": int(hosts),
+            "chains": [ctx[4]["chain"] for ctx in contexts],
+            "replay": replay,
+            "per_host_ms": [ctx[4]["total_ms"] for ctx in contexts],
+            "total_ms": round((time.perf_counter() - t0) * 1e3, 1),
+        }
+        obs.record_event("recovery.recover_union", hosts=int(hosts),
+                         replayed_records=replay.get("records", 0),
+                         total_ms=receipt["total_ms"])
+        return contexts, receipt
 
     # -- targeted repair (degraded mode's real exit) --------------------------
 

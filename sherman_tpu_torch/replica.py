@@ -79,9 +79,11 @@ Observability: the ``repl.`` collector, the ``repl.lag_ms``,
 ``repl.fenced``, ``repl.tail_torn_wait``, ``repl.rebootstrap``,
 ``repl.quarantine`` and ``repl.repair``.
 
-Not here: the reference's cross-host seam (a tailer over another host's
-``-h<id>-`` chain namespace), which comes with host failover (ROADMAP.md
-item 7c-iii): the tailer refuses a ``host_id``.
+The cross-host seam: on a multihost plane (``multihost.py``) a tailer
+ships one host's ``-h<id>-`` chain namespace out of the shared directory
+(``JournalTailer(dir, cid, host_id=)``), and a group built on host A's
+plane tails A's namespace (``ReplicaGroup.primary_host``) wherever it is
+pumped from.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ import torch
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import ConfigError, NotPortedError, StateError
+from sherman_tpu_torch.errors import ConfigError, StateError
 from sherman_tpu_torch.utils import checkpoint as CK
 from sherman_tpu_torch.utils import journal as J
 
@@ -153,13 +155,12 @@ class JournalTailer:
 
     def __init__(self, directory: str, cid: str,
                  host_id: int | None = None):
-        if host_id is not None:
-            raise NotPortedError(
-                f"JournalTailer(host_id={host_id}): tailing another host's "
-                "chain namespace is the seam of host failover, which the "
-                "port does not have yet (ROADMAP.md item 7c-iii)")
         self.dir = directory
         self.cid = cid
+        #: the chain namespace to tail: ``None`` is the legacy un-tagged
+        #: single-host chain; an integer tails that host's ``-h<id>-``
+        #: chain (the cross-host seam: a follower on host B ships host
+        #: A's stream out of the shared directory)
         self.host_id = host_id
         self._cur: str | None = None   # current segment path
         self._off = 0                  # consumed bytes (past the magic)
@@ -197,7 +198,8 @@ class JournalTailer:
 
     def _segments(self) -> list[str]:
         from sherman_tpu_torch.recovery import RecoveryPlane
-        cid, _deltas, journals = RecoveryPlane._discover(self.dir)
+        cid, _deltas, journals = RecoveryPlane._discover(
+            self.dir, host_id=self.host_id)
         if cid != self.cid:
             raise _ResyncRequired(f"chain re-based ({self.cid} -> {cid})")
         return journals
@@ -449,14 +451,16 @@ class Follower:
         the re-base (a follower never writes the chain it follows)."""
         from sherman_tpu_torch.models.batched import BatchedEngine
         from sherman_tpu_torch.models.btree import Tree
-        from sherman_tpu_torch.recovery import _BASE, RecoveryPlane
+        from sherman_tpu_torch.recovery import RecoveryPlane, _base_name
         from sherman_tpu_torch.utils import checkpoint as CK
 
         g = self.group
         t0 = time.perf_counter()
-        cid, deltas, _journals = RecoveryPlane._discover(g.primary_dir)
-        cluster = CK.restore_chain(os.path.join(g.primary_dir, _BASE),
-                                   deltas, device=g.device)
+        cid, deltas, _journals = RecoveryPlane._discover(
+            g.primary_dir, host_id=g.primary_host)
+        cluster = CK.restore_chain(
+            os.path.join(g.primary_dir, _base_name(g.primary_host)),
+            deltas, device=g.device)
         t1 = time.perf_counter()
         tree = Tree(cluster)
         eng = BatchedEngine(tree, batch_per_node=g.batch_per_node,
@@ -477,12 +481,14 @@ class Follower:
         self.seq = 0
         self.window.clear()
         self.caught_up = False
-        self.tailer = JournalTailer(g.primary_dir, cid)
+        self.tailer = JournalTailer(g.primary_dir, cid,
+                                    host_id=g.primary_host)
         g._arm_tailer(self)
         # a checkpoint landing between the restore and the tailer's anchor
         # would sweep records into a delta this follower did not restore:
         # start over if the chain moved (one loop a checkpoint)
-        cid2, deltas2, _ = RecoveryPlane._discover(g.primary_dir)
+        cid2, deltas2, _ = RecoveryPlane._discover(
+            g.primary_dir, host_id=g.primary_host)
         if cid2 != cid or len(deltas2) != len(deltas):
             self._bootstrap()
             return
@@ -635,6 +641,12 @@ class ReplicaGroup:
                              "plane.checkpoint_base() first")
         self.plane = plane
         self.primary_dir = plane.dir
+        #: the chain namespace the followers tail, the primary plane's own
+        #: host tag: ``None`` on a single-host plane; on a multihost plane
+        #: the owner's ``-h<id>-`` namespace, so a group built on host A's
+        #: plane but pumped from host B's context ships A's stream (a
+        #: primary view without a host tag is a single-host plane)
+        self.primary_host = getattr(plane, "_htag", None)
         #: followers live on the primary's device
         self.device = plane.cluster.cfg.device
         self.batch_per_node = int(batch_per_node)
@@ -830,11 +842,12 @@ class ReplicaGroup:
     def _shared_base(self):
         """Bootstraps in this context share their chain loads; afterwards
         only the current base's loads are kept."""
-        from sherman_tpu_torch.recovery import _BASE
+        from sherman_tpu_torch.recovery import _base_name
         with CK.shared_loads(self._base_loads):
             yield
-        CK.keep_shared_loads(self._base_loads,
-                             os.path.join(self.primary_dir, _BASE))
+        CK.keep_shared_loads(
+            self._base_loads,
+            os.path.join(self.primary_dir, _base_name(self.primary_host)))
 
     def _raise_tail_error(self) -> None:
         err, self.tail_error = self.tail_error, None

@@ -38,8 +38,10 @@ Every save counts in ``ckpt.full_saves`` or ``ckpt.delta_saves`` (with
 and a restore a ``checkpoint.restore`` one.
 
 Not here: the reference's collective multihost save and restore (one
-shard file per host; ROADMAP.md item 7c-ii — a multihost artifact is refused
-with :class:`MultiprocessUnsupportedError`).
+shard file per host, over the process-spanning transport: ROADMAP.md item
+7c-iv).  A multihost artifact is refused with
+:class:`CheckpointFormatError`, as the reference refuses it without a
+multi-host cluster.
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ from sherman_tpu_torch import config as _C
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig
 from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
-                                      MultiprocessUnsupportedError,
                                       ShermanError)
 from sherman_tpu_torch.ops import bits as _bits
 from sherman_tpu_torch.ops import page_kernels as PK
@@ -450,10 +451,11 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
             "restore_chain(base, deltas) — a delta alone holds only the "
             "pages written since its parent")
     if "multihost" in z and int(z["multihost"][0]) != 0:
-        raise MultiprocessUnsupportedError(
-            f"{path} is a multihost checkpoint (one shard file per host); "
-            "the port's collective restore comes with ROADMAP.md item "
-            "7c-ii, the multihost plane")
+        raise CheckpointFormatError(
+            f"{path} is a multi-host checkpoint (one shard file per host) "
+            "and needs a multi-host cluster: the port's collective restore "
+            "comes with the process-spanning transport, ROADMAP.md item "
+            "7c-iv")
     cfg = cfg_from_json(z["cfg"], device)
     cluster = Cluster(cfg)
     dsm = cluster.dsm

@@ -18,7 +18,7 @@ rewrite OFFLINE on a checkpoint:
 4. a fresh checkpoint emitted: the single-process format, or with
    ``hosts > 1`` per-host shard files beside an epoch-tagged manifest
    (the reference's multihost format; restoring it in the port is ROADMAP.md
-   item 7c-ii, refused by ``utils.checkpoint.restore``).
+   item 7c-iv, refused by ``utils.checkpoint.restore``).
 
 Locks are emitted cleared (no client of the old incarnation survives) and
 the op counters keep their cluster totals on node 0.  The value heap's

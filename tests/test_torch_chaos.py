@@ -23,7 +23,7 @@ from sherman_tpu.parallel.dsm import DSM as JDSM
 from sherman_tpu_torch import chaos as CH
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
-from sherman_tpu_torch.errors import ConfigError, NotPortedError
+from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.ops import bits
@@ -139,25 +139,28 @@ def test_parse_random_storm_and_describe_match_jax():
 
 
 def test_later_fault_layers_are_not_ported():
-    """``repl_*`` kinds now parse as the JAX package's (split into the
-    replication layer); the ``host_*`` kinds of the multihost plane still
-    raise NotPortedError, naming item 7c."""
+    """The later fault layers parse as the JAX package's: ``repl_*``
+    kinds split into the replication layer, ``host_*`` kinds into the host
+    layer; a data-plane or replication fault of a host kind is refused
+    with the reference's ConfigError."""
     spec = ('[{"kind": "wedge_lock", "step": 1, "addr": 5},'
             ' {"kind": "repl_drop", "poll": 2, "span": 3},'
-            ' {"kind": "repl_partition", "poll": 4, "scope": "lease"}]')
+            ' {"kind": "repl_partition", "poll": 4, "scope": "lease"},'
+            ' {"kind": "host_freeze", "host": 1, "at": 2, "span": 3},'
+            ' {"kind": "host_zombie", "host": 0}]')
     a, b = JCH.FaultPlan.parse(spec), CH.FaultPlan.parse(spec)
     assert _faults(b) == _faults(a) and b.describe() == a.describe()
     assert len(b.repl_faults) == len(a.repl_faults) == 2
+    assert len(b.host_faults) == len(a.host_faults) == 2
+    assert b.host_layer().describe() == a.host_layer().describe()
     for kind in ("host_crash", "host_freeze", "host_zombie"):
-        with pytest.raises(NotPortedError, match="item 7c"):
-            CH.FaultPlan([{"kind": kind}])
-        with pytest.raises(NotPortedError, match="item 7c"):
-            CH.Fault(kind=kind)
-        with pytest.raises(NotPortedError, match="item 7c"):
-            CH.ReplFault(kind=kind)
-    with pytest.raises(NotPortedError):
-        CH.FaultPlan.parse('[{"kind": "wedge_lock", "step": 1, "addr": 5},'
-                           ' {"kind": "host_freeze", "host": 0}]')
+        pa, pb = JCH.FaultPlan([{"kind": kind}]), CH.FaultPlan([{"kind": kind}])
+        assert pb.describe() == pa.describe()
+        for cls in ("Fault", "ReplFault"):
+            with pytest.raises(ConfigError):
+                getattr(CH, cls)(kind=kind)
+            with pytest.raises(JCH.ConfigError):
+                getattr(JCH, cls)(kind=kind)
 
 
 # -- the replication fault layer (tests/test_chaos.py:348-424) ----------------

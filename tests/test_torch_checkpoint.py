@@ -29,8 +29,7 @@ from sherman_tpu.models.btree import Tree as JTree
 from sherman_tpu.utils import checkpoint as JCK
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
-from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
-                                      MultiprocessUnsupportedError)
+from sherman_tpu_torch.errors import CheckpointFormatError, ConfigError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
 from sherman_tpu_torch.utils import checkpoint as CK
@@ -286,8 +285,9 @@ def test_bad_links_are_refused_typed(eight_devices, tmp_path, writer):
 
 
 def test_multihost_manifest_refused(tmp_path):
-    """A collective checkpoint's manifest (the ``multihost`` flag) is the
-    multihost plane's, which the port does not restore."""
+    """A collective checkpoint's manifest (the ``multihost`` flag) needs a
+    multi-host cluster: both packages refuse it with
+    ``CheckpointFormatError`` (the port names item 7c-iv)."""
     c, t, e = _side(False, 1)
     TB.bulk_load(t, _keys(n=200), _keys(n=200))
     path = str(tmp_path / "m.npz")
@@ -296,8 +296,10 @@ def test_multihost_manifest_refused(tmp_path):
                   epoch=CK.make_epoch(man, 0), **man)
     arrays["integrity"] = CK._integrity(arrays)
     CK._savez_atomic(path, 0, **arrays)
-    with pytest.raises(MultiprocessUnsupportedError):
+    with pytest.raises(CheckpointFormatError, match="7c-iv"):
         CK.restore(path, device="cpu")
+    with pytest.raises(JCK.CheckpointFormatError):
+        JCK.restore(path)
 
 
 def test_clear_locks_and_epoch_sequence(tmp_path):

@@ -20,8 +20,11 @@ value heap against the CPU (the smoke's phase 23a/24a sequences), the
 cached staged loop and the heap resolve on garbage handles; the serving
 front door against the CPU (phase 25a's sequence) and the device prep on
 garbage pairs; the replication plane against the CPU (phase 26a's
-sequence) and a follower's apply and replica reads on the card.  Every
-comparison is exact equality.
+sequence) and a follower's apply and replica reads on the card; elastic
+resize against the CPU (phase 27a's sequence); the multihost service plane
+and host failover against the CPU (phase 28a's sequences) and both host
+drills on the card at 4,000 keys with their pins.  Every comparison is
+exact equality.
 """
 
 import numpy as np
@@ -1061,3 +1064,36 @@ def test_migration_on_the_card_matches_the_cpu(dev, tmp_path, src, dst):
     assert PK.LAUNCHES["gather_pages"] > 0 and PK.LAUNCHES["writeback"] > 0
     if src == 1:
         assert PK.LAUNCHES["descent_round"] > 0
+
+
+def test_host_planes_on_the_card_match_the_cpu(dev):
+    """Phase 28a's sequences (the routed door, per-host deltas, a torn
+    tail, ``recover_union``, the cross-host tail; leases, a freeze,
+    detection, the adoption, the zombie's suffix, the hand-back) on the
+    card and on the CPU: answers, pools, artifact names and journal bytes
+    (chain ids by role), receipts, counters and merged stats
+    bit-identical."""
+    PK.reset_launches()
+    _smoke().host_reference_check(replay_shapes=False)
+    for k in ("descent_round", "gather_pages", "writeback"):
+        assert PK.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.parametrize("drill", ["multihost", "hostfail"])
+def test_host_drill_on_the_card(dev, tmp_path, drill):
+    """The multihost and hostfail drills on the card at the reference's
+    4,000 keys, every pin held, the page kernels launched."""
+    import importlib
+    mod = importlib.import_module(f"sherman_tpu_torch.{drill}_drill")
+    PK.reset_launches()
+    out = mod.run(mod.parse_args(["--keys", "4000", "--dir",
+                                  str(tmp_path)]))
+    assert out["ok"] and out["lost_acks"] == 0 and out["linearizable"]
+    if drill == "multihost":
+        assert out["rpo_ops"] == 0
+        assert out["ack_bandwidth"]["speedup"] >= 1.5
+    else:
+        assert out["duplicate_acks"] == out["fenced_acks_merged"] == 0
+        assert out["unadopted_dead_hosts"] == 0
+    for k in ("descent_round", "gather_pages", "writeback"):
+        assert PK.LAUNCHES[k] > 0, k

@@ -376,7 +376,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if os.path.dirname(f) == top_dir} >= {
         "serve.py", "audit.py", "replica.py", "serve_bench.py", "chaos.py",
         "failover_drill.py", "partition_drill.py", "migrate.py",
-        "reshard_drill.py", "contract_drill.py"}
+        "reshard_drill.py", "contract_drill.py", "multihost.py",
+        "hostlease.py", "multihost_drill.py", "hostfail_drill.py"}
     utils_dir = os.path.join(REPO, "sherman_tpu_torch", "utils")
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == utils_dir} >= {

@@ -41,7 +41,6 @@ from sherman_tpu_torch import recovery as RC
 from sherman_tpu_torch import state
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import NotPortedError
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models import validate as TV
 from sherman_tpu_torch.models.btree import Tree
@@ -551,15 +550,69 @@ def test_ack_carry_bound_and_disable(eight_devices, tmp_path, carry, want):
     _same(*sides)
 
 
-def test_multihost_plane_is_not_ported(tmp_path):
+def test_multihost_plane_is_not_ported(eight_devices, tmp_path):
+    """The per-host chain namespaces, once refused, now held against JAX:
+    a ``hosts=2`` plane a package writes host-tagged names and the same
+    journal bytes, and both packages' ``recover_union`` over the two
+    directories give equal receipts and pools; the typed refusals (no
+    chain, no frontier, no repair before a base, a host outside the
+    plane) are the reference's."""
+    keys = np.unique(np.random.default_rng(9).integers(
+        1, 1 << 56, 400, dtype=U64))[:300]
+    sides, outs = [], []
+    for jax_side in (True, False):
+        rdir = str(tmp_path / ("j" if jax_side else "p"))
+        cids, jbytes = [], []
+        for h in (0, 1):
+            s = Side(jax_side, 1)
+            kh = keys[h::2]
+            s.B.bulk_load(s.t, kh, kh ^ U64(0xABCD))
+            s.e.attach_router()
+            p = s.RC.RecoveryPlane(s.c, s.t, s.e, rdir, host_id=h, hosts=2)
+            assert p._htag == h
+            p.checkpoint_base()
+            s.e.insert(kh[:20], kh[:20] ^ U64(0x5))
+            p.checkpoint_delta()
+            s.e.delete(kh[20:30])
+            jbytes.append(open(s.e.journal.path, "rb").read())
+            cids.append(p.cid)
+            p.close()
+        names = sorted(n.replace(cids[0], "C0").replace(cids[1], "C1")
+                       for n in os.listdir(rdir))
+        kw = {} if jax_side else {"device": "cpu"}
+        ctxs, receipt = s.RC.RecoveryPlane.recover_union(
+            rdir, hosts=2, batch_per_node=128, **kw)
+        sides.append(ctxs)
+        outs.append((names, jbytes, receipt["hosts"],
+                     [c["host"] for c in receipt["chains"]],
+                     [c["deltas"] for c in receipt["chains"]],
+                     receipt["replay"]))
+        for ctx in ctxs:
+            ctx[0].close()
+    assert outs[1] == outs[0]
+    assert outs[1][0] == ["base-h0.npz", "base-h1.npz",
+                          "delta-h0-C0-000001.npz", "delta-h1-C1-000001.npz",
+                          "journal-h0-C0-000002.wal",
+                          "journal-h1-C1-000002.wal"]
+    assert outs[1][2:5] == (2, [0, 1], [1, 1])
+    for (jc, pc) in zip(*sides):
+        np.testing.assert_array_equal(pc[1].dsm.pool.numpy(),
+                                      np.asarray(jc[1].dsm.pool))
+        got, found = pc[3].search(keys)
+        want = jc[3].search(keys)
+        np.testing.assert_array_equal(found, want[1])
+        np.testing.assert_array_equal(got, want[0])
     s = Side(False, 1)
-    with pytest.raises(NotPortedError, match="item 7"):
-        RC.RecoveryPlane(s.c, s.t, s.e, str(tmp_path), hosts=2)
-    with pytest.raises(NotPortedError, match="item 7"):
-        RC.RecoveryPlane.recover_union(str(tmp_path), hosts=2)
+    empty = str(tmp_path / "empty")
     with pytest.raises(FileNotFoundError):
-        RC.RecoveryPlane.recover(str(tmp_path), device="cpu")
-    p = RC.RecoveryPlane(s.c, s.t, s.e, str(tmp_path))
+        RC.RecoveryPlane.recover(empty, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        RC.RecoveryPlane.recover_union(empty, hosts=2, device="cpu")
+    with pytest.raises(RC.StateError):
+        RC.RecoveryPlane.recover_union(empty, hosts=1, device="cpu")
+    with pytest.raises(RC.StateError):
+        RC.RecoveryPlane(s.c, s.t, s.e, empty, host_id=2, hosts=2)
+    p = RC.RecoveryPlane(s.c, s.t, s.e, empty)
     with pytest.raises(RC.StateError):
         p.journal_frontier()
     with pytest.raises(RC.StateError):

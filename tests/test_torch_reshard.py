@@ -36,8 +36,7 @@ from sherman_tpu.utils import reshard as JRS
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.cluster import Cluster
 from sherman_tpu_torch.config import DSMConfig
-from sherman_tpu_torch.errors import (ConfigError,
-                                      MultiprocessUnsupportedError,
+from sherman_tpu_torch.errors import (CheckpointFormatError, ConfigError,
                                       ReshardError)
 from sherman_tpu_torch.models import batched as TB
 from sherman_tpu_torch.models.btree import Tree
@@ -247,8 +246,9 @@ def test_reshard_carries_the_heap(eight_devices, tmp_path):
 def test_reshard_multihost_format_matches_jax(source, tmp_path):
     """hosts=2: the manifest and both shard files equal JAX's array for
     array (the epoch's nonce aside: its seq and manifest CRC equal, and
-    each shard carries its manifest's epoch); the port's restore refuses
-    the artifact (ROADMAP.md item 7c-ii), and a heap is refused."""
+    each shard carries its manifest's epoch); both packages' restore
+    refuse the artifact with ``CheckpointFormatError`` (the port names
+    ROADMAP.md item 7c-iv), and a heap is refused."""
     src, _, _ = source
     a, b = str(tmp_path / "jmh.npz"), str(tmp_path / "pmh.npz")
     want = JRS.reshard(src, a, 4, hosts=2)
@@ -260,8 +260,10 @@ def test_reshard_multihost_format_matches_jax(source, tmp_path):
     assert np.array_equal(ep[1:], _npz(a)["epoch"][1:])
     for h in (0, 1):
         assert np.array_equal(_npz(f"{b}.host{h}.npz")["epoch"], ep)
-    with pytest.raises(MultiprocessUnsupportedError, match="7c-ii"):
+    with pytest.raises(CheckpointFormatError, match="7c-iv"):
         CK.restore(b, device="cpu")
+    with pytest.raises(JCK.CheckpointFormatError):
+        JCK.restore(b)
     # a multihost source reshards back to one file, equal in both
     a1, b1 = str(tmp_path / "j1.npz"), str(tmp_path / "p1.npz")
     assert RS.reshard(b, b1, 8) == JRS.reshard(a, a1, 8)
