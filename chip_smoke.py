@@ -369,7 +369,26 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     ``availability_gap_ms``), each cut to 10,000,000 and then 1,000,000
     keys past the time budget ((c) first, each listed in ``reduced``); the
     ``multihost_drill`` and ``hostfail_drill`` JSON lines, K1-K3 replayed
-    at every shape (paths ``two_host_multihost``, ``two_host_hostfail``).
+    at every shape (paths ``two_host_multihost``, ``two_host_hostfail``);
+29. the native host tier (``sherman_tpu_torch/native``: ``BatchPrep``,
+    ``ZipfGen``, ``IndexCache``, ``LocalLockTable``, ``WRLock``,
+    ``LatencyHistogram``; built with g++ at the start beside nvcc, and the
+    smoke fails with ``NativeUnavailableError`` where it cannot load), run
+    after phase 4 on phase 3's tree: (a) at 20,000 keys on the card and on
+    the CPU from one seed (:func:`native_run`: ``BatchPrep``-staged
+    batches through ``_get_search_fanout``, a host ``Tree`` with the index
+    cache through fresh inserts that split leaves, a seeded single-client
+    lock sequence — answers, prep buffers, cache stats, ``btree.cache_*``
+    deltas, lock counts, pools and counters bit-identical), then the
+    threaded lock counter on the card (4 clients: the counter exact, the
+    global CAS and unlocks under half the ops); (b) on phase 3's 100 M-key
+    tree, its values written back to ``key ^ 0xDEADBEEF``, the bench's
+    host-staged half (``bench.host_staged``: three sizing passes, the
+    warm-up, 16 host-staged sustained steps (8 past the budget), 4
+    start-sorted batches, 64 synced latency spans into the histogram, the
+    host per-op floor; every answer checked) and its ``native_host`` JSON
+    line; (c) every shape it launched replayed (path
+    ``one_node_native``: K1; the one-node host steps run no page kernel).
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -381,7 +400,8 @@ and delta, its recovery and its repair (K1-K3 in each), around phase
 22b (K1-K3), around 23b (K1, K2), around 24b's migration and matrix
 (K1-K3), around 25b+c and 25d, around 26b and 26c (K1-K3 in each), around
 each of 27a's card runs (K2-K4), around 27b (K1-K4) and 27c (K2-K4),
-around 28a's card runs and around 28b and 28c (K1-K3 in each);
+around 28a's card runs and around 28b and 28c (K1-K3 in each), around
+29b (K1);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -397,7 +417,8 @@ and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
 ``serve_crash_drill`` records, phase 26's ``failover_drill`` and
 ``partition_drill`` records, phase 27's ``reshard_drill`` and
 ``contract_drill`` records, phase 28's ``multihost_drill`` and
-``hostfail_drill`` records, the K1 and K3 ablations, the
+``hostfail_drill`` records, phase 29's ``native_host`` record (printed
+after phase 4), the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -450,10 +471,12 @@ SMOKE_CUT_S = 1050.0            # the projection past which phases cut
 #                                 depth (the smoke's limit is 1,200 s)
 # The phases whose depth the budget sets, in run order: each one's seconds
 # at full depth on the H100 (a whole smoke with no cut: 41, 153, 131 and
-# 313 s of its 1,094.8 s; phase 28 alone, 240.8 s), and its cuts in the
-# order taken, as (key, the cut, the seconds it saves).  An earlier phase
-# cuts first.
+# 313 s of its 1,094.8 s; phase 28 alone, 240.8 s; phase 29, which runs
+# after phase 4, 15.6 s alone), and its cuts in the order taken, as (key,
+# the cut, the seconds it saves).  An earlier phase cuts first.
 BUDGET = {
+    "29": (20.0, (
+        ("b_steps", "(b) host-staged sustained steps 16 -> 8", 1.0),)),
     "24b": (41.0, (("keys", "keys halved", 15.0),)),
     "25": (153.0, (
         ("c_secs", "(c)'s second serve run --secs 30 -> 10", 20.0),
@@ -830,7 +853,7 @@ def serve(n_keys: int, batch_c: int, batch_a: int, steps: int,
     salt, vals, N = b["salt"], b["vals"], machine_nr
 
     rng = np.random.default_rng(seed)
-    zipf = ZipfGen(n_keys, 0.99, rng=rng)
+    zipf = ZipfGen(n_keys, 0.99, seed=seed)      # the native sampler
 
     # -- YCSB-C: combined point lookups --------------------------------------
     walls = []
@@ -1243,7 +1266,7 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_heap", "one_node_serve", "one_node_crash",
          "one_node_failover", "one_node_partition", "one_node_reshard",
          "two_node_contract", "two_host_multihost",
-         "two_host_hostfail")
+         "two_host_hostfail", "one_node_native")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -6580,6 +6603,200 @@ def host_full_width(smi: str, t_smoke: float | None = None,
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the native host tier (sherman_tpu_torch/native: BatchPrep, the
+# host Tree's local lock tier and index cache, the host-staged loops).
+# ---------------------------------------------------------------------------
+
+NATIVE_KEYS = 20_000            # 29a's tree (the synthetic keyspace)
+NATIVE_BATCH = 4096             # 29a's client ops a batch
+NATIVE_PREP_STEPS = 3           # 29a's BatchPrep-staged batches
+NATIVE_CACHE_OPS = 300          # 29a's index-cache probes and inserts
+NATIVE_LOCK_OPS = 64            # 29a's single-client lock sequence
+NATIVE_SUS_STEPS = 16           # 29b's sustained steps (8 past the budget)
+NATIVE_BATCHES = 4              # 29b's start-sorted staged batches
+NATIVE_LAT_STEPS = 64           # 29b's latency spans (bench.py's 64 blocks)
+NATIVE_THREADS, NATIVE_ITERS = 4, 40   # 29a's threaded lock counter
+
+
+def native_run(device: str) -> list:
+    """Phase 29a's sequence on ``device``, from one seed: a tree of
+    ``NATIVE_KEYS`` synthetic keys (``bench.build``); ``BatchPrep``-staged
+    batches through ``_get_search_fanout`` (``bench.HostStager``, every
+    answer checked); a host ``Tree`` client with the index cache, probed
+    twice, then ``NATIVE_CACHE_OPS`` fresh keys inserted (leaf splits,
+    stale entries) and read back; a seeded single-client lock sequence of
+    protected increments on pages outside the tree and a ``lock_bench``.
+    -> [(label, result)]: answers, cache stats, ``btree.cache_*`` deltas,
+    counter deltas, the pool, lock table and counters."""
+    from sherman_tpu_torch import bench
+    from sherman_tpu_torch import obs
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.parallel import dsm as D
+    b = bench.build(NATIVE_KEYS, NATIVE_BATCH, NATIVE_BATCH, device,
+                    log=lambda m: None)
+    eng, salt, cluster = b["eng_c"], b["salt"], b["cluster"]
+    out = []
+    dev_b, n_u0 = bench.size_host_dev_b(NATIVE_KEYS, 0.99, salt,
+                                        NATIVE_BATCH)
+    st = bench.HostStager(eng, NATIVE_KEYS, 0.99, salt, NATIVE_BATCH, dev_b)
+    out.append(("sizing", (dev_b, n_u0)))
+    for k in range(NATIVE_PREP_STEPS):
+        buf = st.prep(k % 2, want_keys=True)
+        d = st.upload(k % 2)
+        res = st.serve(d)
+        if int(st.wrong(d, res)):
+            raise AssertionError(f"29a ({device}): a staged answer is wrong")
+        out.append((f"prep {k}", [buf.n_uniq, buf.keys.copy()]
+                    + [np.array(getattr(buf, f)) for f in st.FIELDS]))
+        out.append((f"fanout {k}", [x.cpu().numpy() for x in res]))
+    t = Tree(cluster)
+    t.enable_index_cache(4096)
+    rng = np.random.default_rng(29)
+    keys, snap = b["vals"] ^ VAL_XOR, obs.snapshot()
+    probe = keys[rng.choice(keys.size, NATIVE_CACHE_OPS, replace=False)]
+    for p in range(2):
+        got = [t.search(int(k)) for k in probe]
+        if got != [int(k ^ VAL_XOR) for k in probe]:
+            raise AssertionError(f"29a ({device}): a cached read is wrong")
+        out.append((f"cache pass {p}", t.index_cache.stats()))
+    fresh = keys_of(np.arange(NATIVE_KEYS, NATIVE_KEYS + NATIVE_CACHE_OPS),
+                    salt)
+    for k in fresh:
+        t.insert(int(k), int(k ^ VAL_XOR))
+    got = [t.search(int(k)) for k in np.concatenate([fresh, probe])]
+    if got != [int(k ^ VAL_XOR) for k in np.concatenate([fresh, probe])]:
+        raise AssertionError(f"29a ({device}): a read after the splits "
+                             "is wrong")
+    d = obs.delta(snap, obs.snapshot())
+    out.append(("cache after splits", [t.index_cache.stats(), {
+        k: d.get(k, 0) for k in ("btree.cache_hits", "btree.cache_misses",
+                                 "btree.cache_invalidations",
+                                 "btree.sibling_chases")}]))
+    pages = [t.ctx.alloc.alloc() for _ in range(8)]
+    c0 = cluster.dsm.counter_snapshot()
+    for p in rng.integers(0, len(pages), NATIVE_LOCK_OPS):
+        a = pages[int(p)]
+        la = t._lock(a)
+        v = t.dsm.read_word(a, 7)
+        t._write_and_unlock([{"op": D.OP_WRITE, "addr": a, "woff": 7,
+                              "nw": 1, "payload": np.array([v + 1],
+                                                           np.int32)}], la)
+    t.lock_bench(12345, loops=8)
+    c1 = cluster.dsm.counter_snapshot()
+    out.append(("lock sequence", [[t.dsm.read_word(a, 7) for a in pages],
+                                  {k: c1[k] - c0[k] for k in c1}]))
+    dsm = cluster.dsm
+    out.append(("state", [x.cpu().numpy() for x in (dsm.pool, dsm.locks,
+                                                     dsm.counters)]))
+    return out
+
+
+def native_lock_counter(device: str) -> dict:
+    """Phase 29a's threaded counter (``tests/test_local_locks.py``):
+    ``NATIVE_THREADS`` host ``Tree`` clients of one cluster increment one
+    word under one lock word, ``NATIVE_ITERS`` times each.  The counter
+    must be exact, and the local tier's hand-over must keep the global
+    CAS and unlocks under half the ops.  -> the counts."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.parallel import dsm as D
+    cluster = Cluster(DSMConfig(machine_nr=1, pages_per_node=32,
+                                locks_per_node=8, step_capacity=16,
+                                chunk_pages=8, device=device))
+    trees = [Tree(cluster) for _ in range(NATIVE_THREADS)]
+    page = trees[0]._root_addr
+    c0 = cluster.dsm.counter_snapshot()
+    errs = []
+
+    def worker(tree):
+        try:
+            for _ in range(NATIVE_ITERS):
+                la = tree._lock(page)
+                v = tree.dsm.read_word(page, 200)
+                tree._write_and_unlock(
+                    [{"op": D.OP_WRITE, "addr": page, "woff": 200, "nw": 1,
+                      "payload": np.array([v + 1], np.int32)}], la)
+        except Exception as e:
+            errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(t,)) for t in trees]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+        if t.is_alive():
+            raise AssertionError("29a: a lock worker hung")
+    if errs:
+        raise errs[0]
+    total = NATIVE_THREADS * NATIVE_ITERS
+    c1 = cluster.dsm.counter_snapshot()
+    rec = {"ops": total, "counter": trees[0].dsm.read_word(page, 200),
+           "cas": c1["cas_ops"] - c0["cas_ops"],
+           "unlocks": c1["write_word_ops"] - c0["write_word_ops"]}
+    if rec["counter"] != total or not (rec["cas"] < total // 2
+                                       and rec["unlocks"] < total // 2):
+        raise AssertionError(f"29a threaded lock counter ({device}): {rec}")
+    return rec
+
+
+def native_reference_check(devices=("cuda", "cpu")) -> None:
+    """Phase 29a: :func:`native_run` on the card and on the plain path on
+    the CPU, every result bit-identical; then :func:`native_lock_counter`
+    on the card."""
+    t = time.perf_counter()
+    runs = [native_run(d) for d in devices]
+    n = _tier_compare("29a native", 1, devices, runs)
+    rec = native_lock_counter(devices[0])
+    _log(f"29a native tier ({NATIVE_KEYS:,} keys, {devices[0]} vs "
+         f"{devices[1]}): staged answers, prep buffers, cache stats, "
+         f"btree.cache_* deltas, lock counts, pools and counters "
+         f"bit-identical ({n} results); threaded lock counter on "
+         f"{devices[0]}: {json.dumps(rec)} ({time.perf_counter() - t:.1f} s)")
+
+
+def native_full_width(ctx: dict, smi: str, t_smoke: float | None = None,
+                      device: str = "cuda") -> dict:
+    """Phase 29b-c on phase 3's 100 M-key tree, its values restored to
+    ``key ^ 0xDEADBEEF`` (``restore_bulk_values``): the bench's host-staged
+    half (``bench.host_staged``: three sizing passes, the warm-up with
+    every answer checked on the host, ``NATIVE_SUS_STEPS`` host-staged
+    sustained steps, ``NATIVE_BATCHES`` start-sorted batches, the latency
+    phase of ``NATIVE_LAT_STEPS`` synced steps through the histogram,
+    every answer checked on the card; the host per-op floor through the
+    host ``Tree``), inside the window ``one_node_native``; its
+    ``native_host`` JSON line; every launched shape replayed (29c).  Past
+    a projection of ``SMOKE_CUT_S`` the sustained steps are halved.
+    -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import bench
+    cuts = {} if t_smoke is None else budget_cuts("29", t_smoke)
+    steps = NATIVE_SUS_STEPS // 2 if "b_steps" in cuts else NATIVE_SUS_STEPS
+    t = time.perf_counter()
+    restore_bulk_values(ctx)
+    ctx["updated_ranks"] = ctx["updated_ranks"][:0]
+    restore_s = time.perf_counter() - t
+    eng, salt, n_keys = ctx["eng_c"], ctx["salt"], ctx["n_keys"]
+    batch = eng.total
+    fk = keys_of(np.arange(bench.HOST_FLOOR_LOOPS), salt)
+    t = time.perf_counter()
+    with ShapeLog() as log:
+        rec = bench.host_staged(eng, n_keys, 0.99, salt, batch, steps=steps,
+                                n_batches=NATIVE_BATCHES,
+                                lat_steps=NATIVE_LAT_STEPS, floor_keys=fk,
+                                floor_vals=fk ^ VAL_XOR, log=_log)
+    rec = {"metric": "native_host", "keys": n_keys, "batch": batch,
+           **rec, "wall_s": time.perf_counter() - t,
+           "restore_s": restore_s, "card": smi,
+           "reduced": list(cuts.values())}
+    print(json.dumps(rec), flush=True)
+    log.check("one_node_native", ("descent_round",))
+    shapes = replay(log, "one_node_native")
+    _log(f"29b-c native host tier at full width: "
+         f"{time.perf_counter() - t:.1f} s")
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -6605,12 +6822,21 @@ def _main(bb: str) -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)}")
     global BASELINE
+    from sherman_tpu_torch import native
+    from sherman_tpu_torch.errors import NativeUnavailableError
     t = time.perf_counter()
     nvcc = start_nvcc_builds()
+    # the native host tier's g++ build runs beside nvcc and the extension
+    gxx = threading.Thread(target=native.available)
+    gxx.start()
     PK.load_library()
     BASELINE = finish_nvcc_builds(nvcc)
-    _log(f"build (the extension, the earlier K1/K3 and the ptxas report, "
-         f"in parallel): {time.perf_counter() - t:.3f} s")
+    gxx.join()
+    if not native.available():
+        raise NativeUnavailableError(
+            f"the native host tier is unavailable: {native.load_error()}")
+    _log(f"build (the extension, the earlier K1/K3, the ptxas report and "
+         f"the native tier, in parallel): {time.perf_counter() - t:.3f} s")
     garbage_parity(dev)
     exchange_parity(dev)
     _log("parity on garbage inputs (K1-K4): exact")
@@ -6633,6 +6859,10 @@ def _main(bb: str) -> int:
     profile_step("ycsb_a", lambda: ctx["eng_a"].mixed(qa, qa ^ VAL_XOR, ra))
     host_breakdown(ctx, batch_c)
     del qc, qa
+    native_reference_check()
+    for k, v in native_full_width(ctx, card(), t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log("native host tier parity at every launched shape (K1): exact")
     for k, v in staged_windows(ctx, "one_node", batch_c, batch_a, steps,
                                ("descent_round", "gather_pages",
                                 "writeback")).items():

@@ -1,5 +1,6 @@
 """Headline benchmark of the PyTorch/CUDA port on one GPU: YCSB-C point
-lookups, zipf 0.99, 100 M keys, with the client side staged on the card.
+lookups, zipf 0.99, 100 M keys, with the client side staged on the card
+and, beside it, on the host through the native tier.
 
     python -m sherman_tpu_torch.bench
     python -m sherman_tpu_torch.bench --ycsb [ycsb_bench's arguments]
@@ -16,11 +17,13 @@ front-door bench or, with ``--crash-drill`` too, its journaled-ack drill
 ``--partition-drill``, ``--reshard-drill``, ``--contract-drill``,
 ``--multihost-drill`` and ``--hostfail-drill`` run those drills
 (``failover_drill.py``, ``partition_drill.py``, ``reshard_drill.py``,
-``contract_drill.py``, ``multihost_drill.py``, ``hostfail_drill.py``).  The configuration is the north
-star of the repo's ``bench.py``: keys ``mix64(rank ^ 0x5E17AB1E5A17)``,
-values ``key ^ 0xDEADBEEF``, leaf fill 0.75 and the same pool sizing,
-the default router, zipf 0.99, batches of 4,194,304 client ops, the
-``analytic`` rank sampler.  Phases:
+``contract_drill.py``, ``multihost_drill.py``, ``hostfail_drill.py``).
+The configuration is the north star of the repo's ``bench.py``: keys
+``mix64(rank ^ 0x5E17AB1E5A17)`` (:func:`synthetic_keys`, the keys of
+``native.synthetic_keyspace``, the salt moved on should a key fall out of
+range), values ``key ^ 0xDEADBEEF``, leaf fill 0.75 and the same pool
+sizing, the default router, zipf 0.99, batches of 4,194,304 client ops,
+the ``analytic`` rank sampler on the card.  Phases:
 
 1. bulk load and router;
 2. size the unique-row cap ``dev_b`` from one staged step at ``dev_b =
@@ -29,14 +32,39 @@ the default router, zipf 0.99, batches of 4,194,304 client ops, the
 3. sustained staged YCSB-C (``workload.device_prep.make_staged_step``,
    fusion from ``SHERMAN_STAGED_FUSION``): ``sustained_ops_s`` and
    ``sus_dev_ms_per_step`` over a window with one sync at its end, the
-   per-phase times (``sus_dev_phase_ms``), and ``p50_ms``/``p99_ms`` from
-   the walls of steps synced one by one;
+   per-phase times (``sus_dev_phase_ms``), and ``sus_dev_p50_ms``/
+   ``sus_dev_p99_ms`` from the walls of steps synced one by one (through
+   :func:`span_percentiles`);
 4. a throughput window over batches the port's own prep staged on the
    card before the window: the serve alone, ``client_ops_s`` (the
    headline ``value``) and ``device_rows_s``;
-5. sustained staged YCSB-A 50/50 (``make_staged_mixed_step``), row caps
+5. the host-staged half (``bench.py``'s, through
+   :mod:`sherman_tpu_torch.native`): ``dev_b`` sized by three
+   ``BatchPrep`` passes at full width (:func:`size_host_dev_b`); one
+   warm-up batch through ``_get_search_fanout``, every answer checked
+   against ``key ^ 0xDEADBEEF``; the host-staged sustained loop
+   (:func:`host_sustained`: the prep of batch k+1 on one host core while
+   the card serves batch k, two ``PrepBuffers`` in page-locked memory
+   uploaded on the current stream, a buffer never overwritten before its
+   upload has completed, every answer checked on the card):
+   ``sus_host_ops_s``, ``sus_prep_ms``, ``sus_put_ms`` (an upload's
+   device time, between CUDA events), ``sus_put_host_ms``; start-sorted
+   staging of a few batches (:func:`host_staged_batches`):
+   ``prep_ms_per_batch`` and ``sort_ms_per_batch``; the latency phase
+   over those batches (:func:`latency_phase`): one span a step, each step
+   synced (a co-located host: the reference's ``LAT_BLOCK=1``), recorded
+   into ``native.LatencyHistogram.record_batch``, ``p50_ms``/``p99_ms``
+   from it (``np.percentile`` only for spans at or past its 100 ms range);
+   the host per-op floor through the host ``Tree`` and its local lock
+   tier (:func:`host_floor`): ``host_lock_us``, ``host_search_us``,
+   ``host_insert_us``;
+6. sustained staged YCSB-A 50/50 (``make_staged_mixed_step``), row caps
    tightened after a warm-up step as ``bench.py`` tightens them, the
    carry never reset (the pool holds the warm-up's stamps).
+
+The host-staged half needs the native tier: where it cannot load, the
+bench fails with ``NativeUnavailableError`` carrying the build's output,
+and never runs a numpy prep in its place.
 
 With ``SHERMAN_LEAF_CACHE`` set, the hot-key tier
 (``models/leaf_cache.py``) is attached after the bulk load and filled
@@ -87,6 +115,14 @@ CHECK_XOR = 0xDEADBEEF
 STEPS = 32                       # timed staged YCSB-C steps
 LAT_STEPS = 32                   # staged YCSB-C steps synced one by one
 MIXED_STEPS = 16                 # timed staged YCSB-A steps
+HOST_SEED = 11                   # BatchPrep's zipf seed (bench.py's)
+HOST_SUS_STEPS = 32              # host-staged sustained steps
+HOST_BATCHES = 8                 # start-sorted host-staged batches
+HOST_LAT_STEPS = 64              # latency-phase spans (bench.py's blocks)
+HOST_FLOOR_LOOPS = 20            # host ops a per-op floor mean
+HIST_RANGE_NS = 100e6            # spans the histogram holds (104.8 ms cap)
+# the low word of CHECK_XOR as the int32 lane of a key's low half
+_XOR_LO = int(np.array(CHECK_XOR, np.uint32).view(np.int32))
 
 
 def _say(msg: str) -> None:
@@ -117,21 +153,46 @@ def _device_info() -> dict:
             "torch_name": torch.cuda.get_device_name(0)}
 
 
+def require_native():
+    """The native tier, or :class:`NativeUnavailableError` with the
+    build's output: the host-staged paths have no numpy stand-in."""
+    from sherman_tpu_torch import native
+    from sherman_tpu_torch.errors import NativeUnavailableError
+    if not native.available():
+        raise NativeUnavailableError(
+            f"the native host tier is unavailable: {native.load_error()}")
+    return native
+
+
+def synthetic_keys(n_keys: int, salt: int = SALT):
+    """``bench.py``'s keyspace by rank: key ``mix64(rank ^ salt)``, the
+    salt moved on by one while a key falls out of range (``mix64`` is a
+    bijection, so the keys are distinct; ``native.synthetic_keyspace``
+    gives the same keys sorted).  -> (salt, rank_to_key)."""
+    from sherman_tpu_torch import config as C
+    from sherman_tpu_torch.ops import bits
+    ranks = np.arange(n_keys, dtype=np.uint64)
+    while True:
+        keys = bits.mix64_np(ranks ^ np.uint64(salt))
+        if keys.min() >= C.KEY_MIN and keys.max() <= C.KEY_MAX:
+            return salt, keys
+        salt += 1
+
+
 def build(n_keys: int, batch_c: int, batch_a: int, device: str = "cuda", *,
           log=_say, machine_nr: int = 1, step_capacity: int | None = None,
           chunk_pages: int = 4096, lb: int | None = None) -> dict:
     """The north-star tree: bulk-load ``n_keys`` keys ``mix64(rank ^
-    salt)`` (values ``key ^ 0xDEADBEEF``, fill 0.75) and attach the
-    router (``lb`` log2 buckets, else the default).  Two engines share
-    it, taking ``batch_c``/``batch_a`` rows in all, split into
-    ``machine_nr`` node blocks.  -> {cluster, tree, eng_c, eng_a, salt,
-    vals, n_keys}."""
+    salt)`` (:func:`synthetic_keys`; values ``key ^ 0xDEADBEEF``, fill
+    0.75) and attach the router (``lb`` log2 buckets, else the default).
+    Two engines share it, taking ``batch_c``/``batch_a`` rows in all,
+    split into ``machine_nr`` node blocks.  -> {cluster, tree, eng_c,
+    eng_a, salt, vals (by rank), n_keys}."""
     from sherman_tpu_torch import config as C
     from sherman_tpu_torch.cluster import Cluster
     from sherman_tpu_torch.config import DSMConfig, TreeConfig
     from sherman_tpu_torch.models import batched
     from sherman_tpu_torch.models.btree import Tree
-    from sherman_tpu_torch.ops import bits
 
     per_leaf = int(C.LEAF_CAP * 0.75)
     est_pages = int(n_keys / per_leaf * 1.10) + 8192
@@ -151,14 +212,7 @@ def build(n_keys: int, batch_c: int, batch_a: int, device: str = "cuda", *,
                                   tcfg=tcfg)
 
     t0 = time.perf_counter()
-    salt = SALT
-    ranks = np.arange(n_keys, dtype=np.uint64)
-    while True:   # mix64 is a bijection: keys are unique; skip sentinels
-        keys = bits.mix64_np(ranks ^ np.uint64(salt))
-        if keys.min() >= C.KEY_MIN and keys.max() <= C.KEY_MAX:
-            break
-        salt += 1
-    del ranks
+    salt, keys = synthetic_keys(n_keys)
     vals = keys ^ np.uint64(CHECK_XOR)
     t_gen = time.perf_counter() - t0
     stats = batched.bulk_load(tree, keys, vals, fill=0.75)
@@ -396,6 +450,317 @@ def _throughput_window(eng, step, tables, batch, n_batches: int = 4,
             "window_ms_per_step": elapsed / win_steps * 1e3}
 
 
+# -- the host-staged half (native tier) ---------------------------------------
+
+def size_host_dev_b(n_keys: int, theta: float, salt: int,
+                    batch: int) -> tuple[int, int]:
+    """``bench.py``'s sizing: three full-width ``BatchPrep`` passes bound
+    the unique count ``n_u0``; ``dev_b`` is ``n_u0`` x 1.02 rounded up to
+    8192.  -> (dev_b, n_u0)."""
+    native = require_native()
+    sizer = native.BatchPrep(batch, batch, n_keys, theta, seed=HOST_SEED,
+                             salt=salt)
+    sbuf = sizer.buffers()
+    n_u0 = 0
+    for _ in range(3):
+        sizer.run_zipf(None, sbuf, None)
+        n_u0 = max(n_u0, sbuf.n_uniq)
+    return -(-int(n_u0 * 1.02) // 8192) * 8192, n_u0
+
+
+class HostStager:
+    """The native prep of the host-staged loops on one engine: a
+    ``BatchPrep`` (synthetic keys, ``dev_b`` unique rows) and two
+    ``PrepBuffers`` whose arrays live in page-locked memory on a CUDA
+    device; :meth:`upload` copies a buffer to the card on the current
+    stream between two timing events (``copies``: the copy's device
+    time), and :meth:`prep` waits on the end event of the buffer's last
+    upload before overwriting it (that wait and the copies' enqueue are
+    ``put_s``, on the host's clock)."""
+
+    FIELDS = ("khi", "klo", "start", "active", "inv")
+
+    def __init__(self, eng, n_keys: int, theta: float, salt: int,
+                 batch: int, dev_b: int):
+        from sherman_tpu_torch.errors import ConfigError
+        native = require_native()
+        if eng.cfg.machine_nr != 1:
+            raise ConfigError("the host-staged loops serve one node "
+                              f"(machine_nr={eng.cfg.machine_nr})")
+        self.eng, self.batch, self.dev_b = eng, batch, dev_b
+        self.device = torch.device(eng.device)
+        self.cuda = self.device.type == "cuda"
+        self.batch_prep = native.BatchPrep(batch, dev_b, n_keys, theta,
+                                      seed=HOST_SEED, salt=salt)
+        self.bufs, self.host = [], []
+        for _ in range(2):
+            b = self.batch_prep.buffers(with_keys=True)
+            t = {}
+            for f in self.FIELDS:
+                a = getattr(b, f)
+                t[f] = torch.empty(a.shape, pin_memory=self.cuda,
+                                   dtype=(torch.uint8 if a.dtype == np.uint8
+                                          else torch.int32))
+                setattr(b, f, t[f].numpy())
+            self.bufs.append(b)
+            self.host.append(t)
+        self.events = [None, None]
+        self.copies = []          # (start, end) events of each upload
+        self.put_s = 0.0
+        self.fn = eng._get_search_fanout(eng._iters())
+
+    def prep(self, i: int, want_keys: bool = False):
+        """Prep the next batch into buffer ``i`` (after its last upload
+        has completed).  -> the buffer."""
+        ev = self.events[i]
+        if ev is not None:
+            t = time.perf_counter()
+            ev.synchronize()
+            self.put_s += time.perf_counter() - t
+            self.events[i] = None
+        router = self.eng.router
+        with router._read_locked():
+            return self.batch_prep.run_zipf(
+                None, self.bufs[i], router.table_np, router.shift,
+                want_keys=want_keys)
+
+    def upload(self, i: int, arrays=None) -> tuple:
+        """Buffer ``i`` (or ``arrays``, host arrays of the five fields)
+        on the card: (khi, klo, start, active, inv), ``active`` as bool."""
+        src = (tuple(torch.from_numpy(a) for a in arrays) if arrays
+               is not None else tuple(self.host[i][f] for f in self.FIELDS))
+        t = time.perf_counter()
+        if self.cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            d = tuple(x.to(self.device, non_blocking=True) for x in src)
+            ev[1].record()
+            self.copies.append(tuple(ev))
+            if arrays is None:
+                self.events[i] = ev[1]
+        else:
+            d = tuple(x.clone() for x in src)
+        self.put_s += time.perf_counter() - t
+        khi, klo, start, act, inv = d
+        return khi, klo, start, act.view(torch.bool), inv
+
+    def serve(self, d: tuple):
+        """One fan-out step on uploaded arrays -> (done, found, vhi, vlo)."""
+        khi, klo, start, act, inv = d
+        return self.fn(self.eng.dsm.pool, self.eng.dsm.counters, khi, klo,
+                       self.eng.tree._root_addr, act, start, inv)
+
+    @staticmethod
+    def wrong(d: tuple, out) -> torch.Tensor:
+        """Client answers that are not ``key ^ 0xDEADBEEF`` (found, both
+        words), counted on the card: each client's key is its unique
+        row's (``inv``)."""
+        khi, klo, _, _, inv = d
+        _, found, vhi, vlo = out
+        i = inv.long()
+        ok = found & (vhi == khi[i]) & (vlo == (klo[i] ^ _XOR_LO))
+        return (~ok).sum()
+
+
+def host_warmup(st: HostStager) -> None:
+    """One prepped batch through the fan-out, every client answer checked
+    on the host against ``key ^ 0xDEADBEEF`` (``bench.py``'s warm-up)."""
+    from sherman_tpu_torch.ops import bits
+    b = st.prep(0, want_keys=True)
+    keys0 = b.keys.copy()
+    d = st.upload(0)
+    done, found, vhi, vlo = st.serve(d)
+    f = found.cpu().numpy()[:st.batch]
+    if not f.all():
+        raise AssertionError(f"host-staged warm-up: {(~f).sum()} lookups "
+                             "missed")
+    if not bool(done[:b.n_uniq].all()):
+        raise AssertionError("host-staged warm-up: stragglers")
+    got = bits.pairs_to_keys(vhi.cpu().numpy()[:st.batch],
+                             vlo.cpu().numpy()[:st.batch])
+    if not np.array_equal(got, keys0 ^ np.uint64(CHECK_XOR)):
+        raise AssertionError("host-staged warm-up: wrong answers")
+
+
+def host_sustained(st: HostStager, steps: int = HOST_SUS_STEPS) -> dict:
+    """``bench.py``'s host-shipped sustained loop: the prep of batch k+1
+    runs on the host while the card serves batch k (the serve is
+    enqueued, not waited for), the uploads on the current stream from the
+    two page-locked buffers in turn; every client answer is checked on
+    the card and the wrong ones summed there, one sync at the window's
+    end.  -> sus_host_ops_s, sus_prep_ms (pure host prep), sus_put_ms
+    (an upload's device time, between its events; on the CPU the
+    clone's host time), sus_put_host_ms (the uploads' enqueue and the
+    waits before a buffer is reused, on the host's clock),
+    sus_ms_per_step."""
+    st.put_s = 0.0
+    st.copies = []
+    prep_s = 0.0
+    bad = torch.zeros((), dtype=torch.int64, device=st.device)
+    b = st.prep(0)
+    _sync(st.device)
+    t0 = time.perf_counter()
+    for k in range(steps):
+        last_nu = b.n_uniq
+        d = st.upload(k % 2)
+        out = st.serve(d)
+        bad += st.wrong(d, out)
+        if k + 1 < steps:
+            t, put0 = time.perf_counter(), st.put_s
+            b = st.prep((k + 1) % 2)
+            # the wait on the buffer's last upload counts as upload time
+            prep_s += time.perf_counter() - t - (st.put_s - put0)
+    _sync(st.device)
+    elapsed = time.perf_counter() - t0
+    if not bool(out[0][:last_nu].all()):
+        raise AssertionError("host-staged sustained: stragglers")
+    if int(bad):
+        raise AssertionError(f"host-staged sustained: {int(bad)} wrong "
+                             "answers")
+    return {"sus_host_ops_s": steps * st.batch / elapsed,
+            "sus_prep_ms": prep_s / max(1, steps - 1) * 1e3,
+            "sus_put_ms": (sum(s.elapsed_time(e) for s, e in st.copies)
+                           / steps if st.cuda else st.put_s / steps * 1e3),
+            "sus_put_host_ms": st.put_s / steps * 1e3,
+            "sus_ms_per_step": elapsed / steps * 1e3,
+            "sus_host_steps": steps}
+
+
+def host_staged_batches(st: HostStager, n: int = HOST_BATCHES):
+    """``bench.py``'s start-sorted staging of ``n`` batches: each prepped,
+    its unique rows sorted by start page (the inverse map composed with
+    the permutation, so every client keeps its answer), and uploaded;
+    the prep and the sort are timed per batch.  -> (device batches,
+    prep_ms_per_batch, sort_ms_per_batch, max unique rows)."""
+    prep_ns, sort_ns, n_uniq, out = [], [], [], []
+    for i in range(n):
+        t1 = time.perf_counter_ns()
+        b = st.prep(i % 2)
+        prep_ns.append(time.perf_counter_ns() - t1)
+        m = b.n_uniq
+        n_uniq.append(m)
+        t2 = time.perf_counter_ns()
+        ordr = np.argsort(b.start[:m], kind="stable")
+        rank = np.empty(m, np.int32)
+        rank[ordr] = np.arange(m, dtype=np.int32)
+        khi_s, klo_s = b.khi.copy(), b.klo.copy()
+        st_s = b.start.copy()
+        khi_s[:m] = b.khi[ordr]
+        klo_s[:m] = b.klo[ordr]
+        st_s[:m] = b.start[ordr]
+        inv_s = rank[b.inv]
+        sort_ns.append(time.perf_counter_ns() - t2)
+        d = st.upload(i % 2, (khi_s, klo_s, st_s, b.active.copy(), inv_s))
+        _sync(st.device)      # the sources are freed with this iteration
+        out.append(d)
+    return (out, float(np.mean(prep_ns)) / 1e6,
+            float(np.mean(sort_ns)) / 1e6, max(n_uniq))
+
+
+def span_percentiles(spans_ns, ops_per_span: int) -> tuple:
+    """p50 and p99 in ms of step spans, each ``ops_per_span`` ops that
+    completed together: from ``native.LatencyHistogram.record_batch``,
+    and from ``np.percentile`` only when a span is at or past the
+    histogram's range.  -> (p50_ms, p99_ms, source)."""
+    native = require_native()
+    spans = np.asarray(spans_ns, np.float64)
+    if spans.size and spans.max() < HIST_RANGE_NS:
+        h = native.LatencyHistogram()
+        for sp in spans:
+            h.record_batch(int(sp), ops_per_span)
+        pct = h.percentiles_us((0.5, 0.99))
+        return pct["p50"] / 1e3, pct["p99"] / 1e3, "histogram"
+    return (float(np.percentile(spans, 50)) / 1e6,
+            float(np.percentile(spans, 99)) / 1e6, "percentile")
+
+
+def latency_phase(st: HostStager, batches, steps: int = HOST_LAT_STEPS
+                  ) -> dict:
+    """The latency phase over staged batches: one step a span, each step
+    synced (a co-located host: ``bench.py``'s ``LAT_BLOCK=1``), every
+    answer checked on the card; p50/p99 from :func:`span_percentiles`."""
+    spans = []
+    bad = torch.zeros((), dtype=torch.int64, device=st.device)
+    for i in range(steps + 1):
+        d = batches[i % len(batches)]
+        _sync(st.device)
+        t = time.perf_counter_ns()
+        out = st.serve(d)
+        _sync(st.device)
+        if i:                                  # step 0 warms the shape
+            spans.append(time.perf_counter_ns() - t)
+        bad += st.wrong(d, out)
+    if int(bad):
+        raise AssertionError(f"latency phase: {int(bad)} wrong answers")
+    p50, p99, src = span_percentiles(spans, st.batch)
+    return {"p50_ms": p50, "p99_ms": p99, "lat_source": src,
+            "lat_steps": steps, "lat_max_ms": max(spans) / 1e6}
+
+
+def host_floor(tree, keys, vals, loops: int = HOST_FLOOR_LOOPS) -> dict:
+    """``bench.py``'s host per-op floor through the host ``Tree`` (its
+    local lock tier, and the page kernels under each host step): a lock
+    and unlock round trip, single-key searches, and in-place inserts of
+    the same values; each path warmed once first.  -> host_lock_us,
+    host_search_us, host_insert_us."""
+    keys = [int(k) for k in keys[:loops]]
+    vals = [int(v) for v in vals[:loops]]
+    tree.lock_bench(12345, loops=1)
+    tree.search(keys[0])
+    tree.insert(keys[0], vals[0])
+    lock_us = tree.lock_bench(12345, loops=loops) / 1e3
+    t = time.perf_counter_ns()
+    got = [tree.search(k) for k in keys]
+    search_us = (time.perf_counter_ns() - t) / loops / 1e3
+    if got != vals:
+        raise AssertionError("host floor: a search read a wrong value")
+    t = time.perf_counter_ns()
+    for k, v in zip(keys, vals):
+        tree.insert(k, v)
+    insert_us = (time.perf_counter_ns() - t) / loops / 1e3
+    if [tree.search(k) for k in keys] != vals:
+        raise AssertionError("host floor: an insert lost its value")
+    return {"host_lock_us": lock_us, "host_search_us": search_us,
+            "host_insert_us": insert_us}
+
+
+def host_staged(eng, n_keys: int, theta: float, salt: int, batch: int, *,
+                steps: int = HOST_SUS_STEPS, n_batches: int = HOST_BATCHES,
+                lat_steps: int = HOST_LAT_STEPS, floor_keys=None,
+                floor_vals=None, log=_say) -> dict:
+    """The host-staged half in ``bench.py``'s order: sizing, warm-up,
+    sustained loop, start-sorted staging, latency phase, and (with
+    ``floor_keys``/``floor_vals``) the host per-op floor.  -> the fields
+    of the JSON line."""
+    t = time.perf_counter()
+    dev_b, n_u0 = size_host_dev_b(n_keys, theta, salt, batch)
+    st = HostStager(eng, n_keys, theta, salt, batch, dev_b)
+    host_warmup(st)
+    log(f"host-staged: dev_b {dev_b} (n_u0 {n_u0}) sized and warmed in "
+        f"{time.perf_counter() - t:.3f} s")
+    rec = {"host_dev_b": dev_b, "host_n_u0": n_u0}
+    rec.update(host_sustained(st, steps))
+    log(f"sustained(host-staged): {steps} steps -> "
+        f"{rec['sus_host_ops_s'] / 1e6:.2f} M ops/s "
+        f"({rec['sus_ms_per_step']:.1f} ms/step; prep "
+        f"{rec['sus_prep_ms']:.1f} + upload {rec['sus_put_ms']:.1f} "
+        "ms/batch)")
+    batches, prep_ms, sort_ms, max_u = host_staged_batches(st, n_batches)
+    rec.update(prep_ms_per_batch=prep_ms, sort_ms_per_batch=sort_ms,
+               host_combine_ratio=batch / max_u)
+    rec.update(latency_phase(st, batches, lat_steps))
+    log(f"host-staged batches: prep {prep_ms:.1f} + sort {sort_ms:.1f} "
+        f"ms/batch; latency p50 {rec['p50_ms']:.3f} p99 "
+        f"{rec['p99_ms']:.3f} ms ({rec['lat_source']})")
+    del batches
+    if floor_keys is not None:
+        rec.update(host_floor(eng.tree, floor_keys, floor_vals))
+        log(f"host floor: lock {rec['host_lock_us']:.1f} us, search "
+            f"{rec['host_search_us']:.1f} us, insert "
+            f"{rec['host_insert_us']:.1f} us")
+    return rec
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if "--ycsb" in argv:
@@ -459,6 +824,7 @@ def main(argv=None) -> int:
 
     b = build(n_keys, batch, batch, "cuda", lb=lb)
     salt = b["salt"]
+    floor_vals = b["vals"][:HOST_FLOOR_LOOPS].copy()   # ranks 0-19
     del b["vals"]
     if os.environ.get("SHERMAN_BENCH_VALIDATE"):
         # the whole-tree structure check on the card (every invariant,
@@ -515,13 +881,17 @@ def main(argv=None) -> int:
             eng, n_keys=n_keys, theta=theta, salt=salt, batch=batch,
             dev_b=dev_b, sampler=sampler, staged=staged)
     win = _throughput_window(eng, step, staged, batch)
+    host = host_staged(eng, n_keys, theta, salt, batch,
+                       floor_keys=floor_vals ^ np.uint64(CHECK_XOR),
+                       floor_vals=floor_vals)
     mixed = staged_mixed(b["eng_a"], n_keys, theta, salt, batch,
                          sampler=sampler, dev_b=dev_b)[0]
     _say(f"sustained(device-staged MIXED 50/50): {mixed['steps']} steps -> "
          f"{mixed['ops_per_s'] / 1e6:.2f} M ops/s (caps {mixed['caps']})")
     rnd = lambda d: {k: (round(v, 4) if isinstance(v, float) else v)
                      for k, v in d.items()}
-    walls = read["synced_step_ms"]
+    dev_p50, dev_p99, _ = span_percentiles(
+        np.asarray(read["synced_step_ms"]) * 1e6, batch)
     out = {
         "metric": "ycsb_c_zipf%.2f_lookup_throughput" % theta,
         "value": round(win["client_ops_s"]),
@@ -530,8 +900,10 @@ def main(argv=None) -> int:
         "client_ops_s": round(win["client_ops_s"]),
         "device_rows_s": round(win["device_rows_s"]),
         "combine_ratio": round(win["combine_ratio"], 2),
-        "p50_ms": round(float(np.percentile(walls, 50)), 3),
-        "p99_ms": round(float(np.percentile(walls, 99)), 3),
+        "p50_ms": round(host["p50_ms"], 3),
+        "p99_ms": round(host["p99_ms"], 3),
+        "lat_source": host["lat_source"],
+        "lat_steps": host["lat_steps"],
         "keys": n_keys,
         "batch": batch,
         "sustained_ops_s": round(read["ops_per_s"]),
@@ -541,7 +913,22 @@ def main(argv=None) -> int:
         "sus_dev_sampler": read["sampler"],
         "sus_dev_combine": round(read["combine"], 3),
         "sus_dev_steps": read["steps"],
+        "sus_dev_p50_ms": round(dev_p50, 3),
+        "sus_dev_p99_ms": round(dev_p99, 3),
         "dev_b": dev_b,
+        "sus_host_ops_s": round(host["sus_host_ops_s"]),
+        "sus_prep_ms": round(host["sus_prep_ms"], 3),
+        "sus_put_ms": round(host["sus_put_ms"], 3),
+        "sus_put_host_ms": round(host["sus_put_host_ms"], 3),
+        "sus_ms_per_step": round(host["sus_ms_per_step"], 3),
+        "sus_host_steps": host["sus_host_steps"],
+        "host_dev_b": host["host_dev_b"],
+        "host_combine_ratio": round(host["host_combine_ratio"], 2),
+        "prep_ms_per_batch": round(host["prep_ms_per_batch"], 3),
+        "sort_ms_per_batch": round(host["sort_ms_per_batch"], 3),
+        "host_lock_us": round(host["host_lock_us"], 2),
+        "host_search_us": round(host["host_search_us"], 2),
+        "host_insert_us": round(host["host_insert_us"], 2),
         "window_ms_per_step": round(win["window_ms_per_step"], 3),
         "sus_mixed_ops_s": round(mixed["ops_per_s"]),
         "sus_mixed_ms_per_step": round(mixed["ms_per_step"], 3),

@@ -48,11 +48,18 @@ class Cluster:
         self.directories = [Directory(n, cfg) for n in self.node_ids]
         # one process drives every node: host ops go straight to the DSM
         self.host_dsm = self.dsm
-        # The node-local ticket tier of the hierarchical lock needs the
-        # reference's native library, which the port does not carry: host
-        # Tree clients take the global lock words directly (the
-        # reference's behaviour when its native library is absent).
-        self.local_locks = None
+        # The hierarchical lock's local tier: one process-wide native
+        # ticket-lock table indexed like the global lock space.  Host Tree
+        # clients of this process queue here first and hand the global
+        # lock down the ticket train (at most 8 hand-overs), paying one
+        # global CAS and one global unlock a train.  The reference turns
+        # it off on meshes that span processes; one process drives every
+        # node here (``DSM.multihost`` is False), so it is on wherever the
+        # native library loads.
+        from sherman_tpu_torch import native
+        self.local_locks = (
+            native.LocalLockTable(cfg.machine_nr * cfg.locks_per_node)
+            if not self.dsm.multihost and native.available() else None)
         self._next_client = 0
         # lock-lease epoch table: owner tag -> current lease epoch of every
         # registered client; a lock word whose (owner, epoch) is absent or

@@ -19,6 +19,8 @@ __all__ = [
     "KernelUnavailableError",
     "NotPortedError",
     "ExchangeLaneError",
+    "NativeBuildError",
+    "NativeUnavailableError",
 ]
 
 
@@ -103,3 +105,14 @@ class ExchangeLaneError(ShermanError, TypeError):
             "field to a 32-bit dtype (bools and any 4-byte dtype travel "
             "bit-exactly)")
         self.dtype = dtype
+
+
+class NativeBuildError(ShermanError, RuntimeError):
+    """The native helper library failed to compile."""
+
+
+class NativeUnavailableError(ShermanError, RuntimeError):
+    """The native helper library is not importable/loadable in this
+    environment.  The library's modules keep the reference's pure-numpy
+    branches for that case; the headline bench and the chip smoke raise
+    this instead (the message carries the build's output)."""

@@ -5,8 +5,9 @@ A host numpy table maps buckets of the uint64 key space (``lb`` bits
 starting at ``shift``) to a page address whose ``lowest`` fence is <=
 every key of the bucket, normally the key's leaf.  A batch's start
 addresses are one vectorized host gather; a stale entry only costs a
-B-link sibling chase.  A ``threading.Lock`` keeps (shift, table) from
-being observed torn.
+B-link sibling chase.  The native writer-preference ``WRLock``
+(:mod:`sherman_tpu_torch.native`) keeps (shift, table) from being
+observed torn: probes read-lock, maintenance write-locks.
 """
 
 from __future__ import annotations
@@ -17,6 +18,39 @@ import numpy as np
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch.ops import bits
+
+
+class _PyRW:
+    """Mutex stand-in for the native WRLock where the library cannot
+    load: probes serialize with writers, but the (shift, table) pair is
+    never observed torn."""
+
+    def __init__(self):
+        self._m = threading.Lock()
+
+    def rlock(self):
+        self._m.acquire()
+
+    def runlock(self):
+        self._m.release()
+
+    wlock, wunlock = rlock, runlock
+
+
+class _Held:
+    """Context manager over explicit acquire/release callables."""
+
+    __slots__ = ("_acq", "_rel")
+
+    def __init__(self, acq, rel):
+        self._acq, self._rel = acq, rel
+
+    def __enter__(self):
+        self._acq()
+
+    def __exit__(self, *exc):
+        self._rel()
+        return False
 
 
 class LeafRouter:
@@ -30,13 +64,17 @@ class LeafRouter:
         self.table_np = np.full(self.nb, np.int32(tree._root_addr))
         self.splits_noted = 0
         self.span_grows = 0
-        self._mu = threading.Lock()
+        from sherman_tpu_torch import native
+        self._rw = native.WRLock() if native.available() else _PyRW()
         tree.router = self
 
     def _read_locked(self):
         """Context that holds (shift, table) still while it is open: the
-        staged loop copies ``table_np`` under it."""
-        return self._mu
+        staged loops copy ``table_np`` under it."""
+        return _Held(self._rw.rlock, self._rw.runlock)
+
+    def _write_locked(self):
+        return _Held(self._rw.wlock, self._rw.wunlock)
 
     # -- maintenance ---------------------------------------------------------
 
@@ -46,7 +84,7 @@ class LeafRouter:
         KEY_NEG_INF), adapting ``shift`` to the observed key span."""
         hi = int(np.max(leaf_lows)) if len(leaf_lows) else 0
         span_bits = max(1, hi.bit_length())
-        with self._mu:
+        with self._write_locked():
             self.shift = min(64 - self.lb, max(0, span_bits - self.lb))
             starts = (np.arange(self.nb, dtype=np.uint64)
                       << np.uint64(self.shift))
@@ -72,7 +110,7 @@ class LeafRouter:
     def note_split(self, split_key: int, new_addr: int,
                    old_high: int) -> None:
         """Leaf [.., old_high) split at split_key; right half -> new_addr."""
-        with self._mu:
+        with self._write_locked():
             if (split_key >> self.shift) >= self.nb:
                 self._grow_span(split_key)
             b_lo = (split_key + (1 << self.shift) - 1) >> self.shift
@@ -95,7 +133,7 @@ class LeafRouter:
         oh = np.asarray(old_highs, np.uint64)
         if not sk.size:
             return
-        with self._mu:
+        with self._write_locked():
             mx = int(sk.max())
             if (mx >> self.shift) >= self.nb:
                 self._grow_span(mx)
@@ -131,7 +169,7 @@ class LeafRouter:
         o32, n32 = to_i32(olds), to_i32(news)
         order = np.argsort(o32)
         o32, n32 = o32[order], n32[order]
-        with self._mu:
+        with self._write_locked():
             pos = np.searchsorted(o32, self.table_np)
             pos_c = np.minimum(pos, o32.size - 1)
             hit = o32[pos_c] == self.table_np
@@ -142,7 +180,7 @@ class LeafRouter:
     def host_start(self, khi: np.ndarray, klo: np.ndarray) -> np.ndarray:
         """Start addresses [B] int32 for keys given as int32 word views."""
         key = bits.pairs_to_keys(np.asarray(khi), np.asarray(klo))
-        with self._mu:
+        with self._read_locked():
             bucket = np.minimum(key >> np.uint64(self.shift),
                                 np.uint64(self.nb - 1))
             return self.table_np[bucket.astype(np.int64)]

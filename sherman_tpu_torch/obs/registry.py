@@ -71,11 +71,13 @@ class Gauge:
 
 
 class Histogram:
-    """Log2-bucketed value distribution (the reference's native
-    ``LatencyHistogram`` shape, host-side and unit-agnostic): 64 power-of-two buckets cover
-    any non-negative range; count/sum/min/max are exact, percentiles
-    bucket-resolved (within 2x — the same fidelity class the reference's
-    fixed-width histogram trades at its range cap)."""
+    """Log2-bucketed value distribution in Python, host-side and
+    unit-agnostic (the native tier's fixed-width ``LatencyHistogram``,
+    :mod:`sherman_tpu_torch.native`, serves the bench's latency phase):
+    64 power-of-two buckets cover any non-negative range;
+    count/sum/min/max are exact, percentiles bucket-resolved (within 2x
+    — the same fidelity class the fixed-width histogram trades at its
+    range cap)."""
 
     __slots__ = ("name", "buckets", "count", "sum", "min", "max")
 

@@ -30,9 +30,12 @@ stream value re-stamps while a client-side ledger records every acked
 the base image is rebuilt, the journal replays, and the line pins
 ``rpo_ops == 0`` and ``acks_per_fsync > 1``.
 
-The keyspace and the zipf sampler are the reference's numpy path
-(``np.unique`` of random words; :class:`~sherman_tpu_torch.workload.zipf.ZipfGen`):
-the port has no native tier yet (ROADMAP.md item 8).  Run on the GPU::
+The keyspace and the zipf sampler are the reference's: rank r's key is
+``mix64(r ^ salt)`` (the keys of ``native.synthetic_keyspace``), and each
+client draws from a ``native.ZipfGen`` of its own seed
+(:mod:`sherman_tpu_torch.native`, required: no numpy sampler stands in).
+Every client's requests are drawn before the phases' timers start.  Run
+on the GPU::
 
     python -m sherman_tpu_torch.serve_bench [--keys 200000] [--secs 6]
         [--widths 1024,4096,16384] [--p99-ms 0 (auto)] [--tenants 3]
@@ -48,7 +51,6 @@ on the CPU, for rehearsals at small sizes).
 from __future__ import annotations
 
 import argparse
-import copy
 import functools
 import json
 import os
@@ -56,6 +58,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -151,19 +154,14 @@ class AdmissionPacer:
 
 
 @functools.lru_cache(maxsize=1)
-def keyspace(n_keys: int) -> np.ndarray:
-    """The reference's numpy keyspace: ``n_keys`` distinct random words
-    below 2^63, sorted (they double as the rank -> key map).  Kept for
-    the next call, which gets the same array: the drill rebuilds the
-    same tree."""
-    rng = np.random.default_rng(7)
-    keys = rng.integers(1, (1 << 63), int(n_keys * 1.05), dtype=np.uint64)
-    # np.unique's result by one sort and a neighbour compare: numpy 2.3's
-    # np.unique hashes uint64 arrays, ~50x slower than this at 10 M keys
-    keys.sort()
-    keep = np.ones(keys.size, bool)
-    keep[1:] = keys[1:] != keys[:-1]
-    return keys[keep][:n_keys]
+def keyspace(n_keys: int) -> tuple:
+    """The reference's keyspace -> (sorted keys, rank_to_key): rank r's
+    key is ``mix64(r ^ salt)`` (``bench.synthetic_keys``; the keys of
+    ``native.synthetic_keyspace``).  Kept for the next call, which gets
+    the same arrays: the drill rebuilds the same tree."""
+    from sherman_tpu_torch.bench import synthetic_keys
+    rank_to_key = synthetic_keys(n_keys)[1]
+    return np.sort(rank_to_key), rank_to_key
 
 
 def build_engine(n_keys: int, widths, cache: bool, device: str = "cuda"):
@@ -176,8 +174,7 @@ def build_engine(n_keys: int, widths, cache: bool, device: str = "cuda"):
     from sherman_tpu_torch.models.btree import Tree
     from sherman_tpu_torch.ycsb_bench import pages_for_keys
 
-    keys = keyspace(n_keys)
-    rank_to_key = keys
+    keys, rank_to_key = keyspace(n_keys)
     vals = keys ^ np.uint64(STAMP0)
     cfg = DSMConfig(machine_nr=1, pages_per_node=pages_for_keys(n_keys),
                     locks_per_node=65_536, step_capacity=max(widths),
@@ -198,24 +195,17 @@ def build_engine(n_keys: int, widths, cache: bool, device: str = "cuda"):
     return cluster, tree, eng, keys, rank_to_key
 
 
-@functools.lru_cache(maxsize=4)
-def _zipf(n_keys: int, theta: float):
-    from sherman_tpu_torch.workload.zipf import ZipfGen
-    return ZipfGen(n_keys, theta)
-
-
 def make_sampler(n_keys: int, theta: float, rank_to_key, seed: int):
     """``n -> n keys`` drawn from zipf(theta) ranks (uniform at theta 0)
-    through ``rank_to_key``.  The zipf constants (two zeta sums over
-    ``n_keys``) are computed once per (n, theta); each sampler draws from
-    its own ``default_rng(seed)``, as ``ZipfGen(n, theta, seed=seed)``
-    would."""
+    through ``rank_to_key``: one ``native.ZipfGen`` of its own seed (its
+    set-up sums zeta over ``n_keys``), the native tier required
+    (``NativeUnavailableError`` where it cannot load)."""
+    if theta > 0:
+        from sherman_tpu_torch.bench import require_native
+        zg = require_native().ZipfGen(n_keys, theta, seed=seed)
+        return lambda n: rank_to_key[zg.sample(n)]
     from sherman_tpu_torch.workload.zipf import uniform_ranks
     rng = np.random.default_rng(seed)
-    if theta > 0:
-        zg = copy.copy(_zipf(n_keys, theta))
-        zg.rng = rng
-        return lambda n: rank_to_key[zg.sample(n)]
     return lambda n: rank_to_key[uniform_ranks(n_keys, n, rng)]
 
 
@@ -298,13 +288,28 @@ def run_serve(a, built=None, auditor=None) -> dict:
         return int(np.sum(~(found & ((x == ok_vals[0])
                                      | (x == ok_vals[1])))))
 
+    def draw(seed: int, n: int) -> list:
+        # a tenant's requests, drawn before the phases' timers start (a
+        # sampler's set-up sums zeta over every key)
+        sample = make_sampler(a.keys, a.theta, rank_to_key, seed)
+        return [np.ascontiguousarray(sample(a.req_ops), np.uint64)
+                for _ in range(n)]
+
+    # tenant -> (seed, requests to draw): the loader, the paced tenants, and
+    # phase B's greedy and polite tenants, drawn on one thread each
+    seeds = {"loader": (555, 32),
+             **{f"tenant{k}": (100 + k, 128) for k in range(n_paced)},
+             **({"greedy": (999, 32), "polite": (777, 128)}
+                if a.greedy else {})}
+    with ThreadPoolExecutor(len(seeds)) as ex:
+        reqs = dict(zip(seeds, ex.map(lambda sn: draw(*sn),
+                                      seeds.values())))
+
     def client(tenant: str, seed: int, stop: threading.Event,
                period: float, write_frac: float):
         # requests are pre-generated and results audited after the
         # phase, so per-request numpy work stays out of the paced loop
-        sample = make_sampler(a.keys, a.theta, rank_to_key, seed)
-        reqpool = [np.ascontiguousarray(sample(a.req_ops), np.uint64)
-                   for _ in range(128)]
+        reqpool = reqs[tenant]
         wmask = np.random.default_rng(seed).random(4096) < write_frac
         pacer = AdmissionPacer(period, spin_ms=a.spin_ms)
         with stats_lock:
@@ -369,12 +374,10 @@ def run_serve(a, built=None, auditor=None) -> dict:
             cstats["write_reqs"] += local["writes"]
             cstats["inflight_failures"] += local["failed"]
 
-    def greedy(tenant: str, seed: int, stop: threading.Event):
+    def greedy(tenant: str, stop: threading.Event):
         """Unpaced burst tenant: admission must cap it at its share with
         typed rejects while the polite tenants keep admitting."""
-        sample = make_sampler(a.keys, a.theta, rank_to_key, seed)
-        reqpool = [np.ascontiguousarray(sample(a.req_ops), np.uint64)
-                   for _ in range(32)]
+        reqpool = reqs[tenant]
         futs = []
         i = 0
         while not stop.is_set():
@@ -401,7 +404,7 @@ def run_serve(a, built=None, auditor=None) -> dict:
     served0 = srv.served_ops
     picks0 = dict(srv.controller.picks)
     stop0 = threading.Event()
-    ld = threading.Thread(target=greedy, args=("loader", 555, stop0),
+    ld = threading.Thread(target=greedy, args=("loader", stop0),
                           daemon=True)
     phase_s = {"calibrate": calib_s}
     t1 = time.perf_counter()
@@ -462,7 +465,7 @@ def run_serve(a, built=None, auditor=None) -> dict:
     t1 = time.perf_counter()
     if a.greedy:
         stopB = threading.Event()
-        tb = [threading.Thread(target=greedy, args=("greedy", 999, stopB),
+        tb = [threading.Thread(target=greedy, args=("greedy", stopB),
                                daemon=True),
               threading.Thread(target=client,
                                args=("polite", 777, stopB,

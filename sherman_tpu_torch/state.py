@@ -126,7 +126,7 @@ def _router_of(tree, table, shift):
         raise ConfigError(f"router_shift={shift!r}: want 0..{64 - lb} "
                           "beside router_table")
     r = LeafRouter(tree, lb)
-    with r._read_locked():
+    with r._write_locked():
         r.table_np, r.shift = table, int(shift)
     return r
 

@@ -1,5 +1,5 @@
 """Zipfian workload generator — YCSB-style skewed ranks over [0, n)
-(the numpy path of ``sherman_tpu/workload/zipf.py``), after Gray et al.,
+(counterpart of ``sherman_tpu/workload/zipf.py``), after Gray et al.,
 "Quickly Generating Billion-Record Synthetic Databases" (SIGMOD '94).
 theta = 0.99 is the canonical YCSB skew.
 """
@@ -23,8 +23,12 @@ def _zeta(n: int, theta: float, chunk: int = 1 << 22) -> float:
 
 class ZipfGen:
     """Zipf(theta) rank sampler over [0, n); rank 0 is the hottest.
-    Draws come from ``rng`` (a ``numpy.random.Generator``), else from
-    ``numpy.random.default_rng(seed)``."""
+
+    Without ``rng`` it prefers the native sampler
+    (:mod:`sherman_tpu_torch.native`, bit-identical with the reference's
+    for one seed) and falls back to the vectorized numpy path when the
+    library cannot load.  With ``rng`` (a ``numpy.random.Generator``) it
+    always takes the numpy path and draws from ``rng``."""
 
     def __init__(self, n: int, theta: float = 0.99, seed: int = 0,
                  rng: np.random.Generator | None = None):
@@ -33,7 +37,19 @@ class ZipfGen:
                              "0 <= theta < 1")
         self.n = n
         self.theta = theta
+        self._native = None
+        if rng is None:
+            from sherman_tpu_torch import native
+            if native.available():
+                self._native = native.ZipfGen(n, theta, seed)
         self.rng = rng if rng is not None else np.random.default_rng(seed)
+        if self._native is None:
+            self._init_fallback()
+
+    def _init_fallback(self) -> None:
+        """The numpy path's constants: two O(n) zeta sums, paid only when
+        the native sampler is not used."""
+        n, theta = self.n, self.theta
         self.zetan = _zeta(n, theta)
         self.zeta2 = _zeta(2, theta)
         self.alpha = 1.0 / (1.0 - theta)
@@ -42,6 +58,8 @@ class ZipfGen:
 
     def sample(self, size: int) -> np.ndarray:
         """-> int64 ranks [size] in [0, n)."""
+        if self._native is not None:
+            return self._native.sample(size).astype(np.int64)
         u = self.rng.random(size)
         uz = u * self.zetan
         ranks = (self.n * (self.eta * u - self.eta + 1.0) ** self.alpha

@@ -23,8 +23,10 @@ garbage pairs; the replication plane against the CPU (phase 26a's
 sequence) and a follower's apply and replica reads on the card; elastic
 resize against the CPU (phase 27a's sequence); the multihost service plane
 and host failover against the CPU (phase 28a's sequences) and both host
-drills on the card at 4,000 keys with their pins.  Every comparison is
-exact equality.
+drills on the card at 4,000 keys with their pins; the native host tier
+(the host-staged fan-out from ``BatchPrep`` buffers, the threaded local
+lock counter and the index-cache descent on a pool on the card) against
+the CPU.  Every comparison is exact equality.
 """
 
 import numpy as np
@@ -1097,3 +1099,74 @@ def test_host_drill_on_the_card(dev, tmp_path, drill):
         assert out["unadopted_dead_hosts"] == 0
     for k in ("descent_round", "gather_pages", "writeback"):
         assert PK.LAUNCHES[k] > 0, k
+
+
+def _native_tree(device, n_keys=20_000, batch=4096):
+    from sherman_tpu_torch import bench
+    return bench.build(n_keys, batch, batch, device, log=lambda m: None)
+
+
+def test_host_staged_fanout_on_the_card_matches_the_cpu(dev):
+    """``BatchPrep`` buffers (``bench.HostStager``: page-locked, uploaded
+    on the current stream) through ``_get_search_fanout`` on the card and
+    on the CPU from one seed: the prep buffers, ``done``, ``found``,
+    ``vhi`` and ``vlo``, the pools and the counters equal; every answer
+    ``key ^ 0xDEADBEEF``."""
+    from sherman_tpu_torch import bench
+    PK.reset_launches()
+    side = {}
+    for d in ("cuda", "cpu"):
+        b = _native_tree(d)
+        eng = b["eng_c"]
+        dev_b, _ = bench.size_host_dev_b(20_000, 0.99, b["salt"], 4096)
+        st = bench.HostStager(eng, 20_000, 0.99, b["salt"], 4096, dev_b)
+        assert st.cuda == (d == "cuda")
+        out = []
+        for k in range(4):
+            buf = st.prep(k % 2, want_keys=True)
+            x = st.upload(k % 2)
+            res = st.serve(x)
+            assert int(st.wrong(x, res)) == 0
+            out.append([buf.keys.copy(), buf.inv.copy(), buf.start.copy()]
+                       + [r.cpu().numpy() for r in res])
+        side[d] = (out, [t.cpu() for t in (eng.dsm.pool, eng.dsm.counters)])
+    for a, b in zip(side["cuda"][0], side["cpu"][0]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for x, y in zip(side["cuda"][1], side["cpu"][1]):
+        assert torch.equal(x, y)
+    assert PK.LAUNCHES["descent_round"] > 0
+
+
+def test_threaded_local_locks_on_a_cuda_pool(dev):
+    """Four host ``Tree`` clients increment one word of a pool on the card
+    under one lock word: the counter exact, and the local tier's hand-over
+    keeps the global CAS and unlocks under half the ops."""
+    rec = _smoke().native_lock_counter("cuda")
+    assert rec["counter"] == rec["ops"] == 160
+    assert rec["cas"] < 80 and rec["unlocks"] < 80
+
+
+def test_index_cache_descent_on_a_cuda_pool(dev):
+    """A host ``Tree`` with the index cache over a pool on the card and
+    over one on the CPU: probes, fresh inserts that split leaves, reads
+    back; answers and cache stats equal."""
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+    out = []
+    for d in ("cuda", "cpu"):
+        b = _native_tree(d)
+        t = Tree(b["cluster"])
+        t.enable_index_cache(1024)
+        keys = b["vals"][:200] ^ np.uint64(0xDEADBEEF)
+        fresh = bits.mix64_np(np.arange(20_000, 20_200, dtype=np.uint64)
+                              ^ np.uint64(b["salt"]))
+        got = [t.search(int(k)) for k in keys]
+        got += [t.search(int(k)) for k in keys]
+        for k in fresh:
+            t.insert(int(k), int(k) + 1)
+        got += [t.search(int(k)) for k in fresh]
+        out.append((got, t.index_cache.stats()))
+    assert out[0] == out[1]
+    assert out[0][1]["hits"] > 0 and out[0][1]["adds"] > 0
+    assert out[0][0][:200] == [int(v) for v in b["vals"][:200]]

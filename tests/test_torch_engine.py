@@ -5,9 +5,9 @@ gather_impl="xla")``, on the same seeded numpy keys.
 
 Both packages build and serve the same tree; after every phase the pools
 must be bit-identical and the answers, statuses, counters and dirty sets
-equal.  The state hand-over (``state.from_jax_arrays``), the numpy
-workload generator, the router and the import hygiene of the port are
-pinned here too.  Every tolerance is exact equality.
+equal.  The state hand-over (``state.from_jax_arrays``), the workload
+generator on its numpy and native paths, the router and the import
+hygiene of the port are pinned here too.  Every tolerance is exact equality.
 """
 
 import os
@@ -305,12 +305,28 @@ def test_zipf_numpy_path_matches(n, theta, seed):
     ref.n, ref.theta, ref._native = n, theta, None
     ref.rng = np.random.default_rng(seed)
     ref._init_fallback()
-    got = TZ.ZipfGen(n, theta, seed=seed)
+    # the port's numpy path is the one with a generator handed in
+    got = TZ.ZipfGen(n, theta, rng=np.random.default_rng(seed))
+    assert got._native is None
     for size in (1, 500, 4096):
         np.testing.assert_array_equal(got.sample(size), ref.sample(size))
     rng_a, rng_b = np.random.default_rng(9), np.random.default_rng(9)
     np.testing.assert_array_equal(TZ.uniform_ranks(n, 100, rng_a),
                                   JZ.uniform_ranks(n, 100, rng_b))
+
+
+@pytest.mark.parametrize("n,theta,seed", [(1000, 0.99, 0), (7, 0.5, 1),
+                                          (100_000, 0.99, 2)])
+def test_zipf_native_path_matches(n, theta, seed):
+    """Without a generator both packages draw from their native samplers:
+    the same ranks for the same seed."""
+    ref, got = JZ.ZipfGen(n, theta, seed=seed), TZ.ZipfGen(n, theta,
+                                                            seed=seed)
+    assert ref._native is not None and got._native is not None
+    for size in (1, 500, 4096):
+        s = got.sample(size)
+        assert s.dtype == np.int64
+        np.testing.assert_array_equal(s, ref.sample(size))
 
 
 def test_router_matches():

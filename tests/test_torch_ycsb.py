@@ -3,10 +3,10 @@ and ``sherman_tpu_torch.ycsb_bench``) against the JAX package's
 ``workload/ycsb.py`` and ``tools/ycsb_bench.py``.
 
 - The generators: the same batches, frontiers and expectations from the
-  same seed for all six workloads.  JAX's ``ZipfGen`` draws from its
-  native sampler when the native library loads, the port's from the
-  numpy path, so the JAX generator of each test is put on its numpy
-  fallback (this instance only; a stated difference, ROADMAP.md §3).
+  same seed for all six workloads, both packages' ``ZipfGen`` on their
+  native samplers; and again with both on the numpy path (the JAX
+  instance put on its fallback, the port's handed a generator of the
+  same seed).
 - The payload constructor for both value-size distributions.
 - The driver: ``build`` and ``run_workload`` for A-F at 20,000 keys on
   CPU tensors, one batch stream drawn by the port's generator and played
@@ -64,12 +64,29 @@ def _eq_batch(a: dict, b: dict, what: str) -> None:
             assert a[k] == b[k], (what, k)
 
 
+def _gen_parity(t, j, w):
+    for i, n in enumerate((1, 777, 4096, 4096)):
+        _eq_batch(t.batch(n), j.batch(n), f"{w} batch {i}")
+        assert (t.frontier, t.ops_drawn) == (j.frontier, j.ops_drawn)
+    assert t.expectations() == j.expectations()
+
+
+@pytest.mark.parametrize("w", sorted(TY.WORKLOADS))
+def test_ycsb_gen_numpy_path_matches_jax(w):
+    from sherman_tpu_torch.workload.zipf import ZipfGen
+    kw = dict(theta=0.99, seed=17, salt=TYB.SALT)
+    t = TY.YcsbGen(w, 50_000, **kw)
+    t.zipf = ZipfGen(50_000, 0.99, rng=np.random.default_rng(17 + 1))
+    _gen_parity(t, _numpy_zipf(JY.YcsbGen(w, 50_000, **kw)), w)
+
+
 @pytest.mark.parametrize("w", sorted(TY.WORKLOADS))
 def test_ycsb_gen_matches_jax(w):
     assert TY.WORKLOADS == JY.WORKLOADS
     kw = dict(theta=0.99, seed=17, salt=TYB.SALT)
     t = TY.YcsbGen(w, 50_000, **kw)
-    j = _numpy_zipf(JY.YcsbGen(w, 50_000, **kw))
+    j = JY.YcsbGen(w, 50_000, **kw)
+    assert t.zipf._native is not None and j.zipf._native is not None
     for i, n in enumerate((1, 777, 4096, 4096)):
         _eq_batch(t.batch(n), j.batch(n), f"{w} batch {i}")
         assert (t.frontier, t.ops_drawn) == (j.frontier, j.ops_drawn)
