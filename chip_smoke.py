@@ -448,9 +448,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-INT_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside the tensor cores
-                               # (67 TFLOP/s fp32, data sheet), for the compares
+from sherman_tpu_torch.utils.timer import (  # noqa: E402  the one timer
+    HBM_BYTES_PER_S, bound, host_ms, time_ab, time_ms)
 STAGED_STEPS_8 = 4             # timed steps of each staged loop on 8 nodes
 VAL_XOR = np.uint64(0xDEADBEEF)
 
@@ -474,6 +473,16 @@ SMOKE_CUT_S = 1050.0            # the projection past which phases cut
 # 313 s of its 1,094.8 s; phase 28 alone, 240.8 s; phase 29, which runs
 # after phase 4, 15.6 s alone), and its cuts in the order taken, as (key,
 # the cut, the seconds it saves).  An earlier phase cuts first.
+# Phase 30 (the drivers, ``tools_full_width``): its seconds at full depth
+# and its cuts in order, each (key, the cut, the seconds it saves).
+TOOLS_S = 70.0
+TOOLS_CUTS = (
+    ("staged_keys", "profile_staged2 KEYS 10,000,000 -> 1,000,000 and B "
+     "4,194,304 -> 1,048,576", 15.0),
+    ("lat_keys", "latency_bench --keys 10,000,000 -> 1,000,000", 10.0),
+    ("rows", "profile_gather and profile_insert --rows 2,097,152 -> "
+     "524,288 and --keys 2,000,000 -> 500,000", 8.0),
+    ("write_n", "write_test --n 200,000 -> 50,000", 2.0))
 BUDGET = {
     "29": (20.0, (
         ("b_steps", "(b) host-staged sustained steps 16 -> 8", 1.0),)),
@@ -488,12 +497,14 @@ BUDGET = {
         ("b_keys", "(b) keys 100,000,000 -> 10,000,000 (the base saves "
          "and the followers' bootstraps scale with them)", 65.0))),
     "27": (313.0, (
-        ("c_keys", "(c) keys 1,000,000 -> 100,000", 85.0),)),
+        ("c_keys", "(c) keys 1,000,000 -> 100,000", 85.0),
+        ("b_keys", "(b) keys 1,000,000 -> 100,000", 190.0))),
     "28": (245.0, (
         ("c_keys", "(c) keys 100,000,000 -> 10,000,000", 80.0),
         ("b_keys", "(b) keys 100,000,000 -> 10,000,000", 120.0),
         ("c_keys_1m", "(c) keys 10,000,000 -> 1,000,000", 6.0),
         ("b_keys_1m", "(b) keys 10,000,000 -> 1,000,000", 8.0))),
+    "30": (TOOLS_S, TOOLS_CUTS),
 }
 
 
@@ -518,74 +529,6 @@ def budget_cuts(phase: str, t_smoke: float) -> dict:
 def keys_of(ranks: np.ndarray, salt: int) -> np.ndarray:
     from sherman_tpu_torch.ops import bits
     return bits.mix64_np(np.asarray(ranks, np.uint64) ^ np.uint64(salt))
-
-
-# ---------------------------------------------------------------------------
-# Timing helpers.
-# ---------------------------------------------------------------------------
-
-SPIN_CYCLES = 2_000_000        # ~1 ms of the card's clock
-
-
-def _event_ms(fn) -> float:
-    """One call timed with CUDA events, in ms: the device time of what
-    ``fn`` launches.  A spin kernel queued before the start event keeps
-    the card busy while the host enqueues ``fn``'s launches, so the
-    interval holds no host time unless ``fn`` waits for the card."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    a.record()
-    fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b)
-
-
-def time_ms(fn, reps: int = 21, warmup: int = 2) -> float:
-    """Median of ``reps`` single-call CUDA-event timings, in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    return float(np.median([_event_ms(fn) for _ in range(reps)]))
-
-
-def host_ms(fn, reps: int = 21) -> float:
-    """Mean host time to enqueue one call of ``fn`` (wrapper and launch),
-    in ms, with the card kept busy so no call waits for it."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES * reps)
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    dt = time.perf_counter() - t
-    torch.cuda.synchronize()
-    return dt / reps * 1e3
-
-
-def time_ab(fa, fb, reps: int = 21, warmup: int = 2) -> tuple[float, float]:
-    """Medians of ``reps`` single-call timings of ``fa`` and of ``fb``,
-    taken in turns (a b, b a, a b, ...) so that drift falls on both."""
-    for _ in range(warmup):
-        fa()
-        fb()
-    torch.cuda.synchronize()
-    ta, tb = [], []
-    for k in range(reps):
-        for f, ts in ((fa, ta), (fb, tb))[::1 if k % 2 == 0 else -1]:
-            ts.append(_event_ms(f))
-    return float(np.median(ta)), float(np.median(tb))
-
-
-def bound(nbytes: int, nops: int) -> dict:
-    """Least time the card could take: the larger of bytes over the HBM
-    rate and operations over the 32-bit rate."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = nops / INT_OPS_PER_S * 1e3
-    return {"bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes}
 
 
 # ---------------------------------------------------------------------------
@@ -1266,7 +1209,7 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_heap", "one_node_serve", "one_node_crash",
          "one_node_failover", "one_node_partition", "one_node_reshard",
          "two_node_contract", "two_host_multihost",
-         "two_host_hostfail", "one_node_native")
+         "two_host_hostfail", "one_node_native", "1t", "8t")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1666,174 +1609,36 @@ def staged_reference_check(machine_nr: int,
 # The fresh-insert split storm (``tools/insert_bench.py``'s configuration).
 # ---------------------------------------------------------------------------
 
-STORM_SALT = 0x5E17AB1E5A17
-STORM_XOR = np.uint64(0xBEEF)
-
-
-def storm_build(n_warm: int, n_fresh: int, device: str, *,
-                machine_nr: int = 1, batch: int = 1 << 20,
-                split_slots: int = 16_384, fill: float = 0.9,
-                locks_per_node: int = 65_536, chunk_pages: int = 4096,
-                host_step_capacity: int = 8192,
-                write_combine: bool = False, log=_log) -> dict:
-    """The split storm's tree, sized as ``tools/insert_bench.py`` sizes it:
-    keys ``mix64(rank ^ 0x5E17AB1E5A17)``, the ``n_warm`` lowest ranks
-    bulk-loaded (values ``key ^ 0xBEEF``) at ``fill`` with the router
-    attached, the next ``n_fresh`` ranks shuffled with numpy seed 13; a
-    pool of ``1 << max(14, bits(1.35 x leaves of all keys + 8192))`` pages
-    a node; ``batch`` rows a call (``batch / machine_nr`` a node, the step
-    capacity); ``parent_flush_threshold = split_slots``; write combining
-    as ``write_combine`` says.
-    -> {tree, eng, warm_ranks, fresh, keys}."""
-    from sherman_tpu_torch import config as C
-    from sherman_tpu_torch.cluster import Cluster
-    from sherman_tpu_torch.config import DSMConfig
-    from sherman_tpu_torch.models import batched
-    from sherman_tpu_torch.models.btree import Tree
-
-    N = machine_nr
-    total = n_warm + n_fresh
-    est = int(total / int(C.LEAF_CAP * fill) * 1.35) + 8192
-    pages = 1 << max(14, (est - 1).bit_length())
-    cfg = DSMConfig(machine_nr=N, pages_per_node=pages,
-                    locks_per_node=locks_per_node, step_capacity=batch // N,
-                    chunk_pages=chunk_pages,
-                    host_step_capacity=host_step_capacity, device=device)
-    tree = Tree(Cluster(cfg))
-    eng = batched.BatchedEngine(tree, batch_per_node=batch // N,
-                                split_slots=split_slots,
-                                write_combine=write_combine)
-    eng.parent_flush_threshold = eng.split_slots
-    keys = keys_of(np.arange(total, dtype=np.uint64), STORM_SALT)
-    if keys.min() < C.KEY_MIN or keys.max() > C.KEY_MAX:
-        raise AssertionError("the storm key space holds a fence sentinel")
-    warm = np.sort(keys[:n_warm])
-    fresh = keys[n_warm:].copy()
-    np.random.default_rng(13).shuffle(fresh)
-    t = time.perf_counter()
-    stats = batched.bulk_load(tree, warm, warm ^ STORM_XOR, fill=fill)
-    router = eng.attach_router()
-    log(f"storm tree: nodes={N} warm={n_warm} fresh={n_fresh} fill={fill} "
-        f"pages_per_node={pages} batch={batch} split_slots="
-        f"{eng.split_slots} {stats} router_log2_buckets={router.lb} "
-        f"load_s={time.perf_counter() - t:.3f}")
-    return {"tree": tree, "eng": eng, "fresh": fresh, "keys": keys}
+from sherman_tpu_torch import insert_bench as IB  # noqa: E402
+from sherman_tpu_torch.insert_bench import (  # noqa: E402
+    STORM_XOR, storm_build)
+from sherman_tpu_torch.tools_common import verify_all as _verify_all  # noqa
 
 
 def verify_all(eng, keys: np.ndarray) -> None:
-    """``search_combined`` every key in batches of the engine's width: each
-    must be found with the value ``key ^ 0xBEEF`` (the storm's and the
-    churn's values)."""
-    bad = 0
-    for i in range(0, keys.size, eng.total):
-        k = keys[i:i + eng.total]
-        v, f = eng.search_combined(k)
-        bad += int((~f | (v != (k ^ STORM_XOR))).sum())
-    if bad:
-        raise AssertionError(f"{bad} of {keys.size} keys missing or wrong")
-
-
-class StormTimers:
-    """Wall time an engine spends in its insert steps (each synced, so the
-    device work is inside), in ``_drain_split_log`` and in
-    ``flush_parents`` (with its descents and host steps), and the
-    flushes that had entries; installed on the instance, removed by
-    :meth:`close`."""
-
-    def __init__(self, eng):
-        self.eng = eng
-        self.s = {"device_rounds": 0.0, "drain_split_log": 0.0,
-                  "flush_parents": 0.0}
-        self.flushes = 0
-        dev = eng.device
-        get, drain, flush = (eng._get_insert, eng._drain_split_log,
-                             eng.flush_parents)
-
-        def timed(key, fn):
-            def call(*a, **kw):
-                t = time.perf_counter()
-                out = fn(*a, **kw)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                self.s[key] += time.perf_counter() - t
-                return out
-            return call
-
-        def flush_counted():
-            n = flush()
-            self.flushes += n > 0
-            return n
-
-        eng._get_insert = lambda *a, **kw: timed("device_rounds",
-                                                 get(*a, **kw))
-        eng._drain_split_log = timed("drain_split_log", drain)
-        eng.flush_parents = timed("flush_parents", flush_counted)
-
-    def close(self) -> None:
-        for a in ("_get_insert", "_drain_split_log", "flush_parents"):
-            delattr(self.eng, a)
+    """Every key found with the value ``key ^ 0xBEEF`` (the storm's and
+    the churn's values; ``tools_common.verify_all``)."""
+    _verify_all(eng, keys, STORM_XOR)
 
 
 def storm(ctx: dict, path: str, chunk: int, must_launch,
           reduced: list) -> dict:
-    """One warm-up chunk outside the timed window (its host syncs counted
-    on the card), then every other fresh key through ``eng.insert`` in
-    chunks of ``chunk`` inside a launch window; the ``storm`` line; every
+    """``insert_bench.storm`` (one warm-up chunk outside the timed window,
+    its host syncs counted on the card, then every other fresh key in
+    chunks of ``chunk``) inside a launch window; the ``storm`` line; every
     key searched; every launched (kernel, shape) replayed.
     -> {kernel: [shapes]}."""
-    eng, fresh = ctx["eng"], ctx["fresh"]
-    w = max(4096, chunk // 64)
-    box = {}
-    warm_up = lambda: box.update(st=eng.insert(fresh[:w],
-                                               fresh[:w] ^ STORM_XOR))
-    syncs = count_syncs(warm_up) if eng.device.type == "cuda" else None
-    if syncs is None:
-        warm_up()
-    ws = {k: v for k, v in box["st"].items() if k != "lock_timeout_keys"}
-    agg = {k: 0 for k in ("applied", "superseded", "host_path", "rounds",
-                          "st_locked", "lock_timeouts", "device_splits")}
-    timers = StormTimers(eng)
-    chunks = 0
-    try:
-        with ShapeLog() as log:
-            t0 = time.perf_counter()
-            for i in range(w, fresh.size, chunk):
-                ck = fresh[i:i + chunk]
-                st = eng.insert(ck, ck ^ STORM_XOR)
-                for k in agg:
-                    agg[k] += st.get(k, 0)
-                chunks += 1
-            elapsed = time.perf_counter() - t0
-    finally:
-        timers.close()
+    log = ShapeLog()
+    rec = IB.storm(ctx, chunk, window=log,
+                   count_syncs=(count_syncs if ctx["eng"].device.type
+                                == "cuda" else None))
     log.check(f"{path} storm", must_launch)
-    n_storm = fresh.size - w
-    if agg["applied"] != n_storm or agg["lock_timeouts"]:
-        raise AssertionError(f"{path} storm: {agg} for {n_storm} keys")
     t = time.perf_counter()
-    verify_all(eng, ctx["keys"])
+    verify_all(ctx["eng"], ctx["keys"])
     t_verify = time.perf_counter() - t
-    walls = dict(timers.s)
-    walls["other_host"] = elapsed - sum(timers.s.values())
     _log("storm: " + json.dumps({
-        "path": path, "nodes": eng.cfg.machine_nr,
-        "keys_warm": int(ctx["keys"].size - fresh.size),
-        "keys_fresh": int(n_storm), "chunk": chunk,
-        "split_slots": eng.split_slots, "elapsed_s": elapsed,
-        "fresh_insert_ops_s": n_storm / elapsed,
-        "splits_s": agg["device_splits"] / elapsed,
-        "device_splits": agg["device_splits"],
-        "host_path": agg["host_path"], "st_locked": agg["st_locked"],
-        "lock_timeouts": agg["lock_timeouts"],
-        "rounds_per_chunk": agg["rounds"] / max(1, chunks),
-        "rounds": agg["rounds"], "chunks": chunks,
-        "parent_flushes": timers.flushes, "wall_s": walls,
-        "host_syncs_per_round": (None if syncs is None
-                                 else syncs / max(1, ws["rounds"])),
-        "warmup_chunk": w, "warmup_stats": ws,
-        "router_splits_noted": eng.router.splits_noted,
-        "verified_keys": int(ctx["keys"].size), "verify_s": t_verify,
-        "reduced": reduced}))
+        "path": path, **rec, "verified_keys": int(ctx["keys"].size),
+        "verify_s": t_verify, "reduced": reduced}))
     return replay(log, path)
 
 
@@ -1873,119 +1678,9 @@ def storm_reference_check(machine_nr: int, devices=("cuda", "cpu"),
 # delete, empty-leaf reclaim and write combining.
 # ---------------------------------------------------------------------------
 
-def stream_keys(i, streams: int) -> np.ndarray:
-    """The churn's multi-stream time-series keyspace: key ``i`` is number
-    ``i // streams + 1`` of stream ``i % streams``, ``stream << 44 | seq``."""
-    i = np.asarray(i, np.uint64)
-    return ((i % np.uint64(streams)) << np.uint64(44)) \
-        | ((i // np.uint64(streams)) + np.uint64(1))
-
-
-def churn_build(n_live: int, window: int, device: str, *,
-                machine_nr: int = 1, chunk: int = 131_072,
-                streams: int | None = None, fill: float = 0.5,
-                slack: float = 0.55, step_capacity: int | None = None,
-                locks_per_node: int = 1 << 20, chunk_pages: int = 1024,
-                host_step_capacity: int = 8192, log=_log) -> dict:
-    """The churn's tree, sized as ``tools/churn_bench.py`` sizes it: the
-    ``n_live`` lowest keys of ``streams`` streams (``window // 128``,
-    capped to 16..4096) bulk-loaded at ``fill`` (values ``key ^ 0xBEEF``)
-    with the router; a pool of the warm leaves x 1.06 + 2048 pages and
-    ``5 x (1 + slack)`` window footprints (``window / 24`` pages each) a
-    node; ``chunk`` rows a call (``chunk / machine_nr`` a node);
-    ``split_slots`` two window footprints, the parent flush at
-    ``split_slots``.  -> {tree, eng, key_of, ...}."""
-    from sherman_tpu_torch import config as C
-    from sherman_tpu_torch.cluster import Cluster
-    from sherman_tpu_torch.config import DSMConfig
-    from sherman_tpu_torch.models import batched
-    from sherman_tpu_torch.models.btree import Tree
-
-    N = machine_nr
-    S = streams or max(16, min(4096, window // 128))
-    per_leaf = max(1, int(C.LEAF_CAP * fill))
-    warm_pages = int(n_live / per_leaf * 1.06) + 2048
-    win_pages = int(window / (C.LEAF_CAP // 2))
-    pages = warm_pages + int(win_pages * 5 * (1.0 + slack))
-    cfg = DSMConfig(machine_nr=N, pages_per_node=pages,
-                    locks_per_node=locks_per_node,
-                    step_capacity=step_capacity or chunk // N,
-                    chunk_pages=chunk_pages,
-                    host_step_capacity=host_step_capacity, device=device)
-    tree = Tree(Cluster(cfg))
-    eng = batched.BatchedEngine(tree, batch_per_node=chunk // N,
-                                split_slots=min(131_072, win_pages * 2))
-    eng.parent_flush_threshold = eng.split_slots
-    key_of = lambda i: stream_keys(i, S)
-    t = time.perf_counter()
-    warm = np.sort(key_of(np.arange(n_live, dtype=np.uint64)))
-    stats = batched.bulk_load(tree, warm, warm ^ STORM_XOR, fill=fill)
-    del warm
-    router = eng.attach_router()
-    log(f"churn tree: nodes={N} live={n_live} window={window} streams={S} "
-        f"fill={fill} pages_per_node={pages} "
-        f"({pages * C.PAGE_BYTES / 2**20:.1f} MiB a node) chunk={chunk} "
-        f"split_slots={eng.split_slots} {stats} router_log2_buckets="
-        f"{router.lb} load_s={time.perf_counter() - t:.3f}")
-    return {"tree": tree, "eng": eng, "key_of": key_of, "streams": S,
-            "n_live": n_live, "window": window, "chunk": chunk,
-            "win_pages": win_pages, "pages": pages, "cfg": cfg,
-            "lo": 0, "hi": n_live}
-
-
-def pool_live(tree) -> tuple[int, int]:
-    """(pages allocated and not in a free pool, pages in the free pools)
-    over every node, the tool's occupancy."""
-    used = free = 0
-    for d in tree.cluster.directories:
-        used += d.allocator.pages_used
-        free += d.allocator.pages_free
-    return used - free, free
-
-
-def churn_iteration(ctx: dict, rng, walls: dict | None = None,
-                    max_rounds: int = 24) -> dict:
-    """One iteration of the tool's loop: the next window inserted in
-    ascending chunks, each shuffled; the oldest window deleted; one
-    reclaim pass.  Adds each part's wall to ``walls``.  -> {insert stats
-    summed, found masks, reclaim stats, pages taken from the free pools
-    by the inserts}."""
-    eng, key_of = ctx["eng"], ctx["key_of"]
-    W, chunk = ctx["window"], ctx["chunk"]
-    lo, hi = ctx["lo"], ctx["hi"]
-    walls = {} if walls is None else walls
-
-    def tick(k, t):
-        if eng.device.type == "cuda":
-            torch.cuda.synchronize()
-        walls[k] = walls.get(k, 0.0) + time.perf_counter() - t
-
-    ins = {}
-    free0 = pool_live(eng.tree)[1]
-    fresh = key_of(np.arange(hi, hi + W, dtype=np.uint64))
-    for i in range(0, W, chunk):
-        ck = fresh[i:i + chunk].copy()
-        rng.shuffle(ck)
-        t = time.perf_counter()
-        st = eng.insert(ck, ck ^ STORM_XOR, max_rounds=max_rounds)
-        tick("insert", t)
-        for k, v in st.items():
-            if k != "lock_timeout_keys":
-                ins[k] = ins.get(k, 0) + v
-    reused = free0 - pool_live(eng.tree)[1]
-    dead = key_of(np.arange(lo, lo + W, dtype=np.uint64))
-    found = []
-    for i in range(0, W, chunk):
-        t = time.perf_counter()
-        found.append(eng.delete(dead[i:i + chunk]))
-        tick("delete", t)
-    t = time.perf_counter()
-    rec = eng.reclaim_empty_leaves()
-    tick("reclaim", t)
-    walls.setdefault("reclaim_passes", []).append(time.perf_counter() - t)
-    ctx["lo"], ctx["hi"] = lo + W, hi + W
-    return {"insert": ins, "found": np.concatenate(found), "reclaim": rec,
-            "pages_reused": reused}
+from sherman_tpu_torch import churn_bench as CB  # noqa: E402
+from sherman_tpu_torch.churn_bench import (  # noqa: E402
+    churn_build, churn_iteration)
 
 
 def churn_reference_check(machine_nr: int, devices=("cuda", "cpu"),
@@ -2084,128 +1779,29 @@ def combine_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
          "card and the CPU alike")
 
 
-class ChurnTimers:
-    """Wall time an engine spends in ``_remove_parent_entries`` (reclaim's
-    parent removal, its descent and host steps), installed on the
-    instance, removed by :meth:`close`."""
-
-    def __init__(self, eng):
-        self.eng = eng
-        self.s = 0.0
-        fn = eng._remove_parent_entries
-
-        def timed(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.s += time.perf_counter() - t
-
-        eng._remove_parent_entries = timed
-
-    def close(self) -> None:
-        delattr(self.eng, "_remove_parent_entries")
-
-
 def churn(ctx: dict, path: str, iters: int, must_launch,
           reduced: list) -> dict:
-    """The tool's warm-up outside the timed window (one 16,384-key insert,
-    its delete, whose rounds and host syncs are counted, and one reclaim
-    pass), then ``iters`` timed iterations inside a launch window; the
-    ``churn`` line; every live key searched, the last deleted window
-    probed, the live slots counted; every launched (kernel, shape)
-    replayed.  The inserts' wall is split as the storm's is (device rounds
-    each synced, ``_drain_split_log``, ``flush_parents``).
-    -> {kernel: [shapes]}."""
-    from sherman_tpu_torch.models import validate
-    eng, key_of = ctx["eng"], ctx["key_of"]
-    n_live, W = ctx["n_live"], ctx["window"]
-    w = min(16_384, W)
-    wf = key_of(np.arange(n_live, n_live + w, dtype=np.uint64))
-    eng.insert(wf, wf ^ STORM_XOR)
-    get_delete, rounds = eng._get_delete, []
-    eng._get_delete = lambda *a: rounds.append(a) or get_delete(*a)
-    box = {}
-    del_once = lambda: box.update(f=eng.delete(wf))
-    try:
-        syncs = count_syncs(del_once) if eng.device.type == "cuda" else None
-        if syncs is None:
-            del_once()
-    finally:
-        del eng._get_delete
-    if not box["f"].all():
-        raise AssertionError("churn warm-up: a key of the warm-up insert "
-                             "was not found by its delete")
-    eng.reclaim_empty_leaves()
-    rng = np.random.default_rng(23)
-    occ = [pool_live(eng.tree)[0]]
-    walls: dict = {}
-    agg = {"unlinked": 0, "freed": 0}
-    ins = {}
-    reused = 0
-    timers, ins_timers = ChurnTimers(eng), StormTimers(eng)
-    try:
-        with ShapeLog() as log:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                r = churn_iteration(ctx, rng, walls)
-                if not r["found"].all():
-                    raise AssertionError(f"{path}: a live key of the "
-                                         "oldest window was not found by "
-                                         "its delete")
-                for k in agg:
-                    agg[k] += r["reclaim"][k]
-                for k, v in r["insert"].items():
-                    ins[k] = ins.get(k, 0) + v
-                reused += r["pages_reused"]
-                occ.append(pool_live(eng.tree)[0])
-            elapsed = time.perf_counter() - t0
-    finally:
-        timers.close()
-        ins_timers.close()
+    """``churn_bench.churn`` (the tool's warm-up outside the timed window,
+    its delete's rounds and host syncs counted, then ``iters`` iterations
+    with a reclaim pass each) inside a launch window; the ``churn`` line;
+    every live key searched, the last deleted window probed, the live
+    slots counted (``churn_bench.verify``); every launched (kernel, shape)
+    replayed.  -> {kernel: [shapes]}."""
+    log = ShapeLog()
+    rec = CB.churn(ctx, iters, window=log,
+                   count_syncs=(count_syncs if ctx["eng"].device.type
+                                == "cuda" else None))
     log.check(f"{path} churn", must_launch)
-    last = r["reclaim"]
-    if agg["freed"] <= 0 or reused <= 0 or ins["host_path"]:
-        raise AssertionError(f"{path}: freed {agg['freed']}, pages reused "
-                             f"{reused}, host path {ins['host_path']}")
+    if rec["freed"] <= 0 or rec["pages_reused"] <= 0 or rec["host_path"]:
+        raise AssertionError(f"{path}: freed {rec['freed']}, pages reused "
+                             f"{rec['pages_reused']}, host path "
+                             f"{rec['host_path']}")
     t = time.perf_counter()
-    lo, hi = ctx["lo"], ctx["hi"]
-    live = key_of(np.arange(lo, hi, dtype=np.uint64))
-    verify_all(eng, live)
-    _, f_old = eng.search_combined(key_of(np.arange(lo - W, lo,
-                                                    dtype=np.uint64))[:10_000])
-    if f_old.any():
-        raise AssertionError(f"{path}: {int(f_old.sum())} deleted keys found")
-    tree_keys = int(validate.leaf_chain_info(eng.tree)[4].sum())
-    if tree_keys != hi - lo:
-        raise AssertionError(f"{path}: {tree_keys} live slots for "
-                             f"{hi - lo} live keys")
+    tree_keys = CB.verify(ctx)
     t_verify = time.perf_counter() - t
-    win_pages, cp = ctx["win_pages"], ctx["cfg"].chunk_pages
-    base = occ[max(1, min(len(occ) - 1, 4, (len(occ) - 1) // 2))]
-    n_ops = 2 * W * iters
-    wall = {"insert": walls["insert"],
-            **{"insert." + k: v for k, v in ins_timers.s.items()},
-            "delete": walls["delete"], "reclaim": walls["reclaim"],
-            "reclaim.parent_removal": timers.s}
-    wall["other"] = elapsed - walls["insert"] - walls["delete"] \
-        - walls["reclaim"]
+    rec.pop("parked_final")
     _log("churn: " + json.dumps({
-        "path": path, "nodes": eng.cfg.machine_nr, "keys_live": n_live,
-        "window": W, "streams": ctx["streams"], "chunk": ctx["chunk"],
-        "pool_pages": ctx["pages"], "split_slots": eng.split_slots,
-        "iters": iters, "elapsed_s": elapsed, "churn_ops_s": n_ops / elapsed,
-        "wall_s": wall, "reclaim_s": walls["reclaim_passes"],
-        "unlinked": agg["unlinked"], "freed": agg["freed"],
-        "quarantined": last["quarantined"], "parked": last["parked"],
-        "pool_live": occ, "pool_flat": bool(
-            occ[-1] - base <= 5 * win_pages + 2 * cp),
-        "pages_reused": reused, "host_path": ins["host_path"],
-        "insert_rounds": ins["rounds"], "parent_flushes": ins_timers.flushes,
-        "device_splits": ins.get("device_splits", 0),
-        "st_locked": ins["st_locked"], "lock_timeouts": ins["lock_timeouts"],
-        "delete_rounds": len(rounds), "delete_chunk": int(w),
-        "host_syncs": syncs, "verified_keys": int(live.size),
+        "path": path, **rec, "verified_keys": tree_keys,
         "tree_keys": tree_keys, "verify_s": t_verify, "reduced": reduced}))
     return replay(log, path)
 
@@ -5994,7 +5590,8 @@ def resize_full_width(smi: str, t_smoke: float | None = None,
       queued capture (``BENCHMARKS.md:111-125``: one node to four, the
       drill's mix, ``--batch-pages 32``) at 1,000,000 keys (``reduced``:
       100,000,000 -> 1,000,000: one host step a lock word puts the copy
-      at live pages x one host step); pins ``lost_acks == 0``,
+      at live pages x one host step), cut to 100,000 keys after (c)'s cut
+      past the projection; pins ``lost_acks == 0``,
       ``rpo_ops == 0``, ``bit_identical``, ``resume_verified > 0``;
     - (c) the contract drill (``contract_drill.py``) at its reference node
       counts (2 -> 3) and (b)'s key count, ``--secs 3``, cut to 100,000
@@ -6018,15 +5615,18 @@ def resize_full_width(smi: str, t_smoke: float | None = None,
                 "limit")
     cuts = {} if t_smoke is None else budget_cuts("27", t_smoke)
     c_keys = 100_000 if "c_keys" in cuts else CONTRACT_KEYS
+    r_keys = 100_000 if "b_keys" in cuts else RESHARD_KEYS
     for name, mod, argv, cut, path, kern in (
-            ("reshard", RD, ["--keys", str(RESHARD_KEYS), "--nodes", "1",
+            ("reshard", RD, ["--keys", str(r_keys), "--nodes", "1",
                              "--target-nodes", "4", "--batch-pages",
                              str(RESHARD_BATCH)],
-             [keys_cut], "one_node_reshard", tuple(KERNELS)),
+             [keys_cut] + [cuts[k] for k in ("b_keys",) if k in cuts],
+             "one_node_reshard", tuple(KERNELS)),
             ("contract", CD, ["--keys", str(c_keys), "--nodes", "2",
                               "--target-nodes", "3", "--secs",
                               str(CONTRACT_SECS)],
-             [keys_cut] + list(cuts.values()), "two_node_contract",
+             [keys_cut] + [cuts[k] for k in ("c_keys",) if k in cuts],
+             "two_node_contract",
              ("gather_pages", "writeback", "exchange"))):
         d = tempfile.mkdtemp(prefix=f"sherman_{name}_")
         if device == "cuda":
@@ -6797,6 +6397,190 @@ def native_full_width(ctx: dict, smi: str, t_smoke: float | None = None,
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the drivers (``python -m sherman_tpu_torch.<driver>``), each run
+# once through its ``main()`` on the card.
+# ---------------------------------------------------------------------------
+
+def _run_tool(name: str, mod, argv: list, env: dict | None = None):
+    """``mod.main(argv)`` with ``env`` set around it and its stdout kept
+    (its last line is its receipt); its stderr passes through.
+    -> (receipt, stdout lines, seconds)."""
+    import io
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t
+
+
+def _tool_pins(name: str, out: dict, lines: list) -> None:
+    """Each driver's pins (the reference tests' and drills' own)."""
+    bad = []
+    if name.startswith("benchmark"):
+        if not (out["peak_ops"] > 0 and len(out["windows"]) >= 3
+                and out["latency_us"] and not out["preempted"]):
+            bad.append("peak_ops > 0 over >= 3 windows with percentiles")
+    elif name in ("tree_test", "write_test", "skiplist_test"):
+        if not (out["ok"] and any(f"{name} PASS" in x for x in lines)):
+            bad.append("PASS")
+        if name == "write_test" and not (
+                0 < out["write_amplification_b"] < 1024
+                and out["host_path"] == 0):
+            bad.append("write amplification below a page, host path 0")
+    elif name == "chaos_drill":
+        if not (out["ok"] and out["host_revoked"] >= 1
+                and out["engine_revoked"] >= 1 and out["lock_timeouts"] == 4
+                and out["scrub"]["violations"] >= 1
+                and out["blackbox"]["ordered"]):
+            bad.append("ok, revocations, lock_timeouts == 4, ordered box")
+    elif name == "recovery_drill":
+        if not (out["ok"] and out["rpo_ops"] == 0 and out["rto_ms"] > 0
+                and out["journal"]["truncated_tails"] >= 1
+                and out["repair"]["pages"] >= 1):
+            bad.append("ok, rpo_ops == 0, torn tail, targeted repair")
+    elif name == "latency_bench":
+        if not all(r["ops_s"] > 0 and r["ol_samples"] > 0
+                   for r in out["rows"]) or len(out["rows"]) != 4:
+            bad.append("four widths with ops_s > 0 and open-loop samples")
+    elif name == "profile_gather":
+        ph = out["phases"]
+        if set(ph) != {"descent_round", "snapshot_gather", "writeback_3w",
+                       "writeback_5w"} or not out["kernel_on_card"] \
+                or not all({"twin", "kernel"} <= set(v) for v in ph.values()):
+            bad.append("four phases, kernel and twin each, on the card")
+    elif name == "profile_insert":
+        if not (out["insert_step_update_only"] > 0
+                and out["search_step_same_width"] > 0):
+            bad.append("insert and search steps timed")
+    elif name == "profile_prep":
+        if not (set(out["impls"]) == {"host", "device"}
+                and out["combine"]["locks_saved"] > 0
+                and 0 < out["combine"]["ratio"] <= 1):
+            bad.append("both impls, combine ratio in (0, 1]")
+    elif name == "profile_staged2":
+        if not (out["fusion"] == "aligned" and out["n_programs"] == 3
+                and set(out["phase_ms"]) == {"prep", "serve_fanout",
+                                             "verify"}
+                and set(out["modes"]) == {"aligned", "pipelined"}
+                and out["serve_host_staged_ms"] > 0):
+            bad.append("aligned anatomy, three programs, both modes")
+    elif name == "device_report":
+        led = out["device"]["ledger"]
+        if not (out["retraces"] == 0 and led["retraces"] == 0
+                and led["programs"] >= 3 and set(
+                    out["device"]["rooflines"]["staged"])
+                == {"prep", "serve_fanout", "verify"}):
+            bad.append("0 retraces, three staged rooflines")
+    if bad:
+        raise AssertionError(f"30 {name}: pins {bad} failed: "
+                             f"{json.dumps(out, default=str)[:2000]}")
+
+
+def tools_full_width(smi: str, t_smoke: float | None = None,
+                     device: str = "cuda") -> dict:
+    """Phase 30: every driver of the port that the earlier phases do not
+    run, once through its ``main()`` on the card (``--device`` as given),
+    its pins held:
+
+    - window ``1t`` (one node): ``benchmark 1 95 26 --theta 0.99`` for
+      three 1-s windows, ``tree_test``, ``write_test``, ``skiplist_test``
+      at their defaults, ``latency_bench`` at its default widths,
+      ``profile_gather`` and ``profile_insert`` at their default 2,097,152
+      rows, ``profile_prep``, ``profile_staged2 aligned`` (and ``chained``,
+      whose refusal is pinned) and ``device_report`` live;
+    - window ``8t`` (several nodes): ``benchmark 8 50 26`` (K4 at eight
+      emulated nodes) for three 1-s windows, and the chaos and recovery
+      drills at their defaults (4 nodes, 4,000 keys); K1 is not on a
+      multi-node path (its descents gather through K2 and K4).
+
+    Past a projection of ``SMOKE_CUT_S`` for the smoke (``budget_cuts``)
+    it takes :data:`TOOLS_CUTS` in order, each listed in ``reduced``.
+    Every launched (kernel, shape) is replayed.  -> {kernel: [shapes]}."""
+    from sherman_tpu_torch import (benchmark, chaos_drill, device_report,
+                                   latency_bench, profile_gather,
+                                   profile_insert, profile_prep,
+                                   profile_staged2, recovery_drill,
+                                   skiplist_test, tree_test, write_test)
+    from sherman_tpu_torch.errors import ConfigError
+    cuts = {} if t_smoke is None else budget_cuts("30", t_smoke)
+    reduced = list(cuts.values())
+    dv = ["--device", device]
+    rows = ["--rows", "524288", "--keys", "500000"] if "rows" in cuts else []
+    staged_env = ({"KEYS": "1000000", "B": "1048576", "DEVB": "278528"}
+                  if "staged_keys" in cuts else {})
+    win = ["--secs", "3", "--window", "1", *dv]
+    one = (
+        ("benchmark_1_95_26", benchmark,
+         ["1", "95", "26", "--theta", "0.99", *win], None),
+        ("tree_test", tree_test, dv, None),
+        ("write_test", write_test,
+         (["--n", "50000"] if "write_n" in cuts else []) + dv, None),
+        ("skiplist_test", skiplist_test, [], None),      # host only
+        ("latency_bench", latency_bench,
+         (["--keys", "1000000"] if "lat_keys" in cuts else []) + dv, None),
+        ("profile_gather", profile_gather, rows + dv, None),
+        ("profile_insert", profile_insert, rows + dv, None),
+        ("profile_prep", profile_prep, dv, None),
+        ("profile_staged2", profile_staged2, ["aligned", *dv], staged_env),
+        ("device_report", device_report, dv, None))
+    several = (
+        ("benchmark_8_50_26", benchmark, ["8", "50", "26", *win], None),
+        ("chaos_drill", chaos_drill, dv, None),
+        ("recovery_drill", recovery_drill, dv, None))
+    shapes: dict = {}
+    secs, heads = {}, {}
+    for path, runs, must in (
+            ("1t", one, ("descent_round", "gather_pages", "writeback")),
+            ("8t", several, ("gather_pages", "writeback", "exchange"))):
+        with ShapeLog() as log:
+            for name, mod, argv, env in runs:
+                out, lines, dt = _run_tool(name, mod, argv, env)
+                secs[name] = dt
+                try:
+                    _tool_pins(name, out, lines)
+                finally:
+                    heads[name] = out
+                    _log(f"30 {name} ({dt:.1f} s): " + json.dumps(
+                        out, default=str)[:3000])
+        log.check(path, must)
+        for k, v in replay(log, path).items():
+            shapes.setdefault(k, []).extend(v)
+        del log
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # the refusal of the forms the port does not build
+    try:
+        _run_tool("profile_staged2", profile_staged2, ["chained"] + dv,
+                  staged_env)
+    except ConfigError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("30 profile_staged2 chained: not refused")
+    _log("tools: " + json.dumps({
+        "seconds": secs, "card": smi, "reduced": reduced,
+        "staged2_chained_refused": refused,
+        "benchmark": {n: {"windows": heads[n]["windows"],
+                          "latency_us": heads[n]["latency_us"]}
+                      for n in ("benchmark_1_95_26", "benchmark_8_50_26")},
+        "profile_gather": heads["profile_gather"]["phases"],
+        "latency_bench": [{k: r[k] for k in (
+            "width", "pipe_ms", "span_p50_ms", "span_p99_ms", "ops_s",
+            "p50_measured_ms", "p99_measured_ms")}
+            for r in heads["latency_bench"]["rows"]]}))
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -7022,6 +6806,11 @@ def _main(bb: str) -> int:
         shapes.setdefault(k, []).extend(v)
     _log("multihost and hostfail path parity at every launched shape "
          "(K1-K3): exact")
+    t = time.perf_counter()
+    for k, v in tools_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log(f"phase 30 (the drivers, replayed at every launched shape, K1-K4: "
+         f"exact): {time.perf_counter() - t:.1f} s")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

@@ -9,15 +9,19 @@ and, beside it, on the host through the native tier.
     python -m sherman_tpu_torch.bench --contract-drill [its arguments]
     python -m sherman_tpu_torch.bench --multihost-drill [its arguments]
     python -m sherman_tpu_torch.bench --hostfail-drill [its arguments]
+    python -m sherman_tpu_torch.bench --chaos-drill [its arguments]
+    python -m sherman_tpu_torch.bench --recovery-drill [its arguments]
 
 With ``--ycsb`` it runs the YCSB A-F matrix instead
 (:mod:`sherman_tpu_torch.ycsb_bench`), with ``--serve`` the open-loop
 front-door bench or, with ``--crash-drill`` too, its journaled-ack drill
 (:mod:`sherman_tpu_torch.serve_bench`); ``--failover-drill``,
 ``--partition-drill``, ``--reshard-drill``, ``--contract-drill``,
-``--multihost-drill`` and ``--hostfail-drill`` run those drills
-(``failover_drill.py``, ``partition_drill.py``, ``reshard_drill.py``,
-``contract_drill.py``, ``multihost_drill.py``, ``hostfail_drill.py``).
+``--multihost-drill``, ``--hostfail-drill``, ``--chaos-drill`` and
+``--recovery-drill`` run those drills (``failover_drill.py``,
+``partition_drill.py``, ``reshard_drill.py``, ``contract_drill.py``,
+``multihost_drill.py``, ``hostfail_drill.py``, ``chaos_drill.py``,
+``recovery_drill.py``).
 The configuration is the north star of the repo's ``bench.py``: keys
 ``mix64(rank ^ 0x5E17AB1E5A17)`` (:func:`synthetic_keys`, the keys of
 ``native.synthetic_keyspace``, the salt moved on should a key fall out of
@@ -807,6 +811,18 @@ def main(argv=None) -> int:
         argv.remove("--hostfail-drill")
         from sherman_tpu_torch import hostfail_drill
         return hostfail_drill.main(argv)
+    if "--chaos-drill" in argv:
+        # the data-plane chaos drill, with its own arguments and JSON line
+        argv.remove("--chaos-drill")
+        from sherman_tpu_torch import chaos_drill
+        chaos_drill.main(argv)
+        return 0
+    if "--recovery-drill" in argv:
+        # the recovery plane's drill, with its own arguments and JSON line
+        argv.remove("--recovery-drill")
+        from sherman_tpu_torch import recovery_drill
+        recovery_drill.main(argv)
+        return 0
     if not torch.cuda.is_available():
         print("sherman_tpu_torch.bench: no CUDA device; the port's benchmark "
               "runs on the GPU", file=sys.stderr)

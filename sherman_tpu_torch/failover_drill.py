@@ -55,45 +55,10 @@ import time
 import numpy as np
 import torch
 
+from sherman_tpu_torch.tools_common import (build_cluster, drill_keyspace,
+                                            in_sorted)
+
 SALT = 0xFA110FEB  # the bulk load's value stamp (key ^ SALT)
-
-
-def drill_keyspace(n_keys: int, seed: int = 3) -> np.ndarray:
-    """The reference drills' keys: ``np.unique`` of ``1.05 n`` draws
-    below 2^56 from ``default_rng(seed)``, first ``n``, by one sort."""
-    from sherman_tpu_torch.utils import sorted_unique
-    rng = np.random.default_rng(seed)
-    return sorted_unique(rng.integers(1, 1 << 56, int(n_keys * 1.05),
-                                      dtype=np.uint64))[:n_keys]
-
-
-def in_sorted(keys: np.ndarray, sorted_set: np.ndarray) -> np.ndarray:
-    """``np.isin(keys, sorted_set)`` for a sorted ``sorted_set``."""
-    if sorted_set.size == 0:
-        return np.zeros(keys.shape, bool)
-    pos = np.searchsorted(sorted_set, keys)
-    return sorted_set[np.minimum(pos, sorted_set.size - 1)] == keys
-
-
-def build_cluster(n_nodes: int, pages_per_node: int, batch_per_node: int,
-                  device: str, locks_per_node: int = 65_536,
-                  chunk_pages: int = 4096):
-    """``tools/common.build_cluster`` on ``device``: cluster, tree and an
-    engine at ``sibling_chase_budget=1``."""
-    from sherman_tpu_torch.cluster import Cluster
-    from sherman_tpu_torch.config import DSMConfig, TreeConfig
-    from sherman_tpu_torch.models import batched
-    from sherman_tpu_torch.models.btree import Tree
-
-    cfg = DSMConfig(machine_nr=n_nodes, pages_per_node=pages_per_node,
-                    locks_per_node=locks_per_node,
-                    step_capacity=batch_per_node, chunk_pages=chunk_pages,
-                    device=device)
-    cluster = Cluster(cfg)
-    tree = Tree(cluster)
-    eng = batched.BatchedEngine(tree, batch_per_node=batch_per_node,
-                                tcfg=TreeConfig(sibling_chase_budget=1))
-    return cluster, tree, eng
 
 
 def initial_state(events, salt: int) -> dict:

@@ -63,94 +63,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from sherman_tpu_torch.tools_common import AdmissionPacer
+
 STAMP0 = 0xD00D          # bulk-load value stamp (key ^ STAMP0)
 STAMP1 = 0x5EED_0001     # open-loop write re-stamp
 
 
 def _say(msg: str) -> None:
     print(f"# {msg}", file=sys.stderr, flush=True)
-
-
-class AdmissionPacer:
-    """The ``perf_counter_ns`` sleep+spin admission pacer of the open-loop
-    benches (a copy of ``tools/common.py``'s).
-
-    ``time.sleep`` alone cannot pace sub-ms periods, so the pacer sleeps
-    until ``spin_ns`` before each deadline, then spins on the ns clock;
-    the spin budget is capped at half the period.  Every admission's
-    pacing error (dispatch time - due time) is recorded;
-    :meth:`jitter_receipt` publishes its p50/p99 and an ``adm_feasible``
-    verdict (p99 error small against the period).
-
-    Usage::
-
-        pacer = AdmissionPacer(period_s, spin_ms=2.0)
-        pacer.start()                 # schedule anchored 2 periods out
-        for i in range(n):
-            pacer.wait_turn(i)        # blocks until deadline i
-            ... dispatch ...
-
-    One pacer paces one admission stream; ``merge_errors`` merges
-    several pacers' errors into one receipt."""
-
-    def __init__(self, period_s: float, spin_ms: float = 2.0):
-        assert period_s > 0
-        self._clock = time.perf_counter_ns
-        self._sleep = time.sleep
-        self.period_ns = int(period_s * 1e9)
-        # duty-cycle bound: never spin more than half the period
-        self.spin_ns = int(min(spin_ms * 1e6, 0.5 * self.period_ns))
-        self.errors_ns: list[int] = []
-        self._t_base: int | None = None
-
-    def start(self, lead_periods: int = 2) -> None:
-        """Anchor the schedule ``lead_periods`` periods from now."""
-        self._t_base = self._clock() + lead_periods * self.period_ns
-
-    def due_ns(self, i: int) -> int:
-        assert self._t_base is not None, "call start() first"
-        return self._t_base + i * self.period_ns
-
-    def wait_turn(self, i: int) -> int:
-        """Block (sleep, then spin) until deadline ``i``; returns and
-        records the pacing error in ns (>= 0: late dispatch)."""
-        due = self.due_ns(i)
-        now = self._clock()
-        if now < due - self.spin_ns:
-            self._sleep((due - self.spin_ns - now) / 1e9)
-        while True:
-            now = self._clock()
-            if now >= due:
-                break
-        err = now - due
-        self.errors_ns.append(err)
-        return err
-
-    def absorb_stall(self, next_i: int, cap_ns: int) -> None:
-        """Re-anchor the schedule by at most ``cap_ns`` after an observer
-        stall; uncapped re-anchoring would hide genuine backlog
-        (coordinated omission)."""
-        lag = self._clock() - self.due_ns(next_i)
-        if lag > 0:
-            self._t_base += min(lag, cap_ns)
-
-    def merge_errors(self, other: "AdmissionPacer") -> None:
-        self.errors_ns.extend(other.errors_ns)
-
-    def jitter_receipt(self, feasible_frac: float = 0.25) -> dict:
-        """{adm_jitter_p50_ms, adm_jitter_p99_ms, adm_spin_budget_ms,
-        adm_feasible, pacing}."""
-        errs = self.errors_ns or [0]
-        p50 = float(np.percentile(errs, 50)) / 1e6
-        p99 = float(np.percentile(errs, 99)) / 1e6
-        return {
-            "adm_jitter_p50_ms": round(p50, 3),
-            "adm_jitter_p99_ms": round(p99, 3),
-            "adm_spin_budget_ms": round(self.spin_ns / 1e6, 3),
-            "adm_feasible": bool(
-                p99 < feasible_frac * self.period_ns / 1e6),
-            "pacing": "sleep+spin",
-        }
 
 
 @functools.lru_cache(maxsize=1)

@@ -1170,3 +1170,142 @@ def test_index_cache_descent_on_a_cuda_pool(dev):
     assert out[0] == out[1]
     assert out[0][1]["hits"] > 0 and out[0][1]["adds"] > 0
     assert out[0][0][:200] == [int(v) for v in b["vals"][:200]]
+
+
+# -- the drivers (python -m sherman_tpu_torch.<driver>) on the card ----------
+
+def _drive(mod, argv, device, capsys=None):
+    out = mod.main(list(argv) + ["--device", device])
+    if capsys is not None:
+        capsys.readouterr()
+    return out
+
+
+def _same(a, b, drop):
+    """Two receipts equal but for their wall-clock fields, their paths and
+    the compressed sizes of checkpoint files (whose epochs hold nonces)."""
+    strip = lambda d: {k: v for k, v in d.items() if k not in drop}
+    assert strip(a) == strip(b)
+    if "delta1" in a:
+        assert a["delta1"]["pages"] == b["delta1"]["pages"]
+        assert a["repair"]["pages"] == b["repair"]["pages"]
+
+
+_TIMES = ("value", "elapsed_s", "fresh_insert_ops_s", "splits_s", "wall_s",
+          "churn_ops_s", "reclaim_ms_mean", "reclaim_ms_max", "dir",
+          "rto_ms", "recover", "repair", "blackbox", "upsert_ops_s",
+          "lock_us", "delta1")
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("insert_bench", ["--keys", "20000", "--fresh", "6000", "--chunk",
+                      "2048", "--split-slots", "256", "--verify"]),
+    ("insert_bench", ["--keys", "20000", "--fresh", "6000", "--chunk",
+                      "1024", "--split-slots", "256", "--nodes", "4"]),
+    ("churn_bench", ["--keys", "30000", "--window", "2500", "--iters", "6",
+                     "--chunk", "8192"]),
+    ("chaos_drill", ["--keys", "2500", "--nodes", "4"]),
+    ("recovery_drill", ["--keys", "2500", "--nodes", "4"]),
+    ("tree_test", ["4", "--n", "2000"]),
+    ("write_test", ["2", "--n", "4000", "--batch", "1024"]),
+])
+def test_driver_on_the_card_matches_the_cpu(dev, capsys, name, argv):
+    import importlib
+    mod = importlib.import_module(f"sherman_tpu_torch.{name}")
+    card = _drive(mod, argv, "cuda", capsys)
+    cpu = _drive(mod, argv, "cpu", capsys)
+    _same(card, cpu, _TIMES)
+    assert card.get("ok", True)
+
+
+def test_skiplist_test_driver(dev, capsys):
+    from sherman_tpu_torch import skiplist_test
+    r = skiplist_test.main(["--inserts", "2000", "--seeks", "200"])
+    assert r["ok"] and "PASS" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["1", "95", "2", "--theta", "0.99"],
+    ["8", "50", "2"],
+    ["2", "100", "1", "--combine", "on", "--scans", "2", "--scan-span",
+     "50"],
+    ["2", "100", "1", "--ops-per-coro", "4", "--exchange", "pallas"],
+])
+def test_benchmark_driver_on_the_card(dev, capsys, argv):
+    from sherman_tpu_torch import benchmark
+    r = benchmark.main(argv + ["--keys", "20000", "--secs", "1.5",
+                               "--window", "0.5", "--device", "cuda"])
+    out = capsys.readouterr().out
+    assert r["peak_ops"] > 0 and len(r["windows"]) == 3
+    assert r["latency_us"] and "cluster tp" in out
+    if "pallas" in argv:
+        assert "counter diff vs xla: none (exact match)" in out
+
+
+def test_latency_bench_driver_on_the_card(dev, capsys):
+    from sherman_tpu_torch import latency_bench
+    r = latency_bench.main(["--keys", "50000", "--widths", "1024,4096",
+                            "--blocks", "4", "--kblk", "2", "--device",
+                            "cuda"])
+    capsys.readouterr()
+    assert [x["width"] for x in r["rows"]] == [1024, 4096]
+    assert all(x["ops_s"] > 0 and x["span_clock"] == "cuda_events"
+               and x["ol_samples"] == 4 for x in r["rows"])
+
+
+def test_profile_gather_driver_on_the_card(dev, capsys):
+    from sherman_tpu_torch import profile_gather
+    r = profile_gather.main(["--rows", "4096", "--keys", "20000", "--k",
+                             "1", "--device", "cuda"])
+    capsys.readouterr()
+    assert r["kernel_on_card"]
+    assert set(r["phases"]) == {"descent_round", "snapshot_gather",
+                                "writeback_3w", "writeback_5w"}
+    for ph, by in r["phases"].items():
+        assert {"twin", "kernel", "ratio"} <= set(by), ph
+        assert ("library" in by) == (ph != "descent_round")
+
+
+def test_profile_insert_driver_on_the_card(dev, capsys):
+    from sherman_tpu_torch import profile_insert
+    r = profile_insert.main(["--rows", "4096", "--keys", "20000", "--k",
+                             "1", "--device", "cuda"])
+    capsys.readouterr()
+    assert r["insert_step_update_only"] > 0 and r["page_snapshot_gather"] > 0
+
+
+def test_profile_prep_driver_on_the_card(dev, capsys):
+    from sherman_tpu_torch import profile_prep
+    card = profile_prep.main(["--device", "cuda"])
+    cpu = profile_prep.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert card["combine"] == cpu["combine"]
+    assert card["combine"]["locks_saved"] > 0
+
+
+def test_profile_staged2_driver_on_the_card(dev, capsys, monkeypatch):
+    from sherman_tpu_torch import profile_staged2
+    from sherman_tpu_torch.errors import ConfigError
+    for k, v in (("KEYS", "20000"), ("B", "8192"), ("DEVB", "8192"),
+                 ("K", "2"), ("STEPS", "4"), ("W", "2")):
+        monkeypatch.setenv(k, v)
+    r = profile_staged2.main(["aligned", "--device", "cuda"])
+    assert r["n_programs"] == 3 and r["timer"] == "cuda_events"
+    assert set(r["modes"]) == {"aligned", "pipelined"}
+    with pytest.raises(ConfigError):
+        profile_staged2.main(["chained", "--device", "cuda"])
+    assert '"refused"' in capsys.readouterr().out
+
+
+def test_device_report_driver_on_the_card(dev, capsys, tmp_path):
+    import json
+    from sherman_tpu_torch import device_report
+    r = device_report.main(["--device", "cuda"])
+    out = capsys.readouterr()
+    assert r["retraces"] == 0 and r["device"]["ledger"]["programs"] >= 3
+    assert "unavailable" in out.err
+    assert r["device"]["memory"]["cuda_allocated_bytes"] > 0
+    p = tmp_path / "r.json"
+    p.write_text(json.dumps({"parsed": {"schema_version": 3,
+                                        "device": r["device"]}}))
+    assert device_report.main(["--receipt", str(p)])["retraces"] == 0

@@ -393,11 +393,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "serve.py", "audit.py", "replica.py", "serve_bench.py", "chaos.py",
         "failover_drill.py", "partition_drill.py", "migrate.py",
         "reshard_drill.py", "contract_drill.py", "multihost.py",
-        "hostlease.py", "multihost_drill.py", "hostfail_drill.py"}
+        "hostlease.py", "multihost_drill.py", "hostfail_drill.py",
+        "tools_common.py", "insert_bench.py", "churn_bench.py",
+        "chaos_drill.py", "recovery_drill.py", "tree_test.py",
+        "write_test.py", "skiplist_test.py", "benchmark.py",
+        "latency_bench.py", "profile_prep.py", "profile_insert.py",
+        "profile_gather.py", "profile_staged2.py", "device_report.py"}
     utils_dir = os.path.join(REPO, "sherman_tpu_torch", "utils")
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == utils_dir} >= {
-        "checkpoint.py", "journal.py", "reshard.py"}
+        "checkpoint.py", "journal.py", "reshard.py", "debug.py",
+        "timer.py", "failure.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -238,10 +238,15 @@ def test_pacer_absorb_stall_is_capped():
 
 
 def test_serve_bench_has_one_pacer():
-    """The open-loop bench paces through the one pacer class, not a
-    copy of its spin loop."""
+    """The open-loop bench paces through the one pacer class, the
+    drivers' shared one in ``tools_common``, not a copy of its spin
+    loop."""
     import inspect
-    src = inspect.getsource(SB)
+
+    from sherman_tpu_torch import tools_common as TC
+    assert SB.AdmissionPacer is TC.AdmissionPacer
+    assert "class AdmissionPacer" not in inspect.getsource(SB)
+    src = inspect.getsource(TC)
     assert src.count("class AdmissionPacer") == 1
     assert src.count("now = self._clock()") == 2     # wait_turn only
     assert "AdmissionPacer(period" in inspect.getsource(SB.run_serve)
