@@ -389,6 +389,37 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     host per-op floor; every answer checked) and its ``native_host`` JSON
     line; (c) every shape it launched replayed (path
     ``one_node_native``: K1; the one-node host steps run no page kernel).
+31. the process-spanning transport, last (``parallel/mesh.py``,
+    ``bootstrap.init_multihost``, ``ReplicatedDSM``, K4 around the gloo
+    ``all_to_all``, the collective checkpoint, ``utils/failure.py``): the
+    parent frees its trees and starts two rank processes of this script
+    (``--rank R``, a free port, ``SHERMAN_COORD``/``NPROC``/``PROC_ID``)
+    that share the card and load the kernels it built; their lines come
+    back through pipes.  (a) 2 ranks x 4 nodes on the card at 20,000 keys
+    against one process of 8 nodes on the CPU, from one seed
+    (:func:`mr_parity_seq`: bulk load, insert with device splits, search,
+    delete, the device validator, ``mixed``, the collective checkpoint and
+    its restore, three staged aligned and three staged mixed steps):
+    pools, locks, counters, answers and receipts bit-identical, and every
+    K4 shape of each rank replayed exact; (b) the north-star keyspace
+    (100 M keys, fill 0.75) over 2 ranks x 4 nodes of 524,288 pages:
+    staged aligned YCSB-C at 4,194,304 ops a step (receipts summed over
+    the ranks), YCSB-A ``mixed`` at 1,048,576 (every read checked), a
+    storm chunk of 81,920 fresh inserts with device splits (20 past the
+    low fence of each of 4,096 neighbouring leaves; every key searched),
+    the device validator, the collective checkpoint and its restore into
+    a fresh two-rank cluster (1,048,576 sampled keys checked); ms a step
+    beside phase 6's one-process staged step of this run, and the
+    exchange's split (K4 device ms, staging device ms, gloo wall ms,
+    bytes across ranks); window ``2r`` (K2-K4, the ranks' launches
+    summed; K1 runs on no multi-node path; the ranks replay in turn, so
+    each times its shapes alone on the card); (c) the failure plane at
+    4,000 keys: rank 1 stopped (rank 0's guarded barrier raises
+    ``PeerFailure`` naming it inside its deadline, both resume), SIGTERM
+    on rank 0 (both checkpoint at one step), rank 1 killed (the heartbeat
+    ends rank 0 with a diagnostic naming rank 1) and a relaunched pair
+    restoring the checkpoint, every key checked.  Its ``multirank`` line
+    has each number.  Budget: ``BUDGET["31"]``.
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -401,7 +432,8 @@ and delta, its recovery and its repair (K1-K3 in each), around phase
 (K1-K3), around 25b+c and 25d, around 26b and 26c (K1-K3 in each), around
 each of 27a's card runs (K2-K4), around 27b (K1-K4) and 27c (K2-K4),
 around 28a's card runs and around 28b and 28c (K1-K3 in each), around
-29b (K1);
+29b (K1), in each rank around 31a and 31b (K2-K4, window ``2r`` summing
+31b's two ranks);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -472,7 +504,8 @@ SMOKE_CUT_S = 1050.0            # the projection past which phases cut
 # at full depth on the H100 (a whole smoke with no cut: 41, 153, 131 and
 # 313 s of its 1,094.8 s; phase 28 alone, 240.8 s; phase 29, which runs
 # after phase 4, 15.6 s alone), and its cuts in the order taken, as (key,
-# the cut, the seconds it saves).  An earlier phase cuts first.
+# the cut, the seconds it saves).  An earlier phase cuts first, apart
+# from the last-resort cuts (:data:`LAST_CUTS`).
 # Phase 30 (the drivers, ``tools_full_width``): its seconds at full depth
 # and its cuts in order, each (key, the cut, the seconds it saves).
 TOOLS_S = 70.0
@@ -486,11 +519,16 @@ TOOLS_CUTS = (
 BUDGET = {
     "29": (20.0, (
         ("b_steps", "(b) host-staged sustained steps 16 -> 8", 1.0),)),
+    # phase 16's one-node matrix, whose tree phases 19-23 serve (its
+    # build, the workloads, 21's saves, restores and repair scale with it)
+    "16": (40.0, (("keys", "the one-node YCSB matrix's tree (phases 16 "
+                   "and 19-23) 100,000,000 -> 10,000,000 keys", 80.0),)),
     "24b": (41.0, (("keys", "keys halved", 15.0),)),
     "25": (153.0, (
         ("c_secs", "(c)'s second serve run --secs 30 -> 10", 20.0),
         ("b_secs", "(b) --secs 30 -> 15", 15.0),
-        ("d_secs", "(d) --secs 10 -> 5", 5.0))),
+        ("d_secs", "(d) --secs 10 -> 5", 5.0),
+        ("keys", "(b)-(d) keys 100,000,000 -> 10,000,000", 30.0))),
     "26": (131.0, (
         ("b_secs", "(b) --secs 30 -> 15", 15.0),
         ("c_keys", "(c) keys 10,000,000 -> 1,000,000", 12.0),
@@ -505,24 +543,50 @@ BUDGET = {
         ("c_keys_1m", "(c) keys 10,000,000 -> 1,000,000", 6.0),
         ("b_keys_1m", "(b) keys 10,000,000 -> 1,000,000", 8.0))),
     "30": (TOOLS_S, TOOLS_CUTS),
+    # phase 31, the two-rank transport (alone on the H100: 179.7 s at
+    # 100 M keys, 155.6 s at 10 M): 31b's cuts in order
+    "31": (180.0, (
+        ("ck_keys", "31b's checkpoint and restore at 10,000,000 keys", 20.0),
+        ("steps", "31b's steps 4 -> 2", 5.0),
+        ("keys", "31b's bulk load at 10,000,000 keys", 5.0))),
 }
+# The last-resort cuts, taken after every other cut (phase 31's too):
+# (phase, key) -> the seconds from the phase's decision to the smoke's end
+# with this cut and every other one taken (the slower of two whole smokes
+# on the H100, 680.5 and 477.3 s, with 20 s added for the serial replay
+# of phase 31).  One is taken while that time, the seconds elapsed and
+# what the cut saves pass SMOKE_CUT_S; phase 31 then takes all its cuts.
+LAST_CUTS = {("16", "keys"): 700.0, ("25", "keys"): 500.0}
+_last_taken: list = []          # the last-resort cuts this smoke took
 
 
 def budget_cuts(phase: str, t_smoke: float) -> dict:
     """The cuts ``phase`` takes as it starts, in :data:`BUDGET`'s order:
     each while the projection (the seconds since ``t_smoke`` plus the
     estimates of ``phase`` and every later phase, less what the cuts
-    taken save) passes ``SMOKE_CUT_S``.  -> {key: its ``reduced`` line}."""
+    taken save) passes ``SMOKE_CUT_S``; a cut of :data:`LAST_CUTS` by its
+    own projection, and phase 31 every cut once one of those was taken.
+    -> {key: its ``reduced`` line}."""
+    elapsed = time.perf_counter() - t_smoke
     names = list(BUDGET)
-    proj = time.perf_counter() - t_smoke + sum(
-        BUDGET[p][0] for p in names[names.index(phase):])
+    proj = elapsed + sum(BUDGET[p][0] for p in names[names.index(phase):])
     taken = {}
     for key, what, saves in BUDGET[phase][1]:
-        if proj <= SMOKE_CUT_S:
-            break
-        taken[key] = (f"{what}: the smoke's projection {proj:.0f} s passed "
-                      f"{SMOKE_CUT_S:.0f} s")
-        proj -= saves
+        rest = LAST_CUTS.get((phase, key))
+        if rest is not None:
+            last = elapsed + rest + saves
+            if last > SMOKE_CUT_S:
+                taken[key] = (f"{what}: the smoke's projection with every "
+                              f"other cut taken {last:.0f} s passed "
+                              f"{SMOKE_CUT_S:.0f} s")
+                _last_taken.append(f"{phase} {key}")
+        elif phase == "31" and _last_taken:
+            taken[key] = (f"{what}: counted as taken by the last-resort "
+                          f"cut(s) {', '.join(_last_taken)}")
+        elif proj > SMOKE_CUT_S:
+            taken[key] = (f"{what}: the smoke's projection {proj:.0f} s "
+                          f"passed {SMOKE_CUT_S:.0f} s")
+            proj -= saves
     return taken
 
 
@@ -945,8 +1009,12 @@ KERNELS = {   # name -> (TPU kernel it replaces, source of the CUDA kernel)
 
 
 def _shape(kernel: str, args, kw) -> tuple:
-    """The input shape by which a kernel's launches are told apart."""
+    """The input shape by which a kernel's launches are told apart (K4's
+    rank layout, ``block_transpose``: ``("layout", a, b, run)``)."""
     if kernel == "exchange":
+        if len(args) >= 3:
+            a, b = int(args[1]), int(args[2])
+            return ("layout", a, b, args[0].numel() // (a * b))
         return tuple(args[0].shape)
     pool, rows = args[0], args[1]
     if kernel == "descent_round":
@@ -980,10 +1048,13 @@ class ShapeLog:
         self.args: dict[str, dict[tuple, tuple]] = {}
         self._lock = threading.Lock()   # several threads launch (26b-c)
         self._idle: set = set()      # K3 shapes kept with an empty mask
-        self._orig = [(m, a, getattr(m, a)) for m, a in (
-            (PK, "descent_round"), (PK, "gather_pages"), (PK, "writeback"),
-            (TK, "all_to_all"))]
-        for (mod, attr, fn), kernel in zip(self._orig, KERNELS):
+        # K4 has two wrappers: the one-rank exchange and the rank layout
+        self._orig = [(m, a, getattr(m, a), k) for m, a, k in (
+            (PK, "descent_round", "descent_round"),
+            (PK, "gather_pages", "gather_pages"),
+            (PK, "writeback", "writeback"), (TK, "all_to_all", "exchange"),
+            (TK, "block_transpose", "exchange"))]
+        for mod, attr, fn, kernel in self._orig:
             setattr(mod, attr, self._spy(kernel, fn))
         PK.reset_launches()
         TK.reset_launches()
@@ -1018,7 +1089,7 @@ class ShapeLog:
     def __exit__(self, *exc) -> bool:
         from sherman_tpu_torch.ops import page_kernels as PK
         from sherman_tpu_torch.parallel import transport_kernel as TK
-        for mod, attr, fn in self._orig:
+        for mod, attr, fn, _ in self._orig:
             setattr(mod, attr, fn)
         self.launches = {**PK.LAUNCHES, **TK.LAUNCHES}
         return False
@@ -1162,6 +1233,25 @@ def replay_exchange(x: torch.Tensor, data: str) -> dict:
             **bound(2 * x.numel() * 4, 0)}
 
 
+def replay_exchange_layout(a: int, b: int, run: int, gen, dev) -> dict:
+    """K4 in its rank layout (the block transpose of an ``[a, b]`` grid of
+    ``run``-word runs, one of the two launches around a cross-rank
+    collective) against its plain version on random words, then timed
+    beside it, ``transpose(0, 1).contiguous()`` and its bound."""
+    from sherman_tpu_torch.parallel import transport_kernel as TK
+    x = torch.randint(-2**31, 2**31 - 1, (a * b * run,), generator=gen,
+                      dtype=torch.int32, device=dev)
+    _eq(TK.block_transpose(x, a, b), TK.block_transpose_ref(x, a, b),
+        f"exchange layout [{a}, {b}, {run}]")
+    lib = lambda: x.view(a, b, run).transpose(0, 1).contiguous()
+    return {"shape": ["layout", a, b, run], "data": "random",
+            "ms": time_ms(lambda: TK.block_transpose(x, a, b)),
+            "plain_ms": time_ms(lambda: TK.block_transpose_ref(x, a, b),
+                                reps=5),
+            "library_ms": time_ms(lib, reps=5),
+            **bound(2 * x.numel() * 4, 0)}
+
+
 REPLAY = {"descent_round": replay_descent_round,
           "gather_pages": replay_gather_pages, "writeback": replay_writeback}
 
@@ -1178,7 +1268,9 @@ def replay(log: ShapeLog, path: str, real=None) -> dict:
     out: dict[str, list] = {}
     for kernel, by_shape in log.counts.items():
         for shape, n in by_shape.items():
-            if kernel == "exchange":
+            if kernel == "exchange" and shape[0] == "layout":
+                r = replay_exchange_layout(*shape[1:], gen, dev)
+            elif kernel == "exchange":
                 x = real.pop(shape, None)
                 data = "captured"
                 if x is None:
@@ -1209,7 +1301,7 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_heap", "one_node_serve", "one_node_crash",
          "one_node_failover", "one_node_partition", "one_node_reshard",
          "two_node_contract", "two_host_multihost",
-         "two_host_hostfail", "one_node_native", "1t", "8t")
+         "two_host_hostfail", "one_node_native", "1t", "8t", "2r")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -1484,6 +1576,11 @@ def restore_bulk_values(ctx: dict) -> None:
             raise AssertionError("restoring the bulk values failed")
 
 
+# each staged loop's ms a step in this run, by (path, loop, fusion)
+# (phase 31 prints its steps beside the eight-node aligned YCSB-C one)
+STAGED_MS: dict = {}
+
+
 def staged_windows(ctx: dict, path: str, batch_r: int, batch_m: int,
                    steps: int, must_launch) -> dict:
     """The four staged loops on ``ctx``'s tree — YCSB-C aligned and
@@ -1517,6 +1614,7 @@ def staged_windows(ctx: dict, path: str, batch_r: int, batch_m: int,
     # re-applies one prepped batch
     for rec in recs:
         st = steps_of[(rec["loop"], rec["fusion"])]
+        STAGED_MS[(path, rec["loop"], rec["fusion"])] = rec["ms_per_step"]
         rec["phase_ms"] = st.profile()
         profile_step(f"staged_{rec['loop']}_{rec['fusion']}_{path}",
                      st.replay)
@@ -4718,9 +4816,10 @@ def front_reference_check(machine_nr: int, devices=("cuda", "cpu")) -> None:
          f"{time.perf_counter() - t:.1f} s)")
 
 
-def _serve_args(secs: float, *extra) -> "object":
+def _serve_args(secs: float, *extra, keys: int | None = None) -> "object":
     from sherman_tpu_torch import serve_bench as SB
-    return SB.parse_args(["--keys", str(SERVE_KEYS), "--widths", SERVE_WIDTHS,
+    keys = SERVE_KEYS if keys is None else keys
+    return SB.parse_args(["--keys", str(keys), "--widths", SERVE_WIDTHS,
                           "--req-ops", str(SERVE_REQ_OPS), "--secs",
                           str(secs), "--theta", "0.99", "--tenants", "3",
                           "--rho", "0.6", "--fusion", "pipelined",
@@ -4808,23 +4907,24 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
     secs_b = 15.0 if "b_secs" in cuts else SERVE_SECS
     secs_c = 10.0 if "c_secs" in cuts else SERVE_SECS_DEVICE
     secs_d = 5.0 if "d_secs" in cuts else CRASH_SECS
+    n_keys = 10_000_000 if "keys" in cuts else SERVE_KEYS
     widths = tuple(int(w) for w in SERVE_WIDTHS.split(","))
     shapes: dict = {}
     t_phase = time.perf_counter()
     with ShapeLog() as log:
         t = time.perf_counter()
-        SB.keyspace(SERVE_KEYS)
+        SB.keyspace(n_keys)
         keys_s = time.perf_counter() - t
-        built = SB.build_engine(SERVE_KEYS, widths, False, device)
+        built = SB.build_engine(n_keys, widths, False, device)
         build_s = time.perf_counter() - t
-        _log(f"25b build: {SERVE_KEYS:,} keys in {build_s:.1f} s (the "
+        _log(f"25b build: {n_keys:,} keys in {build_s:.1f} s (the "
              f"keyspace {keys_s:.1f} s)")
         t = time.perf_counter()
-        rec_b = SB.run_serve(_serve_args(secs_b, "--device", device),
-                             built=built)
+        rec_b = SB.run_serve(_serve_args(secs_b, "--device", device,
+                                         keys=n_keys), built=built)
         rec_b["wall_s"] = time.perf_counter() - t
         eng, keys = built[2], built[3]
-        sample = SB.make_sampler(SERVE_KEYS, 0.99, built[4], 4242)
+        sample = SB.make_sampler(n_keys, 0.99, built[4], 4242)
         rec_b["host_syncs"] = dispatch_syncs(eng, widths, sample)
         rec_b.update(card=smi, build_s=build_s, keyspace_s=keys_s,
                      reduced=[r for r in reduced if r.startswith("(b)")])
@@ -4844,7 +4944,8 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
         aud = AU.Auditor(sample_mod=8)
         try:
             t = time.perf_counter()
-            rec_c = SB.run_serve(_serve_args(secs_c, "--device", device),
+            rec_c = SB.run_serve(_serve_args(secs_c, "--device", device,
+                                             keys=n_keys),
                                  built=built, auditor=aud)
             rec_c["wall_s"] = time.perf_counter() - t
         finally:
@@ -4876,7 +4977,8 @@ def front_full_width(smi: str, t_smoke: float, device: str = "cuda") -> dict:
     with ShapeLog() as log:
         t = time.perf_counter()
         rec_d = SB.run_crash_drill(_serve_args(secs_d, "--crash-drill",
-                                               "--device", device))
+                                               "--device", device,
+                                               keys=n_keys))
         rec_d["wall_s"] = time.perf_counter() - t
     rec_d["card"] = smi
     rec_d["reduced"] = [r for r in reduced if r.startswith("(d)")]
@@ -6581,11 +6683,636 @@ def tools_full_width(smi: str, t_smoke: float | None = None,
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the process-spanning transport, two ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+MR_SALT = 0x5E17AB1E5A17
+MR_A_KEYS = 20_000              # 31a: 2 ranks x 4 nodes against 8 on the CPU
+MR_A_CFG = dict(machine_nr=8, pages_per_node=1024, locks_per_node=512,
+                step_capacity=512, host_step_capacity=16, chunk_pages=32)
+MR_A_B = 256                    # 31a's rows a node
+MR_KEYS = 100_000_000           # 31b: the north-star keyspace
+MR_BATCH_C = 1 << 22            # 31b's YCSB-C batch (all 8 nodes)
+MR_BATCH_A = 1 << 20            # 31b's YCSB-A batch
+MR_CAP = 131_072                # phase 6's step capacity
+MR_STEPS = 4
+MR_STORM_LEAVES = 4096          # 31b's storm: 20 fresh keys into each
+MR_SAMPLE = 1 << 20             # 31b: keys searched on the restored tree
+MR_CUT_KEYS = 10_000_000
+MR_FAIL_KEYS = 4000             # 31c's tree
+MR_FAIL_CFG = dict(machine_nr=8, pages_per_node=256, locks_per_node=256,
+                   step_capacity=64, host_step_capacity=16, chunk_pages=8)
+MR_HB_S = 5                     # 31c's death drill heartbeat timeout
+MR_STALL_HB_S = 60              # a stalled rank's heartbeat stops too
+
+
+def _mr_small(keeper, device: str = "cuda"):
+    """31c's two-rank tree: 4,000 keys over 8 nodes."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    cluster = Cluster(DSMConfig(device=device, **MR_FAIL_CFG), keeper=keeper)
+    tree = Tree(cluster)
+    keys = keys_of(np.arange(MR_FAIL_KEYS, dtype=np.uint64), MR_SALT)
+    order = np.argsort(keys)
+    batched.bulk_load(tree, keys[order], (keys ^ VAL_XOR)[order])
+    return cluster, batched.BatchedEngine(tree, batch_per_node=64), keys
+
+
+def _mr_verify(eng, keys) -> None:
+    got, found = eng.search(keys)
+    if not (found.all() and np.array_equal(got, keys ^ VAL_XOR)):
+        raise AssertionError(f"{int((~found).sum())} keys missing or wrong")
+
+
+def mr_parity_seq(cluster, keeper, d: str, device: str) -> tuple:
+    """31a's sequence (``tests/test_multihost.py``'s engine worker and
+    staged worker): bulk load, insert with device splits, search, delete,
+    the device validator, ``mixed``, the collective checkpoint and its
+    restore, three staged aligned and three staged mixed steps.  Run by two
+    ranks on the card and by one process on the CPU.
+    -> (results, [clusters whose state is compared])."""
+    from sherman_tpu_torch.models import batched, validate
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.utils import checkpoint as CK
+    from sherman_tpu_torch.workload import device_prep as DP
+    tree = Tree(cluster)
+    eng = batched.BatchedEngine(tree, batch_per_node=MR_A_B)
+    keys = keys_of(np.arange(MR_A_KEYS, dtype=np.uint64), MR_SALT)
+    vals = keys ^ VAL_XOR
+    order = np.argsort(keys[:15_000])
+    batched.bulk_load(tree, keys[:15_000][order], vals[:15_000][order],
+                      fill=0.8)
+    eng.attach_router()
+    st = eng.insert(keys[15_000:], vals[15_000:])
+    if not st.get("device_splits"):
+        raise AssertionError(f"31a: no device splits: {st}")
+    got, found = eng.search(keys)
+    dropped = keys[::10]
+    fnd = eng.delete(dropped)
+    dev = validate.check_structure_device(tree)
+    kept = np.setdiff1d(keys, dropped)
+    mk = kept[:512]
+    is_read = np.arange(mk.size) % 2 == 0
+    ov, fm, stt = eng.mixed(mk, mk ^ np.uint64(0xABC), is_read)
+    ck = os.path.join(d, f"mr_a_{device}.npz")
+    CK.checkpoint(cluster, ck)
+    c2 = CK.restore(ck, device=device, keeper=keeper)
+    e2 = batched.BatchedEngine(Tree(c2), batch_per_node=MR_A_B)
+    e2.attach_router()
+    got2, f2 = e2.search(kept)
+    back = np.concatenate([dropped, mk])
+    e2.insert(back, back ^ VAL_XOR)      # every key at its bulk value
+    step, (new_carry, tb, rt, rk) = DP.make_staged_step(
+        e2, n_keys=MR_A_KEYS, theta=0.99, salt=MR_SALT, batch=MR_A_B,
+        dev_b=MR_A_B, log2_bins=16, fusion="aligned")
+    carry = new_carry()
+    for _ in range(3):
+        _, carry = step(e2.dsm.pool, e2.dsm.counters, tb, rt, rk, carry)
+    ro = step.receipts(step.drain(carry))
+    mstep, (new_mc, mtb, mrt, mrk) = DP.make_staged_mixed_step(
+        e2, n_keys=MR_A_KEYS, theta=0.99, salt=MR_SALT, batch=MR_A_B,
+        read_ratio=0.5, dev_rb=MR_A_B // 2, dev_wb=MR_A_B // 2,
+        log2_bins=16)
+    mc = new_mc()
+    for _ in range(3):
+        _, _, mc = mstep(e2.dsm.pool, e2.dsm.locks, e2.dsm.counters, mtb,
+                         mrt, mrk, mc)
+    mx = mstep.receipts(mstep.drain(mc))
+    want = 3 * MR_A_B * 8
+    if ro[:3] != [3, 1, want] or mx[:4] != [3, 1, want // 2, want // 2]:
+        raise AssertionError(f"31a receipts {ro} {mx}")
+    res = {"stats": [st[k] for k in ("applied", "superseded", "host_path",
+                                     "rounds", "device_splits")],
+           "got": got, "found": found, "fnd": fnd,
+           "dev": [dev[k] for k in sorted(dev)], "ov": ov, "fm": fm,
+           "stt": stt, "got2": got2, "f2": f2, "ro": ro, "mx": mx}
+    return res, [cluster, c2]
+
+
+def _mr_state(clusters) -> dict:
+    out = {}
+    for i, c in enumerate(clusters):
+        d = c.dsm
+        out[f"pool{i}"] = d.pool.cpu().numpy()
+        out[f"locks{i}"] = d.locks.cpu().numpy()
+        out[f"counters{i}"] = d.counters_np()
+    return out
+
+
+def _mr_rank_a(keeper, rank: int, d: str) -> dict:
+    """31a in a rank: the sequence, its state dumped for the parent, and
+    every K4 shape the rank launched replayed against the plain version."""
+    with ShapeLog() as log:
+        res, clusters = mr_parity_seq(clusters_a(keeper), keeper, d, "cuda")
+    log.check(f"31a rank {rank}", ("gather_pages", "writeback", "exchange"))
+    np.savez(os.path.join(d, f"mr_a_r{rank}.npz"), **_mr_state(clusters),
+             **{f"res_{k}": np.asarray(v) for k, v in res.items()})
+    del clusters
+    gc.collect()
+    # every K4 layout shape the rank launched, against the plain version
+    # (31b's window times them)
+    from sherman_tpu_torch.parallel import transport_kernel as TK
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    layouts = [s for s in log.counts.get("exchange", {})
+               if s[0] == "layout"]
+    for _, a, b, run in layouts:
+        x = torch.randint(-2**31, 2**31 - 1, (a * b * run,), generator=gen,
+                          dtype=torch.int32, device="cuda")
+        _eq(TK.block_transpose(x, a, b), TK.block_transpose_ref(x, a, b),
+            f"exchange layout [{a}, {b}, {run}] (31a)")
+    log.args.clear()
+    return {"a_launches": log.launches, "a_layout_shapes": len(layouts)}
+
+
+def clusters_a(keeper, device: str = "cuda"):
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    return Cluster(DSMConfig(device=device, **MR_A_CFG), keeper=keeper)
+
+
+def _mr_ycsb_a(eng, q, wv, is_read, cur, ranks) -> None:
+    """One YCSB-A step's checks (phase 6's): one applied write a written
+    key, every read the pre-step value or the step's own write."""
+    from sherman_tpu_torch.models import batched
+    out, found, st = eng.mixed(q, wv, is_read)
+    w = ~is_read
+    if not np.isin(st[w], (batched.ST_APPLIED, batched.ST_SUPERSEDED)).all():
+        raise AssertionError(f"31b YCSB-A: write statuses {np.bincount(st[w])}")
+    if int((st[w] == batched.ST_APPLIED).sum()) != np.unique(q[w]).size:
+        raise AssertionError("31b YCSB-A: not one applied write a key")
+    written = np.zeros(q.size, bool)
+    written[is_read] = np.isin(ranks[is_read], ranks[w])
+    ok = found[is_read] & ((out[is_read] == cur[ranks[is_read]])
+                           | (written[is_read] & (out[is_read]
+                                                  == wv[is_read])))
+    if not ok.all():
+        raise AssertionError(f"31b YCSB-A: {int((~ok).sum())} reads wrong")
+    cur[ranks[w]] = wv[w]
+
+
+def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
+    """31b in a rank: the north-star keyspace over 2 ranks x 4 nodes."""
+    from sherman_tpu_torch.bench import build
+    from sherman_tpu_torch.models import validate
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.parallel import transport as T
+    from sherman_tpu_torch.utils import checkpoint as CK
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload.zipf import ZipfGen
+    n_keys, steps, ck_keys = arg["keys"], arg["steps"], arg["ck_keys"]
+    rec = {}
+
+    def say(what: str, key: str) -> None:
+        if rank == 0:
+            print(f"[r0] 31b {what}: {json.dumps(rec[key])}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with ShapeLog() as log:
+        t = time.perf_counter()
+        b = build(n_keys, MR_BATCH_C, MR_BATCH_A, "cuda", machine_nr=8,
+                  step_capacity=MR_CAP, keeper=keeper,
+                  log=lambda m: print(f"[r{rank}] {m}", flush=True))
+        rec["build_s"] = time.perf_counter() - t
+        eng_c, eng_a, salt = b["eng_c"], b["eng_a"], b["salt"]
+        cur = b["vals"].copy()
+        # staged aligned YCSB-C: every op verified on the card
+        per = MR_BATCH_C // 8
+        step, (new_carry, tb, rt, rk) = DP.make_staged_step(
+            eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=per,
+            dev_b=per, fusion="aligned")
+        pool, counters = eng_c.dsm.pool, eng_c.dsm.counters
+        carry = new_carry()
+        walls = []
+        for s in range(steps + 1):          # step 0: the warm-up
+            if s == steps:
+                T.reset_split()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, carry = step(pool, counters, tb, rt, rk, carry)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        rec["split_c"] = T.split()
+        ro = step.receipts(step.drain(carry))
+        if ro[:3] != [steps + 1, 1, (steps + 1) * MR_BATCH_C]:
+            raise AssertionError(f"31b YCSB-C receipts {ro}")
+        rec["ycsb_c_ms"] = walls[1:]
+        rec["ycsb_c_receipts"] = ro
+        say("staged YCSB-C ms a step", "ycsb_c_ms")
+        say("staged YCSB-C exchange split (last step)", "split_c")
+        # YCSB-A 50/50 through the fused mixed step, every read checked
+        zipf = ZipfGen(n_keys, 0.99, seed=7)
+        rng = np.random.default_rng(5)
+        walls = []
+        for s in range(steps + 1):
+            ranks = zipf.sample(MR_BATCH_A)
+            q = keys_of(ranks, salt)
+            is_read = rng.random(MR_BATCH_A) < 0.5
+            wv = q ^ np.uint64((0x9E3779B97F4A7C15 * (s + 1)) & (2**64 - 1))
+            if s == steps:
+                T.reset_split()
+            t = time.perf_counter()
+            _mr_ycsb_a(eng_a, q, wv, is_read, cur, ranks)
+            walls.append((time.perf_counter() - t) * 1e3)
+        rec["split_a"] = T.split()
+        rec["ycsb_a_ms"] = walls[1:]
+        say("YCSB-A ms a step", "ycsb_a_ms")
+        # a storm chunk of fresh inserts with device splits: 20 keys just
+        # past the low fence of each of 4,096 neighbouring leaves (a leaf
+        # at fill 0.75 has 12 free slots, so every one splits)
+        lows = b["tree"]._bulk_leaf_dir[1]
+        fresh = (lows[1000:1000 + MR_STORM_LEAVES, None]
+                 + np.arange(1, 21, dtype=np.uint64)).reshape(-1)
+        t = time.perf_counter()
+        st = eng_a.insert(fresh, fresh ^ VAL_XOR)
+        rec["storm_s"] = time.perf_counter() - t
+        rec["storm"] = {k: st[k] for k in ("applied", "host_path", "rounds")}
+        rec["storm"]["device_splits"] = st.get("device_splits", 0)
+        if not rec["storm"]["device_splits"]:
+            raise AssertionError(f"31b storm: no device splits: {st}")
+        _mr_verify(eng_a, fresh)
+        say("storm", "storm")
+        t = time.perf_counter()
+        info = validate.check_structure_device(b["tree"])
+        rec["validate_ms"] = (time.perf_counter() - t) * 1e3
+        if info["keys"] != n_keys + fresh.size:
+            raise AssertionError(f"31b validator: {info}")
+    rec["launches"] = log.launches
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the collective checkpoint and its restore into a fresh cluster
+    if ck_keys != n_keys:
+        del b, eng_c, eng_a, step, pool, counters
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = build(ck_keys, MR_BATCH_C, MR_BATCH_A, "cuda", machine_nr=8,
+                  step_capacity=MR_CAP, keeper=keeper,
+                  log=lambda m: print(f"[r{rank}] {m}", flush=True))
+        cur = b["vals"]
+    ck = os.path.join(d, "mr_b.npz")
+    t = time.perf_counter()
+    CK.checkpoint(b["cluster"], ck)
+    rec["ck_s"] = time.perf_counter() - t
+    rec["ck_bytes"] = sum(os.path.getsize(f) for f in
+                          glob.glob(os.path.join(d, "mr_b.npz*")))
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    c2 = CK.restore(ck, device="cuda", keeper=keeper)
+    rec["restore_s"] = time.perf_counter() - t
+    say("checkpoint s", "ck_s")
+    say("restore s", "restore_s")
+    e2 = batched.BatchedEngine(Tree(c2), batch_per_node=MR_BATCH_A // 8)
+    e2.attach_router()
+    ranks = np.random.default_rng(11).integers(0, ck_keys, MR_SAMPLE,
+                                               dtype=np.uint64)
+    got, found = e2.search(keys_of(ranks, salt))
+    if not (found.all() and np.array_equal(got, cur[ranks])):
+        raise AssertionError("31b: the restored tree lost sampled keys")
+    log.check(f"31b rank {rank}", ("gather_pages", "writeback", "exchange"))
+    # the ranks replay in turn: neither times its kernels while the
+    # other's run on the shared card
+    for r in range(2):
+        keeper.barrier(f"replay-{r}")
+        if r == rank:
+            rec["shapes"] = replay(log, "2r")
+    keeper.barrier("replayed")
+    return rec
+
+
+def _mr_rank_stall_preempt(keeper, rank: int, d: str) -> dict:
+    """31c's stall (rank 1 stopped by the parent: rank 0's guarded
+    barrier names it inside its deadline, both resume on the retry) and
+    preemption (SIGTERM on rank 0: both checkpoint at one step)."""
+    from sherman_tpu_torch.utils import checkpoint as CK
+    from sherman_tpu_torch.utils import failure
+    cluster, eng, keys = _mr_small(keeper)
+    rec = {}
+    keeper.barrier("stall-sync", timeout_s=120)
+    print("MR-READY", flush=True)
+    if rank == 1:
+        time.sleep(3)        # the parent stops this rank in here
+        keeper.barrier("stalled", timeout_s=120)
+    else:
+        t0 = time.monotonic()
+        try:
+            keeper.barrier("stalled", timeout_s=4)
+            raise AssertionError("31c: the stalled peer's barrier passed")
+        except failure.PeerFailure as e:
+            rec["stall_detect_s"] = time.monotonic() - t0
+            rec["missing"] = e.missing
+            if e.missing != [1] or rec["stall_detect_s"] > 8:
+                raise AssertionError(f"31c stall: {e.missing} "
+                                     f"{rec['stall_detect_s']:.1f} s")
+        print("MR-DETECT", flush=True)
+        keeper.barrier("stalled", timeout_s=120)     # the retry
+    _mr_verify(eng, keys)
+    guard = failure.PreemptionGuard(keeper)
+    keeper.barrier("loop")
+    print("MR-LOOP", flush=True)
+    sync_at = -1
+    for step in range(3000):
+        _mr_verify(eng, keys[:32])
+        if guard.should_act(step):
+            sync_at = step
+            break
+        time.sleep(0.01)
+    guard.close()
+    if sync_at < 0:
+        raise AssertionError("31c: the preemption notice never spread")
+    CK.checkpoint(cluster, os.path.join(d, "mr_preempt.npz"))
+    rec["preempt_step"] = sync_at
+    return rec
+
+
+def _mr_rank_death(keeper, rank: int, d: str) -> dict:
+    """31c's death drill: both ranks checkpoint, then rank 1 is killed by
+    the parent and rank 0 waits in a long guarded barrier, which the
+    heartbeat monitor ends."""
+    from sherman_tpu_torch.utils import checkpoint as CK
+    cluster, eng, keys = _mr_small(keeper)
+    CK.checkpoint(cluster, os.path.join(d, "mr_death.npz"))
+    keeper.barrier("armed")
+    print("MR-ARMED", flush=True)
+    if rank == 1:
+        time.sleep(600)
+    keeper.barrier("after-crash", timeout_s=600)
+    raise AssertionError("31c: the barrier after the kill passed")
+
+
+def _mr_rank_recover(keeper, rank: int, d: str) -> dict:
+    """A relaunched pair restores the death drill's checkpoint."""
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.utils import checkpoint as CK
+    c2 = CK.restore(os.path.join(d, "mr_death.npz"), device="cuda",
+                    keeper=keeper)
+    eng = batched.BatchedEngine(Tree(c2), batch_per_node=64)
+    _mr_verify(eng, keys_of(np.arange(MR_FAIL_KEYS, dtype=np.uint64),
+                            MR_SALT))
+    return {"recovered_keys": MR_FAIL_KEYS}
+
+
+def rank_main(argv: list) -> int:
+    """A rank process of phase 31: ``chip_smoke.py --rank R --mode M --dir
+    D [--arg JSON]`` with ``SHERMAN_COORD``/``SHERMAN_NPROC``/
+    ``SHERMAN_PROC_ID`` set by the parent.  It loads the kernels the
+    parent built and prints its record as one ``MR {...}`` line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    opt = lambda k, d=None: argv[argv.index(k) + 1] if k in argv else d
+    rank, mode, d = int(opt("--rank")), opt("--mode"), opt("--dir")
+    arg = json.loads(opt("--arg", "{}"))
+    from sherman_tpu_torch.ops import page_kernels as PK
+    from sherman_tpu_torch.parallel import bootstrap
+    global BASELINE
+    keeper = bootstrap.init_multihost()
+    PK.load_library()
+    BASELINE = Baseline(os.path.join(PK.BUILD_DIR, "libbaseline_kernels.so"))
+    rec = {"rank": rank, "mode": mode}
+    if mode == "main":
+        rec.update(_mr_rank_a(keeper, rank, d))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec.update(_mr_rank_b(keeper, rank, d, arg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec.update(_mr_rank_stall_preempt(keeper, rank, d))
+    elif mode == "death":
+        rec.update(_mr_rank_death(keeper, rank, d))
+    else:
+        rec.update(_mr_rank_recover(keeper, rank, d))
+    rec["peak_gib_rank"] = torch.cuda.max_memory_allocated() / 2**30
+    keeper.barrier("rank-done")
+    print("MR " + json.dumps(rec), flush=True)
+    return 0
+
+
+class Ranks:
+    """Two rank processes of this script sharing the card, their output
+    lines read on threads, printed and handed to ``on_line``; every child
+    is killed on exit."""
+
+    def __init__(self, mode: str, d: str, arg: dict | None = None,
+                 env: dict | None = None):
+        import queue
+        import socket
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        self.q: queue.Queue = queue.Queue()
+        self.procs = []
+        for r in range(2):
+            e = dict(os.environ, SHERMAN_COORD=f"localhost:{port}",
+                     SHERMAN_NPROC="2", SHERMAN_PROC_ID=str(r),
+                     **(env or {}))
+            p = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 str(r), "--mode", mode, "--dir", d, "--arg",
+                 json.dumps(arg or {})],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=e,
+                text=True, cwd=ROOT)
+            self.procs.append(p)
+            threading.Thread(target=self._pump, args=(r, p),
+                             daemon=True).start()
+        self.recs: dict = {}
+        self.lines: list = [[], []]
+
+    def _pump(self, r: int, p) -> None:
+        for line in p.stdout:
+            self.q.put((r, line.rstrip("\n")))
+        self.q.put((r, None))
+
+    def run(self, timeout: float, on_line=None) -> list:
+        """Until both ranks closed their output (or ``timeout``) ->
+        their exit codes."""
+        import queue
+        done, t_end = 0, time.perf_counter() + timeout
+        try:
+            while done < 2:
+                try:
+                    r, line = self.q.get(timeout=max(
+                        0.1, t_end - time.perf_counter()))
+                except queue.Empty:
+                    raise AssertionError(f"phase 31: ranks still running "
+                                         f"after {timeout:.0f} s")
+                if line is None:
+                    done += 1
+                    continue
+                self.lines[r].append(line)
+                if line.startswith("MR "):
+                    self.recs[r] = json.loads(line[3:])
+                else:
+                    _log(f"[rank {r}] {line[-400:]}")
+                if on_line is not None:
+                    on_line(r, line)
+            return [p.wait(timeout=60) for p in self.procs]
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def _merge_shapes(recs: list) -> dict:
+    """The two ranks' replayed shapes as one window: launches summed by
+    (kernel, shape), rank 0's timings (the ranks' shapes are the same)."""
+    out: dict = {}
+    for k in KERNELS:
+        by = {}
+        for rec in recs:
+            for e in rec["shapes"].get(k, []):
+                key = json.dumps(e.get("shape", [e.get("rows"),
+                                                 e.get("pool_pages"),
+                                                 e.get("lanes"),
+                                                 e.get("ok"),
+                                                 e.get("stop_level")]))
+                if key in by:
+                    by[key]["launches"] += e["launches"]
+                else:
+                    by[key] = dict(e)
+        if by:
+            out[k] = list(by.values())
+    return out
+
+
+def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
+    """Phase 31 -> {kernel: [per-shape entries of window ``2r``]}."""
+    import signal
+    cuts = budget_cuts("31", t_smoke) if t_smoke is not None else {}
+    n_keys = MR_CUT_KEYS if "keys" in cuts else MR_KEYS
+    ck_keys = MR_CUT_KEYS if "ck_keys" in cuts else n_keys
+    steps = 2 if "steps" in cuts else MR_STEPS
+    t31 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="sherman_mr_")
+    try:
+        if shutil.disk_usage(d).free < 12 << 30:
+            raise AssertionError("phase 31 needs 12 GiB free for the "
+                                 "collective checkpoints")
+        ranks = Ranks("main", d, {"keys": n_keys, "steps": steps,
+                                  "ck_keys": ck_keys},
+                      {"SHERMAN_HEARTBEAT_S": str(MR_STALL_HB_S)})
+
+        def orchestrate(r: int, line: str) -> None:
+            if r == 1 and line == "MR-READY":
+                os.kill(ranks.procs[1].pid, signal.SIGSTOP)
+            elif r == 0 and line == "MR-DETECT":
+                os.kill(ranks.procs[1].pid, signal.SIGCONT)
+            elif r == 0 and line == "MR-LOOP":
+                time.sleep(0.3)
+                os.kill(ranks.procs[0].pid, signal.SIGTERM)
+
+        # the one-process CPU run of 31a while the ranks work
+        res, clusters = mr_parity_seq(clusters_a(None, "cpu"), None, d,
+                                      "cpu")
+        want = {**_mr_state(clusters),
+                **{f"res_{k}": np.asarray(v) for k, v in res.items()}}
+        del clusters
+        rcs = ranks.run(900, orchestrate)
+        if rcs != [0, 0] or len(ranks.recs) != 2:
+            raise AssertionError(f"phase 31 ranks exited {rcs}")
+        recs = [ranks.recs[0], ranks.recs[1]]
+        parts = [dict(np.load(os.path.join(d, f"mr_a_r{r}.npz")))
+                 for r in range(2)]
+        for k, v in want.items():
+            got = parts[0][k] if k.startswith("res_") else np.concatenate(
+                [p[k] for p in parts])
+            if not np.array_equal(got, np.asarray(v).astype(got.dtype)):
+                raise AssertionError(f"31a: {k} differs between two ranks "
+                                     "on the card and one CPU process")
+        _log("31a: 2 ranks x 4 nodes on the card bit-identical to one "
+             "process of 8 nodes on the CPU (pools, locks, counters, "
+             "answers, receipts; K4 layout shapes replayed exact: "
+             f"{recs[0]['a_layout_shapes']})")
+        if recs[0]["preempt_step"] != recs[1]["preempt_step"]:
+            raise AssertionError("31c: the ranks checkpointed at steps "
+                                 f"{recs[0]['preempt_step']} and "
+                                 f"{recs[1]['preempt_step']}")
+        # the death drill, then a relaunched pair restores
+        t = time.perf_counter()
+        death = Ranks("death", d, env={"SHERMAN_HEARTBEAT_S": str(MR_HB_S)})
+        killed = []
+
+        def kill(r: int, line: str) -> None:
+            if r == 1 and line == "MR-ARMED":
+                killed.append(time.perf_counter())
+                os.kill(death.procs[1].pid, signal.SIGKILL)
+
+        rcs = death.run(300, kill)
+        from sherman_tpu_torch.utils import failure
+        diag = [x for x in death.lines[0] if "[1] stopped heartbeating" in x]
+        end_s = time.perf_counter() - killed[0] if killed else None
+        if rcs[0] != failure.HEARTBEAT_EXIT or not diag \
+                or end_s > MR_HB_S + 30:
+            raise AssertionError(f"31c death: rank 0 exit {rcs[0]}, "
+                                 f"diagnostic {diag}, {end_s} s")
+        rec = Ranks("recover", d)
+        if rec.run(300) != [0, 0]:
+            raise AssertionError("31c: the relaunched pair failed")
+        c_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    b0, b1 = recs[0], recs[1]
+    # phase 6's one-process 8-node staged step in this run (absent when
+    # phase 31 runs alone)
+    base = STAGED_MS.get(("eight_nodes", "ycsb_c", "aligned"))
+    out = {
+        "card": smi, "keys": n_keys, "ck_keys": ck_keys, "steps": steps,
+        "build_s": [b0["build_s"], b1["build_s"]],
+        "ycsb_c_ms": b0["ycsb_c_ms"], "ycsb_c_ms_r1": b1["ycsb_c_ms"],
+        "ycsb_a_ms": b0["ycsb_a_ms"], "ycsb_c_receipts": b0["ycsb_c_receipts"],
+        "split_c": [b0["split_c"], b1["split_c"]],
+        "split_a": [b0["split_a"], b1["split_a"]],
+        "storm": b0["storm"], "storm_s": b0["storm_s"],
+        "validate_ms": b0["validate_ms"], "ck_s": b0["ck_s"],
+        "ck_bytes_r0": b0["ck_bytes"], "restore_s": b0["restore_s"],
+        "peak_gib": [b0["peak_gib_rank"], b1["peak_gib_rank"]],
+        "launches_2r": {k: b0["launches"][k] + b1["launches"][k]
+                        for k in b0["launches"]},
+        "stall_detect_s": b0["stall_detect_s"], "missing": b0["missing"],
+        "preempt_step": b0["preempt_step"], "death_end_s": end_s,
+        "death_and_recover_s": c_s, "wall_s": time.perf_counter() - t31,
+        "reduced": list(cuts.values())}
+    if base is not None:
+        out["ycsb_c_one_process_8_nodes_ms"] = base
+    _log("multirank: " + json.dumps(out))
+    for k in ("gather_pages", "writeback", "exchange"):
+        if not out["launches_2r"].get(k):
+            raise AssertionError(f"phase 31: {k} not launched on the "
+                                 "two-rank path")
+    return _merge_shapes(recs)
+
+
+def phase31_only(argv: list) -> int:
+    """``chip_smoke.py --phase31 [--mr-keys N]``: the builds, K4's parity
+    on garbage inputs and phase 31 alone (its budget unset), for work on
+    the two-rank path; not the smoke."""
+    global BASELINE, MR_KEYS
+    from sherman_tpu_torch.ops import page_kernels as PK
+    if "--mr-keys" in argv:
+        MR_KEYS = int(argv[argv.index("--mr-keys") + 1])
+    nvcc = start_nvcc_builds()
+    PK.load_library()
+    BASELINE = finish_nvcc_builds(nvcc)
+    exchange_parity(torch.device("cuda"))
+    shapes = multirank_full_width(card())
+    recs = [kernel_record(k, shapes[k]) for k in KERNELS if k in shapes]
+    print(json.dumps({"kernels": recs}), flush=True)
+    print(card(), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
               file=sys.stderr)
         return 2
+    if "--phase31" in sys.argv:
+        return phase31_only(sys.argv)
     # the black box: auto-dump bundles land here, and the flight ring
     # holds the whole run (phase 22 reads phases 19-21 back from it)
     bb = tempfile.mkdtemp(prefix="sherman_blackbox_")
@@ -6713,9 +7440,11 @@ def _main(bb: str) -> int:
 
     ycsb_reference_check(1)
     ycsb_reference_check(8, step_capacity=32)
-    by_shape, ycsb = ycsb_matrix(100_000_000, 1, "one_node_ycsb",
+    cut = budget_cuts("16", t_smoke)
+    by_shape, ycsb = ycsb_matrix(10_000_000 if cut else 100_000_000, 1,
+                                 "one_node_ycsb",
                                  ("descent_round", "gather_pages",
-                                  "writeback"), [])
+                                  "writeback"), list(cut.values()))
     for k, v in by_shape.items():
         shapes.setdefault(k, []).extend(v)
     gc.collect()
@@ -6811,6 +7540,13 @@ def _main(bb: str) -> int:
         shapes.setdefault(k, []).extend(v)
     _log(f"phase 30 (the drivers, replayed at every launched shape, K1-K4: "
          f"exact): {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    for k, v in multirank_full_width(smi, t_smoke).items():
+        shapes.setdefault(k, []).extend(v)
+    _log(f"phase 31 (two ranks on the card, replayed at every launched "
+         f"shape, K2-K4: exact): {time.perf_counter() - t:.1f} s")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [
@@ -6836,4 +7572,4 @@ def _main(bb: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv) if "--rank" in sys.argv else main())

@@ -112,6 +112,7 @@ import torch
 
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.obs import device as DEV
+from sherman_tpu_torch.utils import failure
 
 NORTH_STAR = 10_000_000          # ops/s on one device (BASELINE.json)
 SALT = 0x5E17AB1E5A17
@@ -185,12 +186,15 @@ def synthetic_keys(n_keys: int, salt: int = SALT):
 
 def build(n_keys: int, batch_c: int, batch_a: int, device: str = "cuda", *,
           log=_say, machine_nr: int = 1, step_capacity: int | None = None,
-          chunk_pages: int = 4096, lb: int | None = None) -> dict:
+          chunk_pages: int = 4096, lb: int | None = None,
+          keeper=None) -> dict:
     """The north-star tree: bulk-load ``n_keys`` keys ``mix64(rank ^
     salt)`` (:func:`synthetic_keys`; values ``key ^ 0xDEADBEEF``, fill
     0.75) and attach the router (``lb`` log2 buckets, else the default).
     Two engines share it, taking ``batch_c``/``batch_a`` rows in all,
-    split into ``machine_nr`` node blocks.  -> {cluster, tree, eng_c,
+    split into ``machine_nr`` node blocks.  ``keeper``: the distributed
+    keeper of ``init_multihost``, whose ranks then share the nodes (every
+    rank calls this with the same arguments).  -> {cluster, tree, eng_c,
     eng_a, salt, vals (by rank), n_keys}."""
     from sherman_tpu_torch import config as C
     from sherman_tpu_torch.cluster import Cluster
@@ -206,7 +210,7 @@ def build(n_keys: int, batch_c: int, batch_a: int, device: str = "cuda", *,
                     locks_per_node=65_536,
                     step_capacity=step_capacity or batch_c // N,
                     chunk_pages=chunk_pages, device=device)
-    cluster = Cluster(cfg)
+    cluster = Cluster(cfg, keeper=keeper)
     tree = Tree(cluster)
     # chase budget 1: the measured windows write no structure
     tcfg = TreeConfig(sibling_chase_budget=1)
@@ -282,6 +286,18 @@ def size_dev_b_resid(eng, n_keys: int, theta: float, salt: int,
     return min(dev_b, -(-int(resid * 1.05) // 8192) * 8192)
 
 
+def _multihost_capable_stamp() -> bool | None:
+    """Can this PyTorch run gloo collectives between processes (the
+    process-spanning transport)?  Probed once a run by two short-lived
+    subprocesses (``multihost.multihost_capable``); None, never a crash,
+    when the probe itself cannot run."""
+    try:
+        from sherman_tpu_torch.multihost import multihost_capable
+        return multihost_capable()[0]
+    except Exception:
+        return None
+
+
 def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
                 dev_b: int, staged, *, sampler: str,
                 fusion: str | None = None, steps: int = STEPS,
@@ -310,14 +326,21 @@ def staged_read(eng, n_keys: int, theta: float, salt: int, batch: int,
         carry, walls = new_carry(), []
         _sync(pool.device)
         t0 = time.perf_counter()
-        for _ in range(k):
-            t = time.perf_counter()
-            _, carry = step(pool, counters, tb, rt, rk, carry)
-            if sync_each:
-                _sync(pool.device)
-                walls.append((time.perf_counter() - t) * 1e3)
-        carry = step.drain(carry)
-        _sync(pool.device)
+        # fail fast (utils/failure.py): SHERMAN_COLLECTIVE_TIMEOUT_S arms a
+        # watchdog around the windowed dispatch; a wedged collective
+        # cannot be cancelled from Python, so on expiry it prints the DSM
+        # counter snapshot and exits for the launcher to restart
+        with failure.Watchdog.maybe(
+                what=f"device-step window ({k} steps)",
+                diagnostics=eng.dsm.counter_snapshot):
+            for _ in range(k):
+                t = time.perf_counter()
+                _, carry = step(pool, counters, tb, rt, rk, carry)
+                if sync_each:
+                    _sync(pool.device)
+                    walls.append((time.perf_counter() - t) * 1e3)
+            carry = step.drain(carry)
+            _sync(pool.device)
         dt = time.perf_counter() - t0
         c = _ints(carry)
         if c[0] != k or c[1] != 1 or c[2] != k * want:
@@ -366,9 +389,12 @@ def staged_mixed(eng, n_keys: int, theta: float, salt: int, batch: int, *,
         fusion=fusion, staged=st)
 
     def run(step, k: int, carry):
-        for _ in range(k):
-            _, _, carry = step(pool, locks, counters, *staged, carry)
-        return step.drain(carry)
+        with failure.Watchdog.maybe(
+                what=f"device-step window ({k} steps)",
+                diagnostics=eng.dsm.counter_snapshot):
+            for _ in range(k):
+                _, _, carry = step(pool, locks, counters, *staged, carry)
+            return step.drain(carry)
 
     def check(base: list, carry, k: int, what: str) -> list:
         c = _ints(carry)
@@ -962,7 +988,9 @@ def main(argv=None) -> int:
         "device": device,
         "config": {"staged_fusion": fusion,
                    "pipeline_depth": 2 if fusion == "pipelined" else 1,
-                   "torch": torch.__version__, "cuda": torch.version.cuda},
+                   "torch": torch.__version__, "cuda": torch.version.cuda,
+                   # which transport this run could cross processes with
+                   "multihost_capable": _multihost_capable_stamp()},
     }
     print(json.dumps(out), flush=True)
     return 0

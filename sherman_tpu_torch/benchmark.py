@@ -36,8 +36,17 @@ match)"); then the same benchmark.  With one node there is no exchange,
 and the choice prints one ``"skipped"`` line.
 
 ``--preempt-ckpt PATH``: on SIGTERM, checkpoint the cluster to PATH at
-the next block boundary and stop (``utils/failure.PreemptionGuard``, one
-process).
+the next block boundary and stop (``utils/failure.PreemptionGuard``).
+
+Across processes: launched on every rank by ``scripts/multihost_launch.sh
+<coord:port> <ranks> <rank> -m sherman_tpu_torch.benchmark ...`` (which
+sets ``SHERMAN_COORD``/``SHERMAN_NPROC``/``SHERMAN_PROC_ID``), each rank
+joins the process group (``init_multihost``) and serves its block of the
+nodes; every rank draws the same batches and uploads its own rows, the
+window and block boundaries are agreed by all-reduces, the preemption
+notice of any rank stops every rank at one block and the checkpoint is
+the collective one.  Request combining and ``--exchange pallas`` are
+single-process.
 
 ``main(argv)`` returns ``{"peak_ops", "windows", "preempted",
 "latency_us" (the windows' percentiles, where taken), "nodes",
@@ -48,6 +57,7 @@ unless given ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -58,6 +68,14 @@ from sherman_tpu_torch import tools_common as TC
 
 KCORO = 8          # kCoroCnt (Common.h:62-71)
 WARM_RATIO = 0.8   # kWarmRatio (benchmark.cpp:19)
+
+
+def _agreed(mh: bool, flag: bool) -> bool:
+    """A flag every rank acts on together: true where any rank's is."""
+    if not mh:
+        return flag
+    from sherman_tpu_torch.parallel import bootstrap
+    return bootstrap.allreduce_int(int(flag), "max") > 0
 
 
 def parse_args(argv=None):
@@ -137,6 +155,12 @@ def main(argv=None) -> dict:
     B = a.kThreadCount * KCORO * a.ops_per_coro
     n_nodes = a.kNodeCount
     total_batch = B * n_nodes
+    keeper = None
+    if os.environ.get("SHERMAN_COORD"):
+        from sherman_tpu_torch.parallel import bootstrap
+        keeper = bootstrap.init_multihost()
+        if a.exchange == "pallas":
+            raise SystemExit("--exchange pallas is a single-process drill")
     if a.exchange == "pallas":
         if n_nodes < 2:
             out = {"metric": "exchange_pallas",
@@ -151,7 +175,8 @@ def main(argv=None) -> dict:
         assert not bad, f"card/CPU DSM counter divergence: {bad}"
     cluster, tree, eng = TC.build_cluster(
         n_nodes, TC.pages_for_keys(a.keys) // n_nodes or 4096, B,
-        device=a.device)
+        device=a.device, keeper=keeper)
+    mh = eng._mh
     dev = eng.device
     notify_info("[bench] nodes=%d read%%=%d threads=%d B/node=%d keys=%d "
                 "theta=%.2f", n_nodes, a.kReadRatio, a.kThreadCount, B,
@@ -186,7 +211,9 @@ def main(argv=None) -> dict:
     # per-node [reads | writes] layout must agree with the global split
     r_node = B * a.kReadRatio // 100
     n_read = r_node * n_nodes
-    D = lambda x: torch.as_tensor(x, device=dev)
+    # a node-major batch array on the card (across ranks: this rank's rows)
+    D = (lambda x: eng._shard(np.asarray(x))) if mh else \
+        (lambda x: torch.as_tensor(x, device=dev))
 
     def pack_batch(bk, act_r, act_w, salt):
         """Device-side batch dict from key layout + activity masks."""
@@ -203,7 +230,7 @@ def main(argv=None) -> dict:
     # same-key dedup, applied at prep); every client request's answer is
     # fanned out on the device inside the timed step.  Write combining is
     # single-node only (the mixed [reads | writes] layout is per node).
-    can_combine = n_nodes == 1 or a.kReadRatio == 100
+    can_combine = (n_nodes == 1 or a.kReadRatio == 100) and not mh
     if a.combine == "on" and not can_combine:
         notify_info("[bench] --combine on ignored: multi-node write "
                     "combining needs per-node static layouts")
@@ -336,6 +363,9 @@ def main(argv=None) -> dict:
     # window
     span = min(max(0.5, 32 * est), a.window)
     steps_per_block = max(1, int(span / est))
+    if mh:      # the ranks' clocks differ: one block size for all
+        from sherman_tpu_torch.parallel import bootstrap
+        steps_per_block = bootstrap.allreduce_int(steps_per_block, "min")
 
     windows = max(1, int(a.secs / a.window))
     notify_info("[bench] est step %.1f ms -> %d steps/block",
@@ -352,7 +382,7 @@ def main(argv=None) -> dict:
         for w in range(windows):
             w0 = time.time()
             blocks = 0
-            while time.time() - w0 < a.window:
+            while not _agreed(mh, time.time() - w0 >= a.window):
                 b0 = time.time()
                 for _ in range(steps_per_block):
                     out = one_step(step_i)

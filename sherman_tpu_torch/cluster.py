@@ -1,9 +1,13 @@
-"""Cluster — the top-level runtime handle for one process driving every
-node of a card (counterpart of ``sherman_tpu/cluster.py``).
+"""Cluster — the top-level runtime handle (counterpart of
+``sherman_tpu/cluster.py``).
 
 Bundles the DSM, the bootstrap Keeper and one Directory per node, and
 hands out per-client contexts (``DSM::registerThread``) whose allocators
-lease chunks round-robin over the nodes.
+lease chunks round-robin over the nodes.  One process drives every node
+of a card; when the mesh spans processes (``init_multihost``), every rank
+runs the same host program and mirrors every node's directory
+(replicated-driver SPMD), and host-API ops go through
+:class:`~sherman_tpu_torch.parallel.dsm.ReplicatedDSM`.
 """
 
 from __future__ import annotations
@@ -11,10 +15,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from sherman_tpu_torch.config import DSMConfig
+from sherman_tpu_torch.errors import MultiprocessUnsupportedError
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.parallel.alloc import Directory, LocalAllocator
 from sherman_tpu_torch.parallel.bootstrap import Keeper
-from sherman_tpu_torch.parallel.dsm import DSM
+from sherman_tpu_torch.parallel.dsm import DSM, ReplicatedDSM
 
 
 @dataclass
@@ -43,19 +48,34 @@ class Cluster:
         self.cfg = cfg
         self.dsm = DSM(cfg)
         self.keeper = keeper if keeper is not None else Keeper(cfg.machine_nr)
-        self.node_ids = [self.keeper.server_enter()
-                         for _ in range(cfg.machine_nr)]
+        # A process-spanning mesh REQUIRES the multihost keeper: with the
+        # in-process keeper every rank would serve ALL nodes' directories
+        # on its own and two ranks hand out the same chunks.
+        assert not (self.dsm.multihost and not self.keeper.is_multihost), (
+            "mesh spans processes but the keeper is single-process: pass "
+            "bootstrap.init_multihost()'s keeper to Cluster on every host")
+        if self.keeper.is_multihost:
+            # every rank enters once, then mirrors ALL nodes' directories:
+            # identical replicated control flow keeps the mirrors in
+            # lock-step, so a client may lease chunks on any node
+            self.keeper.server_enter()
+            self.node_ids = list(range(cfg.machine_nr))
+        else:
+            self.node_ids = [self.keeper.server_enter()
+                             for _ in range(cfg.machine_nr)]
         self.directories = [Directory(n, cfg) for n in self.node_ids]
-        # one process drives every node: host ops go straight to the DSM
-        self.host_dsm = self.dsm
+        # the handle the Tree and the engine's host paths use: the DSM in
+        # one process, the leader-posted replicated wrapper across ranks
+        # (each host-API op executes once cluster-wide)
+        self.host_dsm = (ReplicatedDSM(self.dsm) if self.dsm.multihost
+                         else self.dsm)
         # The hierarchical lock's local tier: one process-wide native
         # ticket-lock table indexed like the global lock space.  Host Tree
         # clients of this process queue here first and hand the global
         # lock down the ticket train (at most 8 hand-overs), paying one
-        # global CAS and one global unlock a train.  The reference turns
-        # it off on meshes that span processes; one process drives every
-        # node here (``DSM.multihost`` is False), so it is on wherever the
-        # native library loads.
+        # global CAS and one global unlock a train.  Off on meshes that span
+        # processes: hand-over decisions depend on each process's thread
+        # timing, and ReplicatedDSM needs identical step sequences.
         from sherman_tpu_torch import native
         self.local_locks = (
             native.LocalLockTable(cfg.machine_nr * cfg.locks_per_node)
@@ -70,8 +90,18 @@ class Cluster:
     def register_client(self, replicated: bool | None = None
                         ) -> ClientContext:
         """Per-client context (``DSM::registerThread``); records its lease
-        epoch.  ``replicated`` is the reference's multihost acknowledgment;
-        one process drives every node here, so it changes nothing."""
+        epoch.  Across processes the allocators are MIRRORED, so a client
+        may only allocate from replicated control flow: registering one
+        there requires ``replicated=True`` as an explicit acknowledgment
+        (raw per-process drivers get :class:`MultiprocessUnsupportedError`
+        here instead of colliding pages later)."""
+        if self.dsm.multihost and replicated is not True:
+            raise MultiprocessUnsupportedError(
+                "multi-host clients allocate from MIRRORED directories: "
+                "pass register_client(replicated=True) to acknowledge "
+                "that this client runs identical (replicated) control "
+                "flow on every process; raw per-process drivers must "
+                "not allocate")
         cid = self._next_client
         self._next_client += 1
         ctx = ClientContext(client_id=cid,
@@ -90,6 +120,26 @@ class Cluster:
         revocable."""
         t = int(owner_tag)
         self.lease_epochs[t] = self.lease_epochs.get(t, 0) + 1
+
+    def sweep_dead_processes(self, tags_by_process: dict[int, list[int]]
+                             ) -> list[int]:
+        """COLLECTIVE maintenance pass: take the liveness roll call
+        (``failure.live_processes``; every live rank calls this together)
+        and expire every client tag owned by a process that is no longer
+        live.  ``tags_by_process`` maps a process index to the tags its
+        non-replicated drivers registered.  Returns the expired tags; a
+        single-process cluster expires nothing."""
+        from sherman_tpu_torch.utils import failure
+        live = set(failure.live_processes(
+            self.keeper.machine_nr if self.keeper.is_multihost else 1))
+        expired = []
+        for proc, tags in tags_by_process.items():
+            if int(proc) in live:
+                continue
+            for t in tags:
+                self.expire_client(t)
+                expired.append(int(t))
+        return expired
 
     def broadcast_new_root(self, addr: int, level: int) -> None:
         """NEW_ROOT: update the directories' advisory root hints."""

@@ -20,6 +20,17 @@ there on its own shard and lock table, and their statuses routed back.
 Every loop exits on the sum of all nodes' pending counts, so all nodes
 run the same rounds.
 
+When the nodes span several processes ("ranks", ``init_multihost``),
+every rank runs the same host program on the same batch (replicated-driver
+SPMD, checked with input digests by ``_check_replicated``): a rank uploads
+only its own nodes' rows (``_shard``), the device steps work on its block
+of ``L`` nodes and cross ranks in the transport, and their results come
+back through one tiled all-gather (``_unshard``), so the host logic after
+every step sees the same arrays on every rank.  Every count that decides
+how many collective steps a rank takes (a loop's pending rows) is reduced
+over the ranks first (``Mesh.any``/``Mesh.total``): a count that stayed
+local would desynchronize the collectives.
+
 Consistency is the reference's: a step's reads see one snapshot of the
 pool, its writes land together at the step boundary, and same-key writes
 in a step are linearized by request order (the lowest index wins).
@@ -75,7 +86,8 @@ from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
 from sherman_tpu_torch.errors import (ConfigError, KeyRangeError,
-                                      ShermanError, StateError)
+                                      ProtocolError, ShermanError,
+                                      StateError)
 from sherman_tpu_torch.models import validate
 from sherman_tpu_torch.models.btree import META_ADDR
 from sherman_tpu_torch.obs import device as DEV
@@ -84,6 +96,7 @@ from sherman_tpu_torch.obs import slo as SLO
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.ops import page_kernels as PK
 from sherman_tpu_torch.parallel import dsm as D
+from sherman_tpu_torch.parallel import mesh as MESH
 from sherman_tpu_torch.parallel import transport as T
 from sherman_tpu_torch.utils import journal as J
 
@@ -183,7 +196,8 @@ def _descend_nodes(pool, counters, khi, klo, root, active, *,
     reads the pending rows' pages through the routed exchange and picks
     the next hop elementwise; the loop exits on the all-node pending
     count (the reference's psum)."""
-    N = cfg.machine_nr
+    M = MESH.of(cfg)
+    N = M.n_local
     if start is None:
         start = torch.full(khi.shape, int(root), dtype=torch.int32,
                            device=khi.device)
@@ -191,7 +205,7 @@ def _descend_nodes(pool, counters, khi, klo, root, active, *,
     done = ~active
     nreads = torch.zeros(N, dtype=torch.int64, device=khi.device)
     it = 0
-    while it < iters and bool((~done).any()):   # one host sync per round
+    while it < iters and M.any(~done):   # one host sync per round
         nreads += _node_sum(~done, N)
         pages, ok = D.read_pages_spmd(pool, addr, cfg=cfg, active=~done)
         chase = layout.needs_sibling_chase(pages, khi, klo)
@@ -298,7 +312,8 @@ def _routed_resolve_nodes(pool, counters, khi, klo, active, start, *,
     the straggler rounds read through an exchange of capacity ``S``
     (both per node, as the reference sizes them).  The loop exits on
     the all-node pending count.  -> (done, addr, found, vhi, vlo)."""
-    N = cfg.machine_nr
+    M = MESH.of(cfg)
+    N = M.n_local
     B = khi.shape[0] // N
     dev = khi.device
     S = max(min(1024, B), B // 16)
@@ -333,7 +348,7 @@ def _routed_resolve_nodes(pool, counters, khi, klo, active, start, *,
     s_vl = torch.zeros(N * S, dtype=torch.int32, device=dev)
     loop_reads = torch.zeros(N, dtype=torch.int64, device=dev)
 
-    it, n_pend = 1, int((~s_done).sum())
+    it, n_pend = 1, M.total(~s_done)
     while it < max_rounds and n_pend > 0:
         loop_reads += _node_sum(~s_done, N)
         pg, ok = D.read_pages_spmd(pool, s_addr, cfg=loop_cfg,
@@ -352,7 +367,7 @@ def _routed_resolve_nodes(pool, counters, khi, klo, active, start, *,
         s_done = s_done | fin
         s_addr = torch.where(ok & ~at_leaf, nxt, s_addr)
         it += 1
-        n_pend = int((~s_done).sum())           # one host sync per round
+        n_pend = M.total(~s_done)               # one host sync per round
 
     # one scatter of the compacted results back to the node blocks
     res = valid & s_done
@@ -758,16 +773,26 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, apply_fn, addr,
                            eligible, fields, *, cfg: DSMConfig, fresh=None):
     N, cap = cfg.machine_nr, cfg.step_capacity
     P = cfg.pages_per_node
-    nd = lambda x: x.view(N, -1)
+    M = MESH.of(cfg)
+    L = M.n_local
+    nd = lambda x: x.view(L, -1)
     elig = nd(eligible)
     bucket_idx, routed = T.bucketize(bits.addr_node(nd(addr)), elig, N, cap)
     out = {"active": elig & routed, "addr": nd(addr),
            **{k: nd(v) for k, v in fields.items()}}
-    inc = T.exchange({k: T.scatter_to_buckets(v, bucket_idx, N * cap)
-                      for k, v in out.items()})
-    st = torch.empty((N, N * cap), dtype=torch.int32, device=pool.device)
+    out = {k: T.scatter_to_buckets(v, bucket_idx, N * cap)
+           for k, v in out.items()}
+    if M.spans:
+        # across ranks only the buckets' filled rows cross; the owners
+        # apply those (the order of the active rows is unchanged)
+        fill = T.bucket_fill(bucket_idx, cap, M)
+        out = {k: T.trim_buckets(v, N, cap, fill) for k, v in out.items()}
+        bucket_idx = T.trimmed_slot(bucket_idx, cap, fill)
+    inc = T.exchange(out, M)
+    st = torch.empty(inc["active"].shape, dtype=torch.int32,
+                     device=pool.device)
     extras = []
-    for d in range(N):
+    for d in range(L):
         inc_d = {k: v[d] for k, v in inc.items()}
         if dirty is not None:
             _mark_dirty_pages(dirty[d * P:(d + 1) * P],
@@ -777,7 +802,7 @@ def _route_and_apply_nodes(pool, locks, counters, dirty, apply_fn, addr,
             *D.shards(cfg, d, pool, locks, counters), inc_d, fresh_d,
             cfg=cfg))
         extras.append(extra)
-    rep = T.exchange(st)
+    rep = T.exchange(st, M)
     safe_b = torch.where(routed, bucket_idx, 0)
     extra = None
     if extras[0] is not None:
@@ -802,7 +827,7 @@ def insert_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     done, addr, _, _, _ = _resolve_leaves(
         pool, counters, khi, klo, root, active, start, cfg=cfg, iters=iters)
     if fresh is not None and dirty is not None:
-        N, P = cfg.machine_nr, cfg.pages_per_node
+        N, P = MESH.of(cfg).n_local, cfg.pages_per_node
         for d, f in enumerate(fresh.view(N, -1)):
             _mark_dirty_pages(dirty[d * P:(d + 1) * P], bits.addr_page(f),
                               f != 0)
@@ -898,7 +923,7 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     found = found & done_r
     rvh = torch.where(found, rvh, 0)
     rvl = torch.where(found, rvl, 0)
-    N = cfg.machine_nr
+    N = MESH.of(cfg).n_local
     lo = 0 if write_lo is None else int(write_lo)
     # each node's rows [lo:] of a node-major [N*B] tensor
     w = (lambda x: x) if not lo else \
@@ -939,6 +964,12 @@ class BatchedEngine:
         self.B = batch_per_node
         self.total = self.cfg.machine_nr * batch_per_node
         self.device = self.dsm.device
+        # across processes: replicated-driver SPMD (every rank calls the
+        # engine with IDENTICAL request streams, _check_replicated guards
+        # it; host-API ops execute once through cluster.host_dsm and the
+        # device batch is split over the ranks' node blocks)
+        self._mesh = MESH.of(self.cfg)
+        self._mh = self.dsm.multihost
         # write combining in the insert and mixed applies (see
         # leaf_apply_spmd's ``combine``): None reads the
         # SHERMAN_WRITE_COMBINE knob, True/False pins it (A/B runs)
@@ -1109,6 +1140,11 @@ class BatchedEngine:
         it only says "on"); ``admit_every`` > 0 arms auto-admission every
         that many observed read batches (0: manual ``fill``)."""
         from sherman_tpu_torch.models.leaf_cache import LeafCache
+        if self._mh:
+            from sherman_tpu_torch.errors import MultiprocessUnsupportedError
+            raise MultiprocessUnsupportedError(
+                "the hot-key tier is single-process: its probes read the "
+                "whole batch on one card")
         self.leaf_cache = LeafCache(self, slots=slots,
                                     admit_every=admit_every)
         return self.leaf_cache
@@ -1144,6 +1180,48 @@ class BatchedEngine:
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _shard(self, x: np.ndarray) -> torch.Tensor:
+        """A node-major host array ``[N*k, ...]`` -> this process's node
+        block on the device (every rank holds the whole replicated batch;
+        in one process, all of it)."""
+        if not self._mh:
+            return self._dev(x)
+        per = x.shape[0] // self.cfg.machine_nr
+        nodes = self._mesh.local_nodes
+        return self._dev(x[nodes.start * per:nodes.stop * per])
+
+    def _unshard(self, *ys):
+        """Node-major device results -> host arrays of the whole batch on
+        every rank (across ranks: each rank's block and ONE tiled
+        all-gather for all of them, the blocks in rank order).  One array
+        for one input, else a tuple."""
+        out = tuple(y.cpu().numpy() for y in ys)
+        if self._mh:
+            from sherman_tpu_torch.parallel import bootstrap
+            out = bootstrap.process_allgather(out, tiled=True)
+        return out[0] if len(ys) == 1 else out
+
+    def _check_replicated(self, *arrays) -> None:
+        """Across processes every rank must drive identical request
+        streams (the mirrored allocators and the collective step sequences
+        depend on it): one crc32 digest all-gather, raising
+        :class:`ProtocolError` on skew."""
+        if not self._mh:
+            return
+        import zlib
+
+        from sherman_tpu_torch.parallel import bootstrap
+        dig = 0
+        for a in arrays:
+            dig = zlib.crc32(np.ascontiguousarray(a).tobytes(), dig)
+        digs = bootstrap.process_allgather(
+            np.asarray([dig], np.uint32)).ravel()
+        if not (digs == np.uint32(dig)).all():
+            raise ProtocolError(
+                "multihost engine drivers diverged across processes: every "
+                "process must drive identical request streams "
+                "(replicated-driver SPMD)")
+
     @staticmethod
     def _check_range(keys: np.ndarray) -> None:
         if keys.size and (keys.min() < C.KEY_MIN or keys.max() > C.KEY_MAX):
@@ -1156,6 +1234,8 @@ class BatchedEngine:
         ``machine_nr * batch_per_node`` rows).
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
+        if _depth == 0:
+            self._check_replicated(keys)
         self._check_range(keys)
         n = keys.shape[0]
         if n > self.total:
@@ -1177,20 +1257,20 @@ class BatchedEngine:
             cache.observe(keys)
             c_hit, c_vhi, c_vlo = cache.probe(khi, klo, active)
             active = active & ~c_hit
-        active = self._dev(active)
+        active = self._shard(active)
         # retries (depth > 0) bypass the index cache and descend from root
         use_router = self.router is not None and _depth == 0
         fn = self._get_search(self._iters(), use_router)
-        args = [self._dev(khi), self._dev(klo), self.tree._root_addr, active]
+        args = [self._shard(khi), self._shard(klo), self.tree._root_addr,
+                active]
         if use_router:
-            args.append(self._dev(self.router.host_start(khi, klo)))
+            args.append(self._shard(self.router.host_start(khi, klo)))
         # the span covers the launch and the replies' copy to the host
         with obs.span("engine.search.descend", n=int(n)):
             with self._step_mutex:
                 done, found, vhi, vlo = fn(self.dsm.pool, self.dsm.counters,
                                            *args)
-            done, found, vhi, vlo = (t.cpu().numpy()
-                                     for t in (done, found, vhi, vlo))
+            done, found, vhi, vlo = self._unshard(done, found, vhi, vlo)
         done = done[:n]
         vals = bits.pairs_to_keys(vhi[:n], vlo[:n])
         fnd = found[:n].copy()
@@ -1242,7 +1322,8 @@ class BatchedEngine:
         fn = self._search_cache.get(("fanout", iters))
         if fn is None:
             cfg = self.cfg
-            N = cfg.machine_nr
+            M = MESH.of(cfg)
+            N = M.n_local
 
             def fn(pool, counters, khi, klo, root, active, start, inv):
                 done, found, vhi, vlo = search_routed_spmd(
@@ -1251,8 +1332,8 @@ class BatchedEngine:
                 # one gather of packed [U, 3] rows per client (the
                 # reference's table adds a zero fourth lane, TPU padding)
                 ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
-                if N > 1:
-                    ans = T.gather_rows(ans.view(N, -1, 3))
+                if cfg.machine_nr > 1:
+                    ans = T.gather_rows(ans.view(N, -1, 3), M)
                 out = ans[inv.clamp(0, ans.shape[0] - 1)]
                 return done, out[:, 0] != 0, out[:, 1], out[:, 2]
 
@@ -1266,6 +1347,7 @@ class BatchedEngine:
         (through :meth:`_get_search_fanout`).
         -> (values uint64 [n], found bool [n])."""
         keys = np.asarray(keys, np.uint64)
+        self._check_replicated(keys)
         with obs.span("engine.search.combine", n=int(keys.size)):
             uk, inv = np.unique(keys, return_inverse=True)
         if self.router is None or not 0 < uk.size <= self.total:
@@ -1288,9 +1370,11 @@ class BatchedEngine:
             c_hit, c_vhi, c_vlo = cache.probe(khi, klo, active)
             active = active & ~c_hit
             hit_u = c_hit[:uk.size]
-        active = self._dev(active)
-        start = self._dev(self.router.host_start(khi, klo))
-        kt, lt = self._dev(khi), self._dev(klo)
+        active = self._shard(active)
+        start = self._shard(self.router.host_start(khi, klo))
+        kt, lt = self._shard(khi), self._shard(klo)
+        # the client rows stay whole on every rank: the fan-out gathers
+        # the node-major answer table for every node
         inv_t = self._dev(inv.astype(np.int64))
         fn = self._get_search_fanout(self._iters())
         with obs.span("engine.search.descend", n=int(uk.size),
@@ -1299,11 +1383,9 @@ class BatchedEngine:
                 done, found, vhi, vlo = fn(
                     self.dsm.pool, self.dsm.counters, kt, lt,
                     self.tree._root_addr, active, start, inv_t)
-            if hit_u is None:
-                all_done = bool(done[:uk.size].all())
-            else:
-                all_done = bool((done[:uk.size].cpu().numpy()
-                                 | hit_u).all())
+            done_h = self._unshard(done)[:uk.size]
+            all_done = bool((done_h if hit_u is None
+                             else done_h | hit_u).all())
             if all_done:
                 # one device-to-host copy of the packed answers
                 ans = torch.stack([found.to(torch.int32), vhi, vlo], dim=1)
@@ -1339,6 +1421,7 @@ class BatchedEngine:
         self._check_range(keys)
         values = np.asarray(values, np.uint64)
         is_read = np.asarray(is_read, bool)
+        self._check_replicated(keys, values, is_read)
         if not is_read.all():
             self._require_writable()    # degraded mode: reads-only batches
         n = keys.shape[0]
@@ -1346,7 +1429,7 @@ class BatchedEngine:
         vhi, vlo = bits.keys_to_pairs(values)
         khi, klo, vhi, vlo = (self._pad(x) for x in (khi, klo, vhi, vlo))
         ar = self._pad(is_read)                  # pad rows neither read
-        aw = self._dev(self._pad(~is_read))      # nor write
+        aw = self._shard(self._pad(~is_read))    # nor write
         # the hot-key tier probes the read rows only: hits see the same
         # pre-step pool the fused step's reads see, so the mixed
         # linearization (reads before the step's writes) holds
@@ -1355,10 +1438,10 @@ class BatchedEngine:
         if cache is not None and bool(is_read.any()):
             c_hit, c_vhi, c_vlo = cache.probe(khi, klo, ar)
             ar = ar & ~c_hit
-        ar = self._dev(ar)
-        start = (self._dev(self.router.host_start(khi, klo))
+        ar = self._shard(ar)
+        start = (self._shard(self.router.host_start(khi, klo))
                  if self.router is not None else None)
-        t = [self._dev(x) for x in (khi, klo, vhi, vlo)]
+        t = [self._shard(x) for x in (khi, klo, vhi, vlo)]
         fn = self._get_mixed(self._iters())
         if self._write_combine:
             self._note_combine_step(int(np.count_nonzero(~is_read)))
@@ -1368,8 +1451,8 @@ class BatchedEngine:
                     self.dsm.pool, self.dsm.locks, self.dsm.counters,
                     self.dsm.dirty, *t, self.tree._root_addr, ar, aw, start)
             status, done_r, found, rvh, rvl = (
-                x.cpu().numpy()[:n]
-                for x in (status, done_r, found, rvh, rvl))
+                x[:n] for x in self._unshard(status, done_r, found, rvh,
+                                             rvl))
         status = status.copy()
         found = found.copy()
         out_vals = bits.pairs_to_keys(rvh, rvl)
@@ -1488,6 +1571,7 @@ class BatchedEngine:
         keys = np.asarray(keys, np.uint64)
         self._check_range(keys)
         values = np.asarray(values, np.uint64)
+        self._check_replicated(keys, values)
         n = keys.shape[0]
         stats = {"applied": 0, "superseded": 0, "host_path": 0, "rounds": 0,
                  "st_locked": 0, "lock_timeouts": 0, "lock_timeout_keys": []}
@@ -1533,13 +1617,14 @@ class BatchedEngine:
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
         khi, klo = bits.keys_to_pairs(keys)
-        kt, lt = self._dev(self._pad(khi)), self._dev(self._pad(klo))
-        active = self._dev(self._pad(np.ones(n, bool)))
+        kt, lt = self._shard(self._pad(khi)), self._shard(self._pad(klo))
+        active = self._shard(self._pad(np.ones(n, bool)))
         fn = self._get_parent_descend(self._iters(), level)
         with self._step_mutex:
             addr, _, done = fn(self.dsm.pool, self.dsm.counters, kt, lt,
                                self.tree._root_addr, active)
-        return addr.cpu().numpy()[:n], done.cpu().numpy()[:n]
+        addr, done = self._unshard(addr, done)
+        return addr[:n], done[:n]
 
     def flush_parents(self) -> int:
         """Insert the deferred parent entries of the device splits,
@@ -1687,9 +1772,9 @@ class BatchedEngine:
         """Apply a round's split log: drop the consumed grants from the
         cache, note the splits in the router, and queue the parent
         entries (the B-link already reaches the new pages)."""
-        valid, new_addr, skhi, sklo, ohhi, ohlo = (
-            log[k].cpu().numpy() for k in ("valid", "new_addr", "skhi",
-                                           "sklo", "old_hhi", "old_hlo"))
+        valid, new_addr, skhi, sklo, ohhi, ohlo = self._unshard(
+            *(log[k] for k in ("valid", "new_addr", "skhi", "sklo",
+                               "old_hhi", "old_hlo")))
         if not valid.any():
             return
         new_addr = new_addr[valid]
@@ -1741,12 +1826,12 @@ class BatchedEngine:
             fn = self._get_insert(self._iters(), use_router, with_fresh)
             if self._write_combine:
                 self._note_combine_step(int(np.count_nonzero(active)))
-            args = [self._dev(x) for x in (khi, klo, vhi, vlo)]
-            args += [self.tree._root_addr, self._dev(active)]
+            args = [self._shard(x) for x in (khi, klo, vhi, vlo)]
+            args += [self.tree._root_addr, self._shard(active)]
             if use_router:
-                args.append(self._dev(self.router.host_start(khi, klo)))
+                args.append(self._shard(self.router.host_start(khi, klo)))
             if with_fresh:
-                args.append(self._dev(fresh_np))
+                args.append(self._shard(fresh_np))
             # one device round (descend, lock, apply, splits); the span
             # ends at the round's one status read-back
             with obs.span("engine.insert.descend_lock_apply",
@@ -1755,7 +1840,7 @@ class BatchedEngine:
                     out = fn(self.dsm.pool, self.dsm.locks,
                              self.dsm.counters, self.dsm.dirty, *args)
                 status, log = out if with_fresh else (out, None)
-                status = status.cpu().numpy()[:idx.shape[0]]
+                status = self._unshard(status)[:idx.shape[0]]
             stats["st_locked"] += int((status == ST_LOCKED).sum())
             if log is not None:
                 with obs.span("engine.insert.split_drain"):
@@ -1873,6 +1958,7 @@ class BatchedEngine:
             max_rounds = self.tcfg.insert_rounds
         keys = np.asarray(keys, np.uint64)
         self._check_range(keys)
+        self._check_replicated(keys)
         n = keys.shape[0]
         out = np.zeros(n, bool)
         for i in range(0, n, self.total):
@@ -1903,16 +1989,16 @@ class BatchedEngine:
             active = self._pad(np.ones(idx.shape[0], bool))
             use_router = self.router is not None and round_i == 0
             fn = self._get_delete(self._iters(), use_router)
-            args = [self._dev(khi), self._dev(klo), self.tree._root_addr,
-                    self._dev(active)]
+            args = [self._shard(khi), self._shard(klo),
+                    self.tree._root_addr, self._shard(active)]
             if use_router:
-                args.append(self._dev(self.router.host_start(khi, klo)))
+                args.append(self._shard(self.router.host_start(khi, klo)))
             with obs.span("engine.delete.descend_lock_apply",
                           n=int(idx.shape[0])):
                 with self._step_mutex:
                     status = fn(self.dsm.pool, self.dsm.locks,
                                 self.dsm.counters, self.dsm.dirty, *args)
-                status = status.cpu().numpy()[:idx.shape[0]]
+                status = self._unshard(status)[:idx.shape[0]]
             found_out[idx[status == ST_APPLIED]] = True
             done = (status == ST_APPLIED) | (status == ST_NOT_FOUND)
             pending[idx[done]] = False
@@ -2252,7 +2338,11 @@ def _scan_candidates(router, ranges) -> np.ndarray:
 
 def _scan_prefetch(eng, cand: np.ndarray) -> np.ndarray:
     """One ``gather_pages`` launch of the candidate pages, copied to the
-    host at once.  -> [len(cand), PAGE_WORDS] int32."""
+    host at once.  -> [len(cand), PAGE_WORDS] int32.  Across processes
+    the pages are read through the replicated host path (the leader's
+    chunked host steps, the replies broadcast)."""
+    if eng._mh:
+        return eng.dsm.read_pages(cand)
     rows = eng._dev(_addr_rows(cand, eng.cfg.pages_per_node)
                     .astype(np.int32))
     with eng._step_mutex:
@@ -2280,6 +2370,13 @@ def range_query_many(eng: "BatchedEngine", ranges
         if not (C.KEY_MIN <= lo and hi <= C.KEY_POS_INF and lo < hi):
             raise AssertionError(f"malformed range [{lo}, {hi}): want "
                                  f"KEY_MIN <= lo < hi <= KEY_POS_INF")
+    # replication guard: the chain walks issue a data-dependent number of
+    # collective host reads, so divergent bounds would desync them.  The
+    # bounds are checked first, so a range past KEY_POS_INF raises the
+    # AssertionError above at any process count (the reference's engine
+    # method builds this digest array first: OverflowError)
+    eng._check_replicated(
+        np.asarray([b for r in ranges for b in r], np.uint64))
 
     # pages by addr & 0xFFFFFFFF: the prefetch's leaves, then every page
     # the walks read
@@ -2415,7 +2512,10 @@ def _u64_sort_on(device, keys: np.ndarray, values: np.ndarray):
 def bulk_load(tree, keys, values, fill: float | None = None) -> dict:
     """Build the tree bottom-up from unique keys and install it: leaf
     pages are built on the device, the internal levels (a few percent of
-    the pages) in numpy on the host.  Returns stats."""
+    the pages) in numpy on the host.  Returns stats.  Across processes
+    every rank calls it with the same keys (the mirrored allocators hand
+    out the same pages everywhere) and builds and installs only the pages
+    of its own node block."""
     cfg = tree.cfg
     dsm = tree.dsm
     dev = dsm.device
@@ -2462,7 +2562,19 @@ def bulk_load(tree, keys, values, fill: float | None = None) -> dict:
     sib[:-1] = leaf_addrs[1:].astype(np.int32)
     leaf_rows = _addr_rows(leaf_addrs, cfg.pages_per_node)
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    rows_t = T(leaf_rows)
+    row0, row1 = dsm.local_row_range()
+    if dsm.multihost:
+        # this rank's leaves only, their rows in its block
+        mine = (leaf_rows >= row0) & (leaf_rows < row1)
+        sel = T(mine)
+        blk = lambda x: x.view(n_leaves, per_leaf)[sel].reshape(-1)
+        khi, klo, vhi, vlo, live = (blk(x) for x in (khi, klo, vhi, vlo,
+                                                     live))
+        lhi, llo, hhi, hlo, sib = (x[mine] for x in (lhi, llo, hhi, hlo,
+                                                     sib))
+        rows_t = T(leaf_rows[mine] - row0)
+    else:
+        rows_t = T(leaf_rows)
     _build_install_leaves(dsm.pool, rows_t, khi, klo, vhi, vlo, live,
                           T(lhi), T(llo), T(hhi), T(hlo), T(sib),
                           per_leaf=per_leaf)
@@ -2530,7 +2642,12 @@ def bulk_load(tree, keys, values, fill: float | None = None) -> dict:
 
     if all_addrs:
         rows = _addr_rows(np.concatenate(all_addrs), cfg.pages_per_node)
-        _install_pages(dsm.pool, T(rows), T(np.concatenate(all_pages)))
+        pages = np.concatenate(all_pages)
+        if dsm.multihost:
+            mine = (rows >= row0) & (rows < row1)
+            _install_pages(dsm.pool, T(rows[mine] - row0), T(pages[mine]))
+        else:
+            _install_pages(dsm.pool, T(rows), T(pages))
         dsm.mark_dirty_rows(rows)
 
     # Install the root (bulk load is quiescent) and POISON the old root:

@@ -77,7 +77,10 @@ class Tree:
         self.cluster = cluster
         self.dsm = cluster.host_dsm
         self.cfg = cluster.cfg
-        self.ctx = ctx if ctx is not None else cluster.register_client()
+        # the Tree is the replicated driver across processes (every rank
+        # runs it identically), so its client is a replicated one
+        self.ctx = (ctx if ctx is not None
+                    else cluster.register_client(replicated=True))
         # the hierarchical lock's local tier (shared by the process through
         # the cluster; None where the native library cannot load)
         self._llocks = cluster.local_locks

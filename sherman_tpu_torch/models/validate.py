@@ -42,9 +42,15 @@ fails on it.  A live page that is not retired is *active*.
 The reference fuses the predicates into one XLA program.  Eager torch
 materialises every temporary, so the slot and entry matrices (49 and 82
 words a page) are read only for the leaf and the internal rows, in chunks
-of :data:`_CHUNK_ROWS`; every result is the reference's exactly.  The
-reference's multihost branch (process-spanning pools) has no counterpart:
-one process drives every node here.
+of :data:`_CHUNK_ROWS`; every result is the reference's exactly.
+
+When the nodes span several processes, every scan is a COLLECTIVE (every
+rank calls it together): each rank scans its own block of the pool, the
+predicates that follow a link to another page (siblings, children, the
+leftmost child, the leaf chain's in-degrees) read one all-gathered table
+of the few header columns they need, and the counts, masks and
+directories are reduced over the ranks, so every rank returns the
+single-process result.
 """
 
 from __future__ import annotations
@@ -91,10 +97,16 @@ def _next_by_node(tree) -> torch.Tensor:
     return nxt.to(tree.dsm.pool.device)
 
 
-def _classes(pool, nxt, P: int):
+def _mesh(tree):
+    from sherman_tpu_torch.parallel import mesh as MESH
+    return MESH.of(tree.cfg)
+
+
+def _classes(pool, nxt, P: int, row0: int = 0):
     """-> (live [N*P], retired [N*P]): allocated and written pages, and
-    the live ones whose highest fence is 0."""
-    ridx = torch.arange(pool.shape[0], device=pool.device)
+    the live ones whose highest fence is 0 (``pool`` holds the global
+    rows from ``row0`` on)."""
+    ridx = torch.arange(pool.shape[0], device=pool.device) + row0
     pg_i = ridx % P
     allocated = (pg_i >= 1) & (pg_i < nxt[ridx // P])
     live = allocated & (pool[:, C.W_FRONT_VER] != 0)
@@ -103,10 +115,12 @@ def _classes(pool, nxt, P: int):
 
 
 def _page_classes(tree):
-    """-> (pool, live [N*P], retired [N*P]) on the pool's device."""
+    """-> (pool, live [N*P], retired [N*P], row0) on the pool's device:
+    this process's block of the pool and its first global row."""
     pool = tree.dsm.pool
+    row0 = _mesh(tree).lo * tree.cfg.pages_per_node
     return (pool, *_classes(pool, _next_by_node(tree),
-                            tree.cfg.pages_per_node))
+                            tree.cfg.pages_per_node, row0), row0)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -139,18 +153,42 @@ def _per_row(rows: int, idx: torch.Tensor, fn, n: int) -> list:
     return out
 
 
-def _local_invariants(pool, nxt, P: int, N: int, freed=None) -> dict:
-    """Per-page predicates over the whole pool: the shared core of the
+def _global_table(mesh, cols: dict) -> dict:
+    """The header columns a link predicate reads on the page it points
+    at, for every global row: the local columns themselves in one
+    process, one all-gather of them across ranks."""
+    if not mesh.spans:
+        return cols
+    from sherman_tpu_torch.parallel import transport as T
+    names = list(cols)
+    local = torch.stack([cols[k].to(torch.int32) for k in names], dim=1)
+    g = T.rank_all_gather(local, mesh.world_size)
+    return {k: (g[:, i] != 0 if cols[k].dtype == torch.bool else g[:, i])
+            for i, k in enumerate(names)}
+
+
+def _local_invariants(pool, nxt, P: int, N: int, freed=None,
+                      mesh=None) -> dict:
+    """Per-page predicates over the pool: the shared core of the
     validator (``freed`` given: also the per-row bad child entries) and
-    of the scrub mask.  Every mask and count is [rows]."""
-    rows = N * P
-    live, retired = _classes(pool, nxt, P)
+    of the scrub mask.  Every mask and count is [rows] of this process's
+    block (the whole pool in one process); ``g`` is the global header
+    table the link predicates read."""
+    rows = pool.shape[0]
+    row0 = 0 if mesh is None else mesh.lo * P
+    live, retired = _classes(pool, nxt, P, row0)
     act = live & ~retired
     col = lambda w: pool[:, w]
     fv = col(C.W_FRONT_VER)
     hi_hi, hi_lo = col(C.W_HIGH_HI), col(C.W_HIGH_LO)
     lo_hi, lo_lo = col(C.W_LOW_HI), col(C.W_LOW_LO)
     lvl = col(C.W_LEVEL)
+    ref_ok = None if freed is None else retired & ~freed
+    g = {"act": act, "lvl": lvl, "lo_hi": lo_hi, "lo_lo": lo_lo}
+    if ref_ok is not None:
+        g["ref_ok"] = ref_ok
+    if mesh is not None:
+        g = _global_table(mesh, g)
     leaf = act & (lvl == 0)
     internal = act & (lvl > 0)
     bad_ver = act & (fv != col(C.W_REAR_VER))
@@ -179,7 +217,6 @@ def _local_invariants(pool, nxt, P: int, N: int, freed=None) -> dict:
     # entry's child checked too
     IC = C.INTERNAL_CAP
     pos = torch.arange(IC, device=pool.device)
-    ref_ok = None if freed is None else retired & ~freed
 
     def internal_rows(ix):
         ikh = pool[ix, C.I_KHI_W:C.I_KHI_W + IC]
@@ -197,9 +234,9 @@ def _local_invariants(pool, nxt, P: int, N: int, freed=None) -> dict:
         crow, c_ok = _rows_of(pool[ix, C.I_PTR_W:C.I_PTR_W + IC], N, P)
         e_valid = pos[None, :] < nk[:, None]
         bad_child = e_valid & (
-            ~c_ok | ~(act[crow] | ref_ok[crow])
-            | (lvl[crow] != (lvl[ix] - 1)[:, None])
-            | (lo_hi[crow] != ikh) | (lo_lo[crow] != ikl))
+            ~c_ok | ~(g["act"][crow] | g["ref_ok"][crow])
+            | (g["lvl"][crow] != (lvl[ix] - 1)[:, None])
+            | (g["lo_hi"][crow] != ikh) | (g["lo_lo"][crow] != ikl))
         return out + (bad_child.sum(-1),)
 
     by_internal = _per_row(rows, torch.nonzero(internal).squeeze(1),
@@ -210,11 +247,11 @@ def _local_invariants(pool, nxt, P: int, N: int, freed=None) -> dict:
     srow, s_in_range = _rows_of(sib, N, P)
     has_sib = act & (sib != 0)
     bad_sib = has_sib & (
-        ~s_in_range | ~act[srow] | (lvl[srow] != lvl)
-        | (lo_hi[srow] != hi_hi) | (lo_lo[srow] != hi_lo))
+        ~s_in_range | ~g["act"][srow] | (g["lvl"][srow] != lvl)
+        | (g["lo_hi"][srow] != hi_hi) | (g["lo_lo"][srow] != hi_lo))
 
-    return dict(rows=rows, act=act, retired=retired, leaf=leaf,
-                internal=internal, lvl=lvl, sib=sib, srow=srow,
+    return dict(rows=rows, row0=row0, g=g, act=act, retired=retired,
+                leaf=leaf, internal=internal, lvl=lvl, sib=sib, srow=srow,
                 lo_hi=lo_hi, lo_lo=lo_lo, hi_hi=hi_hi, hi_lo=hi_lo,
                 bad_ver=bad_ver, bad_fence=bad_fence,
                 live_slot_rows=live_slot_rows, bad_slot_rows=bad_slot_rows,
@@ -224,9 +261,12 @@ def _local_invariants(pool, nxt, P: int, N: int, freed=None) -> dict:
                 bad_sib=bad_sib, has_sib=has_sib, ref_ok=ref_ok)
 
 
-def _validate_kernel(pool, nxt, freed, P: int, N: int) -> list[int]:
-    """The validator's counts, in :data:`_STATS` order."""
-    m = _local_invariants(pool, nxt, P, N, freed)
+def _validate_kernel(pool, nxt, freed, P: int, N: int,
+                     mesh=None) -> list[int]:
+    """The validator's counts, in :data:`_STATS` order (this process's
+    block's counts across ranks; the caller sums them)."""
+    m = _local_invariants(pool, nxt, P, N, freed, mesh)
+    g, row0 = m["g"], m["row0"]
     rows, act, leaf, internal = m["rows"], m["act"], m["leaf"], m["internal"]
     lvl, sib, srow = m["lvl"], m["sib"], m["srow"]
     lo_hi, lo_lo, hi_hi, hi_lo = m["lo_hi"], m["lo_lo"], m["hi_hi"], m["hi_lo"]
@@ -235,8 +275,13 @@ def _validate_kernel(pool, nxt, freed, P: int, N: int) -> list[int]:
     # of range counts on the row its address clips to, as the reference's
     # scatter does
     link_src = leaf & m["has_sib"]
-    indeg = torch.bincount(torch.where(link_src, srow, rows),
-                           minlength=rows + 1)[:rows]
+    G = N * P
+    indeg = torch.bincount(torch.where(link_src, srow, G),
+                           minlength=G + 1)[:G]
+    if mesh is not None and mesh.spans:
+        from sherman_tpu_torch.parallel import transport as T
+        indeg = T.rank_all_reduce(indeg)
+    indeg = indeg[row0:row0 + rows]
     heads = leaf & (indeg == 0)
     bad_head = heads & ~((lo_hi == 0) & (lo_lo == 0))
     tails = leaf & (sib == 0)
@@ -249,10 +294,10 @@ def _validate_kernel(pool, nxt, freed, P: int, N: int) -> list[int]:
     # legal; level and lowest must still match
     lm = pool[:, C.W_LEFTMOST]
     lmrow, lm_ok = _rows_of(lm, N, P)
-    lm_live_ok = act[lmrow] | m["ref_ok"][lmrow]
+    lm_live_ok = g["act"][lmrow] | g["ref_ok"][lmrow]
     bad_lm = internal & (
-        (lm == 0) | ~lm_ok | ~lm_live_ok | (lvl[lmrow] != lvl - 1)
-        | (lo_hi[lmrow] != lo_hi) | (lo_lo[lmrow] != lo_lo))
+        (lm == 0) | ~lm_ok | ~lm_live_ok | (g["lvl"][lmrow] != lvl - 1)
+        | (g["lo_hi"][lmrow] != lo_hi) | (g["lo_lo"][lmrow] != lo_lo))
 
     return torch.stack([
         m["live_slot_rows"].sum(), leaf.sum(), internal.sum(),
@@ -263,11 +308,11 @@ def _validate_kernel(pool, nxt, freed, P: int, N: int) -> list[int]:
         bad_lm.sum(), m["bad_child_rows"].sum()]).tolist()
 
 
-def _scrub_kernel(pool, nxt, P: int, N: int):
+def _scrub_kernel(pool, nxt, P: int, N: int, mesh=None):
     """Per-page violation bitmask over the pool (the validator's local
     predicates, reduced per row, so the scrubber can quarantine the
     violating pages) -> (mask [rows] int32, active page count)."""
-    m = _local_invariants(pool, nxt, P, N)
+    m = _local_invariants(pool, nxt, P, N, mesh=mesh)
     bit = lambda name, cond: torch.where(
         cond, SCRUB_BITS[name], 0).to(torch.int32)
     mask = (bit("bad_version", m["bad_ver"])
@@ -285,15 +330,24 @@ def scrub_pass(tree) -> dict:
     order, "classes": {name: pages}}."""
     cfg = tree.cfg
     P = cfg.pages_per_node
+    mesh = _mesh(tree)
     mask, checked = _scrub_kernel(tree.dsm.pool, _next_by_node(tree), P,
-                                  cfg.machine_nr)
+                                  cfg.machine_nr, mesh)
     rows = torch.nonzero(mask).squeeze(1)
     masks = mask[rows].cpu().numpy()
+    rows = rows.cpu().numpy() + mesh.lo * P
+    checked = int(checked)
+    if mesh.spans:
+        from sherman_tpu_torch.parallel import bootstrap
+        parts = bootstrap.allgather_object((rows, masks, checked))
+        rows = np.concatenate([p[0] for p in parts])
+        masks = np.concatenate([p[1] for p in parts])
+        checked = sum(p[2] for p in parts)
     bad = [(bits.make_addr(int(r) // P, int(r) % P), int(mk))
-           for r, mk in zip(rows.cpu().numpy(), masks)]
+           for r, mk in zip(rows, masks)]
     classes = {name: int(sum(1 for _, mk in bad if mk & b))
                for name, b in SCRUB_BITS.items()}
-    return {"pages_checked": int(checked), "violations": len(bad),
+    return {"pages_checked": checked, "violations": len(bad),
             "bad": bad, "classes": classes}
 
 
@@ -312,9 +366,16 @@ def check_structure_device(tree) -> dict:
         if fp:
             freed[d.node_id * P + np.asarray(fp, np.int64)] = True
     pool = tree.dsm.pool
+    mesh = _mesh(tree)
+    row0 = mesh.lo * P
     out = _validate_kernel(pool, _next_by_node(tree),
-                           torch.from_numpy(freed).to(pool.device), P,
-                           cfg.machine_nr)
+                           torch.from_numpy(freed[row0:row0 + pool.shape[0]]
+                                            ).to(pool.device), P,
+                           cfg.machine_nr, mesh)
+    if mesh.spans:
+        from sherman_tpu_torch.parallel import bootstrap
+        out = bootstrap.process_allgather(
+            np.asarray(out, np.int64)).sum(axis=0).tolist()
     s = dict(zip(_STATS, out))
     problems = [f"{k}={s[k]}" for k in (
         "bad_version", "bad_fence", "bad_leaf_slot", "bad_torn_slot",
@@ -340,13 +401,15 @@ def leaf_directory(tree) -> tuple[np.ndarray, np.ndarray]:
     """Every active leaf on every node, sorted by its lowest fence:
     -> (addrs int64, lows uint64), the shape of the bulk-load leaf
     directory (``tree._bulk_leaf_dir``) for any tree."""
-    pool, live, retired = _page_classes(tree)
+    pool, live, retired, row0 = _page_classes(tree)
     leaf = live & ~retired & (pool[:, C.W_LEVEL] == 0)
     rows = torch.nonzero(leaf).squeeze(1)
     lh = pool[rows, C.W_LOW_HI].cpu().numpy()
     ll = pool[rows, C.W_LOW_LO].cpu().numpy()
-    addrs = _addrs_of_rows(rows.cpu().numpy(), tree.cfg.pages_per_node)
+    addrs = _addrs_of_rows(rows.cpu().numpy() + row0,
+                           tree.cfg.pages_per_node)
     lows = bits.pairs_to_keys(lh, ll)
+    addrs, lows = _gather_parts(tree, addrs, lows)
     order = np.argsort(lows)
     return addrs[order], lows[order]
 
@@ -358,7 +421,7 @@ def leaf_chain_info(tree):
     not released yet; surfacing it lets a reclaim pass take it up again.
     -> (addrs int64, lows uint64, highs uint64, sibs int64 (uint32
     values), n_live int32, retired_addrs int64, retired_lows uint64)."""
-    pool, live, retired = _page_classes(tree)
+    pool, live, retired, row0 = _page_classes(tree)
     is_leaf = pool[:, C.W_LEVEL] == 0
     rows = torch.nonzero(live & ~retired & is_leaf).squeeze(1)
     rrows = torch.nonzero(retired & is_leaf).squeeze(1)
@@ -368,13 +431,27 @@ def leaf_chain_info(tree):
     n_live = layout.leaf_slot_used(pg).sum(-1).to(torch.int32).cpu().numpy()
     del pg
     P = tree.cfg.pages_per_node
-    addrs = _addrs_of_rows(rows.cpu().numpy(), P)
+    addrs = _addrs_of_rows(rows.cpu().numpy() + row0, P)
+    rr = rrows.cpu().numpy() + row0
+    rlows = bits.pairs_to_keys(pool[rrows, C.W_LOW_HI].cpu().numpy(),
+                               pool[rrows, C.W_LOW_LO].cpu().numpy())
+    addrs, cols, n_live, rr, rlows = _gather_parts(tree, addrs, cols, n_live,
+                                                  rr, rlows)
     lows = bits.pairs_to_keys(cols[:, 0], cols[:, 1])
     highs = bits.pairs_to_keys(cols[:, 2], cols[:, 3])
     order = np.argsort(lows)
-    rr = rrows.cpu().numpy()
-    rlows = bits.pairs_to_keys(pool[rrows, C.W_LOW_HI].cpu().numpy(),
-                               pool[rrows, C.W_LOW_LO].cpu().numpy())
     return (addrs[order], lows[order], highs[order],
             cols[:, 4][order].astype(np.int64) & 0xFFFFFFFF, n_live[order],
             _addrs_of_rows(rr, P), rlows)
+
+
+def _gather_parts(tree, *arrays):
+    """Each process's host arrays (of its own block's rows, in row order)
+    joined in rank order, which is global row order: the single-process
+    arrays on every rank.  Identity in one process."""
+    if not _mesh(tree).spans:
+        return arrays
+    from sherman_tpu_torch.parallel import bootstrap
+    parts = bootstrap.allgather_object(arrays)
+    return tuple(np.concatenate([p[i] for p in parts])
+                 for i in range(len(arrays)))

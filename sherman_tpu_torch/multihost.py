@@ -55,6 +55,76 @@ class HostDownError(StateError):
     an adopter serves the namespace (exactly-once re-acks) instead of
     holding a half-submitted merged future."""
 
+#: the cached :func:`multihost_capable` probe result, ``[(ok, reason)]``
+#: once probed
+_MULTIHOST_PROBE: list = []
+
+_PROBE_WORKER = r'''
+import sys
+import torch
+import torch.distributed as dist
+pid = int(sys.argv[1]); port = sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=pid)
+out = [torch.zeros(1, dtype=torch.int32) for _ in range(2)]
+dist.all_gather(out, torch.tensor([pid], dtype=torch.int32))
+assert sorted(int(t) for t in out) == [0, 1]
+dist.destroy_process_group()
+print("PROBE-OK", flush=True)
+'''
+
+
+def multihost_capable() -> tuple[bool, str]:
+    """(capable, reason): can this PyTorch run a collective between two
+    processes on the ``gloo`` backend (the process-spanning transport of
+    ``parallel/transport.py``)?  Probed once per process: two short-lived
+    subprocesses run an all-gather under a 120 s deadline, so the probe
+    can neither poison nor be poisoned by this process.  Stamped into the
+    bench receipt (``config.multihost_capable``), so an artifact says
+    which transport it could run."""
+    if _MULTIHOST_PROBE:
+        return _MULTIHOST_PROBE[0]
+    import os
+    import socket
+    import subprocess
+    import sys as _sys
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        worker = os.path.join(d, "probe.py")
+        with open(worker, "w") as f:
+            f.write(_PROBE_WORKER)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen(
+            [_sys.executable, worker, str(pid), port],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=120)
+                outs.append(out)
+        except subprocess.TimeoutExpired:
+            _MULTIHOST_PROBE.append(
+                (False, "probe timed out (collective hung)"))
+            return _MULTIHOST_PROBE[0]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if all(p.returncode == 0 and "PROBE-OK" in o
+               for p, o in zip(procs, outs)):
+            _MULTIHOST_PROBE.append((True, ""))
+        else:
+            tail = next((o for p, o in zip(procs, outs)
+                         if p.returncode != 0), outs[0])[-600:]
+            _MULTIHOST_PROBE.append(
+                (False, "this PyTorch cannot run gloo multiprocess "
+                 "collectives: " + tail.strip().replace("\n", " | ")))
+    return _MULTIHOST_PROBE[0]
+
 
 # ---------------------------------------------------------------------------
 # Key -> owner-host routing

@@ -32,9 +32,8 @@ void sherman_launch_writeback(int32_t* pool, int64_t P, const int32_t* page,
                               const int32_t* slot, const bool* applied,
                               const int32_t* ent, int64_t M, int L,
                               const int* field_w, cudaStream_t stream);
-void sherman_launch_exchange(const int32_t* x, int32_t* out, int64_t n_nodes,
-                             int64_t rows_per_peer, int64_t width,
-                             cudaStream_t stream);
+void sherman_launch_exchange(const int32_t* x, int32_t* out, int64_t a,
+                             int64_t b, int64_t words, cudaStream_t stream);
 
 namespace {
 
@@ -102,13 +101,11 @@ int sherman_writeback(int device, void* pool, int64_t P, const void* page,
   });
 }
 
-int sherman_exchange(int device, const void* x, void* out, int64_t n_nodes,
-                     int64_t rows_per_peer, int64_t width, char* err,
-                     int64_t err_len) {
+int sherman_exchange(int device, const void* x, void* out, int64_t a,
+                     int64_t b, int64_t words, char* err, int64_t err_len) {
   return guarded(device, err, err_len, [&](cudaStream_t s) {
     sherman_launch_exchange(static_cast<const int32_t*>(x),
-                            static_cast<int32_t*>(out), n_nodes,
-                            rows_per_peer, width, s);
+                            static_cast<int32_t*>(out), a, b, words, s);
   });
 }
 

@@ -15,6 +15,16 @@ FAAs.  With more than one node, requests are bucket-routed to their owner
 and the replies routed back (:mod:`sherman_tpu_torch.parallel.transport`),
 as ``shard_map`` does on each device of the reference's mesh.
 
+When the nodes span several processes ("ranks",
+:mod:`sherman_tpu_torch.parallel.mesh`), a rank's DSM holds only its own
+contiguous block of ``L`` nodes (``local_nodes``) of each tensor, while
+addresses and pool rows stay global, so a handle is valid on every rank.
+A host step is then a COLLECTIVE: every rank calls it with its own
+nodes' ``[L*R]`` requests, the buckets cross ranks through the
+transport, and each rank receives its own replies.  :class:`ReplicatedDSM`
+is the replicated-driver host API over such a DSM: the leader posts the
+rows, the other ranks post empty steps, and the replies are broadcast.
+
 Where the reference mutates a functional array, this module updates the
 pool tensors in place (the step mutex serializes host steps).  An owner's
 apply is planned on the host, in numpy, from the step's requests and one
@@ -36,9 +46,12 @@ import torch
 from sherman_tpu_torch import config as CFG
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig, PAGE_WORDS
-from sherman_tpu_torch.errors import ConfigError, ProtocolError
+from sherman_tpu_torch.errors import (ConfigError,
+                                      MultiprocessUnsupportedError,
+                                      ProtocolError)
 from sherman_tpu_torch.ops import bits
 from sherman_tpu_torch.ops import page_kernels as PK
+from sherman_tpu_torch.parallel import mesh as MESH
 from sherman_tpu_torch.parallel import transport as T
 from sherman_tpu_torch.utils import sorted_unique
 
@@ -284,8 +297,12 @@ def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
     reqs: dict of global host ``[N*R]`` int32 arrays (+ payload
     ``[N*R, 256]``), node ``n``'s requests in rows ``n*R:(n+1)*R``.
     Updates the state in place; returns host {"data": [N*R, 256], "old":
-    [N*R], "ok": [N*R]}."""
+    [N*R], "ok": [N*R]}.  When the nodes span ranks, every rank calls it
+    with its own ``L`` nodes' ``[L*R]`` requests and state blocks and gets
+    its own replies."""
     N, C = cfg.machine_nr, cfg.step_capacity
+    M = MESH.of(cfg)
+    L = M.n_local
     dev = pool.device
     F = len(REQ_FIELDS)
     # a request is one row, its fields then its payload: one copy to the
@@ -294,21 +311,21 @@ def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
     for i, k in enumerate(REQ_FIELDS):
         rows[:, i] = reqs[k]
     rows[:, F:] = reqs["payload"]
-    t = torch.as_tensor(rows, device=dev).view(N, -1, F + PAGE_WORDS)
+    t = torch.as_tensor(rows, device=dev).view(L, -1, F + PAGE_WORDS)
     active = t[..., 0] != OP_NOP
     bucket_idx, routed = T.bucketize(bits.addr_node(t[..., 1]), active,
                                      N, C)
-    inc = T.exchange(T.scatter_to_buckets(t, bucket_idx, N * C))
+    inc = T.exchange(T.scatter_to_buckets(t, bucket_idx, N * C), M)
     # the owners plan their applies on the host: the request fields, and
     # the payloads only when a page write came in
     inc_h = inc[..., :F].cpu().numpy()
     payload = inc[..., F:].cpu().numpy() \
         if (inc_h[..., 0] == OP_WRITE).any() else None
     # the reply row: the read page, old, ok
-    rep = torch.zeros((N, N * C, PAGE_WORDS + 2), dtype=torch.int32,
+    rep = torch.zeros((L, N * C, PAGE_WORDS + 2), dtype=torch.int32,
                       device=dev)
-    words = np.zeros((N, N * C, 2), np.int32)
-    for d in range(N):
+    words = np.zeros((L, N * C, 2), np.int32)
+    for d in range(L):
         req = {k: inc_h[d, :, i] for i, k in enumerate(REQ_FIELDS)}
         req["payload"] = None if payload is None else payload[d]
         rd, pages, words[d, :, 0], words[d, :, 1] = _apply(
@@ -316,7 +333,8 @@ def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
         if rd.size:
             rep[d, torch.as_tensor(rd, device=dev), :PAGE_WORDS] = pages
     rep[..., PAGE_WORDS:] = torch.as_tensor(words, device=dev)
-    back = T.take_local(T.exchange(rep), torch.where(routed, bucket_idx, 0))
+    back = T.take_local(T.exchange(rep, M),
+                        torch.where(routed, bucket_idx, 0))
     back = torch.cat([back, routed[..., None].to(torch.int32)], dim=2)
     back = back.view(-1, PAGE_WORDS + 3).cpu().numpy()
     act = rows[:, 0] != OP_NOP
@@ -336,7 +354,8 @@ def read_pages_spmd(pool, addrs, *, cfg: DSMConfig, active=None):
     in rows ``n*R:(n+1)*R``): each node sends a 1-word request per page to
     its owner, the owners read their shards through the gather kernel,
     and ``{data, okb}`` replies come back; rows past the step capacity
-    are not served."""
+    are not served.  When the nodes span ranks, ``addrs`` are the rank's
+    ``[L*R]`` and ``pool`` its ``[L*P]`` block; the buckets cross ranks."""
     if active is None:
         active = torch.ones(addrs.shape, dtype=torch.bool,
                             device=addrs.device)
@@ -344,22 +363,32 @@ def read_pages_spmd(pool, addrs, *, cfg: DSMConfig, active=None):
     if N == 1:
         return PK.read_pages_local(pool, addrs, active)
     C, P = cfg.step_capacity, cfg.pages_per_node
-    R = addrs.shape[0] // N
-    a, act = addrs.view(N, R), active.view(N, R)
+    M = MESH.of(cfg)
+    L = M.n_local
+    R = addrs.shape[0] // L
+    a, act = addrs.view(L, R), active.view(L, R)
     bucket_idx, routed = T.bucketize(bits.addr_node(a), act, N, C)
-    inc = T.exchange(T.scatter_to_buckets(bits.addr_page(a), bucket_idx,
-                                          N * C))
-    # owner d reads pool[d*P + clip(page, 0, P-1)]: its own shard
-    own = torch.arange(N, dtype=torch.int32, device=pool.device)[:, None]
+    req = T.scatter_to_buckets(bits.addr_page(a), bucket_idx, N * C)
+    if M.spans:
+        # across ranks only the buckets' filled rows cross (the fullest
+        # bucket's count, agreed by the ranks), and the owners read those
+        fill = T.bucket_fill(bucket_idx, C, M)
+        req = T.trim_buckets(req, N, C, fill)
+        bucket_idx = T.trimmed_slot(bucket_idx, C, fill)
+    S = req.shape[1]
+    inc = T.exchange(req, M)
+    # owner d reads pool[d*P + clip(page, 0, P-1)]: its own shard of the
+    # rank's block
+    own = torch.arange(L, dtype=torch.int32, device=pool.device)[:, None]
     rows = own * P + inc.clamp(0, P - 1)
-    data = PK.gather_pages(pool, rows.view(-1)).view(N, N * C, PAGE_WORDS)
-    rep = T.exchange({"data": data, "okb": (inc >= 0) & (inc < P)})
+    data = PK.gather_pages(pool, rows.view(-1)).view(L, S, PAGE_WORDS)
+    rep = T.exchange({"data": data, "okb": (inc >= 0) & (inc < P)}, M)
     del data
     safe_b = torch.where(routed, bucket_idx, 0)
     served = act & routed & T.take_local(rep["okb"], safe_b)
     pages = T.take_local(rep["data"], safe_b)
     pages.masked_fill_(~served[..., None], 0)
-    return pages.view(N * R, PAGE_WORDS), served.view(-1)
+    return pages.view(L * R, PAGE_WORDS), served.view(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -507,16 +536,22 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class DSM(_HostOps):
     """Host handle to the cluster: owns the node-major pool, lock table,
-    counters and dirty mask on ``cfg.device``."""
-
-    # one process drives every node: never a mesh that spans processes
-    # (the reference's process-spanning transport is ROADMAP.md item 7c-iv)
-    multihost = False
+    counters and dirty mask on ``cfg.device`` (of this rank's
+    ``local_nodes`` when the mesh spans processes)."""
 
     def __init__(self, cfg: DSMConfig):
         self.cfg = cfg
         self.device = cfg.torch_device()
-        N, P, L = cfg.machine_nr, cfg.pages_per_node, cfg.locks_per_node
+        self.mesh = MESH.of(cfg)
+        # the mesh spans processes: host steps are collectives, and this
+        # rank holds its own contiguous block of nodes of every tensor
+        self.multihost = self.mesh.spans
+        self.local_nodes = self.mesh.local_nodes
+        if self.multihost and cfg.heap_pages_per_node > 0:
+            raise MultiprocessUnsupportedError(
+                "the value heap is single-process: set "
+                "heap_pages_per_node=0 on a mesh that spans processes")
+        N, P, L = self.mesh.n_local, cfg.pages_per_node, cfg.locks_per_node
         z = lambda *shape, dtype: torch.zeros(shape, dtype=dtype,
                                               device=self.device)
         self.pool = z(N * P, PAGE_WORDS, dtype=torch.int32)
@@ -597,10 +632,11 @@ class DSM(_HostOps):
         r = {k: np.asarray(v, np.int32) for k, v in reqs.items()}
         N = self.cfg.machine_nr
         if N > 1:
-            if r["op"].shape[0] % N:
+            L = self.mesh.n_local
+            if r["op"].shape[0] % L:
                 raise ConfigError(
                     f"DSM.step: {r['op'].shape[0]} request rows do not "
-                    f"split into {N} equal node blocks")
+                    f"split into {L} equal node blocks")
             return Replies(**dsm_step_spmd(self.pool, self.locks,
                                            self.counters, r,
                                            cfg=self._host_cfg))
@@ -628,7 +664,25 @@ class DSM(_HostOps):
     _POOL_WRITE_OPS = (OP_WRITE, OP_WRITE_WORD, OP_CAS, OP_FAA,
                        OP_MASKED_CAS, OP_MASKED_FAA)
 
+    def local_row_range(self) -> tuple[int, int]:
+        """``[lo, hi)`` global pool rows this process owns (the whole pool
+        in one process).  Rows are global, so a handle never changes
+        meaning; ownership is which rank's dirty tracking and artifacts a
+        row lands in."""
+        P = self.cfg.pages_per_node
+        return (self.local_nodes.start * P, self.local_nodes.stop * P)
+
+    def _own_rows(self, rows: np.ndarray) -> np.ndarray:
+        if not self.multihost:
+            return rows
+        lo, hi = self.local_row_range()
+        return rows[(rows >= lo) & (rows < hi)]
+
     def _mark_dirty_from_reqs(self, reqs) -> None:
+        """One address-set union per host step: every pool-space request
+        that can mutate its page marks it dirty (CAS losers over-mark).
+        Across ranks only the rows this rank owns are tracked: a remote
+        write is its owner's to track, from its own copy of the step."""
         op = np.asarray(reqs["op"]).ravel()
         wr = np.isin(op, self._POOL_WRITE_OPS) \
             & (np.asarray(reqs["space"]).ravel() == SPACE_POOL)
@@ -639,18 +693,23 @@ class DSM(_HostOps):
         page = a & CFG.ADDR_PAGE_MASK
         P = self.cfg.pages_per_node
         keep = (node < self.cfg.machine_nr) & (page < P)
-        rows = node[keep] * P + page[keep]
+        rows = self._own_rows(node[keep] * P + page[keep])
         self._dirty_host.update(int(r) for r in np.unique(rows))
 
     def mark_dirty_rows(self, rows) -> None:
         """Mark global pool rows dirty (direct installs that bypass the
-        steps)."""
-        self._dirty_host.update(int(r) for r in np.asarray(rows).ravel())
+        steps); across ranks, rows another rank owns are dropped (the
+        owner marks them from its own call)."""
+        rows = self._own_rows(np.asarray(rows, np.int64).ravel())
+        self._dirty_host.update(int(r) for r in rows)
 
     def dirty_rows(self) -> np.ndarray:
         """Sorted global pool rows written since the last clear: the device
-        mask united with the host set."""
-        dev = torch.nonzero(self.dirty).squeeze(1).cpu().numpy()
+        mask united with the host set (this rank's rows only, across
+        ranks: the union of every rank's return is the cluster's dirty
+        set)."""
+        dev = torch.nonzero(self.dirty).squeeze(1).cpu().numpy() \
+            + self.local_row_range()[0]
         if not self._dirty_host:
             return dev.astype(np.int64)
         host = np.fromiter(self._dirty_host, np.int64, len(self._dirty_host))
@@ -661,9 +720,8 @@ class DSM(_HostOps):
     def add_dirty_sink(self, fn) -> None:
         """Register a callable handed the dirty rows at every
         :meth:`clear_dirty`, before the reset: the second-consumer
-        contract of the dirty tracking.  (The reference's multihost sink
-        sees only the rows its process owns; one process owns every row
-        here.)"""
+        contract of the dirty tracking (across ranks a sink sees only the
+        rows its rank owns)."""
         self._dirty_sinks.append(fn)
 
     def remove_dirty_sink(self, fn) -> None:
@@ -685,14 +743,25 @@ class DSM(_HostOps):
         self._heap_dirty_host.clear()
 
     def read_rows_local(self, rows, region: str = "pool") -> np.ndarray:
-        """Pool (or heap, ``region="heap"``) rows copied to the host.  One
-        process holds every node here, so every row is local."""
+        """Global pool (or heap, ``region="heap"``) rows copied to the
+        host from this rank's own block: the collective-free gather a
+        per-rank save needs.  Rows outside :meth:`local_row_range` raise
+        (read them on their owner)."""
         arr = self.heap if region == "heap" else self.pool
         if arr is None:
             raise ConfigError("no value heap configured")
         rows = np.asarray(rows, np.int64).ravel()
         if rows.size == 0:
             return np.zeros((0, arr.shape[1]), np.int32)
+        if self.multihost:
+            lo, hi = self.local_row_range()
+            out = (rows < lo) | (rows >= hi)
+            if out.any():
+                raise ConfigError(
+                    f"read_rows_local: {int(out.sum())} row(s) outside "
+                    "this process's node block: gather them on their "
+                    "owner")
+            rows = rows - lo
         return arr[torch.as_tensor(rows, device=arr.device)].cpu().numpy()
 
     # -- the value-heap region (the second DSM region) -------------------------
@@ -757,10 +826,19 @@ class DSM(_HostOps):
 
     def _batch(self, rows: list[dict]) -> Replies:
         # at most host_capacity rows per step, spread round-robin over the
-        # source nodes, so no destination bucket can overflow
+        # source nodes (this rank's, across ranks), so no destination
+        # bucket can overflow
         cap = self.host_capacity
-        n_src = self.cfg.machine_nr
+        n_src = self.mesh.n_local
         if len(rows) > cap:
+            if self.multihost:
+                # each chunk is one COLLECTIVE step: a data-dependent
+                # chunk count would desync the ranks' step sequences
+                raise ConfigError(
+                    f"multi-host host-API batch of {len(rows)} rows "
+                    f"exceeds host_step_capacity={cap}: chunk the call "
+                    "identically on every process (each chunk is one "
+                    "collective step)")
             out = [self._batch(rows[i:i + cap])
                    for i in range(0, len(rows), cap)]
             return Replies(
@@ -789,7 +867,9 @@ class DSM(_HostOps):
         return self.counters.cpu().numpy().astype(np.uint32)
 
     def counter_snapshot(self) -> dict[str, int]:
-        """Op counters summed over the nodes."""
+        """Op counters summed over this process's nodes (the whole cluster
+        in one process); across ranks, ``keeper.sum`` aggregates them, the
+        reference's pattern (``dsm->sum``, test/benchmark.cpp:336-346)."""
         tot = self.counters_np().reshape(-1, N_COUNTERS).sum(
             axis=0, dtype=np.uint64)
         return {
@@ -803,3 +883,94 @@ class DSM(_HostOps):
             "combine_groups": int(tot[CNT_COMBINE_GROUPS]),
             "combine_locks_saved": int(tot[CNT_COMBINE_SAVED]),
         }
+
+
+class ReplicatedDSM(_HostOps):
+    """Replicated-driver host API over a DSM whose mesh spans processes.
+
+    Every rank runs the SAME host program, so a host-API op (lock CAS,
+    page read/write, the coalesced chains) is requested by every rank but
+    must execute on the cluster exactly ONCE.  Every rank calls every
+    method with identical arguments (the engine checks its inputs with
+    digests); rank 0 posts the real request rows while the others
+    contribute empty collective steps, and rank 0's replies are broadcast
+    so every rank returns the same result (the reference's UD-RPC control
+    plane, ``Directory.cpp:60-92``: one requester executes, everyone
+    learns the outcome).
+
+    Batches of any length are chunked to ``host_step_capacity`` rows a
+    step; the chunk count derives from the replicated row list, so the
+    ranks' collective step sequences cannot desync.  Device state is the
+    wrapped DSM's: the engine keeps driving its tensors directly."""
+
+    def __init__(self, dsm: DSM):
+        from sherman_tpu_torch.parallel import bootstrap
+        assert dsm.multihost, "ReplicatedDSM wraps a process-spanning DSM"
+        self._dsm = dsm
+        self._leader = dsm.mesh.rank == 0
+        # the engine's tiled reassembly needs node blocks that ascend with
+        # the rank: checked once per cluster
+        firsts = bootstrap.process_allgather(
+            np.asarray([dsm.local_nodes[0]], np.int32)).ravel()
+        assert (np.diff(firsts) > 0).all(), (
+            "mesh node blocks must ascend with process index")
+
+    # -- the shared state (the engine mutates pool and counters in place) ----
+
+    pool = property(lambda s: s._dsm.pool,
+                    lambda s, v: setattr(s._dsm, "pool", v))
+    locks = property(lambda s: s._dsm.locks,
+                     lambda s, v: setattr(s._dsm, "locks", v))
+    counters = property(lambda s: s._dsm.counters,
+                        lambda s, v: setattr(s._dsm, "counters", v))
+    dirty = property(lambda s: s._dsm.dirty,
+                     lambda s, v: setattr(s._dsm, "dirty", v))
+    heap = property(lambda s: s._dsm.heap)
+    cfg = property(lambda s: s._dsm.cfg)
+    device = property(lambda s: s._dsm.device)
+    multihost = property(lambda s: s._dsm.multihost)
+    _step_mutex = property(lambda s: s._dsm._step_mutex)
+
+    def counter_snapshot(self) -> dict[str, int]:
+        return self._dsm.counter_snapshot()
+
+    def local_row_range(self) -> tuple[int, int]:
+        return self._dsm.local_row_range()
+
+    def mark_dirty_rows(self, rows) -> None:
+        self._dsm.mark_dirty_rows(rows)
+
+    def clear_dirty(self) -> None:
+        self._dsm.clear_dirty()
+
+    def _batch(self, rows: list[dict]) -> Replies:
+        from sherman_tpu_torch.parallel import bootstrap
+        if not rows:
+            self._dsm._batch([])  # still one collective step
+            return Replies(data=np.zeros((0, PAGE_WORDS), np.int32),
+                           old=np.zeros(0, np.int32), ok=np.zeros(0, bool))
+        cap = self._dsm.host_capacity
+        parts = []
+        for i in range(0, len(rows), cap):
+            chunk = rows[i:i + cap]
+            if self._leader:
+                parts.append(self._dsm._batch(chunk))
+            else:
+                # the rows are replicated: this rank marks the rows it
+                # owns from its own copy of the step
+                self._dsm._mark_dirty_from_reqs({
+                    k: np.asarray([int(r.get(k, 0)) & _U32 for r in chunk],
+                                  np.uint32).view(np.int32)
+                    for k in ("op", "addr", "space")})
+                self._dsm._batch([])
+                parts.append(Replies(
+                    data=np.zeros((len(chunk), PAGE_WORDS), np.int32),
+                    old=np.zeros(len(chunk), np.int32),
+                    ok=np.zeros(len(chunk), bool)))
+        rep = Replies(data=np.concatenate([p.data for p in parts]),
+                      old=np.concatenate([p.old for p in parts]),
+                      ok=np.concatenate([p.ok for p in parts]))
+        # one broadcast of the leader's replies (the others pass
+        # placeholders of the same shapes: the rows are replicated)
+        g = bootstrap.broadcast_one_to_all((rep.data, rep.old, rep.ok))
+        return Replies(data=g[0], old=g[1], ok=g[2])

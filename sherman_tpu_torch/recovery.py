@@ -76,7 +76,8 @@ import numpy as np
 
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import ShermanError, StateError
+from sherman_tpu_torch.errors import (MultiprocessUnsupportedError,
+                                      ShermanError, StateError)
 from sherman_tpu_torch.utils import checkpoint as CK
 from sherman_tpu_torch.utils import journal as J
 
@@ -129,6 +130,15 @@ class RecoveryPlane:
                  group_commit_ms: float = 0.0,
                  ack_carry: int = 65536,
                  host_id: int = 0, hosts: int = 1):
+        if cluster.dsm.multihost and int(hosts) <= 1:
+            # a process-spanning mesh with NO host plane configured has no
+            # per-host chain namespace to own: the multihost service plane
+            # (multihost.py) builds one plane per host with hosts > 1
+            raise MultiprocessUnsupportedError(
+                "RecoveryPlane on a multihost mesh needs per-host chain "
+                "ownership: pass hosts=<N>, host_id=<this host> (the "
+                "multihost service plane does; see sherman_tpu_torch/"
+                "multihost.py)")
         if not (0 <= int(host_id) < int(hosts)):
             raise StateError(
                 f"host_id={host_id} outside [0, hosts={hosts})")

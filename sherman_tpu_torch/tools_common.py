@@ -43,9 +43,10 @@ def run_cli(main) -> int:
 
 def build_cluster(n_nodes: int, pages_per_node: int, batch_per_node: int,
                   locks_per_node: int = 65_536, chunk_pages: int = 4096, *,
-                  device: str = "cuda", **cfg):
+                  device: str = "cuda", keeper=None, **cfg):
     """``tools/common.build_cluster`` on ``device``: cluster, tree and an
-    engine at ``sibling_chase_budget=1``; ``cfg`` goes to ``DSMConfig``."""
+    engine at ``sibling_chase_budget=1``; ``cfg`` goes to ``DSMConfig``.
+    ``keeper``: ``init_multihost``'s, whose ranks then share the nodes."""
     from sherman_tpu_torch.cluster import Cluster
     from sherman_tpu_torch.config import DSMConfig, TreeConfig
     from sherman_tpu_torch.models import batched
@@ -55,7 +56,7 @@ def build_cluster(n_nodes: int, pages_per_node: int, batch_per_node: int,
                   locks_per_node=locks_per_node,
                   step_capacity=batch_per_node, chunk_pages=chunk_pages,
                   device=device, **cfg)
-    cluster = Cluster(c)
+    cluster = Cluster(c, keeper=keeper)
     tree = Tree(cluster)
     eng = batched.BatchedEngine(tree, batch_per_node=batch_per_node,
                                 tcfg=TreeConfig(sibling_chase_budget=1))

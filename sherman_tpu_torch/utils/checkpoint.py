@@ -37,9 +37,16 @@ Every save counts in ``ckpt.full_saves`` or ``ckpt.delta_saves`` (with
 ``ckpt.orphans_swept``; a full save is a ``checkpoint.save`` flight event
 and a restore a ``checkpoint.restore`` one.
 
-Not here: the reference's collective multihost save and restore (one
-shard file per host, over the process-spanning transport: ROADMAP.md item
-7c-iv).  A multihost artifact is refused with
+A cluster whose nodes span processes (``init_multihost``) saves
+COLLECTIVELY, in the reference's format: every rank writes its node
+block to ``<path>.host<r>.npz`` and the (mirrored) manifest to ``<path>``
+with ``multihost = [ranks]``, all under one epoch whose nonce rank 0
+draws and broadcasts, agreed on by every rank before any file is
+written; :func:`restore` with the distributed keeper checks the pairs
+(torn shard/manifest, rank count, epochs, node blocks) collectively
+before it installs anything.  Both run inside the env-gated
+``Watchdog.maybe`` (``SHERMAN_COLLECTIVE_TIMEOUT_S``).  Without a
+distributed keeper a multihost artifact is refused with
 :class:`CheckpointFormatError`, as the reference refuses it without a
 multi-host cluster.
 """
@@ -151,6 +158,15 @@ def checkpoint(cluster, path: str):
     artifacts chain onto.  Clears the DSM's dirty tracking."""
     if not path.endswith(".npz"):
         path += ".npz"  # np.savez appends it silently; keep restore in sync
+    if cluster.keeper.is_multihost:
+        from sherman_tpu_torch.utils import failure
+        # a peer dying mid-protocol would hang every other rank in the
+        # collectives below: the env-gated watchdog fails fast instead
+        with failure.Watchdog.maybe(
+                what="collective checkpoint save",
+                diagnostics=lambda: cluster.dsm.counter_snapshot()):
+            _checkpoint_multihost(cluster, path)
+        return None
     dsm = cluster.dsm
     man = _manifest(cluster)
     seq = cluster.keeper.mem_fetch_and_add("checkpoint_epoch")
@@ -166,6 +182,42 @@ def checkpoint(cluster, path: str):
     # a full save captures everything: dirty tracking restarts here
     dsm.clear_dirty()
     return epoch
+
+
+def _checkpoint_multihost(cluster, path: str) -> None:
+    """Every rank: its node block to ``<path>.host<r>.npz`` and the
+    manifest to ``<path>``, under one agreed epoch."""
+    from sherman_tpu_torch.parallel import bootstrap
+    dsm = cluster.dsm
+    me = dsm.mesh.rank
+    # (nonce, seq, digest): the nonce is random on rank 0 and broadcast,
+    # so every invocation is globally unique
+    seq = cluster.keeper.mem_fetch_and_add("checkpoint_epoch")
+    man = _manifest(cluster)
+    nonce = np.frombuffer(os.urandom(4), np.int32).copy()
+    nonce = bootstrap.broadcast_one_to_all(nonce)
+    epoch = make_epoch(man, seq, nonce=int(nonce[0]))
+    # save-time epoch agreement BEFORE any file write: diverged ranks
+    # would otherwise replace a good checkpoint by a mixed-epoch set
+    all_ep = bootstrap.process_allgather(epoch)
+    if not (all_ep == all_ep[0]).all():
+        raise CheckpointFormatError(
+            "checkpoint aborted before writing: hosts disagree on the "
+            f"checkpoint epoch {all_ep.tolist()} (divergent checkpoint "
+            "counts or manifests — the replicated-driver invariant is "
+            "broken); the previous checkpoint is left intact")
+    shard = dict(**_state_arrays(dsm),
+                 nodes=np.asarray(list(dsm.local_nodes), np.int64),
+                 epoch=epoch)
+    shard["integrity"] = _integrity(shard)
+    _savez_atomic(f"{path}.host{me}.npz", me, own_tmp_only=True, **shard)
+    man_arrays = dict(multihost=np.asarray([dsm.mesh.world_size], np.int64),
+                      epoch=epoch, **man)
+    man_arrays["integrity"] = _integrity(man_arrays)
+    _savez_atomic(path, me, own_tmp_only=True, **man_arrays)
+    _OBS_FULL_SAVES.inc()
+    obs.record_event("checkpoint.save", path=path, seq=int(seq))
+    cluster.keeper.barrier("checkpoint")
 
 
 def make_epoch(man: dict, seq: int, nonce: int | None = None) -> np.ndarray:
@@ -257,14 +309,22 @@ def _savez_compressed(f, arrays: dict) -> None:
                 np.lib.format.write_array(fid, val, allow_pickle=False)
 
 
-def _savez_atomic(path: str, tag: int, **arrays) -> None:
+def _savez_atomic(path: str, tag: int, *, own_tmp_only: bool = False,
+                  **arrays) -> None:
     """:func:`_savez_compressed` via tmp + fsync + atomic replace +
     directory fsync: a crash mid-write never clobbers an existing
     checkpoint file, and a completed save survives power loss (the data
     AND the rename are both on disk before return).  Stale tmp orphans
-    from a previous crash are swept first."""
-    _sweep_tmp_orphans(path)
+    from a previous crash are swept first; ``own_tmp_only`` sweeps only
+    this writer's own tmp name (the ranks of one host write the same
+    manifest path at once, and must not sweep each other's tmp files)."""
     tmp = f"{path}.tmp{tag}.npz"
+    if own_tmp_only:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+            _OBS_ORPHANS.inc()
+    else:
+        _sweep_tmp_orphans(path)
     with open(tmp, "wb") as f:
         _savez_compressed(f, arrays)
         f.flush()
@@ -437,13 +497,19 @@ def set_free_pools(cluster, free_addrs) -> None:
             d.allocator.reclaim(by_node[d.node_id])
 
 
-def restore(path: str, device: str = "cuda", clear_locks: bool = True):
-    """Rebuild a live Cluster on ``device`` from a full checkpoint.
-    -> Cluster."""
+def restore(path: str, device: str = "cuda", clear_locks: bool = True,
+            keeper=None):
+    """Rebuild a live Cluster on ``device`` from a full checkpoint.  With
+    the distributed keeper (``init_multihost``) every rank restores its
+    node block of a collective checkpoint.  -> Cluster."""
     from sherman_tpu_torch.cluster import Cluster
 
     if not path.endswith(".npz") and not os.path.exists(path):
         path += ".npz"
+    if keeper is not None and keeper.is_multihost:
+        from sherman_tpu_torch.utils import failure
+        with failure.Watchdog.maybe(what="collective checkpoint restore"):
+            return _restore_multihost(path, device, keeper, clear_locks)
     z = _load_arrays(path)
     if "delta" in z:
         raise CheckpointCorruptError(
@@ -453,9 +519,9 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
     if "multihost" in z and int(z["multihost"][0]) != 0:
         raise CheckpointFormatError(
             f"{path} is a multi-host checkpoint (one shard file per host) "
-            "and needs a multi-host cluster: the port's collective restore "
-            "comes with the process-spanning transport, ROADMAP.md item "
-            "7c-iv")
+            "and needs a multi-host cluster: pass init_multihost()'s "
+            "keeper on every host (the collective restore, ROADMAP.md "
+            "item 7c-iv)")
     cfg = cfg_from_json(z["cfg"], device)
     cluster = Cluster(cfg)
     dsm = cluster.dsm
@@ -472,6 +538,75 @@ def restore(path: str, device: str = "cuda", clear_locks: bool = True):
         dsm.heap.copy_(torch.from_numpy(z["heap"]))
     _restore_directories(cluster, z)
     # a restore is the recovery step every drill's black box must show
+    obs.record_event("checkpoint.restore", path=path)
+    return cluster
+
+
+def _restore_multihost(path: str, device: str, keeper, clear_locks: bool):
+    """COLLECTIVE-FIRST restore: every rank resolves all its fallible
+    local work (the loads, the epoch pairing) into a status vector, every
+    rank all-gathers it unconditionally, and only then raises, so a
+    rank's local failure never leaves the others hanging in a
+    collective."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.parallel import bootstrap
+    ws, me = bootstrap.process_layout()
+    EW = 3  # epoch words; -1s for legacy shapes
+    man = shard = None
+    err = ""
+    man_keys = set(_MANIFEST_FIELDS) | {"multihost", "epoch"}
+    try:
+        man = _load_arrays(path, keys=man_keys)
+        shard = _load_arrays(f"{path}.host{me}.npz")
+    except Exception as e:  # missing/torn/corrupt file: via the gather
+        err = f"{type(e).__name__}: {e}"
+    loads_ok = int(man is not None and shard is not None and "cfg" in man)
+    pair_ok, saved_mh = 1, -1
+    ep = np.full(EW, -1, np.int32)
+    if loads_ok:
+        saved_mh = int(man["multihost"][0]) if "multihost" in man else 0
+        if ("epoch" in shard) != ("epoch" in man):
+            pair_ok = 0  # mixed legacy/tagged files = torn pair
+        elif "epoch" in shard:
+            he = np.asarray(shard["epoch"]).ravel()
+            ze = np.asarray(man["epoch"]).ravel()
+            if he.shape != ze.shape or not (he == ze).all():
+                pair_ok = 0
+            else:
+                ep[: min(EW, he.size)] = he[:EW].astype(np.int32)
+    status = np.concatenate(
+        [np.asarray([loads_ok, pair_ok, saved_mh], np.int32), ep])
+    all_st = bootstrap.process_allgather(status)
+    if not (all_st[:, 0] == 1).all():
+        raise CheckpointFormatError("a host failed to load its checkpoint "
+                                    f"files ({err or 'other host'})")
+    if not (all_st[:, 1] == 1).all():
+        raise CheckpointFormatError(
+            "a host holds a torn checkpoint (shard/manifest from different "
+            "checkpoints or mixed legacy/tagged files)")
+    if not (all_st[:, 2] == ws).all():
+        raise CheckpointFormatError(
+            f"checkpoint host count {sorted(set(all_st[:, 2].tolist()))} != "
+            f"{ws} restoring processes")
+    if not (all_st[:, 3:] == all_st[0, 3:]).all():
+        raise CheckpointFormatError(
+            "hosts hold checkpoints from different epochs (crashed "
+            "mid-checkpoint?): refusing to mix")
+    # every rank validated: collectives are safe from here
+    cfg = cfg_from_json(man["cfg"], device)
+    cluster = Cluster(cfg, keeper=keeper)
+    dsm = cluster.dsm
+    nodes_ok = int(list(shard["nodes"]) == list(dsm.local_nodes))
+    if not (bootstrap.process_allgather(
+            np.asarray([nodes_ok], np.int32)) == 1).all():
+        raise CheckpointFormatError("per-host node blocks changed since "
+                                    "the checkpoint")
+    dsm.pool.copy_(torch.from_numpy(shard["pool"]))
+    if not clear_locks:
+        dsm.locks.copy_(torch.from_numpy(shard["locks"]))
+    dsm.counters.copy_(torch.from_numpy(
+        shard["counters"].astype(np.int64)))
+    _restore_directories(cluster, man)
     obs.record_event("checkpoint.restore", path=path)
     return cluster
 

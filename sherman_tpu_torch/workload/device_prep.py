@@ -67,6 +67,7 @@ from sherman_tpu_torch.models.batched import (ST_APPLIED, ST_SUPERSEDED,
 from sherman_tpu_torch.obs import device as DEV
 from sherman_tpu_torch.obs import slo as SLO
 from sherman_tpu_torch.ops import bits
+from sherman_tpu_torch.parallel import mesh as MESH
 from sherman_tpu_torch.workload import threefry
 
 _MASK = bits.U32_MASK
@@ -388,11 +389,14 @@ def _words(v: int) -> tuple[int, int]:
 
 
 def _client_keys(gen_ranks, tpair, rkey, step_idx, N: int, batch: int,
-                 salt: int):
+                 salt: int, nodes: range | None = None):
     """Every node's ``batch`` client keys of one step: node n draws from
-    ``fold_in(rkey, step_idx * N + n)``.  -> (khi, klo) ``[N, batch]``
-    uint32 words."""
-    nodes = torch.arange(N, dtype=torch.int64, device=rkey.device)
+    ``fold_in(rkey, step_idx * N + n)``.  ``nodes``: the nodes this
+    process serves (all ``N`` by default).  -> (khi, klo)
+    ``[len(nodes), batch]`` uint32 words."""
+    nodes = range(N) if nodes is None else nodes
+    nodes = torch.arange(nodes.start, nodes.stop, dtype=torch.int64,
+                         device=rkey.device)
     k = threefry.fold_in(rkey, (step_idx * N + nodes) & _MASK)   # [N, 2]
     w = threefry.bits(k, (2, batch)).transpose(0, 1)             # [2, N, b]
     rank = gen_ranks(tpair, w)
@@ -428,6 +432,21 @@ def _check_step_args(eng):
     if eng.router is None:
         raise ConfigError("attach_router() first: the staged loop probes "
                           "the engine's router")
+
+
+def _receipts(carry, ops) -> list:
+    """The carry as host ints, reduced over the ranks when the nodes span
+    processes (each rank's carry folds only its own nodes): ``ops`` names
+    each field's reduction, ``same`` for the step counters every rank
+    agrees on."""
+    vals = [int(x) for x in carry]
+    if not MESH.process_layout()[0] > 1:
+        return vals
+    from sherman_tpu_torch.parallel import bootstrap
+    g = bootstrap.process_allgather(np.asarray(vals, np.int64))
+    red = {"sum": np.sum, "min": np.min, "max": np.max,
+           "same": lambda c: c[0]}
+    return [int(red[op](g[:, i])) for i, op in enumerate(ops)]
 
 
 # ---------------------------------------------------------------------------
@@ -510,21 +529,27 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
                           f"lie in 1..dev_b={dev_b}")
     router, cfg, dsm = eng.router, eng.cfg, eng.dsm
     dev = eng.device
-    N = cfg.machine_nr
+    mesh = MESH.of(cfg)
+    if use_cache and mesh.spans:
+        raise ConfigError("the staged loop's leaf cache is single-process")
+    # across processes a rank generates, serves and verifies its own
+    # nodes' clients; the fan-out's table spans every node
+    N = mesh.n_local
     iters = eng._iters()
     shift, nb = int(router.shift), int(router.nb)
     LB = int(log2_bins)
     gen_ranks, sampler = _rank_sampler(sampler, n_keys, theta, LB, dev)
     root = int(eng.tree._root_addr)
     cx_hi, cx_lo = _words(check_xor)
-    node_off = (torch.arange(N, dtype=torch.int32, device=dev)
-                * dev_b)[:, None]
+    node_off = (torch.arange(mesh.lo, mesh.lo + N, dtype=torch.int32,
+                             device=dev) * dev_b)[:, None]
     iota_b = torch.arange(dev_b, device=dev)
 
     def prep(tpair, rtable, rkey, step_idx):
         step_idx = torch.as_tensor(step_idx, dtype=torch.int64, device=dev)
-        khi_u, klo_u = _client_keys(gen_ranks, tpair, rkey, step_idx, N,
-                                    batch, salt)
+        khi_u, klo_u = _client_keys(gen_ranks, tpair, rkey, step_idx,
+                                    cfg.machine_nr, batch, salt,
+                                    mesh.local_nodes)
         skhi, sklo, ukhi, uklo, seg, n_uniq = _sort_combine(khi_u, klo_u,
                                                             dev_b)
         active = iota_b < n_uniq[:, None]
@@ -737,6 +762,10 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     _slo_hook(step, "read", batch)
     step.phase_profile = phase_profile
     step.dev_b = dev_b
+    # the drained carry as host ints, summed over the ranks
+    step.receipts = lambda carry: _receipts(
+        carry, ("same", "min", "sum", "sum", "max")
+        + (("sum", "sum") if use_cache else ()))
     table_d, rtable_d, rkey_d = staged or _stage_inputs(
         dsm, router, n_keys, theta, LB, seed, sampler)
     return step, (new_carry, table_d, rtable_d, rkey_d)
@@ -784,7 +813,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
     _check_step_args(eng)
     router, cfg, dsm = eng.router, eng.cfg, eng.dsm
     dev = eng.device
-    N = cfg.machine_nr
+    mesh = MESH.of(cfg)
+    N = mesh.n_local
     iters = eng._iters()
     shift, nb = int(router.shift), int(router.nb)
     LB = int(log2_bins)
@@ -805,8 +835,9 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
 
     def prep(tpair, rtable, rkey, step_idx):
         step_idx = torch.as_tensor(step_idx, dtype=torch.int64, device=dev)
-        khi_u, klo_u = _client_keys(gen_ranks, tpair, rkey, step_idx, N,
-                                    batch, salt)
+        khi_u, klo_u = _client_keys(gen_ranks, tpair, rkey, step_idx,
+                                    cfg.machine_nr, batch, salt,
+                                    mesh.local_nodes)
         rskhi, rsklo, rukhi, ruklo, rseg, r_nu = _sort_combine(
             khi_u[:, :R], klo_u[:, :R], dev_rb)
         _, _, wukhi, wuklo, wseg, w_nu = _sort_combine(
@@ -857,7 +888,7 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
         dec_lo = bits.u32(out[..., 2]) ^ rsklo ^ cx_lo
         corr_r = (out[..., 0] != 0) & (dec_hi == 0) & (dec_lo <= sidx)
         ok_w = st_cli == ST_APPLIED
-        if N > 1:
+        if cfg.machine_nr > 1:
             ok_w = ok_w | (st_cli == ST_SUPERSEDED)
         step_ok = ((r_nu <= dev_rb) & (w_nu <= dev_wb)).all()
         i32 = lambda x: x.to(torch.int32)
@@ -963,6 +994,8 @@ def make_staged_mixed_step(eng, *, n_keys: int, theta: float, salt: int,
                          for name, prog in step.programs.items()}
     _slo_hook(step, "mixed", batch)
     step.phase_profile = phase_profile
+    step.receipts = lambda carry: _receipts(
+        carry, ("same", "min", "sum", "sum", "sum", "max", "max", "same"))
     table_d, rtable_d, rkey_d = staged or _stage_inputs(
         dsm, router, n_keys, theta, LB, seed, sampler)
     return step, (new_carry, table_d, rtable_d, rkey_d)
@@ -1085,6 +1118,9 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
         raise ConfigError(
             f"ingress width {width} must be a positive multiple of "
             f"machine_nr={eng.cfg.machine_nr} (the batch is node-major)")
+    if eng._mh:
+        raise ConfigError("the ingress step serves one process's front "
+                          "door: its nodes must not span processes")
     if prep_impl is None:
         prep_impl = C.prep_impl()
     if prep_impl not in ("host", "device"):

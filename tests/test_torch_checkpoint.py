@@ -385,3 +385,104 @@ def test_parallel_deflate_checkpoint_restores_across_packages(
     pc = CK.restore(path, device="cpu")
     _same_cluster(jc, pc, "parallel deflate")
     _serve_alike(jc, pc, keys, "parallel deflate")
+
+
+# ---------------------------------------------------------------------------
+# The collective checkpoint of two ranks (the process-spanning transport).
+# ---------------------------------------------------------------------------
+
+_MH_CFG = dict(machine_nr=4, pages_per_node=128, locks_per_node=64,
+               step_capacity=32, host_step_capacity=16, chunk_pages=8)
+_MH_KEYS = np.arange(1, 601, dtype=np.uint64) * np.uint64(7)
+
+_MH_RANK = r'''
+from sherman_tpu_torch.cluster import Cluster
+from sherman_tpu_torch.config import DSMConfig
+from sherman_tpu_torch.models import batched
+from sherman_tpu_torch.models.btree import Tree
+from sherman_tpu_torch.utils import checkpoint as CK
+import json
+cfg_kw = json.loads(args[0])
+keys = np.arange(1, 601, dtype=np.uint64) * np.uint64(7)
+keeper = bootstrap.init_multihost()
+cluster = Cluster(DSMConfig(device="cpu", **cfg_kw), keeper=keeper)
+tree = Tree(cluster)
+batched.bulk_load(tree, keys, keys * np.uint64(3))
+assert CK.checkpoint(cluster, os.path.join(tmp, "port.npz")) is None
+# the reference's two-host artifact (its resharder's) restores here
+c2 = CK.restore(os.path.join(tmp, "jax2.npz"), device="cpu", keeper=keeper)
+np.savez(os.path.join(tmp, f"restored{pid}.npz"), pool=c2.dsm.pool.numpy(),
+         locks=c2.dsm.locks.numpy(), counters=c2.dsm.counters_np())
+eng = batched.BatchedEngine(Tree(c2), batch_per_node=64)
+got, found = eng.search(keys)
+assert found.all() and (got == keys * np.uint64(3)).all()
+try:
+    CK.restore(os.path.join(tmp, "single.npz"), device="cpu", keeper=keeper)
+    raise SystemExit("a one-file artifact restored into two ranks")
+except CK.CheckpointFormatError as e:
+    assert "host count" in str(e) or "failed to load" in str(e), e
+keeper.barrier("done")
+print(f"[{pid}] CK-PASS", flush=True)
+'''
+
+
+def test_collective_save_matches_jax_format_and_restores_two_hosts(
+        tmp_path, eight_devices):
+    """Two ranks save collectively: the manifest and both shard files
+    hold the JAX format's fields, array for array (the epoch's nonce and
+    the integrity map that covers it aside), as the reference's own
+    ``reshard --hosts 2`` writes them for the same state; and that
+    reference artifact restores into the two ranks, the restored blocks
+    equal to the JAX cluster's."""
+    import torch_ranks as RK
+    from sherman_tpu.utils import reshard as JRS
+    jc = JCluster(JDSMConfig(**_MH_CFG))
+    jt = JTree(jc)
+    JB.bulk_load(jt, _MH_KEYS, _MH_KEYS * np.uint64(3))
+    single = str(tmp_path / "single.npz")
+    JCK.checkpoint(jc, single)
+    JRS.reshard(single, str(tmp_path / "jax2.npz"), 4, hosts=2)
+    RK.run(tmp_path, _MH_RANK, "CK-PASS", timeout=120,
+           args=(json.dumps(_MH_CFG),))
+    one = dict(np.load(single))
+    P, L = _MH_CFG["pages_per_node"], _MH_CFG["locks_per_node"]
+    for h, suffix in enumerate(("", ".host0.npz", ".host1.npz")):
+        got = dict(np.load(str(tmp_path / "port.npz") + suffix))
+        want = dict(np.load(str(tmp_path / "jax2.npz") + suffix))
+        # the reference's collective save adds its integrity map, which
+        # its resharder's artifact leaves out
+        assert sorted(got) == sorted(set(want) | {"integrity"}), suffix
+        crcs = json.loads(bytes(got["integrity"]).decode())
+        assert sorted(crcs) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, (suffix, k)
+            assert got[k].ndim == want[k].ndim, (suffix, k)
+        # the values: the JAX one-process save of the same state, split
+        if not suffix:
+            assert got["multihost"].tolist() == [2]
+            for k in ("cfg", "dir_nodes", "dir_next", "dir_root",
+                      "dir_free"):
+                np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+        else:
+            r = h - 1
+            assert got["nodes"].tolist() == [2 * r, 2 * r + 1]
+            np.testing.assert_array_equal(
+                got["pool"], one["pool"][2 * r * P:(2 * r + 2) * P])
+            np.testing.assert_array_equal(
+                got["locks"], one["locks"][2 * r * L:(2 * r + 2) * L])
+            np.testing.assert_array_equal(
+                got["counters"], one["counters"][20 * r:20 * r + 20])
+        assert got["epoch"].shape == want["epoch"].shape == (3,)
+    eps = {tuple(np.load(str(tmp_path / "port.npz") + s)["epoch"])
+           for s in ("", ".host0.npz", ".host1.npz")}
+    assert len(eps) == 1, "shards and manifest carry one epoch"
+    joined = [np.concatenate([np.load(str(tmp_path / f"restored{p}.npz"))[k]
+                              for p in range(2)])
+              for k in ("pool", "locks", "counters")]
+    shards = [dict(np.load(str(tmp_path / f"jax2.npz.host{h}.npz")))
+              for h in range(2)]
+    np.testing.assert_array_equal(
+        joined[0], np.concatenate([z["pool"] for z in shards]))
+    assert not joined[1].any(), "a restore clears the lock table"
+    np.testing.assert_array_equal(
+        joined[2], np.concatenate([z["counters"] for z in shards]))

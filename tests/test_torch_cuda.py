@@ -1309,3 +1309,71 @@ def test_device_report_driver_on_the_card(dev, capsys, tmp_path):
     p.write_text(json.dumps({"parsed": {"schema_version": 3,
                                         "device": r["device"]}}))
     assert device_report.main(["--receipt", str(p)])["retraces"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The process-spanning transport: K4's rank layout and two ranks on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,L,c,w", [(2, 4, 3, 257), (2, 4, 128, 6),
+                                      (4, 2, 5, 1), (8, 1, 16, 4),
+                                      (2, 1, 7, 3), (2, 2, 1024, 257)])
+def test_rank_layout_kernels_match_plain(dev, R, L, c, w):
+    """K4's two launches around a cross-rank collective (the layout by
+    destination rank and the placement of the received blocks) against
+    their plain versions, and the ranks' outputs joined equal to the
+    one-process exchange of the whole buffer."""
+    N = R * L
+    rng = np.random.default_rng(R * 1000 + c)
+    xs = [_words(rng, (L, N * c, w)) for _ in range(R)]
+    sends = []
+    for x in xs:
+        TK.reset_launches()
+        got = TK.pack_for_ranks(x.to(dev), R)
+        assert TK.LAUNCHES["exchange"] == 1
+        want = TK.pack_for_ranks(x, R)
+        assert torch.equal(got.cpu(), want)
+        sends.append(want)
+    outs = []
+    for r in range(R):
+        recv = torch.stack([sends[p][r] for p in range(R)])
+        TK.reset_launches()
+        got = TK.unpack_from_ranks(recv.to(dev), L, (L, N * c, w))
+        assert TK.LAUNCHES["exchange"] == 1
+        want = TK.unpack_from_ranks(recv, L, (L, N * c, w))
+        assert torch.equal(got.cpu(), want)
+        outs.append(want)
+    whole = torch.cat(xs)
+    assert torch.equal(torch.cat(outs), TK.all_to_all_ref(whole))
+    assert torch.equal(TK.all_to_all(whole.to(dev)).cpu(),
+                       TK.all_to_all_ref(whole))
+
+
+_CARD_RANK = r'''
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import torch_mp_seqs as S
+S.port_rank(args[0], pid, tmp, device="cuda")
+print(f"[{pid}] SEQ-PASS", flush=True)
+'''
+
+
+@pytest.mark.parametrize("name", ["cluster", "engine", "staged"])
+def test_two_ranks_on_the_card_match_one_cpu_process(dev, tmp_path, name):
+    """Two rank processes share the card (gloo between them, the pools on
+    the card): their blocks joined, answers and receipts are bit-identical
+    to one port process of 4 nodes on the CPU (phase 31a's check at the
+    reference workers' sizes)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mp_seqs as S
+    import torch_ranks as RK
+    PK.load_library()      # the ranks load this build, not a second one
+    RK.run(tmp_path, _CARD_RANK, "SEQ-PASS", timeout=600, args=(name,))
+    parts = [dict(np.load(tmp_path / f"{name}_r{p}.npz")) for p in range(2)]
+    want = S.port_one(name, str(tmp_path), device="cpu")
+    assert sorted(parts[0]) == sorted(want)
+    for k, v in want.items():
+        got = parts[0][k] if k.startswith("res_") else np.concatenate(
+            [p[k] for p in parts])
+        np.testing.assert_array_equal(got, v, err_msg=f"{name}: {k}")

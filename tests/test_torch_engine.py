@@ -404,6 +404,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             if os.path.dirname(f) == utils_dir} >= {
         "checkpoint.py", "journal.py", "reshard.py", "debug.py",
         "timer.py", "failure.py"}
+    parallel_dir = os.path.join(REPO, "sherman_tpu_torch", "parallel")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == parallel_dir} >= {
+        "mesh.py", "bootstrap.py", "dsm.py", "transport.py",
+        "transport_kernel.py", "alloc.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -142,7 +142,13 @@ def test_profile_staged2_refuses_the_xla_forms(capsys, monkeypatch, fusion):
 
 def test_device_report_matches_jax(eight_devices, capsys, monkeypatch,
                                    tmp_path):
+    import importlib
+
     import device_report as JDR
+    # the reference's print_tables binds sys.stderr when its module is
+    # imported: import it afresh, so that it writes to this test's stream
+    # and not to one an earlier test in this process closed
+    JDR = importlib.reload(JDR)
     for k, v in STAGED_ENV:
         if k not in ("W",):
             monkeypatch.setenv(k, v)

@@ -172,3 +172,51 @@ def test_exchange_launch_failure_is_typed_and_counts_no_launch(monkeypatch):
                  launches=TK.LAUNCHES)
     assert TK.LAUNCHES["exchange"] == 0
     assert not any(PK.LAUNCHES.values())
+
+
+def _rank_exchange(x: torch.Tensor, R: int) -> torch.Tensor:
+    """The process-spanning exchange of ``x [N, N*C, W]`` over ``R``
+    simulated ranks: each rank's K4 layout, the equal-split all-to-all
+    of the process group (``recv_r[p] = send_p[r]``), each rank's K4
+    placement, the ranks' outputs joined in rank order."""
+    N = x.shape[0]
+    L = N // R
+    sends = [TK.pack_for_ranks(x[r * L:(r + 1) * L].contiguous(), R)
+             for r in range(R)]
+    assert all(s.shape == (R, x.numel() // N * L // R) for s in sends)
+    outs = []
+    for r in range(R):
+        recv = torch.stack([sends[p][r] for p in range(R)])
+        outs.append(TK.unpack_from_ranks(recv, L, (L,) + x.shape[1:]))
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("R,L", [(1, 8), (2, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("c,w", [(4, 3), (1, 257)])
+def test_rank_layout_joined_equals_the_whole_exchange(eight_devices, R, L,
+                                                      c, w):
+    """K4's plain process-spanning permutation at R ranks of L nodes,
+    joined over the ranks, is the one-process exchange of the whole
+    ``[N, N*C, W]`` (``all_to_all_ref``) and the JAX exchange on 8
+    devices."""
+    N = R * L
+    rng = np.random.default_rng(R * 100 + c)
+    x = rng.integers(-2**31, 2**31, (N * N * c, w), dtype=np.int64) \
+        .astype(np.int32)
+    want = _spmd(N, lambda a: JT.exchange(a, AXIS), x)
+    xt = _nodes(x, N).contiguous()
+    got = _rank_exchange(xt, R)
+    np.testing.assert_array_equal(got.numpy(), TK.all_to_all_ref(xt).numpy())
+    np.testing.assert_array_equal(got.reshape(want.shape).numpy(), want)
+
+
+def test_block_transpose_plain_layout():
+    """The kernel's layout as an argument: ``out[j, i] = x[i, j]`` of an
+    ``[a, b]`` grid of runs, shaped as asked, and the one-rank exchange
+    is its ``a = b = N`` case."""
+    x = torch.arange(2 * 3 * 5, dtype=torch.int32)
+    got = TK.block_transpose(x, 2, 3, (3, 10))
+    want = x.view(2, 3, 5).transpose(0, 1).reshape(3, 10)
+    assert torch.equal(got, want)
+    y = torch.arange(4 * 8 * 3, dtype=torch.int32).view(4, 8, 3)
+    assert torch.equal(TK.block_transpose(y, 4, 4), TK.all_to_all_ref(y))
