@@ -420,6 +420,11 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     ends rank 0 with a diagnostic naming rank 1) and a relaunched pair
     restoring the checkpoint, every key checked.  Its ``multirank`` line
     has each number.  Budget: ``BUDGET["31"]``.
+32. the port's linter (``sherman_tpu_torch/analysis``, a few seconds on
+    the host): ``sherman_tpu_torch/`` and this script linted with the
+    committed (empty) baseline; one ``lint`` JSON line (files, findings,
+    pragmas by rule, ``lint_clean``), and the smoke fails unless the tree
+    is clean.  It launches no kernel.
 
 Launch counts are reset just before phase 3 and read just after it (K1,
 K2 and K3 must launch), and again around phase 6 (K2, K3 and K4 must
@@ -450,7 +455,7 @@ and 24), phase 25's ``serve_bench``, ``serve_bench_device_prep`` and
 ``partition_drill`` records, phase 27's ``reshard_drill`` and
 ``contract_drill`` records, phase 28's ``multihost_drill`` and
 ``hostfail_drill`` records, phase 29's ``native_host`` record (printed
-after phase 4), the K1 and K3 ablations, the
+after phase 4), phase 32's ``lint`` record, the K1 and K3 ablations, the
 ``kernels`` JSON record
 and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failure raises: the script exits nonzero and
@@ -549,6 +554,8 @@ BUDGET = {
         ("ck_keys", "31b's checkpoint and restore at 10,000,000 keys", 20.0),
         ("steps", "31b's steps 4 -> 2", 5.0),
         ("keys", "31b's bulk load at 10,000,000 keys", 5.0))),
+    # phase 32, the linter (~8-10 s on a host core), with no cut
+    "32": (15.0, ()),
 }
 # The last-resort cuts, taken after every other cut (phase 31's too):
 # (phase, key) -> the seconds from the phase's decision to the smoke's end
@@ -7287,6 +7294,29 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
     return _merge_shapes(recs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the port's linter over the tree this smoke runs from.
+# ---------------------------------------------------------------------------
+
+def lint_phase() -> dict:
+    """Lint ``sherman_tpu_torch/`` and this script with the port's
+    shermanlint and the committed baseline; print the ``lint`` line and
+    raise unless the tree is clean.  -> the line's record."""
+    from sherman_tpu_torch import analysis, shermanlint
+    res = shermanlint.lint(baseline=analysis.load_baseline(
+        shermanlint.DEFAULT_BASELINE))
+    rec = {"files": res.files_checked, "findings": len(res.findings),
+           "pragmas_by_rule": shermanlint.pragmas_by_rule(res),
+           "lint_clean": res.clean}
+    print(json.dumps({"lint": rec}), flush=True)
+    if not res.clean:
+        problems = ([f.render() for f in res.findings + res.pragma_errors]
+                    + res.baseline_errors)
+        raise AssertionError("phase 32: the tree does not lint clean:\n"
+                             + "\n".join(problems))
+    return rec
+
+
 def phase31_only(argv: list) -> int:
     """``chip_smoke.py --phase31 [--mr-keys N]``: the builds, K4's parity
     on garbage inputs and phase 31 alone (its budget unset), for work on
@@ -7547,6 +7577,10 @@ def _main(bb: str) -> int:
         shapes.setdefault(k, []).extend(v)
     _log(f"phase 31 (two ranks on the card, replayed at every launched "
          f"shape, K2-K4: exact): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    lint_phase()
+    _log(f"phase 32 (the port's linter: clean): "
+         f"{time.perf_counter() - t:.1f} s")
     recs = [kernel_record(k, shapes[k]) for k in KERNELS]
 
     print(json.dumps({"k1_ablations": [

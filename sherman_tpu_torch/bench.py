@@ -101,6 +101,7 @@ after the bulk load and asserts its key count.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -294,6 +295,22 @@ def _multihost_capable_stamp() -> bool | None:
     try:
         from sherman_tpu_torch.multihost import multihost_capable
         return multihost_capable()[0]
+    except Exception:
+        return None
+
+
+@functools.lru_cache(maxsize=1)
+def _lint_clean() -> bool | None:
+    """True when the tree this bench ran from passes the port's
+    shermanlint (``sherman_tpu_torch/`` and ``chip_smoke.py`` with the
+    committed baseline, anchored at the repo root whatever the working
+    directory), stamped into the JSON ``config`` block.  AST-only, once
+    a process and outside every timer; None, never a crash, when the
+    linter itself cannot run."""
+    try:
+        from sherman_tpu_torch import analysis, shermanlint
+        baseline = analysis.load_baseline(shermanlint.DEFAULT_BASELINE)
+        return shermanlint.lint(baseline=baseline).clean
     except Exception:
         return None
 
@@ -990,7 +1007,9 @@ def main(argv=None) -> int:
                    "pipeline_depth": 2 if fusion == "pipelined" else 1,
                    "torch": torch.__version__, "cuda": torch.version.cuda,
                    # which transport this run could cross processes with
-                   "multihost_capable": _multihost_capable_stamp()},
+                   "multihost_capable": _multihost_capable_stamp(),
+                   # whether the tree it ran from lints clean
+                   "lint_clean": _lint_clean()},
     }
     print(json.dumps(out), flush=True)
     return 0

@@ -21,6 +21,8 @@ __all__ = [
     "ExchangeLaneError",
     "NativeBuildError",
     "NativeUnavailableError",
+    "PreconditionError",
+    "InvariantError",
 ]
 
 
@@ -116,3 +118,16 @@ class NativeUnavailableError(ShermanError, RuntimeError):
     environment.  The library's modules keep the reference's pure-numpy
     branches for that case; the headline bench and the chip smoke raise
     this instead (the message carries the build's output)."""
+
+
+class PreconditionError(ShermanError, ValueError, AssertionError):
+    """An argument fails a precondition that the reference states as an
+    ``assert`` (a bucket count out of range, a zero owner tag, an empty
+    Zipf domain, a malformed scan range, exchange fields of unequal
+    shape).  An ``AssertionError`` as the reference's check is, and a
+    ``ValueError`` as a bad argument is."""
+
+
+class InvariantError(ShermanError, AssertionError):
+    """An internal invariant that the reference states as an ``assert``
+    broke at run time (a leaf chain that never reaches its end)."""

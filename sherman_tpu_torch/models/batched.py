@@ -85,7 +85,8 @@ import torch
 from sherman_tpu_torch import config as C
 from sherman_tpu_torch import obs
 from sherman_tpu_torch.config import DSMConfig, TreeConfig
-from sherman_tpu_torch.errors import (ConfigError, KeyRangeError,
+from sherman_tpu_torch.errors import (ConfigError, InvariantError,
+                                      KeyRangeError, PreconditionError,
                                       ProtocolError, ShermanError,
                                       StateError)
 from sherman_tpu_torch.models import validate
@@ -162,13 +163,18 @@ def descend_spmd(pool, counters, khi, klo, root, active, *, cfg: DSMConfig,
                               stop_level=stop_level)
     B = khi.shape[0]
     if start is None:
+        # shermanlint: disable=SL001 root: the tree's root address, an int
         start = torch.full((B,), int(root), dtype=torch.int32,
                            device=khi.device)
     addr = start
     done = ~active
     nreads = torch.zeros((), dtype=torch.int64, device=khi.device)
     it = 0
-    while it < iters and bool((~done).any()):   # one host sync per round
+    # one host sync per round: the unseeded descent (no router seed) stops
+    # when no row still walks.  The serve resolves from router seeds, so
+    # ROADMAP's held item on the serve's host syncs does not target it.
+    # shermanlint: disable=SL001 reads the descent's round count
+    while it < iters and bool((~done).any()):
         nreads += (~done).sum()
         nxt, at_leaf, _, ok, _, _, _ = PK.descent_round(
             pool, addr, khi, klo, ~done, stop_level=stop_level)
@@ -199,6 +205,7 @@ def _descend_nodes(pool, counters, khi, klo, root, active, *,
     M = MESH.of(cfg)
     N = M.n_local
     if start is None:
+        # shermanlint: disable=SL001 root: the tree's root address, an int
         start = torch.full(khi.shape, int(root), dtype=torch.int32,
                            device=khi.device)
     addr = start
@@ -285,7 +292,11 @@ def _routed_resolve(pool, counters, khi, klo, active, start, *, iters: int,
         s_done = s_done | fin
         s_addr = torch.where(ok & ~leafb, nxt, s_addr)
         it += 1
-        pend = int((~s_done).sum())              # one host sync per round
+        # one host sync per straggler round: the serve's resolve (staged
+        # steps, the front door's dispatch).  ROADMAP's held item on the
+        # serve's host syncs targets it.
+        # shermanlint: disable=SL001 reads the straggler round count
+        pend = int((~s_done).sum())
 
     # one scatter of the compacted results back to [B]
     res = valid & s_done
@@ -924,6 +935,7 @@ def mixed_step_spmd(pool, locks, counters, khi, klo, vhi, vlo, root,
     rvh = torch.where(found, rvh, 0)
     rvl = torch.where(found, rvl, 0)
     N = MESH.of(cfg).n_local
+    # shermanlint: disable=SL001 write_lo: a Python int row offset
     lo = 0 if write_lo is None else int(write_lo)
     # each node's rows [lo:] of a node-major [N*B] tensor
     w = (lambda x: x) if not lo else \
@@ -2368,8 +2380,8 @@ def range_query_many(eng: "BatchedEngine", ranges
     ranges = [(int(lo), int(hi)) for lo, hi in ranges]
     for lo, hi in ranges:
         if not (C.KEY_MIN <= lo and hi <= C.KEY_POS_INF and lo < hi):
-            raise AssertionError(f"malformed range [{lo}, {hi}): want "
-                                 f"KEY_MIN <= lo < hi <= KEY_POS_INF")
+            raise PreconditionError(f"malformed range [{lo}, {hi}): want "
+                                    f"KEY_MIN <= lo < hi <= KEY_POS_INF")
     # replication guard: the chain walks issue a data-dependent number of
     # collective host reads, so divergent bounds would desync them.  The
     # bounds are checked first, so a range past KEY_POS_INF raises the
@@ -2436,7 +2448,7 @@ def range_query_many(eng: "BatchedEngine", ranges
             addr = sib
             hops += 1
             if hops >= cfg.machine_nr * cfg.pages_per_node:
-                raise AssertionError("chain runaway")
+                raise InvariantError("chain runaway")
         keys, vals, live = layout.np_leaf_entries_batch(np.stack(chain))
         m = live & (keys >= np.uint64(lo)) & (keys < np.uint64(hi))
         out_k, out_v = keys[m], vals[m]

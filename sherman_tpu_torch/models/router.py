@@ -17,6 +17,7 @@ import threading
 import numpy as np
 
 from sherman_tpu_torch import config as C
+from sherman_tpu_torch.errors import PreconditionError
 from sherman_tpu_torch.ops import bits
 
 
@@ -56,7 +57,8 @@ class _Held:
 class LeafRouter:
     def __init__(self, tree, log2_buckets: int):
         if not 1 <= log2_buckets <= 32:
-            raise ValueError(f"log2_buckets={log2_buckets}: want 1..32")
+            raise PreconditionError(
+                f"log2_buckets={log2_buckets}: want 1..32")
         self.tree = tree
         self.lb = log2_buckets
         self.nb = 1 << log2_buckets

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from sherman_tpu_torch.config import ADDR_PAGE_BITS, ADDR_PAGE_MASK
+from sherman_tpu_torch.errors import PreconditionError
 
 _SIGN = -(1 << 31)            # int32 bit pattern 0x80000000
 _U32_MASK = (1 << 32) - 1
@@ -125,7 +126,7 @@ LEASE_MASK = (LEASE_EPOCH_MASK << LEASE_OWNER_BITS) | LEASE_OWNER_MASK
 def lease_word(owner_tag: int, epoch: int = 1) -> int:
     """Pack (owner tag, lease epoch) into a held-lock word (int32 >= 0)."""
     if not 0 < int(owner_tag) <= LEASE_OWNER_MASK:
-        raise ValueError("owner tag out of range")
+        raise PreconditionError("owner tag out of range")
     return ((int(epoch) & LEASE_EPOCH_MASK) << LEASE_OWNER_BITS) \
         | (int(owner_tag) & LEASE_OWNER_MASK)
 

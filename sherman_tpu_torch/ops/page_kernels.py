@@ -219,6 +219,7 @@ def descent_round(pool, addr, khi, klo, active, *, stop_level: int = 0):
     is_leaf, chase, ok, found = b8(), b8(), b8(), b8()
     _call(k, "sherman_descent_round", _dev_index(dev), pool.data_ptr(), P,
           addr.data_ptr(), khi.data_ptr(), klo.data_ptr(), active.data_ptr(),
+          # shermanlint: disable=SL001 stop_level: a Python int argument
           B, int(stop_level), nxt.data_ptr(), is_leaf.data_ptr(),
           chase.data_ptr(), ok.data_ptr(), found.data_ptr(), vhi.data_ptr(),
           vlo.data_ptr(), rows=B)
@@ -302,6 +303,7 @@ def writeback(pool, page, slot, applied, ent, field_w):
     _check(k, slot, torch.int32, "slot", (M,))
     _check(k, applied, torch.bool, "applied", (M,))
     _check(k, ent, torch.int32, "ent", (M, L))
+    # shermanlint: disable=SL001 field_w: Python int word offsets
     fw = (ctypes.c_int * 5)(*[int(w) for w in field_w])
     _call(k, "sherman_writeback", _dev_index(pool.device), pool.data_ptr(), P,
           page.data_ptr(), slot.data_ptr(), applied.data_ptr(),

@@ -252,6 +252,11 @@ def _apply(pool, locks, counters, req):
             continue
         pre = np.zeros(M, np.int32)
         g = np.where(any_word[rows], widx[rows], 0)
+        # the host plan reads its step-start words: one sync a space a
+        # step.  DSM host steps (host verbs, locks, the migrator) are not
+        # the serve's steps: ROADMAP's held item on the serve's host syncs
+        # does not target it.
+        # shermanlint: disable=SL001 reads the step-start words it plans
         pre[rows] = flat[torch.as_tensor(g, device=dev)].cpu().numpy()
         o, k, words, vals = _word_plan(
             pre, widx, m_cas & m_sp, m_faa & m_sp, m_ww & m_sp,
@@ -275,9 +280,12 @@ def _apply(pool, locks, counters, req):
     handled = is_read | is_write | any_word
     ok &= handled
 
+    # shermanlint: disable=SL001 host numpy: counts of the planned masks
     n = lambda m: int(np.count_nonzero(m))
-    delta = np.array([n(is_read), n(is_read), n(is_write),
-                      int(nw[is_write].astype(np.int64).sum()) & _U32,
+    # shermanlint: disable=SL001 host numpy: the words the page writes store
+    n_words = int(nw[is_write].astype(np.int64).sum()) & _U32
+    # shermanlint: disable=SL001 host numpy: the step's counter deltas
+    delta = np.array([n(is_read), n(is_read), n(is_write), n_words,
                       n(m_cas | m_mcas), n(m_faa | m_mfaa), n(m_ww)],
                      np.int64)
     hit = np.flatnonzero(delta)
@@ -317,8 +325,11 @@ def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
                                      N, C)
     inc = T.exchange(T.scatter_to_buckets(t, bucket_idx, N * C), M)
     # the owners plan their applies on the host: the request fields, and
-    # the payloads only when a page write came in
+    # the payloads only when a page write came in (a DSM host step, not
+    # the serve's)
+    # shermanlint: disable=SL001 reads the exchanged requests
     inc_h = inc[..., :F].cpu().numpy()
+    # shermanlint: disable=SL001 reads the page-write payloads
     payload = inc[..., F:].cpu().numpy() \
         if (inc_h[..., 0] == OP_WRITE).any() else None
     # the reply row: the read page, old, ok
@@ -336,6 +347,7 @@ def dsm_step_spmd(pool, locks, counters, reqs, *, cfg: DSMConfig):
     back = T.take_local(T.exchange(rep, M),
                         torch.where(routed, bucket_idx, 0))
     back = torch.cat([back, routed[..., None].to(torch.int32)], dim=2)
+    # shermanlint: disable=SL001 returns the replies to the host
     back = back.view(-1, PAGE_WORDS + 3).cpu().numpy()
     act = rows[:, 0] != OP_NOP
     routed_h = back[:, -1] != 0

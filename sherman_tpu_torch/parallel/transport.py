@@ -35,7 +35,7 @@ import time
 import torch
 
 from sherman_tpu_torch import obs
-from sherman_tpu_torch.errors import ExchangeLaneError
+from sherman_tpu_torch.errors import ExchangeLaneError, PreconditionError
 from sherman_tpu_torch.parallel import mesh as MESH
 from sherman_tpu_torch.parallel import transport_kernel as TK
 
@@ -329,7 +329,7 @@ def exchange(tree, mesh: MESH.Mesh | None = None):
     cols = []
     for x in fields.values():
         if tuple(x.shape[:2]) != (N, NC):
-            raise ValueError("exchange fields must share [N, N*C]")
+            raise PreconditionError("exchange fields must share [N, N*C]")
         if x.dtype == torch.bool:
             c = x.to(torch.int32)
         elif x.dtype == torch.int32:

@@ -1047,6 +1047,7 @@ def make_device_prep(eng, *, width: int):
         seg = torch.cumsum(first, 0) - 1
         n_groups = seg[-1] + 1
         # the sentinel contributes one trailing group iff padding exists
+        # shermanlint: disable=SL001 n, width: Python ints (count, rung)
         n_uniq = n_groups - int(n < width)
         # first occurrences to [0, n_groups) in key order, duplicates
         # behind them; the sentinel's head lands at n_uniq and is masked

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sherman_tpu_torch.errors import PreconditionError
+
 
 def _zeta(n: int, theta: float, chunk: int = 1 << 22) -> float:
     """zeta(n, theta) = sum_{i=1..n} 1/i^theta, chunked to bound memory."""
@@ -33,8 +35,8 @@ class ZipfGen:
     def __init__(self, n: int, theta: float = 0.99, seed: int = 0,
                  rng: np.random.Generator | None = None):
         if not (n >= 1 and 0.0 <= theta < 1.0):
-            raise ValueError(f"ZipfGen(n={n}, theta={theta}): want n >= 1, "
-                             "0 <= theta < 1")
+            raise PreconditionError(f"ZipfGen(n={n}, theta={theta}): want "
+                                    "n >= 1, 0 <= theta < 1")
         self.n = n
         self.theta = theta
         self._native = None

@@ -398,7 +398,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "chaos_drill.py", "recovery_drill.py", "tree_test.py",
         "write_test.py", "skiplist_test.py", "benchmark.py",
         "latency_bench.py", "profile_prep.py", "profile_insert.py",
-        "profile_gather.py", "profile_staged2.py", "device_report.py"}
+        "profile_gather.py", "profile_staged2.py", "device_report.py",
+        "shermanlint.py", "knobs.py"}
+    analysis_dir = os.path.join(REPO, "sherman_tpu_torch", "analysis")
+    assert {os.path.basename(f) for f in files
+            if os.path.dirname(f) == analysis_dir} >= {
+        "__init__.py", "core.py", "registry.py", "rules.py", "baseline.py"}
     utils_dir = os.path.join(REPO, "sherman_tpu_torch", "utils")
     assert {os.path.basename(f) for f in files
             if os.path.dirname(f) == utils_dir} >= {
