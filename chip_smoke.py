@@ -401,10 +401,24 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     delete, the device validator, ``mixed``, the collective checkpoint and
     its restore, three staged aligned and three staged mixed steps):
     pools, locks, counters, answers and receipts bit-identical, and every
-    K4 shape of each rank replayed exact; (b) the north-star keyspace
+    K4 shape of each rank replayed exact; then the hot-key tier and the
+    ingress step at 20,000 keys the same way (:data:`MR_SEQS`:
+    :func:`mr_cache_seq`, a 4,096-slot cache, fill, three cached staged
+    steps, cached ``search`` and ``search_combined``, an insert that
+    rewrites and splits under cached keys, the re-search;
+    :func:`mr_ingress_seq`, the ingress step with the prep on the host and
+    on the device, with the cache, a batch of stale seeds that the rescue
+    answers, and ``ShermanServer`` on one rung: start, three reads, stop),
+    answers, receipts, cache stats, mirrors and device tables too; (b)
+    the north-star keyspace
     (100 M keys, fill 0.75) over 2 ranks x 4 nodes of 524,288 pages:
     staged aligned YCSB-C at 4,194,304 ops a step (receipts summed over
-    the ranks), YCSB-A ``mixed`` at 1,048,576 (every read checked), a
+    the ranks); a 65,536-slot cache filled with the hottest ranks and the
+    same step with it (its residual cap from two warm-up steps; receipts
+    equal to the uncached step's after as many steps, the hit ratio beside
+    ``expected_hit_ratio``, ms a step of each side) and the ingress step
+    at 65,536 (the prep on the host, on the device, with the cache; every
+    answer checked), YCSB-A ``mixed`` at 1,048,576 (every read checked), a
     storm chunk of 81,920 fresh inserts with device splits (20 past the
     low fence of each of 4,096 neighbouring leaves; every key searched),
     the device validator, the collective checkpoint and its restore into
@@ -413,7 +427,9 @@ The hot-key leaf cache and the value heap (``models/leaf_cache.py``,
     exchange's split (K4 device ms, staging device ms, gloo wall ms,
     bytes across ranks); window ``2r`` (K2-K4, the ranks' launches
     summed; K1 runs on no multi-node path; the ranks replay in turn, so
-    each times its shapes alone on the card); (c) the failure plane at
+    each times its shapes alone on the card) and window ``2c`` (the same
+    for the hot-key tier and the ingress step of 31a and 31b); (c) the
+    failure plane at
     4,000 keys: rank 1 stopped (rank 0's guarded barrier raises
     ``PeerFailure`` naming it inside its deadline, both resume), SIGTERM
     on rank 0 (both checkpoint at one step), rank 1 killed (the heartbeat
@@ -438,7 +454,8 @@ and delta, its recovery and its repair (K1-K3 in each), around phase
 each of 27a's card runs (K2-K4), around 27b (K1-K4) and 27c (K2-K4),
 around 28a's card runs and around 28b and 28c (K1-K3 in each), around
 29b (K1), in each rank around 31a and 31b (K2-K4, window ``2r`` summing
-31b's two ranks);
+31b's two ranks) and around their hot-key tier and ingress step (K2-K4,
+window ``2c``);
 in every window the launches are also counted by input shape.
 Every time is the device time of one call (median of 21, plain versions
 5): a spin kernel queued before the start event keeps the card busy
@@ -548,22 +565,24 @@ BUDGET = {
         ("c_keys_1m", "(c) keys 10,000,000 -> 1,000,000", 6.0),
         ("b_keys_1m", "(b) keys 10,000,000 -> 1,000,000", 8.0))),
     "30": (TOOLS_S, TOOLS_CUTS),
-    # phase 31, the two-rank transport (alone on the H100: 179.7 s at
-    # 100 M keys, 155.6 s at 10 M): 31b's cuts in order
-    "31": (180.0, (
+    # phase 31, the two-rank transport (alone on the H100 at 100 M keys:
+    # 202.0-210.6 s with the hot-key tier and the ingress step, 196.6 s
+    # without them in the same call): 31b's cuts in order
+    "31": (211.0, (
         ("ck_keys", "31b's checkpoint and restore at 10,000,000 keys", 20.0),
         ("steps", "31b's steps 4 -> 2", 5.0),
+        ("c_steps", "31b's cached steps 4 -> 2", 2.0),
         ("keys", "31b's bulk load at 10,000,000 keys", 5.0))),
     # phase 32, the linter (~8-10 s on a host core), with no cut
     "32": (15.0, ()),
 }
 # The last-resort cuts, taken after every other cut (phase 31's too):
 # (phase, key) -> the seconds from the phase's decision to the smoke's end
-# with this cut and every other one taken (the slower of two whole smokes
-# on the H100, 680.5 and 477.3 s, with 20 s added for the serial replay
-# of phase 31).  One is taken while that time, the seconds elapsed and
-# what the cut saves pass SMOKE_CUT_S; phase 31 then takes all its cuts.
-LAST_CUTS = {("16", "keys"): 700.0, ("25", "keys"): 500.0}
+# with this cut and every other one taken (a whole smoke on the H100 with
+# both taken and phase 31's hot-key tier and ingress step: 722 and 516 s).
+# One is taken while that time, the seconds elapsed and what the cut
+# saves pass SMOKE_CUT_S; phase 31 then takes all its cuts.
+LAST_CUTS = {("16", "keys"): 725.0, ("25", "keys"): 520.0}
 _last_taken: list = []          # the last-resort cuts this smoke took
 
 
@@ -1308,7 +1327,7 @@ PATHS = ("one_node", "one_node_staged", "eight_nodes", "eight_nodes_staged",
          "one_node_heap", "one_node_serve", "one_node_crash",
          "one_node_failover", "one_node_partition", "one_node_reshard",
          "two_node_contract", "two_host_multihost",
-         "two_host_hostfail", "one_node_native", "1t", "8t", "2r")
+         "two_host_hostfail", "one_node_native", "1t", "8t", "2r", "2c")
 
 
 def kernel_record(name: str, shapes: list[dict]) -> dict:
@@ -6710,6 +6729,10 @@ MR_CUT_KEYS = 10_000_000
 MR_FAIL_KEYS = 4000             # 31c's tree
 MR_FAIL_CFG = dict(machine_nr=8, pages_per_node=256, locks_per_node=256,
                    step_capacity=64, host_step_capacity=16, chunk_pages=8)
+MR_CACHE_SLOTS = 65_536         # 31b's hot-key tier (phase 23b's)
+MR_CACHE_STEPS = 4              # 31b's cached steps after a warm-up one
+MR_INGRESS_W = 65_536           # 31b's ingress width: the top rung
+MR_INGRESS_BATCHES = 2          # 31b's ingress batches a prep
 MR_HB_S = 5                     # 31c's death drill heartbeat timeout
 MR_STALL_HB_S = 60              # a stalled rank's heartbeat stops too
 
@@ -6809,9 +6832,11 @@ def _mr_state(clusters) -> dict:
     return out
 
 
-def _mr_rank_a(keeper, rank: int, d: str) -> dict:
+def _mr_rank_a(keeper, rank: int, d: str) -> tuple:
     """31a in a rank: the sequence, its state dumped for the parent, and
-    every K4 shape the rank launched replayed against the plain version."""
+    every K4 shape the rank launched replayed against the plain version;
+    then :data:`MR_SEQS`, their states dumped too.  -> (record, the
+    shape log of window ``2c`` so far)."""
     with ShapeLog() as log:
         res, clusters = mr_parity_seq(clusters_a(keeper), keeper, d, "cuda")
     log.check(f"31a rank {rank}", ("gather_pages", "writeback", "exchange"))
@@ -6831,13 +6856,273 @@ def _mr_rank_a(keeper, rank: int, d: str) -> dict:
         _eq(TK.block_transpose(x, a, b), TK.block_transpose_ref(x, a, b),
             f"exchange layout [{a}, {b}, {run}] (31a)")
     log.args.clear()
-    return {"a_launches": log.launches, "a_layout_shapes": len(layouts)}
+    rec = {"a_launches": log.launches, "a_layout_shapes": len(layouts)}
+    # the hot-key tier and the ingress step, window 2c
+    with ShapeLog() as log_c:
+        for name, seq, cfg in MR_SEQS:
+            cl = seq_cluster(keeper, cfg, "cuda")
+            res = seq(port_seq_mods("cuda"), cl, keeper)
+            np.savez(os.path.join(d, f"mr_{name}_r{rank}.npz"),
+                     **_mr_state([cl]),
+                     **{f"res_{k}": np.asarray(v) for k, v in res.items()})
+            del cl
+    log_c.check(f"31a rank {rank} (cache, ingress)",
+                ("gather_pages", "writeback", "exchange"))
+    rec["a_seq_launches"] = log_c.launches
+    return rec, log_c
 
 
 def clusters_a(keeper, device: str = "cuda"):
     from sherman_tpu_torch.cluster import Cluster
     from sherman_tpu_torch.config import DSMConfig
     return Cluster(DSMConfig(device=device, **MR_A_CFG), keeper=keeper)
+
+
+def seq_cluster(keeper, cfg: dict, device: str):
+    """A cluster of eight nodes for one of :data:`MR_SEQS`."""
+    from sherman_tpu_torch.cluster import Cluster
+    from sherman_tpu_torch.config import DSMConfig
+    return Cluster(DSMConfig(device=device, machine_nr=8, **cfg),
+                   keeper=keeper)
+
+
+def _join_logs(a: "ShapeLog", b: "ShapeLog") -> "ShapeLog":
+    """Two closed segments of one window as one log: launches and counts
+    by shape summed, each shape's first kept launch (a K3 launch that
+    applied a row over one that applied none)."""
+    for k, by in b.counts.items():
+        mine = a.counts.setdefault(k, {})
+        for shape, n in by.items():
+            mine[shape] = mine.get(shape, 0) + n
+    for k, by in b.args.items():
+        mine = a.args.setdefault(k, {})
+        for shape, v in by.items():
+            if shape not in mine or (shape in a._idle
+                                     and shape not in b._idle):
+                mine[shape] = v
+                a._idle.discard(shape)
+    a.launches = {k: a.launches.get(k, 0) + b.launches.get(k, 0)
+                  for k in {**a.launches, **b.launches}}
+    return a
+
+
+# The hot-key tier and the ingress step across ranks (31a's second part;
+# tests/torch_mp_seqs.py runs the same two sequences at 2 ranks x 2 nodes
+# against the JAX package's one process of 4).  Written over a namespace
+# ``m`` of one package's modules (:func:`port_seq_mods`): ``Tree``,
+# ``batched``, ``bits``, ``DP`` (device_prep), ``serve``, ``TreeConfig``
+# and ``receipts(step, carry)``.
+MR_SEQ_B = 1024                 # the cache sequence's rows a node
+MR_SEQ_CFG = dict(pages_per_node=2048, locks_per_node=512,
+                  step_capacity=1024, host_step_capacity=16, chunk_pages=32)
+# the ingress sequence's: a smaller exchange keeps its storm's rounds
+# cheap for the plain path of eight nodes on the CPU
+MR_INGRESS_B = 128
+MR_INGRESS_CFG = dict(MR_SEQ_CFG, step_capacity=256)
+MR_SEQ_SLOTS = 4096             # the cache's slots
+MR_SEQ_HOT = 512                # keys filled, hottest ranks first
+MR_SEQ_RESID = 512              # the cached staged step's residual rows
+MR_SEQ_W = 512                  # the ingress step's width (one rung)
+
+
+def port_seq_mods(device: str):
+    """The port's module handles for :func:`mr_cache_seq` and
+    :func:`mr_ingress_seq` on ``device``."""
+    import types
+
+    from sherman_tpu_torch import serve
+    from sherman_tpu_torch.config import TreeConfig
+    from sherman_tpu_torch.models import batched
+    from sherman_tpu_torch.models.btree import Tree
+    from sherman_tpu_torch.ops import bits
+    from sherman_tpu_torch.workload import device_prep as DP
+    return types.SimpleNamespace(
+        Tree=Tree, batched=batched, bits=bits, DP=DP, serve=serve,
+        TreeConfig=TreeConfig,
+        receipts=lambda step, carry: list(step.receipts(carry)))
+
+
+def _seq_tree(m, cluster, rows: int = MR_SEQ_B):
+    """20,000 keys ``mix64(rank ^ MR_SALT)`` at fill 0.8, values ``key ^
+    0xDEADBEEF`` (the staged receipts' check), one engine of ``rows`` a
+    node with its router."""
+    tree = m.Tree(cluster)
+    keys = m.bits.mix64_np(np.arange(MR_A_KEYS, dtype=np.uint64)
+                           ^ np.uint64(MR_SALT))
+    order = np.argsort(keys)
+    m.batched.bulk_load(tree, keys[order], (keys ^ VAL_XOR)[order],
+                        fill=0.8)
+    eng = m.batched.BatchedEngine(tree, batch_per_node=rows)
+    eng.attach_router()
+    return tree, eng, keys
+
+
+def _answers_ok(what: str, got, keys, want) -> None:
+    vals, found = got
+    if not (np.asarray(found).all()
+            and np.array_equal(np.asarray(vals), want)):
+        raise AssertionError(f"{what}: {int((~np.asarray(found)).sum())} "
+                             f"of {keys.size} keys missing or wrong")
+
+
+def _cache_rec(cache) -> dict:
+    st = cache.stats()
+    return {"stats": np.asarray([st[k] for k in (
+                "hits", "misses", "invalidations", "evictions", "fills",
+                "placement_failures", "cached_keys")]),
+            "mirror": np.stack(cache._table_host()),
+            "tables": np.stack([_np(t) for t in cache.device_tables()])}
+
+
+def mr_cache_seq(m, cluster, keeper=None, tmp=None) -> dict:
+    """The hot-key tier: a 4,096-slot cache filled with the 512 hottest
+    ranks, three cached aligned staged steps with a 512-row residual, a
+    cached ``search`` and ``search_combined``, then an insert that
+    rewrites 64 cached keys (the host drops them) and splits the leaves
+    of 64 others (their entries go stale: the probe clears them on the
+    device), and the re-search.  -> answers, receipts, cache stats, the
+    mirror and the device tables after each part."""
+    tree, eng, keys = _seq_tree(m, cluster)
+    N = cluster.cfg.machine_nr
+    vals = keys ^ VAL_XOR
+    cache = eng.attach_leaf_cache(slots=MR_SEQ_SLOTS)
+    fill = cache.fill(keys[:MR_SEQ_HOT])
+    out = {"fill": np.asarray([fill[k] for k in ("placed", "failed",
+                                                  "resolved")])}
+    step, (new_carry, tb, rt, rk) = m.DP.make_staged_step(
+        eng, n_keys=MR_A_KEYS, theta=0.99, salt=MR_SALT, batch=MR_SEQ_B,
+        dev_b=MR_SEQ_B, log2_bins=16, fusion="aligned", leaf_cache=cache,
+        dev_b_resid=MR_SEQ_RESID)
+    dsm = eng.dsm
+    carry, counters = new_carry(), dsm.counters
+    for _ in range(3):
+        counters, carry = step(dsm.pool, counters, tb, rt, rk, carry)
+    dsm.counters = counters
+    out["ro"] = np.asarray(m.receipts(step, carry))
+    if list(out["ro"][:3]) != [3, 1, 3 * MR_SEQ_B * N]:
+        raise AssertionError(f"cached staged receipts {out['ro']}")
+    q = keys[:3000]
+    got = eng.search(q)
+    _answers_ok("cached search", got, q, vals[:3000])
+    out["search"] = np.asarray(got[0])
+    dup = np.concatenate([keys[:256], keys[4000:4256]] * 4)
+    got = eng.search_combined(dup)
+    _answers_ok("cached search_combined", got, dup, dup ^ VAL_XOR)
+    out["combined"] = np.asarray(got[0])
+    for k, v in _cache_rec(cache).items():
+        out[f"read_{k}"] = v
+    # 64 cached keys rewritten, and 8 fresh keys just past each of 64
+    # other cached keys (their leaves split under them)
+    fresh = (keys[128:192, None]
+             + np.arange(1, 9, dtype=np.uint64)).reshape(-1)
+    if np.isin(fresh, keys).any():
+        raise AssertionError("cache sequence: a fresh key exists")
+    wk = np.concatenate([keys[64:128], fresh])
+    wv = np.concatenate([keys[64:128] ^ np.uint64(0x5A5A), fresh ^ VAL_XOR])
+    st = eng.insert(wk, wv)
+    out["insert"] = np.asarray([st[k] for k in ("applied", "host_path",
+                                                "device_splits")])
+    if not st["device_splits"]:
+        raise AssertionError(f"cache sequence: no split: {st}")
+    want = vals.copy()
+    want[64:128] = keys[64:128] ^ np.uint64(0x5A5A)
+    got = eng.search(keys[:MR_SEQ_HOT])
+    _answers_ok("re-search", got, keys[:MR_SEQ_HOT], want[:MR_SEQ_HOT])
+    out["research"] = np.asarray(got[0])
+    got = eng.search(fresh)
+    _answers_ok("fresh keys", got, fresh, fresh ^ VAL_XOR)
+    for k, v in _cache_rec(cache).items():
+        out[f"write_{k}"] = v
+    if not out["write_stats"][2] > out["read_stats"][2] + 64:
+        raise AssertionError("cache sequence: no stale entry cleared on "
+                             f"the device: {out['write_stats']}")
+    return out
+
+
+def mr_ingress_seq(m, cluster, keeper=None, tmp=None) -> dict:
+    """The ingress step and the front door: a 512-wide step with the
+    prep on the host and on the device, the same with the cache (a device
+    prep falls back to the host), a batch whose router seeds are stale
+    after a storm of 500 inserts into one leaf's range (a second engine
+    whose descent budget they overrun: the straggler rescue runs, with
+    each prep), then ``ShermanServer`` over a one-rung ladder: ``start``
+    with its calibration, three reads submitted one at a time, ``stop``.
+    -> answers, rescue counts, cache stats and tables, served ops."""
+    tree, eng, keys = _seq_tree(m, cluster, MR_INGRESS_B)
+    rng = np.random.default_rng(9)
+    q = keys[rng.integers(0, keys.size, 400)]
+    out = {}
+    for impl in ("host", "device"):
+        step = m.DP.make_ingress_step(eng, width=MR_SEQ_W, prep_impl=impl)
+        got = step(q)
+        _answers_ok(f"ingress ({impl})", got, q, q ^ VAL_XOR)
+        out[impl] = np.asarray(got[0])
+    cache = eng.attach_leaf_cache(slots=MR_SEQ_SLOTS)
+    cache.fill(keys[:MR_SEQ_HOT])
+    qh = np.concatenate([keys[:200], q[:200]])
+    for impl in ("host", "device"):
+        step = m.DP.make_ingress_step(eng, width=MR_SEQ_W, leaf_cache=cache,
+                                      prep_impl=impl)
+        if step.prep_impl != "host":
+            raise AssertionError("a cached ingress step kept device prep")
+        got = step(qh)
+        _answers_ok(f"cached ingress ({impl})", got, qh, qh ^ VAL_XOR)
+        out[f"cached_{impl}"] = np.asarray(got[0])
+    for k, v in _cache_rec(cache).items():
+        out[f"cache_{k}"] = v
+    # stale seeds: eng_s's router predates the storm, and its descent
+    # budget (4 levels, no chase slack: 16 rounds) is shorter than the
+    # chase from the old leaf across the 20 leaves it split into
+    eng_s = m.batched.BatchedEngine(
+        tree, batch_per_node=MR_INGRESS_B,
+        tcfg=m.TreeConfig(max_level=4, sibling_chase_budget=0))
+    eng_s.attach_router()
+    sk = np.sort(keys)
+    lo, hi = sk[5000], sk[5001]
+    fresh = lo + np.arange(1, 501, dtype=np.uint64) * ((hi - lo)
+                                                       // np.uint64(502))
+    st = eng.insert(fresh, fresh ^ VAL_XOR)
+    out["storm"] = np.asarray([st[k] for k in ("applied", "host_path",
+                                               "device_splits")])
+    qs = np.concatenate([fresh[::5], sk[4990:5010]])
+    rescues = []
+    search = eng_s.search
+
+    def counted(k, *a, **kw):
+        rescues.append(len(k))
+        return search(k, *a, **kw)
+
+    eng_s.search = counted
+    for impl in ("host", "device"):
+        step = m.DP.make_ingress_step(eng_s, width=MR_SEQ_W, prep_impl=impl)
+        n0 = len(rescues)
+        got = step(qs)
+        _answers_ok(f"stale seeds ({impl})", got, qs, qs ^ VAL_XOR)
+        if len(rescues) == n0:
+            raise AssertionError(f"stale seeds ({impl}): no rescue ran")
+        out[f"stale_{impl}"] = np.asarray(got[0])
+    out["rescues"] = np.asarray(rescues)
+    # the front door over one rung, every rank driving the same requests
+    srv = m.serve.ShermanServer(eng, m.serve.ServeConfig(
+        widths=(MR_SEQ_W,)))
+    try:
+        srv.start(calib_keys=keys)
+        for i in range(3):
+            rq = keys[rng.integers(0, keys.size, 50)]
+            got = srv.submit("read", rq).result(timeout=300)
+            _answers_ok(f"front door read {i}", got, rq, rq ^ VAL_XOR)
+            out[f"door_{i}"] = np.asarray(got[0])
+    finally:
+        srv.stop()
+    out["door_ops"] = np.asarray([srv.admitted_ops, srv.served_ops])
+    for k, v in _cache_rec(cache).items():
+        out[f"door_cache_{k}"] = v
+    return out
+
+
+#: 31a's second part: (name, sequence, its cluster's per-node sizes)
+MR_SEQS = (("cache", mr_cache_seq, MR_SEQ_CFG),
+           ("ingress", mr_ingress_seq, MR_INGRESS_CFG))
 
 
 def _mr_ycsb_a(eng, q, wv, is_read, cur, ranks) -> None:
@@ -6860,8 +7145,84 @@ def _mr_ycsb_a(eng, q, wv, is_read, cur, ranks) -> None:
     cur[ranks[w]] = wv[w]
 
 
-def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
-    """31b in a rank: the north-star keyspace over 2 ranks x 4 nodes."""
+def _mr_cache_b(eng_c, staged: tuple, ro_at: list, cur, n_keys: int,
+                salt: int, c_steps: int) -> dict:
+    """31b's hot-key tier and ingress step on the 100 M-key tree: a
+    65,536-slot cache filled with the hottest ranks; the staged YCSB-C
+    ``aligned`` step with the cache (its residual cap from two warm-up
+    steps, as phase 23b sizes it) for ``c_steps`` steps after a warm-up
+    one, its receipts equal to the uncached step's after as many steps
+    (``ro_at``), the hit ratio beside ``expected_hit_ratio``; then the
+    ingress step at the ladder's top rung (65,536) with the prep on the
+    host, on the device and with the cache, every answer checked."""
+    from sherman_tpu_torch.workload import device_prep as DP
+    from sherman_tpu_torch.workload.zipf import ZipfGen, expected_hit_ratio
+    rec: dict = {"slots": MR_CACHE_SLOTS, "c_steps": c_steps}
+    pool, counters = eng_c.dsm.pool, eng_c.dsm.counters
+    per = MR_BATCH_C // 8
+    t = time.perf_counter()
+    cache = eng_c.attach_leaf_cache(slots=MR_CACHE_SLOTS)
+    fill = cache.fill(keys_of(np.arange(cache.capacity, dtype=np.uint64),
+                              salt))
+    rec["fill"] = {**fill, "s": time.perf_counter() - t}
+    mk = lambda **kw: DP.make_staged_step(
+        eng_c, n_keys=n_keys, theta=0.99, salt=salt, batch=per, dev_b=per,
+        fusion="aligned", staged=staged, leaf_cache=cache, **kw)
+    probe, (new_p, *_) = mk()
+    cp = new_p()
+    for _ in range(2):
+        cp = probe(pool, counters, *staged, cp)[1]
+    cp = probe.receipts(cp)
+    # per node: the fullest node's unique rows less a node's mean unique
+    # hits (2 steps of 8 nodes), 5% over, in blocks of 8,192
+    resid = max(1, cp[4] - cp[6] // 16)
+    cap_r = min(per, -(-int(resid * 1.05) // 8192) * 8192)
+    on, (new_on, *_) = mk(dev_b_resid=cap_r)
+    carry, walls = new_on(), []
+    for _ in range(c_steps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        carry = on(pool, counters, *staged, carry)[1]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    got = on.receipts(on.drain(carry))
+    if got[:5] != ro_at[c_steps][:5]:
+        raise AssertionError(f"31b cached receipts {got} != the uncached "
+                             f"step's {ro_at[c_steps]}")
+    ops = (c_steps + 1) * MR_BATCH_C
+    rec.update(dev_b_resid=cap_r, receipts=got, ms_on=walls[1:],
+               hit_ratio=got[5] / ops,
+               expected_hit_ratio=expected_hit_ratio(n_keys, 0.99,
+                                                     fill["placed"]),
+               uniq_hits_a_step=got[6] / (c_steps + 1))
+    # the ingress step at the top rung, every rank driving the same keys
+    zg = ZipfGen(n_keys, 0.99, seed=29)
+    rec["ingress_ms"] = {}
+    for impl, lc in (("host", None), ("device", None), ("cached", cache)):
+        st = DP.make_ingress_step(eng_c, width=MR_INGRESS_W, leaf_cache=lc,
+                                  prep_impl="host" if lc else impl)
+        ms = []
+        for _ in range(MR_INGRESS_BATCHES):
+            ranks = zg.sample(MR_INGRESS_W)
+            q = keys_of(ranks, salt)
+            t = time.perf_counter()
+            vals, found = st(q)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if not (found.all() and np.array_equal(vals, cur[ranks])):
+                raise AssertionError(f"31b ingress ({impl}): "
+                                     f"{int((~found).sum())} keys missing "
+                                     "or wrong")
+        rec["ingress_ms"][impl] = ms
+    rec["stats"] = {k: v for k, v in cache.stats().items()
+                    if k in ("hits", "misses", "invalidations",
+                             "cached_keys", "hit_ratio")}
+    eng_c.detach_leaf_cache()
+    return rec
+
+
+def _mr_rank_b(keeper, rank: int, d: str, arg: dict, log_c) -> dict:
+    """31b in a rank: the north-star keyspace over 2 ranks x 4 nodes (its
+    hot-key tier and ingress step join ``log_c``, window ``2c``)."""
     from sherman_tpu_torch.bench import build
     from sherman_tpu_torch.models import validate
     from sherman_tpu_torch.models.btree import Tree
@@ -6893,7 +7254,7 @@ def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
             dev_b=per, fusion="aligned")
         pool, counters = eng_c.dsm.pool, eng_c.dsm.counters
         carry = new_carry()
-        walls = []
+        walls, ro_at = [], []
         for s in range(steps + 1):          # step 0: the warm-up
             if s == steps:
                 T.reset_split()
@@ -6902,15 +7263,27 @@ def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
             _, carry = step(pool, counters, tb, rt, rk, carry)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
-        rec["split_c"] = T.split()
-        ro = step.receipts(step.drain(carry))
+            if s == steps:
+                rec["split_c"] = T.split()
+            ro_at.append(step.receipts(step.drain(carry)))
+        ro = ro_at[-1]
         if ro[:3] != [steps + 1, 1, (steps + 1) * MR_BATCH_C]:
             raise AssertionError(f"31b YCSB-C receipts {ro}")
         rec["ycsb_c_ms"] = walls[1:]
         rec["ycsb_c_receipts"] = ro
         say("staged YCSB-C ms a step", "ycsb_c_ms")
         say("staged YCSB-C exchange split (last step)", "split_c")
+    # the hot-key tier and the ingress step on this tree (window 2c), before
+    # YCSB-A rewrites values: the staged receipts check key ^ 0xDEADBEEF
+    with ShapeLog() as log_b:
+        rec["cache"] = _mr_cache_b(eng_c, (tb, rt, rk), ro_at, cur, n_keys,
+                                   salt, arg["c_steps"])
+        rec["cache"]["ms_off"] = rec["ycsb_c_ms"]
+        say("cache and ingress", "cache")
+    log_c = _join_logs(log_c, log_b)
+    with ShapeLog() as log_a:
         # YCSB-A 50/50 through the fused mixed step, every read checked
+        # (the window 2r again)
         zipf = ZipfGen(n_keys, 0.99, seed=7)
         rng = np.random.default_rng(5)
         walls = []
@@ -6947,6 +7320,7 @@ def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
         rec["validate_ms"] = (time.perf_counter() - t) * 1e3
         if info["keys"] != n_keys + fresh.size:
             raise AssertionError(f"31b validator: {info}")
+    log = _join_logs(log, log_a)
     rec["launches"] = log.launches
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # the collective checkpoint and its restore into a fresh cluster
@@ -6980,12 +7354,16 @@ def _mr_rank_b(keeper, rank: int, d: str, arg: dict) -> dict:
     if not (found.all() and np.array_equal(got, cur[ranks])):
         raise AssertionError("31b: the restored tree lost sampled keys")
     log.check(f"31b rank {rank}", ("gather_pages", "writeback", "exchange"))
+    log_c.check(f"31a-b rank {rank} (cache, ingress)",
+                ("gather_pages", "writeback", "exchange"))
+    rec["launches_c"] = log_c.launches
     # the ranks replay in turn: neither times its kernels while the
     # other's run on the shared card
     for r in range(2):
         keeper.barrier(f"replay-{r}")
         if r == rank:
             rec["shapes"] = replay(log, "2r")
+            rec["shapes_c"] = replay(log_c, "2c")
     keeper.barrier("replayed")
     return rec
 
@@ -7082,10 +7460,11 @@ def rank_main(argv: list) -> int:
     BASELINE = Baseline(os.path.join(PK.BUILD_DIR, "libbaseline_kernels.so"))
     rec = {"rank": rank, "mode": mode}
     if mode == "main":
-        rec.update(_mr_rank_a(keeper, rank, d))
+        rec_a, log_c = _mr_rank_a(keeper, rank, d)
+        rec.update(rec_a)
         gc.collect()
         torch.cuda.empty_cache()
-        rec.update(_mr_rank_b(keeper, rank, d, arg))
+        rec.update(_mr_rank_b(keeper, rank, d, arg, log_c))
         gc.collect()
         torch.cuda.empty_cache()
         rec.update(_mr_rank_stall_preempt(keeper, rank, d))
@@ -7165,14 +7544,14 @@ class Ranks:
                     p.wait()
 
 
-def _merge_shapes(recs: list) -> dict:
+def _merge_shapes(recs: list, window: str = "shapes") -> dict:
     """The two ranks' replayed shapes as one window: launches summed by
     (kernel, shape), rank 0's timings (the ranks' shapes are the same)."""
     out: dict = {}
     for k in KERNELS:
         by = {}
         for rec in recs:
-            for e in rec["shapes"].get(k, []):
+            for e in rec[window].get(k, []):
                 key = json.dumps(e.get("shape", [e.get("rows"),
                                                  e.get("pool_pages"),
                                                  e.get("lanes"),
@@ -7188,12 +7567,15 @@ def _merge_shapes(recs: list) -> dict:
 
 
 def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
-    """Phase 31 -> {kernel: [per-shape entries of window ``2r``]}."""
+    """Phase 31 -> {kernel: [per-shape entries of windows ``2r`` and
+    ``2c``]}."""
     import signal
     cuts = budget_cuts("31", t_smoke) if t_smoke is not None else {}
     n_keys = MR_CUT_KEYS if "keys" in cuts else MR_KEYS
     ck_keys = MR_CUT_KEYS if "ck_keys" in cuts else n_keys
     steps = 2 if "steps" in cuts else MR_STEPS
+    c_steps = 2 if "c_steps" in cuts else MR_CACHE_STEPS
+    c_steps = min(c_steps, steps)   # the uncached receipts it is held to
     t31 = time.perf_counter()
     d = tempfile.mkdtemp(prefix="sherman_mr_")
     try:
@@ -7201,7 +7583,7 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
             raise AssertionError("phase 31 needs 12 GiB free for the "
                                  "collective checkpoints")
         ranks = Ranks("main", d, {"keys": n_keys, "steps": steps,
-                                  "ck_keys": ck_keys},
+                                  "ck_keys": ck_keys, "c_steps": c_steps},
                       {"SHERMAN_HEARTBEAT_S": str(MR_STALL_HB_S)})
 
         def orchestrate(r: int, line: str) -> None:
@@ -7219,6 +7601,14 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
         want = {**_mr_state(clusters),
                 **{f"res_{k}": np.asarray(v) for k, v in res.items()}}
         del clusters
+        # and of its second part, the hot-key tier and the ingress step
+        want_seq = {}
+        for name, seq, cfg in MR_SEQS:
+            cl = seq_cluster(None, cfg, "cpu")
+            res = seq(port_seq_mods("cpu"), cl)
+            want_seq[name] = {**_mr_state([cl]), **{
+                f"res_{k}": np.asarray(v) for k, v in res.items()}}
+            del cl
         rcs = ranks.run(900, orchestrate)
         if rcs != [0, 0] or len(ranks.recs) != 2:
             raise AssertionError(f"phase 31 ranks exited {rcs}")
@@ -7235,6 +7625,27 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
              "process of 8 nodes on the CPU (pools, locks, counters, "
              "answers, receipts; K4 layout shapes replayed exact: "
              f"{recs[0]['a_layout_shapes']})")
+        for name, want_n in want_seq.items():
+            parts = [dict(np.load(os.path.join(d, f"mr_{name}_r{r}.npz")))
+                     for r in range(2)]
+            if sorted(parts[0]) != sorted(want_n):
+                raise AssertionError(f"31a {name}: the ranks' results "
+                                     f"{sorted(parts[0])} != the CPU's")
+            for k, v in want_n.items():
+                got = parts[0][k] if k.startswith("res_") else \
+                    np.concatenate([p[k] for p in parts])
+                if k.startswith("res_") and not np.array_equal(
+                        parts[1][k], got):
+                    raise AssertionError(f"31a {name}: the ranks disagree "
+                                         f"on {k}")
+                if not np.array_equal(got, np.asarray(v).astype(got.dtype)):
+                    raise AssertionError(
+                        f"31a {name}: {k} differs between two ranks on "
+                        "the card and one CPU process")
+            _log(f"31a {name}: 2 ranks x 4 nodes on the card bit-identical "
+                 "to one process of 8 nodes on the CPU (answers, receipts, "
+                 "cache stats, mirrors and device tables, pools, locks, "
+                 f"counters: {len(want_n)} arrays)")
         if recs[0]["preempt_step"] != recs[1]["preempt_step"]:
             raise AssertionError("31c: the ranks checkpointed at steps "
                                  f"{recs[0]['preempt_step']} and "
@@ -7280,6 +7691,9 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
         "peak_gib": [b0["peak_gib_rank"], b1["peak_gib_rank"]],
         "launches_2r": {k: b0["launches"][k] + b1["launches"][k]
                         for k in b0["launches"]},
+        "cache": b0["cache"], "launches_2c": {
+            k: b0["launches_c"][k] + b1["launches_c"][k]
+            for k in b0["launches_c"]},
         "stall_detect_s": b0["stall_detect_s"], "missing": b0["missing"],
         "preempt_step": b0["preempt_step"], "death_end_s": end_s,
         "death_and_recover_s": c_s, "wall_s": time.perf_counter() - t31,
@@ -7287,11 +7701,15 @@ def multirank_full_width(smi: str, t_smoke: float | None = None) -> dict:
     if base is not None:
         out["ycsb_c_one_process_8_nodes_ms"] = base
     _log("multirank: " + json.dumps(out))
-    for k in ("gather_pages", "writeback", "exchange"):
-        if not out["launches_2r"].get(k):
-            raise AssertionError(f"phase 31: {k} not launched on the "
-                                 "two-rank path")
-    return _merge_shapes(recs)
+    for w in ("launches_2r", "launches_2c"):
+        for k in ("gather_pages", "writeback", "exchange"):
+            if not out[w].get(k):
+                raise AssertionError(f"phase 31: {k} not launched on the "
+                                     f"two-rank path ({w})")
+    shapes = _merge_shapes(recs)
+    for k, v in _merge_shapes(recs, "shapes_c").items():
+        shapes.setdefault(k, []).extend(v)
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -7575,8 +7993,9 @@ def _main(bb: str) -> int:
     t = time.perf_counter()
     for k, v in multirank_full_width(smi, t_smoke).items():
         shapes.setdefault(k, []).extend(v)
-    _log(f"phase 31 (two ranks on the card, replayed at every launched "
-         f"shape, K2-K4: exact): {time.perf_counter() - t:.1f} s")
+    _log(f"phase 31 (two ranks on the card, the hot-key tier and the "
+         f"ingress step among them, replayed at every launched shape, "
+         f"K2-K4: exact): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     lint_phase()
     _log(f"phase 32 (the port's linter: clean): "

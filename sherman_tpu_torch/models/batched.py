@@ -1150,13 +1150,10 @@ class BatchedEngine:
         probed in front of the descent by every read entry point.
         ``slots`` defaults to the ``SHERMAN_LEAF_CACHE`` knob (65,536 when
         it only says "on"); ``admit_every`` > 0 arms auto-admission every
-        that many observed read batches (0: manual ``fill``)."""
+        that many observed read batches (0: manual ``fill``).  Across
+        ranks every rank attaches, fills and probes it together: each
+        probes its nodes' rows against one replicated table."""
         from sherman_tpu_torch.models.leaf_cache import LeafCache
-        if self._mh:
-            from sherman_tpu_torch.errors import MultiprocessUnsupportedError
-            raise MultiprocessUnsupportedError(
-                "the hot-key tier is single-process: its probes read the "
-                "whole batch on one card")
         self.leaf_cache = LeafCache(self, slots=slots,
                                     admit_every=admit_every)
         return self.leaf_cache
@@ -2351,15 +2348,28 @@ def _scan_candidates(router, ranges) -> np.ndarray:
 def _scan_prefetch(eng, cand: np.ndarray) -> np.ndarray:
     """One ``gather_pages`` launch of the candidate pages, copied to the
     host at once.  -> [len(cand), PAGE_WORDS] int32.  Across processes
-    the pages are read through the replicated host path (the leader's
-    chunked host steps, the replies broadcast)."""
-    if eng._mh:
-        return eng.dsm.read_pages(cand)
-    rows = eng._dev(_addr_rows(cand, eng.cfg.pages_per_node)
-                    .astype(np.int32))
-    with eng._step_mutex:
-        got = PK.gather_pages(eng.dsm.pool, rows)
-    return got.cpu().numpy()
+    each rank gathers the rows of its own node block (the one-process
+    gather's clip taken over the whole pool) and one all-gather joins
+    them on every rank: like the one-process gather, and unlike the
+    reference's replicated host reads, it counts no read."""
+    rows = _addr_rows(cand, eng.cfg.pages_per_node)
+    if not eng._mh:
+        with eng._step_mutex:
+            got = PK.gather_pages(eng.dsm.pool,
+                                  eng._dev(rows.astype(np.int32)))
+        return got.cpu().numpy()
+    from sherman_tpu_torch.parallel import bootstrap
+    P, mesh = eng.cfg.pages_per_node, eng._mesh
+    rows = np.clip(rows, 0, eng.cfg.machine_nr * P - 1) - mesh.lo * P
+    own = (rows >= 0) & (rows < mesh.n_local * P)
+    buf = np.zeros((cand.size, C.PAGE_WORDS), np.int32)
+    if own.any():
+        with eng._step_mutex:
+            got = PK.gather_pages(eng.dsm.pool,
+                                  eng._dev(rows[own].astype(np.int32)))
+        buf[own] = got.cpu().numpy()
+    # every row has one owner, so the sum over the ranks is that row
+    return bootstrap.process_allgather(buf).sum(axis=0, dtype=np.int32)
 
 
 def range_query_many(eng: "BatchedEngine", ranges

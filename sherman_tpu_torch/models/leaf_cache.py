@@ -53,6 +53,8 @@ from sherman_tpu_torch.errors import ConfigError
 from sherman_tpu_torch.obs import device as DEV
 from sherman_tpu_torch.ops import bits, layout
 from sherman_tpu_torch.parallel import dsm as D
+from sherman_tpu_torch.parallel import mesh as MESH
+from sherman_tpu_torch.parallel import transport as T
 
 DEFAULT_WINDOW = 8  # open-addressing probe window (slots per key)
 
@@ -157,14 +159,20 @@ def probe_rows(pool, tbl, khi, klo, active, *, cfg):
             stale, tidx)
 
 
-def invalidation_mask(stale, tidx, n_slots: int) -> torch.Tensor:
+def invalidation_mask(stale, tidx, n_slots: int,
+                      mesh: MESH.Mesh | None = None) -> torch.Tensor:
     """``[S]`` int32 count of stale probe matches per table slot over
     every node's rows: the table is one copy shared by the emulated
-    nodes, so this sum is the reference's psum, the same on each."""
+    nodes, so this sum is the reference's psum, the same on each.  With
+    a ``mesh`` that spans ranks the rank's sum is all-reduced, so every
+    rank clears the same slots of its replicated table."""
     idx = torch.where(stale, tidx.long(), n_slots)
     inval = torch.zeros(n_slots + 1, dtype=torch.int32, device=stale.device)
     inval.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-    return inval[:n_slots]
+    inval = inval[:n_slots]
+    if mesh is not None and mesh.spans:
+        inval = T.rank_all_reduce(inval)
+    return inval
 
 
 class LeafCache:
@@ -270,7 +278,9 @@ class LeafCache:
     def device_tables(self) -> tuple:
         """The seven ``[S]`` int32 device tables (khi, klo, vhi, vlo, ver,
         addr, slot), copied from the host mirror when it changed.  The
-        staged loop stages them once before its window."""
+        staged loop stages them once before its window.  Across ranks
+        every rank holds the same replicated tables: the mirror is host
+        state that every rank drives identically."""
         with self._lock:
             if self._dirty or self._dev is None:
                 dev = self.eng.device
@@ -288,6 +298,7 @@ class LeafCache:
         fn = self._probe_cache.get(width)
         if fn is None:
             cfg, S = self.cfg, self.slots
+            mesh = MESH.of(cfg)
 
             def fn(pool, tkhi, tklo, tvhi, tvlo, tver, taddr, tslot, khi,
                    klo, active):
@@ -295,32 +306,38 @@ class LeafCache:
                                                taddr, tslot)))
                 hit, vhi, vlo, stale, tidx = probe_rows(
                     pool, tbl, khi, klo, active, cfg=cfg)
-                keep = invalidation_mask(stale, tidx, S) == 0
+                keep = invalidation_mask(stale, tidx, S, mesh) == 0
+                # the hit and stale counts of every node (the psums)
+                counts = torch.stack([hit.sum(), stale.sum()])
+                if mesh.spans:
+                    counts = T.rank_all_reduce(counts)
                 return (hit, vhi, vlo, torch.where(keep, tkhi, 0),
-                        torch.where(keep, tklo, 0), hit.sum(), stale.sum())
+                        torch.where(keep, tklo, 0), counts[0], counts[1])
 
             fn = DEV.wrap_program("engine.cache_probe", fn)
             self._probe_cache[width] = fn
         return fn
 
     def probe(self, khi: np.ndarray, klo: np.ndarray, active: np.ndarray):
-        """Probe one padded batch (host int32 pairs and active mask of the
-        engine's ``machine_nr * B`` width) -> (hit, vhi, vlo) numpy arrays
-        of the same width.  Stale matches are cleared on the device and
-        counted; hits and misses land in the ``cache`` collector."""
+        """Probe one padded batch (host int32 pairs and active mask of a
+        node-major width, a multiple of ``machine_nr``) -> (hit, vhi, vlo)
+        numpy arrays of the same width.  Stale matches are cleared on the
+        device and counted; hits and misses land in the ``cache``
+        collector.  Across ranks each probes its nodes' rows and every
+        rank gets the whole batch's answers."""
         eng = self.eng
         dev = self.device_tables()
         fn = self._get_probe(khi.shape[0])
         with eng._step_mutex:
-            out = fn(eng.dsm.pool, *dev, eng._dev(khi), eng._dev(klo),
-                     eng._dev(active))
+            out = fn(eng.dsm.pool, *dev, eng._shard(khi), eng._shard(klo),
+                     eng._shard(active))
         hit, vhi, vlo, tkhi2, tklo2, nh, ns = out
         with self._lock:
             if not self._dirty:
                 # adopt the device-side invalidations; a concurrent host
                 # fill or invalidation marked the mirror dirty and wins
                 self._dev = (tkhi2, tklo2) + self._dev[2:]
-        hit, vhi, vlo = (t.cpu().numpy() for t in (hit, vhi, vlo))
+        hit, vhi, vlo = eng._unshard(hit, vhi, vlo)
         nh_i = int(nh)
         ns_i = int(ns)
         self._note_probe(nh_i, int(active.sum()) - nh_i, ns_i)
@@ -367,7 +384,8 @@ class LeafCache:
     def _resolve(self, keys: np.ndarray):
         """-> (ok, addr, slot, ver, vhi, vlo) host arrays [len(keys)]:
         each key's live leaf position with its captured version and value,
-        chunked through the engine's padded batch width."""
+        chunked through the engine's padded batch width (across ranks each
+        resolves its nodes' rows, and every rank gets the whole chunk)."""
         eng = self.eng
         n = keys.shape[0]
         total = eng.total
@@ -380,14 +398,14 @@ class LeafCache:
             khi, klo = bits.keys_to_pairs(chunk)
             khi, klo = eng._pad(khi), eng._pad(klo)
             active = eng._pad(np.ones(chunk.shape[0], bool))
-            start = (eng._dev(eng.router.host_start(khi, klo))
+            start = (eng._shard(eng.router.host_start(khi, klo))
                      if use_router else None)
             with eng._step_mutex:
-                res = fn(eng.dsm.pool, eng.dsm.counters, eng._dev(khi),
-                         eng._dev(klo), eng.tree._root_addr,
-                         eng._dev(active), start)
-            for o, r in zip(outs, res):
-                o[i:i + total] = r.cpu().numpy()[:chunk.shape[0]]
+                res = fn(eng.dsm.pool, eng.dsm.counters, eng._shard(khi),
+                         eng._shard(klo), eng.tree._root_addr,
+                         eng._shard(active), start)
+            for o, r in zip(outs, eng._unshard(*res)):
+                o[i:i + total] = r[:chunk.shape[0]]
         return tuple(outs)
 
     def fill(self, keys) -> dict:

@@ -23,9 +23,11 @@ steps cross ranks through :mod:`sherman_tpu_torch.parallel.transport`.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import threading
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -38,6 +40,9 @@ from sherman_tpu_torch.parallel.mesh import process_layout
 _PG_TIMEOUT_S = 1800
 # the reference's default death-detection latency (jax's heartbeat timeout)
 DEFAULT_HEARTBEAT_S = 100
+# how long rank 0, which hosts the store, waits at exit for its peers to
+# leave it (a dead or blocked peer never signs off)
+_EXIT_WAIT_S = 10.0
 
 
 class Keeper:
@@ -277,7 +282,43 @@ def init_multihost(coordinator_address: str | None = None,
     if torch.cuda.is_available():
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     failure.start_heartbeat(heartbeat_timeout_s or DEFAULT_HEARTBEAT_S)
+    global _exit_hook
+    if not _exit_hook:
+        atexit.register(shutdown)
+        _exit_hook = True
     return DistributedKeeper()
+
+
+_exit_hook = False
+
+
+def shutdown() -> None:
+    """Leave the deployment in order (run at exit once
+    :func:`init_multihost` joined it): stop the heartbeat monitor, sign
+    off in the store, and destroy the process group.  Rank 0 hosts the
+    store, so it waits (at most ``_EXIT_WAIT_S``) for every peer to sign
+    off first: a peer's heartbeat never polls a store that is gone, and
+    the store's threads are joined by its destructor instead of being
+    torn down with the process (which can abort it with ``terminate
+    called without an active exception``)."""
+    dist = _dist()
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    from sherman_tpu_torch.utils import failure
+    client = failure.coordination_client()
+    failure.stop_heartbeat()
+    if client is not None:
+        try:
+            client.add("exit", 1)
+            if dist.get_rank() == 0:
+                t_end = time.monotonic() + _EXIT_WAIT_S
+                while client.add("exit", 0) < dist.get_world_size() \
+                        and time.monotonic() < t_end:
+                    time.sleep(0.01)
+        except RuntimeError:
+            pass  # the store's host is gone already (a DistError)
+        del client
+    dist.destroy_process_group()
 
 
 class DistributedKeeper(Keeper):

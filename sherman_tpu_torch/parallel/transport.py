@@ -221,7 +221,7 @@ def rank_all_gather(x: torch.Tensor, ranks: int) -> torch.Tensor:
 
 
 def rank_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Element-wise sum of an int64 tensor over the ranks (a small
+    """Element-wise sum of an integer tensor over the ranks (a small
     control-plane reduction: a plain host copy, no staging buffer)."""
     import torch.distributed as dist
     h = x.to("cpu", copy=True)

@@ -173,6 +173,20 @@ def heartbeat_monitor() -> _Heartbeat | None:
     return _monitor
 
 
+def stop_heartbeat() -> None:
+    """Stop this rank's heartbeat monitor, wait for its thread and drop
+    this module's handle on the store, so that no store call is in flight
+    and nothing here keeps the store alive when the process group is
+    destroyed (the orderly exit,
+    :func:`sherman_tpu_torch.parallel.bootstrap.shutdown`)."""
+    global _monitor, _client
+    mon, _monitor = _monitor, None
+    if mon is not None:
+        mon.stop()
+        mon._thread.join(timeout=mon.period_s + 10.0)
+    _client = None
+
+
 _rollcalls = 0
 
 

@@ -530,8 +530,6 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     router, cfg, dsm = eng.router, eng.cfg, eng.dsm
     dev = eng.device
     mesh = MESH.of(cfg)
-    if use_cache and mesh.spans:
-        raise ConfigError("the staged loop's leaf cache is single-process")
     # across processes a rank generates, serves and verifies its own
     # nodes' clients; the fan-out's table spans every node
     N = mesh.n_local
@@ -581,7 +579,10 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
     if use_cache:
         from sherman_tpu_torch.models.leaf_cache import probe_rows
         cache_tables = leaf_cache.device_tables()
+        # the rank's nodes: local numbers index its own [N*dev_b] unique
+        # rows, global ones the fan-out's table of every node's residual
         nodes = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+        gnodes = nodes + mesh.lo
         iota_r = torch.arange(R_resid, dtype=torch.int32,
                               device=dev).expand(N, R_resid)
         iota_u = torch.arange(dev_b, dtype=torch.int32,
@@ -614,8 +615,8 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
             remap = torch.zeros((N, dev_b + 1), dtype=torch.int32,
                                 device=dev)
             remap.scatter_(1, torch.where(valid, sidx, dev_b).long(), iota_r)
-            loc = (inv.view(N, -1) - nodes * dev_b).clamp(0, dev_b)
-            inv_r = remap.gather(1, loc.long()) + nodes * R_resid
+            loc = (inv.view(N, -1) - gnodes * dev_b).clamp(0, dev_b)
+            inv_r = remap.gather(1, loc.long()) + gnodes * R_resid
             return (hit, cvhi, cvlo, khi[ci], klo[ci], start[ci],
                     valid.view(-1), inv_r.view(-1), n_resid)
 
@@ -624,12 +625,12 @@ def make_staged_step(eng, *, n_keys: int, theta: float, salt: int,
         def verify(rcarry, skhi, sklo, found, vhi, vlo, n_uniq, seg, hit,
                    cvhi, cvlo, n_resid):
             """Cache-aware receipts: each client's cache answer (through
-            its global unique row ``seg``) overrides the serve's, then
-            the same receipts, the two hit sums and the residual cap's
-            void."""
+            its global unique row ``seg``, which lies on the client's own
+            node, so on this rank) overrides the serve's, then the same
+            receipts, the two hit sums and the residual cap's void."""
             ok, n_correct, sum_nu, max_nu, hits_c, hits_u = rcarry
             ctab = torch.stack([hit.to(torch.int32), cvhi, cvlo], dim=1)
-            cout = ctab[seg.clamp(0, ctab.shape[0] - 1)]
+            cout = ctab[(seg - mesh.lo * dev_b).clamp(0, ctab.shape[0] - 1)]
             chit = cout[:, 0] != 0
             rok = (n_resid <= R_resid).all().to(torch.int32)
             base = verify_core(
@@ -1033,7 +1034,9 @@ def make_device_prep(eng, *, width: int):
     Returns ``prep_fn(khi_raw, klo_raw, n, rtable, shift) -> (khi, klo,
     active, start, inv, n_uniq)``: ``khi_raw``/``klo_raw`` int32
     ``[width]`` device tensors, ``n`` a Python int, ``rtable`` the router
-    table and ``shift`` a 0-d int64 tensor on the engine's device.  Plain
+    table and ``shift`` a 0-d int64 tensor on the engine's device.  The
+    outputs span the whole width: across ranks every rank computes them
+    all, and the ingress step hands the fan-out its nodes' block.  Plain
     torch: the reference computes this outside any Pallas kernel.
     Ledgered as ``serve.device_prep``."""
     dev = eng.device
@@ -1119,9 +1122,6 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
         raise ConfigError(
             f"ingress width {width} must be a positive multiple of "
             f"machine_nr={eng.cfg.machine_nr} (the batch is node-major)")
-    if eng._mh:
-        raise ConfigError("the ingress step serves one process's front "
-                          "door: its nodes must not span processes")
     if prep_impl is None:
         prep_impl = C.prep_impl()
     if prep_impl not in ("host", "device"):
@@ -1167,23 +1167,29 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
         start = router.host_start(khi, klo)
         inv_p = np.zeros(width, np.int32)
         inv_p[:n] = inv
-        args = (eng._dev(khi), eng._dev(klo), root, eng._dev(active),
-                eng._dev(start), eng._dev(inv_p))
+        args = (eng._shard(khi), eng._shard(klo), root, eng._shard(active),
+                eng._shard(start), eng._shard(inv_p))
         with eng._step_mutex:
             done, found, vhi, vlo = fn(eng.dsm.pool, eng.dsm.counters,
                                        *args)
         _h_prep.record((time.perf_counter() - t0p) * 1e3)
         return (n, U, uk, inv, done, found, vhi, vlo, chit, cvhi, cvlo)
 
-    def _answers(found, vhi, vlo, n):
-        """One copy of the packed client answers to the host."""
-        ans = torch.stack([found[:n].to(torch.int32), vhi[:n], vlo[:n]],
-                          dim=1).cpu().numpy()
-        return bits.pairs_to_keys(ans[:, 1], ans[:, 2]), ans[:, 0] != 0
+    def _fetch(done, found, vhi, vlo):
+        """The unique rows' done flags and the packed client answers on
+        the host, whole on every rank (one copy each; across ranks one
+        all-gather of every rank's rows), so every rank takes the same
+        rescue decision and calls the collective ``search`` together."""
+        return eng._unshard(done, torch.stack(
+            [found.to(torch.int32), vhi, vlo], dim=1))
+
+    def _answers(ans, n):
+        return bits.pairs_to_keys(ans[:n, 1], ans[:n, 2]), ans[:n, 0] != 0
 
     def complete(handle):
         n, U, uk, inv, done, found, vhi, vlo, chit, cvhi, cvlo = handle
-        done_u = done[:U].cpu().numpy()
+        done_u, ans = _fetch(done, found, vhi, vlo)
+        done_u = done_u[:U]
         if chit is not None:
             done_u = done_u | chit[:U]
         if not done_u.all():
@@ -1191,7 +1197,7 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
             # root-descent path answers the whole unique set
             vals_u, found_u = eng.search(uk)
             return vals_u[inv][:n], found_u[inv][:n]
-        vals, fnd = _answers(found, vhi, vlo, n)
+        vals, fnd = _answers(ans, n)
         if chit is not None and chit[:U].any():
             # the hits' device rows were inactive: overwrite their client
             # rows through the inverse map the fan-out used
@@ -1242,11 +1248,17 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
             klo_raw[:n] = kl
             return n, eng._dev(khi_raw), eng._dev(klo_raw)
 
+        mesh = MESH.of(eng.cfg)
+        per = width // eng.cfg.machine_nr
+        blk = slice(mesh.lo * per, (mesh.lo + mesh.n_local) * per)
+
         def dispatch_device(keys):
             """``dispatch`` with the prep on the card: the host splits the
             pairs, pads with the sentinel and copies; combining, dedup,
             sort and the router probe run in ``prep_fn``, whose outputs
-            feed the fan-out without touching the host."""
+            feed the fan-out without touching the host (across ranks,
+            each rank's nodes' block of them: the reference's
+            node-sharded outputs)."""
             t0p = time.perf_counter()
             n, khi_raw, klo_raw = _raw(keys)
             rtable, shift = _router_state()
@@ -1254,8 +1266,9 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
                 khi_raw, klo_raw, n, rtable, shift)
             with eng._step_mutex:
                 done, found, vhi, vlo = fn(eng.dsm.pool, eng.dsm.counters,
-                                           khi, klo, root, active, start,
-                                           inv_p)
+                                           khi[blk], klo[blk], root,
+                                           active[blk], start[blk],
+                                           inv_p[blk])
             _h_prep.record((time.perf_counter() - t0p) * 1e3)
             return (n, n_uniq, (khi, klo), inv_p, done, found, vhi, vlo,
                     None, None, None)
@@ -1265,13 +1278,14 @@ def make_ingress_step(eng, *, width: int, leaf_cache=None,
             set and the inverse map only when a descent overran."""
             n, n_uniq, ukpair, inv_p, done, found, vhi, vlo, *_ = handle
             U = int(n_uniq)
-            if not bool(done[:U].all()):
+            done_u, ans = _fetch(done, found, vhi, vlo)
+            if not done_u[:U].all():
                 ukhi, uklo = (t[:U].cpu().numpy() for t in ukpair)
                 uk = bits.pairs_to_keys(ukhi, uklo)
                 inv = inv_p[:n].cpu().numpy()
                 vals_u, found_u = eng.search(uk)
                 return vals_u[inv], found_u[inv]
-            return _answers(found, vhi, vlo, n)
+            return _answers(ans, n)
 
         dispatch, complete = dispatch_device, complete_device
 

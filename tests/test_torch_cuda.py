@@ -1357,7 +1357,8 @@ print(f"[{pid}] SEQ-PASS", flush=True)
 '''
 
 
-@pytest.mark.parametrize("name", ["cluster", "engine", "staged"])
+@pytest.mark.parametrize("name", ["cluster", "engine", "staged", "cache",
+                                  "ingress"])
 def test_two_ranks_on_the_card_match_one_cpu_process(dev, tmp_path, name):
     """Two rank processes share the card (gloo between them, the pools on
     the card): their blocks joined, answers and receipts are bit-identical

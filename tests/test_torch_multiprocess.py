@@ -232,13 +232,14 @@ try:
     raise SystemExit("a range past KEY_POS_INF was served")
 except AssertionError:
     pass
-# the single-process tiers refuse a mesh that spans processes
-from sherman_tpu_torch.errors import MultiprocessUnsupportedError
-try:
-    eng.attach_leaf_cache(slots=64)
-    raise SystemExit("a leaf cache attached across processes")
-except MultiprocessUnsupportedError:
-    pass
+# the hot-key tier across processes: attached, filled and probed by
+# both ranks together
+cache = eng.attach_leaf_cache(slots=64)
+fill = cache.fill(keys[:16])
+assert fill["placed"] == 16, fill
+got, found = eng.search(keys[:40])
+assert found.all() and (got == keys[:40]).all()
+assert cache.stats()["hits"] == 16, cache.stats()
 # divergent drivers: the digest check raises on every rank
 try:
     eng.search(keys[:8] + np.uint64(pid))
@@ -252,7 +253,8 @@ print(f"[{pid}] RANGE-PASS", flush=True)
 
 def test_range_past_pos_inf_and_skewed_drivers_refused(tmp_path):
     """At two processes a range past KEY_POS_INF raises the port's
-    AssertionError (as at one), and drivers that diverge raise
+    AssertionError (as at one), the hot-key tier attaches, fills and
+    serves cached hits on both ranks, and drivers that diverge raise
     ProtocolError on every rank instead of desynchronizing."""
     RK.run(tmp_path, _RANGE, "RANGE-PASS", timeout=90)
 

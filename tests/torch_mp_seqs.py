@@ -1,7 +1,10 @@
 """The reference's five two-process worker sequences
 (``tests/test_multihost.py``: cluster, engine, reclaim, staged loop and
 split storm), written once over a package namespace so that the port's
-two ranks and the JAX package's one process run the same calls.
+two ranks and the JAX package's one process run the same calls, and two
+more: the hot-key tier and the ingress step with the front door
+(``chip_smoke.mr_cache_seq``/``mr_ingress_seq``, which phase 31 of the
+smoke also runs on the card).
 
 ``m`` carries the package's modules and three helpers: ``m.restore(path,
 keeper)``, ``m.sync(x)`` (a device value to numpy) and ``m.is_port``.
@@ -10,8 +13,13 @@ the runner compares them and the cluster state across packages.
 """
 
 import os
+import sys
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  the cache and ingress sequences
 
 CFGS = {
     "cluster": dict(machine_nr=4, pages_per_node=64, locks_per_node=64,
@@ -26,7 +34,14 @@ CFGS = {
                    chunk_pages=32),
     "storm": dict(machine_nr=4, pages_per_node=1024, locks_per_node=256,
                   step_capacity=256, host_step_capacity=16, chunk_pages=16),
+    # the staged sequence's sizes (chip_smoke.MR_SEQ_CFG), the ingress
+    # sequence's with a smaller exchange
+    "cache": dict(machine_nr=4, **chip_smoke.MR_SEQ_CFG),
+    "ingress": dict(machine_nr=4, **chip_smoke.MR_INGRESS_CFG),
 }
+#: the sequences of the hot-key tier and the ingress step
+#: (``tests/test_torch_multiprocess_cache.py``)
+CACHE_SEQS = ("cache", "ingress")
 
 
 def seq_cluster(m, cluster, keeper, tmp) -> dict:
@@ -208,7 +223,9 @@ def seq_storm(m, cluster, keeper, tmp) -> dict:
 
 
 SEQS = {"cluster": seq_cluster, "engine": seq_engine,
-        "reclaim": seq_reclaim, "staged": seq_staged, "storm": seq_storm}
+        "reclaim": seq_reclaim, "staged": seq_staged, "storm": seq_storm,
+        "cache": chip_smoke.mr_cache_seq,
+        "ingress": chip_smoke.mr_ingress_seq}
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +239,8 @@ class PortMods:
     is_port = True
 
     def _init(self):
-        from sherman_tpu_torch.config import PAGE_WORDS
+        from sherman_tpu_torch import serve
+        from sherman_tpu_torch.config import PAGE_WORDS, TreeConfig
         from sherman_tpu_torch.models import batched, validate
         from sherman_tpu_torch.models.btree import Tree
         from sherman_tpu_torch.ops import bits
@@ -233,6 +251,7 @@ class PortMods:
             PAGE_WORDS, batched, validate
         self.Tree, self.bits, self.D, self.CK, self.DP = \
             Tree, bits, D, CK, DP
+        self.serve, self.TreeConfig = serve, TreeConfig
         self.restored = None
 
     def __init__(self, device: str = "cpu"):
@@ -254,7 +273,8 @@ class JaxMods:
     is_port = False
 
     def __init__(self):
-        from sherman_tpu.config import PAGE_WORDS
+        from sherman_tpu import serve
+        from sherman_tpu.config import PAGE_WORDS, TreeConfig
         from sherman_tpu.models import batched, validate
         from sherman_tpu.models.btree import Tree
         from sherman_tpu.ops import bits
@@ -265,6 +285,7 @@ class JaxMods:
             PAGE_WORDS, batched, validate
         self.Tree, self.bits, self.D, self.CK, self.DP = \
             Tree, bits, D, CK, DP
+        self.serve, self.TreeConfig = serve, TreeConfig
         self.restored = None
 
     def restore(self, path, keeper):
